@@ -1,0 +1,482 @@
+"""Device stage: Parquet row-groups → ``{field: torch.Tensor}`` batches on
+the card.
+
+Counterpart of ``petastorm_tpu/jax/loader.py``. Decoded column batches are
+re-batched to a fixed size, optionally row-shuffled, cast per a dtype
+policy and staged onto the device by a background thread through the
+pinned slot ring of :mod:`petastorm_tpu_torch.device.staging`, ``prefetch``
+batches ahead of the consumer. Checkpoints are delivery-accurate: a
+row-group counts as consumed only once every one of its rows reached the
+consumer.
+
+The loader runs on the card (``device='cuda'``, the default) unless the
+caller asks for the CPU; it never falls back to the CPU on its own.
+"""
+
+import contextlib
+import logging
+import queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from petastorm_tpu_torch.device import staging
+from petastorm_tpu_torch.errors import unported
+from petastorm_tpu_torch.telemetry import (
+    STALL_NOTE_FLOOR_S, note_consumer_wait, note_producer_wait, span,
+)
+
+logger = logging.getLogger(__name__)
+
+_SENTINEL_END = object()
+_NO_ITEM = object()
+
+MASK_FIELD = staging.MASK_FIELD
+# hidden per-row provenance column: maps each row back to the reader pull
+# (row-group) it came from; added after the reader, stripped before staging
+_PULL_FIELD = '__petastorm_tpu_pull__'
+
+
+def resolve_device(device):
+    """``None`` means the card (the current CUDA device, with its index).
+    A CUDA device without CUDA raises: the loader never drops to the CPU
+    unasked."""
+    device = torch.device('cuda' if device is None else device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            'make_torch_loader runs on the CUDA device by default, but CUDA '
+            'is not available; pass device="cpu" to run on the host')
+    if device.type not in ('cuda', 'cpu'):
+        raise ValueError('device must be a cuda device or "cpu", got %s' % device)
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    return device
+
+
+def make_torch_loader(dataset_url_or_urls, batch_size, fields=None,
+                      shuffle_rows=False, shuffling_queue_capacity=None,
+                      min_after_retrieve=None, extra_capacity=None, seed=0,
+                      last_batch='drop', dtypes=None, prefetch=2, num_epochs=1,
+                      device=None, mesh=None, inmemory_cache_all=False,
+                      pad_ragged=None, bucket_boundaries=None, mixture=None,
+                      **reader_kwargs):
+    """A :class:`TorchLoader` over a Parquet dataset.
+
+    :param batch_size: rows per emitted batch.
+    :param fields: field name/regex list forwarded to the reader.
+    :param shuffle_rows: decorrelate rows across row-groups with a
+        :class:`~petastorm_tpu_torch.buffers.BatchedRandomShufflingBuffer`
+        seeded from ``seed`` (plus the replay epoch).
+    :param last_batch: ``'drop'`` (constant shapes), ``'pad'`` (zero-pad
+        plus a ``valid_mask`` bool column) or ``'short'`` (emit the tail).
+    :param dtypes: ``{field: numpy or torch dtype}`` casts; see
+        :mod:`~petastorm_tpu_torch.device.staging` for where each applies.
+    :param prefetch: device batches staged ahead of the consumer.
+    :param num_epochs: reader epochs; None = infinite.
+    :param device: ``None``/``'cuda'``/``'cuda:N'`` (raises without CUDA)
+        or ``'cpu'``.
+    :param reader_kwargs: forwarded to
+        :func:`~petastorm_tpu_torch.reader.make_batch_reader` (pool type,
+        ``cur_shard``/``shard_count``, ``shuffle_row_groups``, ...).
+    """
+    if mesh is not None:
+        raise unported('make_torch_loader(mesh=)', 5)
+    if inmemory_cache_all:
+        raise unported('inmemory_cache_all=True', 4)
+    if pad_ragged is not None or bucket_boundaries is not None:
+        raise unported('pad_ragged=/bucket_boundaries=', 4)
+    if mixture is not None:
+        raise unported('make_torch_loader(mixture=)', 7)
+    device = resolve_device(device)
+    from petastorm_tpu_torch.reader import make_batch_reader
+    reader = make_batch_reader(dataset_url_or_urls, schema_fields=fields,
+                               num_epochs=num_epochs, **reader_kwargs)
+    try:
+        return TorchLoader(reader, batch_size, device=device,
+                           shuffle_rows=shuffle_rows,
+                           shuffling_queue_capacity=shuffling_queue_capacity,
+                           min_after_retrieve=min_after_retrieve,
+                           extra_capacity=extra_capacity, seed=seed,
+                           last_batch=last_batch, dtypes=dtypes,
+                           prefetch=prefetch)
+    except Exception:
+        reader.stop()
+        reader.join()
+        raise
+
+
+class TorchLoader:
+    """Iterator of ``{field: torch.Tensor}`` batches over a batched reader.
+
+    A fully consumed loader may be iterated again: the reader resets and
+    the dataset replays, reshuffled wherever shuffling is on.
+    """
+
+    def __init__(self, reader, batch_size, device, shuffle_rows=False,
+                 shuffling_queue_capacity=None, min_after_retrieve=None,
+                 extra_capacity=None, seed=0, last_batch='drop', dtypes=None,
+                 prefetch=2):
+        if last_batch not in ('drop', 'pad', 'short'):
+            raise ValueError("last_batch must be 'drop', 'pad' or 'short'; "
+                             'got %r' % (last_batch,))
+        self._reader = reader
+        self._batch_size = batch_size
+        self._device = resolve_device(device)
+        self._last_batch = last_batch
+        self._dtypes = dict(dtypes or {})
+        staging.resolve_cast_policy(self._dtypes)  # reject bad dtypes early
+        self._prefetch = max(1, prefetch)
+        self._seed = seed
+        self._shuffle_rows = shuffle_rows
+        self._shuffling_queue_capacity = shuffling_queue_capacity
+        self._min_after_retrieve = min_after_retrieve
+        self._extra_capacity = extra_capacity
+        self._target = (staging.CudaTarget(self._device)
+                        if self._device.type == 'cuda' else None)
+        self._stager = None
+        self._stage_thread = None
+        self._out_queue = None
+        self._stop_event = threading.Event()
+        self._stage_error = None
+        self._exhausted = False
+        self._drain_lock = threading.Lock()
+        # batches drained by __iter__'s boundary probe, served first
+        self._leftovers = []
+        self._epoch = 0
+        self._produce_done = threading.Event()
+        # delivery-accurate checkpoint provenance (see state_dict)
+        self._prov_lock = threading.Lock()
+        self._pull_info = {}        # pull_id -> (epoch, item_index, n_rows)
+        self._pull_delivered = {}   # pull_id -> rows delivered so far
+        self._delivered_by_epoch = {}
+        self._next_pull_id = 0
+        self._consumer_wait_s = 0.0
+        self._stage_blocked_s = 0.0
+        self._batches_delivered = 0
+
+    # -- iteration -----------------------------------------------------------
+
+    def __iter__(self):
+        """Start a pass, resume the pass in progress, or replay the dataset
+        when the previous pass is exhausted (``iter(it) is it``)."""
+        if self._stage_thread is not None:
+            if self._stop_event.is_set():
+                raise RuntimeError('TorchLoader was stopped; construct a new '
+                                   'loader to iterate again')
+            if not self._exhausted:
+                # the pass may have ended with its sentinel still in flight:
+                # wait until a real batch lands (resume) or the producer is
+                # done. _produce_done is set BEFORE the sentinel put, so
+                # "queue non-empty while done is unset" means real batches.
+                while True:
+                    with self._drain_lock:
+                        if (self._produce_done.is_set()
+                                or not self._stage_thread.is_alive()):
+                            pending = list(self._leftovers)
+                            self._leftovers = []
+                            try:
+                                while True:
+                                    pending.append(self._out_queue.get_nowait())
+                            except queue.Empty:
+                                pass
+                            if pending == [_SENTINEL_END]:
+                                self._exhausted = True
+                                break
+                            if pending:
+                                self._leftovers = pending
+                                break
+                            if not self._stage_thread.is_alive():
+                                break
+                        elif self._leftovers or not self._out_queue.empty():
+                            if not self._produce_done.is_set():
+                                break
+                            continue
+                    if self._stop_event.is_set():
+                        break
+                    if self._produce_done.is_set():
+                        time.sleep(0.001)  # sentinel put in flight
+                    else:
+                        self._produce_done.wait(0.05)
+                if not self._exhausted:
+                    return self
+            if self._stage_error is not None:
+                raise RuntimeError('TorchLoader cannot restart after a staging '
+                                   'error') from self._stage_error
+            self._stage_thread.join(timeout=10)
+            # replay: restart the fully consumed reader for a fresh pass
+            self._reader.reset()
+            self._exhausted = False
+            self._epoch += 1
+            with self._prov_lock:
+                self._pull_info.clear()
+                self._pull_delivered.clear()
+                self._delivered_by_epoch = {}
+            with self._drain_lock:
+                self._leftovers = []
+        self._produce_done = threading.Event()
+        self._stager = staging.StagingEngine(
+            self._batch_size, self._dtypes, self._last_batch, self._target,
+            num_slots=staging.staging_slots())
+        self._out_queue = queue.Queue(maxsize=self._prefetch)
+        self._stage_thread = threading.Thread(target=self._stage_loop, daemon=True)
+        self._stage_thread.start()
+        return self
+
+    def __next__(self):
+        if self._out_queue is None:
+            iter(self)
+        if self._exhausted:
+            raise StopIteration
+        while True:
+            with self._drain_lock:
+                item = self._leftovers.pop(0) if self._leftovers else _NO_ITEM
+            if item is _NO_ITEM:
+                try:
+                    t0 = time.monotonic()
+                    try:
+                        item = self._out_queue.get(timeout=0.1)
+                    finally:
+                        waited = time.monotonic() - t0
+                        self._consumer_wait_s += waited
+                        if waited > STALL_NOTE_FLOOR_S:
+                            note_consumer_wait(waited)
+                except queue.Empty:
+                    if self._stage_error is not None:
+                        raise self._stage_error
+                    if self._stop_event.is_set():
+                        self._exhausted = True
+                        raise StopIteration
+                    with self._drain_lock:
+                        if (self._stage_thread is not None
+                                and not self._stage_thread.is_alive()
+                                and not self._leftovers
+                                and self._out_queue.empty()):
+                            self._exhausted = True
+                            raise StopIteration
+                    continue
+            if item is _SENTINEL_END:
+                self._exhausted = True
+                if self._stage_error is not None:
+                    raise self._stage_error
+                raise StopIteration
+            handoff, pull_counts = item
+            if pull_counts:
+                self._record_delivery(pull_counts)
+            self._batches_delivered += 1
+            return handoff.deliver()
+
+    def _record_delivery(self, pull_counts):
+        """Credit delivered rows to their pulls; a pull whose every row has
+        reached the consumer marks its row-group delivered."""
+        with self._prov_lock:
+            for pull_id, n in pull_counts.items():
+                info = self._pull_info.get(pull_id)
+                if info is None:
+                    continue  # stale (pre-replay) sidecar
+                seen = self._pull_delivered.get(pull_id, 0) + n
+                if seen >= info[2]:
+                    epoch, item_index, _ = info
+                    self._delivered_by_epoch.setdefault(epoch, set()).add(item_index)
+                    del self._pull_info[pull_id]
+                    self._pull_delivered.pop(pull_id, None)
+                else:
+                    self._pull_delivered[pull_id] = seen
+
+    def iter_steps(self, num_steps):
+        """Yield exactly ``num_steps`` batches, continuing across calls and
+        replaying across epoch boundaries; raises RuntimeError if a finite
+        loader runs dry first (use ``num_epochs=None``)."""
+        if self._out_queue is None or self._exhausted:
+            iter(self)
+        for step in range(num_steps):
+            try:
+                yield next(self)
+                continue
+            except StopIteration:
+                pass
+            # a previous call may have consumed the pass exactly to its
+            # end: that is an epoch boundary, so replay and retry
+            if (step == 0 and not self._stop_event.is_set()
+                    and self._stage_error is None):
+                iter(self)
+                try:
+                    yield next(self)
+                    continue
+                except StopIteration:
+                    pass
+            if self._stop_event.is_set():
+                raise RuntimeError('loader was stopped after %d of %d steps'
+                                   % (step, num_steps))
+            raise RuntimeError(
+                'loader exhausted after %d of %d steps; use '
+                'num_epochs=None so fixed-step epochs never run dry'
+                % (step, num_steps)) from None
+
+    # -- staging pipeline (background thread) --------------------------------
+
+    def _make_buffer(self):
+        from petastorm_tpu_torch.buffers import (
+            BatchedNoopShufflingBuffer, BatchedRandomShufflingBuffer,
+        )
+        if not self._shuffle_rows:
+            return BatchedNoopShufflingBuffer(self._batch_size)
+        capacity = self._shuffling_queue_capacity or 4 * self._batch_size
+        min_after = (self._min_after_retrieve
+                     if self._min_after_retrieve is not None else capacity // 2)
+        extra = (self._extra_capacity if self._extra_capacity is not None
+                 else capacity)
+        # seed offset by the replay epoch: a replay must not repeat epoch 0
+        seed = None if self._seed is None else (self._seed + self._epoch) % (2 ** 32)
+        return BatchedRandomShufflingBuffer(capacity, min_after, self._batch_size,
+                                            extra_capacity=extra, seed=seed)
+
+    def _pull_batches(self):
+        """Column dicts from the reader, each row tagged with its pull id."""
+        while True:
+            try:
+                columns, item_index, epoch = self._reader.next_batch_info()
+            except StopIteration:
+                return
+            n = len(next(iter(columns.values()))) if columns else 0
+            with self._prov_lock:
+                pull_id = self._next_pull_id
+                self._next_pull_id += 1
+                self._pull_info[pull_id] = (epoch, item_index, n)
+            columns[_PULL_FIELD] = np.full(n, pull_id, np.int64)
+            yield columns
+
+    def _stage_loop(self):
+        context = (self._target.thread_context() if self._target is not None
+                   else contextlib.nullcontext())
+        try:
+            with context:
+                buf = self._make_buffer()
+                for columns in self._pull_batches():
+                    with span('collate'):
+                        buf.add_many(columns)
+                    while buf.can_retrieve:
+                        self._retrieve_and_emit(buf)
+                        if self._stop_event.is_set():
+                            return
+                    if self._stop_event.is_set():
+                        return
+                buf.finish()
+                while buf.can_retrieve:
+                    self._retrieve_and_emit(buf)
+                    if self._stop_event.is_set():
+                        return
+        except Exception as e:  # noqa: BLE001 - surfaced to the consumer
+            self._stage_error = e
+        finally:
+            self._stager.release()
+            # set happens-before put: see __iter__'s boundary probe
+            self._produce_done.set()
+            self._put_blocking(_SENTINEL_END)
+
+    def _retrieve_and_emit(self, buf):
+        """One batch out of ``buf``: the noop re-batcher hands out chunk
+        views the stager copies straight into its slot."""
+        with span('collate'):
+            if hasattr(buf, 'retrieve_parts'):
+                parts = [dict(p) for p in buf.retrieve_parts()]
+            else:
+                parts = [dict(buf.retrieve())]
+            pulls = [p.pop(_PULL_FIELD) for p in parts]
+            n = sum(len(pull) for pull in pulls)
+            if n < self._batch_size and self._last_batch == 'drop':
+                return  # dropped rows: their pulls stay incomplete (sound)
+            ids, counts = np.unique(np.concatenate(pulls), return_counts=True)
+            pull_counts = dict(zip(ids.tolist(), counts.tolist()))
+        handoff = self._stager.stage(parts, n)
+        # provenance rides the queue: rows count as delivered only when the
+        # consumer receives this item in __next__
+        self._put_blocking((handoff, pull_counts))
+
+    def _put_blocking(self, item):
+        start = time.monotonic()
+        try:
+            while not self._stop_event.is_set():
+                try:
+                    self._out_queue.put(item, timeout=0.1)
+                    return
+                except queue.Full:
+                    continue
+        finally:
+            blocked = time.monotonic() - start
+            self._stage_blocked_s += blocked
+            if blocked > STALL_NOTE_FLOOR_S:
+                note_producer_wait(blocked)
+
+    # -- lifecycle -----------------------------------------------------------
+
+    @property
+    def schema(self):
+        return self._reader.schema
+
+    @property
+    def reader(self):
+        return self._reader
+
+    @property
+    def device(self):
+        return self._device
+
+    @property
+    def batch_size(self):
+        return self._batch_size
+
+    @property
+    def epoch(self):
+        """Number of completed replay passes (0 during the first pass)."""
+        return self._epoch
+
+    @property
+    def diagnostics(self):
+        """Reader pool gauges plus the staging layer's: high
+        ``consumer_wait_s`` means the input side is slow, high
+        ``stage_backpressure_s`` means the training step is."""
+        diag = dict(self._reader.diagnostics)
+        diag.update({
+            'stage_queue_depth': (self._out_queue.qsize()
+                                  if self._out_queue is not None else 0),
+            'batches_delivered': self._batches_delivered,
+            'consumer_wait_s': round(self._consumer_wait_s, 3),
+            'stage_backpressure_s': round(self._stage_blocked_s, 3),
+            'pulls_in_flight': len(self._pull_info),
+            'staging_slots_allocated': (self._stager.slabs_allocated
+                                        if self._stager is not None else 0),
+        })
+        return diag
+
+    def state_dict(self):
+        """Row-group-granular, at-least-once checkpoint of the position AS
+        DELIVERED: rows still in the shuffling buffer or prefetch queue are
+        re-read on resume, never skipped. Same shape as the JAX loader's."""
+        with self._prov_lock:
+            delivered = {epoch: set(items) for epoch, items
+                         in self._delivered_by_epoch.items()}
+        return self._reader.resume_state_from(delivered)
+
+    def load_state_dict(self, state):
+        self._reader.load_state_dict(state)
+        with self._prov_lock:
+            self._delivered_by_epoch = \
+                self._reader.consumption_record_for_resume(state)
+
+    def stop(self):
+        self._stop_event.set()
+        # stop the reader first: a staging thread blocked in the reader is
+        # waiting on it, and the stop event alone cannot wake it
+        self._reader.stop()
+        if self._stage_thread is not None:
+            self._stage_thread.join(timeout=10)
+        self._reader.join()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        self.stop()
+

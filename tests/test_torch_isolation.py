@@ -1,0 +1,62 @@
+"""petastorm_tpu_torch stands alone: no module of the port, and not
+chip_smoke.py, imports JAX, Flax, Optax or the JAX package."""
+
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'petastorm_tpu')
+
+
+def _sources():
+    paths = [os.path.join(ROOT, 'chip_smoke.py')]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, 'petastorm_tpu_torch')):
+        paths.extend(os.path.join(dirpath, f) for f in files if f.endswith('.py'))
+    return sorted(paths)
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split('.')[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split('.')[0]
+        elif (isinstance(node, ast.Call) and getattr(node.func, 'attr', getattr(
+                node.func, 'id', None)) in ('import_module', '__import__')
+                and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split('.')[0]
+
+
+def test_port_has_modules_to_scan():
+    rel = [os.path.relpath(p, ROOT) for p in _sources()]
+    assert 'chip_smoke.py' in rel
+    assert os.path.join('petastorm_tpu_torch', 'ops', 'normalize.py') in rel
+    assert len(rel) > 20
+
+
+@pytest.mark.parametrize('path', [os.path.relpath(p, ROOT) for p in _sources()])
+def test_module_imports_nothing_of_jax(path):
+    bad = sorted(set(_imported_roots(os.path.join(ROOT, path))) & set(FORBIDDEN))
+    assert not bad, '%s imports %s' % (path, bad)
+
+
+def test_port_stage_names_are_the_references():
+    """Every literal ``span(...)`` stage in the port is in its copy of the
+    stage names, and that copy agrees with the JAX package's contract."""
+    from petastorm_tpu.analysis.contracts import STAGES as JAX_STAGES
+    from petastorm_tpu_torch.telemetry.names import STAGES
+    assert set(STAGES) <= set(JAX_STAGES)
+    recorded = set()
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Call) and getattr(node.func, 'id', None) == 'span'
+                    and node.args and isinstance(node.args[0], ast.Constant)):
+                recorded.add(node.args[0].value)
+    assert recorded == set(STAGES)
