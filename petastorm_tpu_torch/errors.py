@@ -23,6 +23,7 @@ ROADMAP_ITEMS = {
     4: 'pad_ragged, bucket_boundaries, inmemory_cache_all',
     5: 'mesh via torch.distributed',
     7: 'checkpointing and stream combinators',
+    8: 'LM consumer layer: MoE, ring/Ulysses attention, pipeline, generate',
     9: 'process and service pools, HDFS and object stores',
     10: 'write plane and ETL tools',
 }

@@ -35,7 +35,10 @@ def _imported_roots(path):
 def test_port_has_modules_to_scan():
     rel = [os.path.relpath(p, ROOT) for p in _sources()]
     assert 'chip_smoke.py' in rel
-    assert os.path.join('petastorm_tpu_torch', 'ops', 'normalize.py') in rel
+    for module in (('ops', 'normalize.py'), ('ops', 'flash_attention.py'),
+                   ('ops', 'ring_attention.py'), ('models', 'transformer.py'),
+                   ('examples', 'lm_pretrain.py')):
+        assert os.path.join('petastorm_tpu_torch', *module) in rel
     assert len(rel) > 20
 
 
