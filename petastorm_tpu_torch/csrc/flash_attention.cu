@@ -19,28 +19,55 @@
 // Layout: q, k, v, o, dO, dq, dk, dv are (B, S, H, D) with element strides
 // for b, s and h and a unit stride for d, so the heads sliced out of a
 // fused qkv projection are read in place. lse and Di are contiguous
-// (B, H, S) f32. Inputs are bf16 or f32; every product and sum is f32.
+// (B, H, S) f32. Inputs are bf16 or f32; every sum is f32.
 //
-// Design. One block of 256 threads per (b, h, 64-row tile): Q tiles for
-// the forward and dQ, K/V tiles for dK/dV, which loops over the Q tiles
-// (on the TPU a sequential grid axis carries the sums; here a loop inside
-// the block does). Tiles are converted to f32 in shared memory, rows
-// padded to D+1 floats so the column-wise reads hit 32 banks. A 16 x 16
-// thread grid owns a 4 x 4 block of each 64 x 64 score tile (rows
-// ty + 16 i, columns tx + 16 j); the 16 threads of a score row sit in one
-// half-warp, so row max and row sum are four xor-shuffles. Products are
-// scalar f32 FMAs from shared memory. Causal blocks skip the tiles above
-// the diagonal; the tail tile of any S >= 1 is masked, padded d columns
-// are zeros. D is padded to DP in {32, 64, 96, 128}.
+// Every kernel works on (b, h, 64-row tile) blocks: Q tiles for the
+// forward and dQ, K/V tiles for dK/dV, which loops over the Q tiles (on
+// the TPU a sequential grid axis carries the sums; here a loop inside the
+// block does). Causal blocks skip the tiles above the diagonal; the tail
+// tile of any S >= 1 is masked, padded d columns are zeros. D is padded
+// to DP in {32, 64, 96, 128}.
+//
+// bf16 forward and dK/dV: Hopper tensor cores. One warpgroup (128
+// threads) per block. bf16 tiles sit in shared memory as DP/32 atoms of
+// 64 rows x 32 columns, each row 64 bytes with the 64-byte swizzle (16-byte
+// chunk c of row r at chunk c ^ ((r >> 1) & 3)), which wgmma descriptors
+// read both K-major (d as the reduction axis) and MN-major (rows as the
+// reduction axis) from the same buffer. Streamed tiles (K/V in the
+// forward; Q, dO, lse, Di in dK/dV) come through a two-stage ring of
+// 16-byte cp.async copies that zero-fill rows past S and padded columns,
+// so the next tile's copy overlaps this tile's products. Score products
+// are SS wgmma m64n64k16 (both operands in shared memory):
+//   forward:  S = Q K^T; online softmax on the f32 accumulator fragments
+//             (a row's 16 values sit in a quad of lanes: two shuffles);
+//             P rounded to bf16 in registers is the A operand of the RS
+//             wgmma O += P V (N = DP, V read MN-major).
+//   dK/dV:    S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T come out in
+//             the accumulator layout with lse and Di indexed by the
+//             fragment's columns (the queries); rounded to bf16 they are
+//             the A operands of dV += P^T dO and dK += dS^T Q (RS wgmma,
+//             dO and Q read MN-major).
+// P and dS are rounded to bf16 before their products, as in FlashAttention
+// 2 and 3; every accumulator is f32.
+//
+// f32 inputs, and dQ for both types: scalar. One block of 256 threads;
+// tiles converted to f32 in shared memory, rows padded to D+1 floats so the
+// column-wise reads hit 32 banks. A 16 x 16 thread grid owns a 4 x 4 block
+// of each 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j); the 16
+// threads of a score row sit in one half-warp, so row max and row sum are
+// four xor-shuffles. Products are f32 FMAs from shared memory, which keeps
+// f32 inputs at the JAX kernel tests' tolerances (TF32 or bf16 tensor
+// cores would not).
 //
 // Bound. At the flagship shape (8, 1024, 16, 96) bf16 causal, the
 // forward does 4*B*H*S(S+1)/2*D = 25.8 GFLOP and moves 101 MB: 26 us at
 // the H100's 989 TFLOP/s bf16 tensor-core rate, 30 us at 3.35 TB/s. The
 // backward kernels do 2x and 1.5x the forward's operations on about the
-// same bytes, so operations bound them. This simple design runs every
-// product on the f32 FMA pipes (67 TFLOP/s at most) and never reaches
-// the tensor cores, so operations are what limit it: mma/wgmma tiles,
-// TMA staging and bf16 shared-memory tiles are later work.
+// same bytes, so operations bound them. The tensor-core kernels reach for
+// that rate with one warpgroup per block and no warp specialisation: a
+// block waits for each product before its softmax (no ping-pong between
+// warpgroups), and K/V tiles are re-read from L2 by every Q tile's block.
+// The scalar kernels run on the f32 FMA pipes (67 TFLOP/s at most).
 //
 // C interface (bound with ctypes): each entry point returns
 // cudaGetLastError() after its launch; the wrapper raises if it is not 0.
@@ -50,10 +77,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
+#include <type_traits>
+
 namespace {
 
 constexpr int kTile = 64;       // rows of a Q tile and of a K/V tile
-constexpr int kThreads = 256;   // a 16 x 16 grid of threads
+constexpr int kThreads = 256;   // a 16 x 16 grid of threads (scalar kernels)
+constexpr int kWgThreads = 128; // one warpgroup (tensor-core kernels)
 constexpr int kLdP = kTile + 1; // row stride of a score tile in shared memory
 
 struct Strides {
@@ -422,6 +453,471 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
 }
 
+// ---- tensor-core kernels (bf16) ---------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kAtomBytes = kTile * 64;  // one 64-row x 32-column bf16 atom of a tile
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset in a tile of 16-byte chunk c (bf16 columns 8c..8c+7) of row r:
+// 32-column atoms one after another, 64-byte rows, 64-byte swizzle (the
+// chunk index XOR address bits 7-8). Tiles start 1024-byte aligned.
+__device__ __forceinline__ uint32_t chunk_offset(int r, int c) {
+    return (c >> 2) * kAtomBytes + r * 64 + (((c & 3) ^ ((r >> 1) & 3)) << 4);
+}
+
+// wgmma shared-memory matrix descriptor for the 64-byte swizzle; the
+// address and both offsets in bytes.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+    return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+           ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (2ull << 62);
+}
+
+// k-step kk (columns 16kk..16kk+15 as the reduction axis) of a tile read
+// K-major: 8-row groups 512 bytes apart (the leading offset is unused).
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+    return make_desc(tile + (kk >> 1) * kAtomBytes + (kk & 1) * 32, 16, 512);
+}
+
+// k-step kk (rows 16kk..16kk+15 as the reduction axis) of a tile read
+// MN-major: 32-column atoms kAtomBytes apart, 8-row groups 512 bytes apart.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+    return make_desc(tile + kk * 16 * 64, kAtomBytes, 512);
+}
+
+// 16-byte (4-byte) copy to shared memory that writes zeros when !valid.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 ::"r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Makes this thread's finished copies visible to wgmma (the async proxy);
+// a __syncthreads() after it covers every thread's.
+__device__ __forceinline__ void fence_async_smem() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pins an accumulator's registers here, so no read of it moves above a
+// wgmma wait and no write of it moves below the wgmma that reads it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 64, f32) (+)= A · B, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                              int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
+
+// D (64 x 32, f32) += A · B, A (64 x 16 bf16) in registers, B MN-major in shared memory.
+template <> __device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4],
+                                                     uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A · B, A (64 x 16 bf16) in registers, B MN-major in shared memory.
+template <> __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                     uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 96, f32) += A · B, A (64 x 16 bf16) in registers, B MN-major in shared memory.
+template <> __device__ __forceinline__ void wgmma_rs<96>(float (&d)[48], const uint32_t (&a)[4],
+                                                     uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A · B, A (64 x 16 bf16) in registers, B MN-major in shared memory.
+template <> __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                     uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Rows [row0, row0 + 64) of one (b, h) slice into a swizzled tile, by
+// cp.async; rows at or past S and columns at or past D are zero-filled.
+template <int DP>
+__device__ __forceinline__ void load_tile_async(uint32_t tile, const __nv_bfloat16* base,
+                                                long long stride_s, int row0, int S, int D) {
+    constexpr int kChunks = DP / 8;  // 16-byte chunks a row
+#pragma unroll
+    for (int i = 0; i < kTile * kChunks / kWgThreads; ++i) {
+        const int idx = threadIdx.x + i * kWgThreads;
+        const int r = idx / kChunks, c = idx - r * kChunks;
+        const bool ok = row0 + r < S && c * 8 < D;
+        const __nv_bfloat16* src = ok ? base + (long long)(row0 + r) * stride_s + c * 8 : base;
+        cp_async16(tile + chunk_offset(r, c), src, ok);
+    }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A 64 x 64 f32 accumulator rounded to bf16 as the register A operands of
+// four k-steps (columns 16kk..16kk+15): the accumulator's fragment layout
+// is the A operand's, n8 blocks 2kk and 2kk+1.
+__device__ __forceinline__ void to_a_operand(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+}
+
+// Fragment layout of a 64 x N wgmma accumulator: thread (warp w, lane l)
+// holds element i at row 16w + l/4 + 8((i >> 1) & 1), column
+// 8(i >> 2) + 2(l % 4) + (i & 1).
+__device__ __forceinline__ int frag_half(int i) { return (i >> 1) & 1; }
+__device__ __forceinline__ int frag_col(int i, int lane) {
+    return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kWgThreads)
+flash_fwd_kernel_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, Strides sq, Strides sk, Strides sv, Strides so,
+                       int S, int H, int D, int causal, float scale) {
+    constexpr int kTileBytes = kTile * DP * 2;
+    constexpr int NO = DP / 2;  // accumulator floats a thread holds of a 64 x DP tile
+    extern __shared__ __align__(1024) unsigned char tc_smem[];
+    // the Q tile, then per stage st a K tile (tile 1 + 2 st) and a V tile
+    const uint32_t sQ = (smem_addr(tc_smem) + 1023u) & ~1023u;
+
+    const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int q0 = qt * kTile;
+    const int r = 16 * warp + (lane >> 2);  // this thread's rows: r and r + 8
+    const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
+    const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
+    const int n_kt = causal ? qt + 1 : (S + kTile - 1) / kTile;
+
+    load_tile_async<DP>(sQ, q + b * sq.b + h * sq.h, sq.s, q0, S, D);
+    load_tile_async<DP>(sQ + kTileBytes, kb, sk.s, 0, S, D);
+    load_tile_async<DP>(sQ + 2 * kTileBytes, vb, sv.s, 0, S, D);
+    cp_async_commit();
+
+    const float sl2 = scale * kLog2e;  // scores in log2 units
+    float acc[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's part
+
+    for (int kt = 0; kt < n_kt; ++kt) {
+        const uint32_t tK = sQ + (1 + 2 * (kt & 1)) * kTileBytes, tV = tK + kTileBytes;
+        if (kt + 1 < n_kt) {  // the next K/V tile into the other stage
+            const uint32_t nK = sQ + (1 + 2 * ((kt + 1) & 1)) * kTileBytes;
+            load_tile_async<DP>(nK, kb, sk.s, (kt + 1) * kTile, S, D);
+            load_tile_async<DP>(nK + kTileBytes, vb, sv.s, (kt + 1) * kTile, S, D);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        fence_async_smem();
+        __syncthreads();
+
+        float s[32] = {};
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+            wgmma_ss_n64(s, desc_k(sQ, kk), desc_k(tK, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+
+        const int k0 = kt * kTile;
+        const bool edge = (causal && kt == qt) || k0 + kTile > S;
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const int row = q0 + r + 8 * frag_half(i), col = k0 + frag_col(i, lane);
+            float x = s[i] * sl2;
+            // rows past S keep their unmasked columns: never written
+            if (edge && (col >= S || (causal && col > row))) x = -INFINITY;
+            s[i] = x;
+            mx[frag_half(i)] = fmaxf(mx[frag_half(i)], x);
+        }
+        float alpha[2], m_use[2];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {  // a row's 16 values sit in a quad of lanes
+            mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+            mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+            const float m_new = fmaxf(m[hf], mx[hf]);
+            m_use[hf] = m_new == -INFINITY ? 0.f : m_new;
+            alpha[hf] = exp2f(m[hf] - m_use[hf]);
+            m[hf] = m_new;
+            l[hf] *= alpha[hf];
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            s[i] = exp2f(s[i] - m_use[frag_half(i)]);
+            l[frag_half(i)] += s[i];
+        }
+#pragma unroll
+        for (int i = 0; i < NO; ++i) acc[i] *= alpha[frag_half(i)];
+        uint32_t pa[4][4];
+        to_a_operand(pa, s);
+
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<DP>(acc, pa[kk], desc_mn(tV, kk));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+        __syncthreads();  // every wgmma read of this stage is done before it is refilled
+    }
+
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+        l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
+        l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
+    }
+    float* lse_bh = lse + ((long long)b * H + h) * S;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+        const int row = q0 + r + 8 * hf;
+        if (row >= S) continue;
+        const float inv = 1.f / l[hf];
+        __nv_bfloat16* orow = o + b * so.b + (long long)row * so.s + h * so.h + 2 * (lane & 3);
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j)
+            if (8 * j < D)
+                *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
+                    acc[4 * j + 2 * hf] * inv, acc[4 * j + 2 * hf + 1] * inv);
+        if ((lane & 3) == 0) lse_bh[row] = (m[hf] + log2f(l[hf])) * kLn2;
+    }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kWgThreads)
+flash_bwd_dkv_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                           const float* __restrict__ di, __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, Strides sq, Strides sk, Strides sv,
+                           Strides sdo, Strides sdk, Strides sdv, int S, int H, int D,
+                           int causal, float scale) {
+    constexpr int kTileBytes = kTile * DP * 2;
+    constexpr int NO = DP / 2;
+    extern __shared__ __align__(1024) unsigned char tc_smem[];
+    // K, V; per stage st a Q tile (tile 2 + 2 st) and a dO tile; then per
+    // stage 128 f32 row values: the Q tile's 64 lse, then its 64 Di
+    const uint32_t sK = (smem_addr(tc_smem) + 1023u) & ~1023u;
+    const uint32_t sV = sK + kTileBytes;
+    const uint32_t sRows = sK + 6 * kTileBytes;
+    const float* rows = reinterpret_cast<const float*>(tc_smem + (sRows - smem_addr(tc_smem)));
+
+    const int kt = blockIdx.x;  // causal: the longest loops first
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int k0 = kt * kTile;
+    const int r = 16 * warp + (lane >> 2);  // this thread's keys: k0 + r and k0 + r + 8
+    const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
+    const __nv_bfloat16* dob = dout + b * sdo.b + h * sdo.h;
+    // this thread copies one lse (threads 0-63) or Di (64-127) value a Q tile
+    const float* row_src = (threadIdx.x < 64 ? lse : di) + ((long long)b * H + h) * S;
+    const int row_t = threadIdx.x & 63;
+    const int n_qt = (S + kTile - 1) / kTile;
+    const int qt0 = causal ? kt : 0;
+
+    auto load_stage = [&](int qt, int st) {
+        const uint32_t tQ = sK + (2 + 2 * st) * kTileBytes;
+        load_tile_async<DP>(tQ, qb, sq.s, qt * kTile, S, D);
+        load_tile_async<DP>(tQ + kTileBytes, dob, sdo.s, qt * kTile, S, D);
+        const bool ok = qt * kTile + row_t < S;
+        cp_async4(sRows + (st * kWgThreads + threadIdx.x) * 4,
+                  ok ? row_src + qt * kTile + row_t : row_src, ok);
+    };
+    load_tile_async<DP>(sK, k + b * sk.b + h * sk.h, sk.s, k0, S, D);
+    load_tile_async<DP>(sV, v + b * sv.b + h * sv.h, sv.s, k0, S, D);
+    load_stage(qt0, 0);
+    cp_async_commit();
+
+    const float sl2 = scale * kLog2e;
+    float dk_acc[NO], dv_acc[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    for (int qt = qt0; qt < n_qt; ++qt) {
+        const int st = (qt - qt0) & 1;
+        if (qt + 1 < n_qt) {
+            load_stage(qt + 1, st ^ 1);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        fence_async_smem();
+        __syncthreads();
+        const uint32_t tQ = sK + (2 + 2 * st) * kTileBytes, tdO = tQ + kTileBytes;
+        const float* L = rows + st * kWgThreads;  // lse of the tile's queries
+        const float* Dq = L + 64;                 // Di of the tile's queries
+
+        // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
+        float s[32] = {}, dp[32] = {};
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+            wgmma_ss_n64(s, desc_k(sK, kk), desc_k(tQ, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+            wgmma_ss_n64(dp, desc_k(sV, kk), desc_k(tdO, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+        fence_regs(dp);
+
+        const int q0 = qt * kTile;
+        const bool edge = (causal && qt == kt) || q0 + kTile > S;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const int n = frag_col(i, lane), key = k0 + r + 8 * frag_half(i);
+            float p = exp2f(fmaf(s[i], sl2, -L[n] * kLog2e));
+            if (edge && (q0 + n >= S || (causal && key > q0 + n))) p = 0.f;
+            s[i] = p;                      // P^T
+            dp[i] = p * (dp[i] - Dq[n]);   // dS^T
+        }
+        uint32_t pa[4][4], dsa[4][4];
+        to_a_operand(pa, s);
+        to_a_operand(dsa, dp);
+
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<DP>(dv_acc, pa[kk], desc_mn(tdO, kk));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<DP>(dk_acc, dsa[kk], desc_mn(tQ, kk));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        __syncthreads();  // every wgmma read of this stage is done before it is refilled
+    }
+
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+        const int key = k0 + r + 8 * hf;
+        if (key >= S) continue;
+        __nv_bfloat16* dkrow = dk + b * sdk.b + (long long)key * sdk.s + h * sdk.h + 2 * (lane & 3);
+        __nv_bfloat16* dvrow = dv + b * sdv.b + (long long)key * sdv.s + h * sdv.h + 2 * (lane & 3);
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+            if (8 * j >= D) continue;
+            const int i = 4 * j + 2 * hf;
+            *reinterpret_cast<__nv_bfloat162*>(dkrow + 8 * j) =
+                __floats2bfloat162_rn(dk_acc[i] * scale, dk_acc[i + 1] * scale);
+            *reinterpret_cast<__nv_bfloat162*>(dvrow + 8 * j) =
+                __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+        }
+    }
+}
+
 template <int DP> constexpr size_t fwd_smem() {
     return sizeof(float) * (3 * kTile * (DP + 1) + kTile * kLdP);
 }
@@ -431,15 +927,22 @@ template <int DP> constexpr size_t dkv_smem() {
 template <int DP> constexpr size_t dq_smem() {
     return sizeof(float) * (4 * kTile * (DP + 1) + kTile * kLdP + 2 * kTile);
 }
+// tensor-core kernels: bf16 tiles (Q + two K/V stages; K, V + two Q/dO
+// stages and their lse/Di rows), plus slack to align the first to 1024 bytes
+template <int DP> constexpr size_t fwd_wgmma_smem() { return 5 * kTile * DP * 2 + 1024; }
+template <int DP> constexpr size_t dkv_wgmma_smem() {
+    return 6 * kTile * DP * 2 + 2 * kWgThreads * sizeof(float) + 1024;
+}
 
 // A kernel's launch with its dynamic shared memory; above 48 KB the
 // kernel has to be allowed that much first.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t stream, Args... args) {
+int launch(Kernel kernel, int threads, size_t smem, dim3 grid, cudaStream_t stream,
+           Args... args) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, kThreads, smem, stream>>>(args...);
+    kernel<<<grid, threads, smem, stream>>>(args...);
     return (int)cudaGetLastError();
 }
 
@@ -447,32 +950,63 @@ Strides strides_at(const long long* s, int i) { return Strides{s[3 * i], s[3 * i
 
 dim3 grid_of(int B, int S, int H) { return dim3((unsigned)((S + kTile - 1) / kTile), H, B); }
 
+// The tensor-core kernels copy rows in 16-byte pieces: every tensor's
+// pointer 16-byte aligned and its (b, s, h) strides multiples of 8 elements.
+bool aligned_rows(std::initializer_list<const void*> ptrs, const long long* st, int n) {
+    for (const void* p : ptrs)
+        if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+    for (int i = 0; i < 3 * n; ++i)
+        if (st[i] % 8) return false;
+    return true;
+}
+
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+
 template <typename T, int DP>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse, const long long* st,
         int B, int S, int H, int D, int causal, float scale, cudaStream_t stream) {
-    return launch(flash_fwd_kernel<T, DP>, fwd_smem<DP>(), grid_of(B, S, H), stream,
-                  (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
-                  strides_at(st, 0), strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
-                  S, H, D, causal, scale);
+    if constexpr (kTensorCores<T>) {
+        if (!aligned_rows({q, k, v, o}, st, 4)) return (int)cudaErrorMisalignedAddress;
+        return launch(flash_fwd_kernel_wgmma<DP>, kWgThreads, fwd_wgmma_smem<DP>(),
+                      grid_of(B, S, H), stream, (const T*)q, (const T*)k, (const T*)v, (T*)o,
+                      (float*)lse, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+                      strides_at(st, 3), S, H, D, causal, scale);
+    } else {
+        return launch(flash_fwd_kernel<T, DP>, kThreads, fwd_smem<DP>(), grid_of(B, S, H),
+                      stream, (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
+                      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+                      strides_at(st, 3), S, H, D, causal, scale);
+    }
 }
 
 template <typename T, int DP>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
             const void* di, void* dk, void* dv, const long long* st, int B, int S, int H,
             int D, int causal, float scale, cudaStream_t stream) {
-    return launch(flash_bwd_dkv_kernel<T, DP>, dkv_smem<DP>(), grid_of(B, S, H), stream,
-                  (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-                  (const float*)di, (T*)dk, (T*)dv, strides_at(st, 0), strides_at(st, 1),
-                  strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), strides_at(st, 5),
-                  S, H, D, causal, scale);
+    if constexpr (kTensorCores<T>) {
+        if (!aligned_rows({q, k, v, dout, dk, dv}, st, 6)) return (int)cudaErrorMisalignedAddress;
+        return launch(flash_bwd_dkv_kernel_wgmma<DP>, kWgThreads, dkv_wgmma_smem<DP>(),
+                      grid_of(B, S, H), stream, (const T*)q, (const T*)k, (const T*)v,
+                      (const T*)dout, (const float*)lse, (const float*)di, (T*)dk, (T*)dv,
+                      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+                      strides_at(st, 3), strides_at(st, 4), strides_at(st, 5), S, H, D,
+                      causal, scale);
+    } else {
+        return launch(flash_bwd_dkv_kernel<T, DP>, kThreads, dkv_smem<DP>(), grid_of(B, S, H),
+                      stream, (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+                      (const float*)lse, (const float*)di, (T*)dk, (T*)dv, strides_at(st, 0),
+                      strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
+                      strides_at(st, 4), strides_at(st, 5), S, H, D, causal, scale);
+    }
 }
 
 template <typename T, int DP>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
            const void* di, void* dq, const long long* st, int B, int S, int H, int D,
            int causal, float scale, cudaStream_t stream) {
-    return launch(flash_bwd_dq_kernel<T, DP>, dq_smem<DP>(), grid_of(B, S, H), stream,
-                  (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+    return launch(flash_bwd_dq_kernel<T, DP>, kThreads, dq_smem<DP>(), grid_of(B, S, H),
+                  stream, (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
                   (const float*)di, (T*)dq, strides_at(st, 0), strides_at(st, 1),
                   strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), S, H, D, causal,
                   scale);

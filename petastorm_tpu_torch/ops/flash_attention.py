@@ -11,7 +11,10 @@ raises: there is no dense branch on the card. On a CPU tensor it runs the
 plain versions through the same ``autograd.Function``, so the backward
 formulas the kernels implement are the ones the CPU tests exercise. The
 kernels take any S ≥ 1 (the tail tile is masked) and a head dim D ≤ 128
-that is a multiple of 8.
+that is a multiple of 8. bf16 inputs run the forward and dK/dV kernels on
+the tensor cores (``wgmma``), which copy rows in 16-byte pieces: a bf16
+view whose rows are not 16-byte aligned is copied first. f32 inputs, and
+dQ for both types, run scalar f32 kernels.
 """
 
 import ctypes
@@ -138,6 +141,20 @@ def _strides(*tensors):
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
+def _rows_aligned(t):
+    """Can the tensor-core kernels copy ``t``'s rows in 16-byte pieces: a
+    16-byte aligned pointer and ``(b, s, h)`` strides in multiples of 8?"""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
+def _tensor_core_operand(t):
+    """``t`` itself, or a contiguous copy of a bf16 view with a unit stride
+    on D that the tensor-core kernels could not read in place."""
+    if t.dtype != torch.bfloat16 or t.stride(-1) != 1 or _rows_aligned(t):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _launch(fn, name, pointers, tensors, q, causal, sm_scale):
     b, s, h, d = q.shape
     with torch.cuda.device(q.device):
@@ -161,6 +178,7 @@ def flash_fwd(q, k, v, causal, sm_scale):
     _check(q, k, v)
     if _device_kind(q) == 'cpu':
         return flash_fwd_reference(q, k, v, causal, sm_scale)
+    q, k, v = (_tensor_core_operand(t) for t in (q, k, v))
     b, s, h, _ = q.shape
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -188,6 +206,7 @@ def flash_bwd_dkv(q, k, v, do, lse, di, causal, sm_scale):
     _bwd_inputs(q, do, lse, di)
     if _device_kind(q) == 'cpu':
         return flash_bwd_dkv_reference(q, k, v, do, lse, di, causal, sm_scale)
+    q, k, v, do = (_tensor_core_operand(t) for t in (q, k, v, do))
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch(_kernels()[1], 'dK/dV',

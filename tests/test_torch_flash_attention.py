@@ -13,19 +13,33 @@ and a 1-ulp flip at |O| < 2 is under 8e-3) and bf16 grads within 2e-2 of
 their max-abs (the two frameworks round the backward's bf16 operands at
 different places); the interpret-mode Pallas kernel as the JAX package's
 own test, ``2e-5`` on O and ``5e-4`` on the grads.
+
+The ``cuda`` tests hold the kernels against their plain versions on the
+card. The machine with the card has no JAX, so this file imports it only
+where it is installed, and the JAX tests need it; run the card's tests
+there with ``python -m pytest --noconftest -m cuda
+tests/test_torch_flash_attention.py`` (``tests/conftest.py`` imports JAX).
 """
 
 import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
+try:
+    import jax
+    import jax.numpy as jnp
 
-from petastorm_tpu.ops.flash_attention import flash_attention_fused as jax_flash
-from petastorm_tpu.ops.ring_attention import reference_attention as jax_reference
+    from petastorm_tpu.ops.flash_attention import flash_attention_fused as jax_flash
+    from petastorm_tpu.ops.ring_attention import reference_attention as jax_reference
+except ImportError:  # the machine with the card: only the cuda tests run there
+    jax = None
 from petastorm_tpu_torch.ops import flash_attention as fa
 from petastorm_tpu_torch.ops.ring_attention import reference_attention
+
+
+def _need_jax():
+    if jax is None:
+        pytest.skip('needs jax: the JAX package is the reference')
 
 
 def _arrays(shape, seed, n=4):
@@ -67,6 +81,7 @@ def _assert_grads_close(got, want, dtype):
 @pytest.mark.parametrize('causal', [True, False], ids=['causal', 'bidir'])
 @pytest.mark.parametrize('dtype', ['f32', 'bf16'])
 def test_matches_jax_flash_attention_fused(dtype, causal, s, d):
+    _need_jax()
     q, k, v, w = _arrays((2, s, 3, d), seed=s + d)
     jax_dtype, torch_dtype = ((jnp.float32, torch.float32) if dtype == 'f32'
                               else (jnp.bfloat16, torch.bfloat16))
@@ -82,6 +97,7 @@ def test_matches_jax_flash_attention_fused(dtype, causal, s, d):
 
 @pytest.mark.parametrize('causal', [True, False], ids=['causal', 'bidir'])
 def test_reference_attention_matches_jax(causal):
+    _need_jax()
     q, k, v = _arrays((2, 19, 2, 16), seed=5, n=3)
     want = np.asarray(jax_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                     causal=causal))
@@ -154,6 +170,34 @@ def test_cpu_tensors_run_the_plain_versions_and_count_nothing():
     assert all(t.grad is not None for t in (tq, tk, tv))
 
 
+def test_tensor_core_operands_are_read_in_place_when_rows_are_aligned():
+    """The bf16 tensor-core kernels copy 16-byte pieces of rows: a view
+    sliced out of a fused projection (strides in multiples of 8 elements)
+    is used as it is; f32 is never copied."""
+    qkv = torch.zeros(2, 21, 3 * 4 * 16, dtype=torch.bfloat16)
+    q = qkv[..., 64:128].reshape(2, 21, 4, 16)
+    assert fa._rows_aligned(q)
+    assert fa._tensor_core_operand(q) is q
+    f32 = torch.zeros(2, 21, 3 * 4 * 16)[..., 4:68].reshape(2, 21, 4, 16)
+    assert fa._tensor_core_operand(f32) is f32
+    # not a unit stride on D: left for _strides to refuse, as for f32
+    transposed = torch.zeros(1, 8, 16, 2, dtype=torch.bfloat16).transpose(2, 3)
+    assert fa._tensor_core_operand(transposed) is transposed
+
+
+@pytest.mark.parametrize('offset,stride_pad', [(1, 0), (0, 4), (3, 4)],
+                         ids=['misaligned-pointer', 'stride-not-8', 'both'])
+def test_tensor_core_operands_are_copied_when_rows_are_not_aligned(offset, stride_pad):
+    d = 16
+    flat = torch.arange(2 * 5 * 3 * (d + stride_pad) + offset, dtype=torch.float32)
+    base = flat.to(torch.bfloat16)[offset:].view(2, 5, 3, d + stride_pad)
+    t = base[..., :d]
+    assert not fa._rows_aligned(t)
+    got = fa._tensor_core_operand(t)
+    assert got is not t and fa._rows_aligned(got) and got.is_contiguous()
+    assert torch.equal(got, t)
+
+
 def test_kernel_supported_is_truthful():
     assert fa.kernel_supported(1023) == torch.cuda.is_available()
     assert not fa.kernel_supported(0)
@@ -161,6 +205,7 @@ def test_kernel_supported_is_truthful():
 
 @pytest.mark.slow
 def test_plain_path_matches_pallas_kernel_in_interpret_mode():
+    _need_jax()
     from jax.experimental.pallas import tpu as pltpu
     q, k, v, w = _arrays((1, 128, 2, 64), seed=0)
     with pltpu.force_tpu_interpret_mode():
@@ -181,26 +226,64 @@ def _need_cuda():
         pytest.skip('needs a CUDA device: the flash kernels have no CPU mode')
 
 
+_F32_CARD_CASES = [((2, 130, 3, 64), True, 's130-d64'), ((1, 77, 2, 96), False, 's77-d96-bidir'),
+                   ((2, 256, 2, 128), True, 's256-d128'), ((3, 1, 1, 8), True, 's1-d8')]
+# the bf16 tensor-core instances: every padded head dim, the tail tile at
+# S = 1, 77, 130, 1000, both masks, q/k/v sliced out of one fused
+# (B, S, 3·H·D) projection as the transformer passes them
+_BF16_CARD_CASES = [((2, s, 3, d), causal,
+                     'bf16-s%d-d%d-%s' % (s, d, 'causal' if causal else 'bidir'))
+                    for d in (32, 64, 96, 128) for s in (1, 77, 130, 1000)
+                    for causal in (True, False)]
+
+
+def _card_inputs(shape, dtype, fused):
+    b, s, h, d = shape
+    if fused:
+        qkv = torch.from_numpy(_arrays((b, s, 3 * h * d), seed=s + d, n=1)[0])
+        qkv = qkv.cuda().to(dtype)
+        q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].reshape(shape) for i in range(3))
+        do = torch.from_numpy(_arrays(shape, seed=s, n=1)[0]).cuda().to(dtype)
+        return q, k, v, do
+    return tuple(torch.from_numpy(a).cuda().to(dtype) for a in _arrays(shape, seed=s))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('shape,causal', [((2, 130, 3, 64), True), ((1, 77, 2, 96), False),
-                                          ((2, 256, 2, 128), True), ((3, 1, 1, 8), True)],
-                         ids=['s130-d64', 's77-d96-bidir', 's256-d128', 's1-d8'])
-def test_kernels_match_plain_versions_on_the_card(shape, causal):
+@pytest.mark.parametrize('shape,causal,dtype',
+                         [(s, c, torch.float32) for s, c, _ in _F32_CARD_CASES]
+                         + [(s, c, torch.bfloat16) for s, c, _ in _BF16_CARD_CASES],
+                         ids=[i for *_, i in _F32_CARD_CASES + _BF16_CARD_CASES])
+def test_kernels_match_plain_versions_on_the_card(shape, causal, dtype):
+    """Each kernel against its plain version in f32 on the same inputs.
+    f32: the JAX kernel tests' tolerances. bf16 (the forward and dK/dV on
+    the tensor cores, q/k/v sliced from a fused projection): O max-abs
+    2e-2, each grad max-abs within 2e-2 of its max-abs plus 1e-4 (dK of
+    S = 1 is 0 in exact arithmetic; what is left is the f32 rounding of
+    dP - Di, ~1e-6), lse 1e-4, as ``chip_smoke.py`` holds them."""
     _need_cuda()
-    q, k, v, do = (torch.from_numpy(a).cuda() for a in _arrays(shape, seed=shape[1]))
+    q, k, v, do = _card_inputs(shape, dtype, fused=dtype == torch.bfloat16)
     scale = shape[-1] ** -0.5
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     o, lse = fa.flash_fwd(q, k, v, causal, scale)
-    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, scale)
-    di = fa.attention_delta(o_ref, do)
+    o_ref, lse_ref = fa.flash_fwd_reference(qf, kf, vf, causal, scale)
+    di = fa.attention_delta(o_ref, dof)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, di, causal, scale)
     dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, di, causal, scale)
-    dk_ref, dv_ref = fa.flash_bwd_dkv_reference(q, k, v, do, lse_ref, di, causal, scale)
-    dq_ref = fa.flash_bwd_dq_reference(q, k, v, do, lse_ref, di, causal, scale)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_reference(qf, kf, vf, dof, lse_ref, di, causal, scale)
+    dq_ref = fa.flash_bwd_dq_reference(qf, kf, vf, dof, lse_ref, di, causal, scale)
     torch.cuda.synchronize()
-    torch.testing.assert_close(o, o_ref, atol=2e-5, rtol=2e-5)
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
-    for got, want in ((dk, dk_ref), (dv, dv_ref), (dq, dq_ref)):
-        torch.testing.assert_close(got, want, atol=5e-4, rtol=5e-4)
+    grads = ((dk, dk_ref, 'dk'), (dv, dv_ref, 'dv'), (dq, dq_ref, 'dq'))
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, o_ref, atol=2e-5, rtol=2e-5)
+        for got, want, _ in grads:
+            torch.testing.assert_close(got, want, atol=5e-4, rtol=5e-4)
+        return
+    assert o.dtype == torch.bfloat16 and float((o.float() - o_ref).abs().max()) <= 2e-2
+    for got, want, name in grads:
+        err = float((got.float() - want).abs().max())
+        assert torch.isfinite(got).all() and err <= 2e-2 * float(want.abs().max()) + 1e-4, (
+            name, err)
 
 
 @pytest.mark.cuda
