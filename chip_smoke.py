@@ -38,7 +38,9 @@ final ``{"ok": true, ...}`` line is printed only when every phase passed:
    layers x steps.
 7. ``lm_profile``: ``torch.profiler`` over a few more steps of the same
    model: device time per step by kind (each flash kernel, cuBLAS
-   matmuls, AdamW, the rest) and the device's idle share.
+   matmuls, AdamW, the rest), the device's idle share, and the names of
+   the flash kernels the step ran: every one must be a tensor-core
+   (``wgmma``) kernel, since the step is bf16.
 
 Then the ``kernels`` summary, the ``nvidia-smi`` name and power limit, and
 the ``ok`` line. The script needs CUDA and the repository beside it.
@@ -47,6 +49,7 @@ the ``ok`` line. The script needs CUDA and the repository beside it.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -175,18 +178,52 @@ def bf16_ulp_distance(a, b):
     return int((ordered(a) - ordered(b)).abs().max())
 
 
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '.*?\d((?:flash_(?:fwd|bwd_dkv|bwd_dq)"
+                          r"|normalize_u8)_kernel(?:_wgmma)?)I(?:Li(\d+)E|(13__nv_bfloat16|f))")
+
+
+def ptxas_by_kernel(log):
+    """``{'flash_bwd_dq_kernel_wgmma<96>': {'registers': n, 'spill_stores': n,
+    'spill_loads': n}, ...}`` from ``nvcc -Xptxas -v`` output (a template
+    instance is named by its padded head dim or its element type)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            arg = m.group(2) or ('bf16' if m.group(3).endswith('bfloat16') else 'f32')
+            name = '%s<%s>' % (m.group(1), arg)
+            continue
+        if name is None:
+            continue
+        spill = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+        regs = re.search(r'Used (\d+) registers', line)
+        if spill:
+            out.setdefault(name, {}).update(spill_stores=int(spill.group(1)),
+                                            spill_loads=int(spill.group(2)))
+        if regs:
+            out.setdefault(name, {})['registers'] = int(regs.group(1))
+    return out
+
+
 def phase_build():
     from petastorm_tpu_torch.ops import build
     sources = sorted(f[:-3] for f in os.listdir(build.CSRC_DIR) if f.endswith('.cu'))
     t0 = time.perf_counter()
     build.build(sources)
+    logs = {name: entry['log'] for name, entry in build.build_log.items()}
+    kernels = {k: v for log in logs.values() for k, v in ptxas_by_kernel(log).items()}
     emit({'phase': 'build', 'card': card_line(), 'sources': sources,
-          'build_s': time.perf_counter() - t0,
-          # register and spill lines, and any warning (wgmma serialization)
-          'ptxas': {name: [line for line in entry['log'].splitlines()
-                           if any(w in line.lower()
-                                  for w in ('registers', 'spill', 'warning'))]
-                    for name, entry in build.build_log.items()}})
+          'build_s': time.perf_counter() - t0, 'ptxas_by_kernel': kernels,
+          'warnings': {name: [line for line in log.splitlines() if 'warning' in line.lower()]
+                       for name, log in logs.items()}})
+    # the tensor-core kernels keep their accumulators in registers, and
+    # ptxas must not serialize their wgmma instructions
+    spilled = [k for k, v in kernels.items()
+               if '_wgmma' in k and (v.get('spill_stores') or v.get('spill_loads'))]
+    assert not spilled, spilled
+    serialized = [line for log in logs.values() for line in log.splitlines()
+                  if 'wgmma' in line and 'serializ' in line.lower()]
+    assert not serialized, serialized
 
 
 def phase_kernel():
@@ -556,12 +593,20 @@ def phase_lm_profile():
             busy_us += end - max(start, reach)
             reach = end
     window_us = reach - spans[0][0]
+    flash_names = {kernel: sorted({e.name for e in prof.events()
+                                   if e.device_type == DeviceType.CUDA
+                                   and _kernel_kind(e.name) == kernel})
+                   for kernel in FLASH_KERNELS}
     emit({'phase': 'lm_profile', 'steps': LM_PROFILE_STEPS, 'step_wall_ms': wall_ms,
           'device_window_ms_per_step': window_us / 1e3 / LM_PROFILE_STEPS,
           'device_busy_ms_per_step': busy_us / 1e3 / LM_PROFILE_STEPS,
           'idle_share': 1 - busy_us / window_us,
           'device_ms_per_step': dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
-          'share_of_device_time': {k: v / sum(kinds.values()) for k, v in kinds.items()}})
+          'share_of_device_time': {k: v / sum(kinds.values()) for k, v in kinds.items()},
+          'flash_kernel_names': flash_names})
+    # the bf16 step runs each flash kernel's tensor-core instance
+    for kernel, names in flash_names.items():
+        assert names and all('_wgmma' in n for n in names), (kernel, names)
 
 
 def phase_reference(url):
@@ -681,6 +726,8 @@ def main():
         timing = flash_case['kernels'][key]
         kernels.append({
             'name': name, 'route': 'cuda',
+            # bf16 runs the tensor-core instances (lm_profile checks their names)
+            'instruction': 'wgmma',
             'source': 'petastorm_tpu_torch/csrc/flash_attention.cu',
             'replaces': replaces, 'launches': lm_launches[name],
             'max_abs_err': max(flash_case['errors'][g]['max_abs_err'] for g in outputs),

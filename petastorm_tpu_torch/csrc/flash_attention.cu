@@ -28,16 +28,16 @@
 // tile of any S >= 1 is masked, padded d columns are zeros. D is padded
 // to DP in {32, 64, 96, 128}.
 //
-// bf16 forward and dK/dV: Hopper tensor cores. One warpgroup (128
+// bf16 inputs: Hopper tensor cores, all three kernels. One warpgroup (128
 // threads) per block. bf16 tiles sit in shared memory as DP/32 atoms of
 // 64 rows x 32 columns, each row 64 bytes with the 64-byte swizzle (16-byte
 // chunk c of row r at chunk c ^ ((r >> 1) & 3)), which wgmma descriptors
 // read both K-major (d as the reduction axis) and MN-major (rows as the
 // reduction axis) from the same buffer. Streamed tiles (K/V in the
-// forward; Q, dO, lse, Di in dK/dV) come through a two-stage ring of
-// 16-byte cp.async copies that zero-fill rows past S and padded columns,
-// so the next tile's copy overlaps this tile's products. Score products
-// are SS wgmma m64n64k16 (both operands in shared memory):
+// forward and dQ; Q, dO, lse, Di in dK/dV) come through a two-stage ring
+// of 16-byte cp.async copies that zero-fill rows past S and padded
+// columns, so the next tile's copy overlaps this tile's products. Score
+// products are SS wgmma m64n64k16 (both operands in shared memory):
 //   forward:  S = Q K^T; online softmax on the f32 accumulator fragments
 //             (a row's 16 values sit in a quad of lanes: two shuffles);
 //             P rounded to bf16 in registers is the A operand of the RS
@@ -47,27 +47,33 @@
 //             fragment's columns (the queries); rounded to bf16 they are
 //             the A operands of dV += P^T dO and dK += dS^T Q (RS wgmma,
 //             dO and Q read MN-major).
+//   dQ:       S = Q K^T and dP = dO V^T with Q and dO resident, lse and Di
+//             of a thread's two rows in registers; dS rounded to bf16 is
+//             the A operand of dQ += dS K (RS wgmma, K read MN-major from
+//             the tile the score product read K-major). Each block owns
+//             its dQ rows, so no sum crosses blocks: no atomics, and the
+//             same inputs give the same bits.
 // P and dS are rounded to bf16 before their products, as in FlashAttention
 // 2 and 3; every accumulator is f32.
 //
-// f32 inputs, and dQ for both types: scalar. One block of 256 threads;
-// tiles converted to f32 in shared memory, rows padded to D+1 floats so the
-// column-wise reads hit 32 banks. A 16 x 16 thread grid owns a 4 x 4 block
-// of each 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j); the 16
-// threads of a score row sit in one half-warp, so row max and row sum are
-// four xor-shuffles. Products are f32 FMAs from shared memory, which keeps
-// f32 inputs at the JAX kernel tests' tolerances (TF32 or bf16 tensor
-// cores would not).
+// f32 inputs: scalar. One block of 256 threads; tiles converted to f32 in
+// shared memory, rows padded to D+1 floats so the column-wise reads hit 32
+// banks. A 16 x 16 thread grid owns a 4 x 4 block of each 64 x 64 score
+// tile (rows ty + 16 i, columns tx + 16 j); the 16 threads of a score row
+// sit in one half-warp, so row max and row sum are four xor-shuffles.
+// Products are f32 FMAs from shared memory, which keeps f32 inputs at the
+// JAX kernel tests' tolerances (TF32 or bf16 tensor cores would not).
 //
 // Bound. At the flagship shape (8, 1024, 16, 96) bf16 causal, the
 // forward does 4*B*H*S(S+1)/2*D = 25.8 GFLOP and moves 101 MB: 26 us at
 // the H100's 989 TFLOP/s bf16 tensor-core rate, 30 us at 3.35 TB/s. The
-// backward kernels do 2x and 1.5x the forward's operations on about the
-// same bytes, so operations bound them. The tensor-core kernels reach for
-// that rate with one warpgroup per block and no warp specialisation: a
-// block waits for each product before its softmax (no ping-pong between
-// warpgroups), and K/V tiles are re-read from L2 by every Q tile's block.
-// The scalar kernels run on the f32 FMA pipes (67 TFLOP/s at most).
+// backward kernels do 2x (dK/dV) and 1.5x (dQ) the forward's operations
+// on about the same bytes, so operations bound them. The tensor-core
+// kernels reach for that rate with one warpgroup per block and no warp
+// specialisation: a block waits for each product before its softmax or
+// dS (no ping-pong between warpgroups), and the streamed tiles are
+// re-read from L2 by every block of the same (b, h). The scalar kernels
+// run on the f32 FMA pipes (67 TFLOP/s at most).
 //
 // C interface (bound with ctypes): each entry point returns
 // cudaGetLastError() after its launch; the wrapper raises if it is not 0.
@@ -91,11 +97,6 @@ struct Strides {
     long long b, s, h;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
 // Sum or max over the 16 lanes of a half-warp (the threads of one score row).
 __device__ __forceinline__ float row_max(float x) {
 #pragma unroll
@@ -109,17 +110,17 @@ __device__ __forceinline__ float row_sum(float x) {
     return x;
 }
 
-// Rows [row0, row0 + 64) of one (b, h) slice into tile[64][DP + 1] as f32;
+// Rows [row0, row0 + 64) of one (b, h) slice into tile[64][DP + 1];
 // rows at or past S and columns at or past D are zeros.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* tile, const T* base, long long stride_s,
+template <int DP>
+__device__ __forceinline__ void load_tile(float* tile, const float* base, long long stride_s,
                                           int row0, int S, int D) {
     for (int idx = threadIdx.x; idx < kTile * DP; idx += kThreads) {
         const int r = idx / DP;
         const int d = idx - r * DP;
         const int s = row0 + r;
         float v = 0.f;
-        if (s < S && d < D) v = to_f32(base[(long long)s * stride_s + d]);
+        if (s < S && d < D) v = base[(long long)s * stride_s + d];
         tile[r * (DP + 1) + d] = v;
     }
 }
@@ -160,11 +161,12 @@ __device__ __forceinline__ bool visible(int r, int c, int S, int causal) {
     return r < S && c < S && (!causal || c <= r);
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, Strides sq, Strides sk,
-                 Strides sv, Strides so, int S, int H, int D, int causal, float scale) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 Strides sq, Strides sk, Strides sv, Strides so, int S, int H, int D,
+                 int causal, float scale) {
     constexpr int LD = DP + 1;
     constexpr int NJ = DP / 16;
     extern __shared__ float smem[];
@@ -177,10 +179,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int h = blockIdx.y, b = blockIdx.z;
     const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
     const int q0 = qt * kTile;
-    const T* kb = k + b * sk.b + h * sk.h;
-    const T* vb = v + b * sv.b + h * sv.h;
+    const float* kb = k + b * sk.b + h * sk.h;
+    const float* vb = v + b * sv.b + h * sv.h;
 
-    load_tile<T, DP>(sQ, q + b * sq.b + h * sq.h, sq.s, q0, S, D);
+    load_tile<DP>(sQ, q + b * sq.b + h * sq.h, sq.s, q0, S, D);
 
     float m[4], l[4], acc[4][NJ];
 #pragma unroll
@@ -195,8 +197,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int kt = 0; kt < n_kt; ++kt) {
         const int k0 = kt * kTile;
         __syncthreads();  // the previous tile's sK, sV and sP reads are done
-        load_tile<T, DP>(sK, kb, sk.s, k0, S, D);
-        load_tile<T, DP>(sV, vb, sv.s, k0, S, D);
+        load_tile<DP>(sK, kb, sk.s, k0, S, D);
+        load_tile<DP>(sV, vb, sv.s, k0, S, D);
         __syncthreads();
 
         float s[4][4];
@@ -250,21 +252,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         const int r = q0 + ty + 16 * i;
         if (r >= S) continue;
         const float inv = 1.f / l[i];
-        T* orow = o + b * so.b + (long long)r * so.s + h * so.h;
+        float* orow = o + b * so.b + (long long)r * so.s + h * so.h;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
             const int d = tx + 16 * j;
-            if (d < D) store(orow + d, acc[i][j] * inv);
+            if (d < D) orow[d] = acc[i][j] * inv;
         }
         if (tx == 0) lse_bh[r] = m[i] + logf(l[i]);
     }
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ di, T* __restrict__ dk, T* __restrict__ dv,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ di,
+                     float* __restrict__ dk, float* __restrict__ dv,
                      Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
                      int S, int H, int D, int causal, float scale) {
     constexpr int LD = DP + 1;
@@ -283,13 +286,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const int h = blockIdx.y, b = blockIdx.z;
     const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
     const int k0 = kt * kTile;
-    const T* qb = q + b * sq.b + h * sq.h;
-    const T* dob = dout + b * sdo.b + h * sdo.h;
+    const float* qb = q + b * sq.b + h * sq.h;
+    const float* dob = dout + b * sdo.b + h * sdo.h;
     const float* lse_bh = lse + ((long long)b * H + h) * S;
     const float* di_bh = di + ((long long)b * H + h) * S;
 
-    load_tile<T, DP>(sK, k + b * sk.b + h * sk.h, sk.s, k0, S, D);
-    load_tile<T, DP>(sV, v + b * sv.b + h * sv.h, sv.s, k0, S, D);
+    load_tile<DP>(sK, k + b * sk.b + h * sk.h, sk.s, k0, S, D);
+    load_tile<DP>(sV, v + b * sv.b + h * sv.h, sv.s, k0, S, D);
 
     // rows c = k0 + ty + 16 i of dK and dV, columns d = tx + 16 j
     float dk_acc[4][NJ], dv_acc[4][NJ];
@@ -302,8 +305,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int qt = causal ? kt : 0; qt < n_qt; ++qt) {
         const int q0 = qt * kTile;
         __syncthreads();  // the previous tile's reads are done
-        load_tile<T, DP>(sQ, qb, sq.s, q0, S, D);
-        load_tile<T, DP>(sdO, dob, sdo.s, q0, S, D);
+        load_tile<DP>(sQ, qb, sq.s, q0, S, D);
+        load_tile<DP>(sdO, dob, sdo.s, q0, S, D);
         load_rows(sL, lse_bh, q0, S);
         load_rows(sDi, di_bh, q0, S);
         __syncthreads();
@@ -352,24 +355,25 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int i = 0; i < 4; ++i) {
         const int c = k0 + ty + 16 * i;
         if (c >= S) continue;
-        T* dkrow = dk + b * sdk.b + (long long)c * sdk.s + h * sdk.h;
-        T* dvrow = dv + b * sdv.b + (long long)c * sdv.s + h * sdv.h;
+        float* dkrow = dk + b * sdk.b + (long long)c * sdk.s + h * sdk.h;
+        float* dvrow = dv + b * sdv.b + (long long)c * sdv.s + h * sdv.h;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
             const int d = tx + 16 * j;
             if (d < D) {
-                store(dkrow + d, dk_acc[i][j] * scale);
-                store(dvrow + d, dv_acc[i][j]);
+                dkrow[d] = dk_acc[i][j] * scale;
+                dvrow[d] = dv_acc[i][j];
             }
         }
     }
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ di, T* __restrict__ dq, Strides sq, Strides sk,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ di,
+                    float* __restrict__ dq, Strides sq, Strides sk,
                     Strides sv, Strides sdo, Strides sdq, int S, int H, int D, int causal,
                     float scale) {
     constexpr int LD = DP + 1;
@@ -387,11 +391,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const int h = blockIdx.y, b = blockIdx.z;
     const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
     const int q0 = qt * kTile;
-    const T* kb = k + b * sk.b + h * sk.h;
-    const T* vb = v + b * sv.b + h * sv.h;
+    const float* kb = k + b * sk.b + h * sk.h;
+    const float* vb = v + b * sv.b + h * sv.h;
 
-    load_tile<T, DP>(sQ, q + b * sq.b + h * sq.h, sq.s, q0, S, D);
-    load_tile<T, DP>(sdO, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S, D);
+    load_tile<DP>(sQ, q + b * sq.b + h * sq.h, sq.s, q0, S, D);
+    load_tile<DP>(sdO, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S, D);
     load_rows(sL, lse + ((long long)b * H + h) * S, q0, S);
     load_rows(sDi, di + ((long long)b * H + h) * S, q0, S);
 
@@ -406,8 +410,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int kt = 0; kt < n_kt; ++kt) {
         const int k0 = kt * kTile;
         __syncthreads();  // the previous tile's sK and sdS reads are done
-        load_tile<T, DP>(sK, kb, sk.s, k0, S, D);
-        load_tile<T, DP>(sV, vb, sv.s, k0, S, D);
+        load_tile<DP>(sK, kb, sk.s, k0, S, D);
+        load_tile<DP>(sV, vb, sv.s, k0, S, D);
         __syncthreads();
 
         float s[4][4], dp[4][4];
@@ -444,11 +448,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int i = 0; i < 4; ++i) {
         const int r = q0 + ty + 16 * i;
         if (r >= S) continue;
-        T* dqrow = dq + b * sdq.b + (long long)r * sdq.s + h * sdq.h;
+        float* dqrow = dq + b * sdq.b + (long long)r * sdq.s + h * sdq.h;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
             const int d = tx + 16 * j;
-            if (d < D) store(dqrow + d, dq_acc[i][j] * scale);
+            if (d < D) dqrow[d] = dq_acc[i][j] * scale;
         }
     }
 }
@@ -918,6 +922,115 @@ flash_bwd_dkv_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
     }
 }
 
+template <int DP>
+__global__ void __launch_bounds__(kWgThreads)
+flash_bwd_dq_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                          const float* __restrict__ di, __nv_bfloat16* __restrict__ dq,
+                          Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq, int S,
+                          int H, int D, int causal, float scale) {
+    constexpr int kTileBytes = kTile * DP * 2;
+    constexpr int NO = DP / 2;
+    extern __shared__ __align__(1024) unsigned char tc_smem[];
+    // Q, dO, then per stage st a K tile (tile 2 + 2 st) and a V tile
+    const uint32_t sQ = (smem_addr(tc_smem) + 1023u) & ~1023u;
+    const uint32_t sdO = sQ + kTileBytes;
+
+    const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int q0 = qt * kTile;
+    const int r = 16 * warp + (lane >> 2);  // this thread's rows: r and r + 8
+    const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
+    const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
+    const int n_kt = causal ? qt + 1 : (S + kTile - 1) / kTile;
+
+    load_tile_async<DP>(sQ, q + b * sq.b + h * sq.h, sq.s, q0, S, D);
+    load_tile_async<DP>(sdO, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S, D);
+    load_tile_async<DP>(sQ + 2 * kTileBytes, kb, sk.s, 0, S, D);
+    load_tile_async<DP>(sQ + 3 * kTileBytes, vb, sv.s, 0, S, D);
+    cp_async_commit();
+
+    // -lse in log2 units and Di of this thread's two rows (0 past S)
+    const long long bh = ((long long)b * H + h) * S;
+    float nl[2], dr[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+        const int row = q0 + r + 8 * hf;
+        nl[hf] = row < S ? -lse[bh + row] * kLog2e : 0.f;
+        dr[hf] = row < S ? di[bh + row] : 0.f;
+    }
+
+    const float sl2 = scale * kLog2e;
+    float dq_acc[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) dq_acc[i] = 0.f;
+
+    for (int kt = 0; kt < n_kt; ++kt) {
+        const uint32_t tK = sQ + (2 + 2 * (kt & 1)) * kTileBytes, tV = tK + kTileBytes;
+        if (kt + 1 < n_kt) {  // the next K/V tile into the other stage
+            const uint32_t nK = sQ + (2 + 2 * ((kt + 1) & 1)) * kTileBytes;
+            load_tile_async<DP>(nK, kb, sk.s, (kt + 1) * kTile, S, D);
+            load_tile_async<DP>(nK + kTileBytes, vb, sv.s, (kt + 1) * kTile, S, D);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        fence_async_smem();
+        __syncthreads();
+
+        // S = Q K^T and dP = dO V^T: rows are queries, columns keys
+        float s[32] = {}, dp[32] = {};
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+            wgmma_ss_n64(s, desc_k(sQ, kk), desc_k(tK, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+            wgmma_ss_n64(dp, desc_k(sdO, kk), desc_k(tV, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+        fence_regs(dp);
+
+        const int k0 = kt * kTile;
+        const bool edge = (causal && kt == qt) || k0 + kTile > S;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const int hf = frag_half(i), row = q0 + r + 8 * hf, col = k0 + frag_col(i, lane);
+            float p = exp2f(fmaf(s[i], sl2, nl[hf]));
+            if (edge && (col >= S || (causal && col > row))) p = 0.f;
+            s[i] = p * (dp[i] - dr[hf]);  // dS
+        }
+        uint32_t dsa[4][4];
+        to_a_operand(dsa, s);
+
+        fence_regs(dq_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<DP>(dq_acc, dsa[kk], desc_mn(tK, kk));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dq_acc);
+        __syncthreads();  // every wgmma read of this stage is done before it is refilled
+    }
+
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+        const int row = q0 + r + 8 * hf;
+        if (row >= S) continue;
+        __nv_bfloat16* dqrow = dq + b * sdq.b + (long long)row * sdq.s + h * sdq.h + 2 * (lane & 3);
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j)
+            if (8 * j < D)
+                *reinterpret_cast<__nv_bfloat162*>(dqrow + 8 * j) = __floats2bfloat162_rn(
+                    dq_acc[4 * j + 2 * hf] * scale, dq_acc[4 * j + 2 * hf + 1] * scale);
+    }
+}
+
 template <int DP> constexpr size_t fwd_smem() {
     return sizeof(float) * (3 * kTile * (DP + 1) + kTile * kLdP);
 }
@@ -928,11 +1041,13 @@ template <int DP> constexpr size_t dq_smem() {
     return sizeof(float) * (4 * kTile * (DP + 1) + kTile * kLdP + 2 * kTile);
 }
 // tensor-core kernels: bf16 tiles (Q + two K/V stages; K, V + two Q/dO
-// stages and their lse/Di rows), plus slack to align the first to 1024 bytes
+// stages and their lse/Di rows; Q, dO + two K/V stages), plus slack to
+// align the first to 1024 bytes
 template <int DP> constexpr size_t fwd_wgmma_smem() { return 5 * kTile * DP * 2 + 1024; }
 template <int DP> constexpr size_t dkv_wgmma_smem() {
     return 6 * kTile * DP * 2 + 2 * kWgThreads * sizeof(float) + 1024;
 }
+template <int DP> constexpr size_t dq_wgmma_smem() { return 6 * kTile * DP * 2 + 1024; }
 
 // A kernel's launch with its dynamic shared memory; above 48 KB the
 // kernel has to be allowed that much first.
@@ -973,7 +1088,7 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse, const l
                       (float*)lse, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
                       strides_at(st, 3), S, H, D, causal, scale);
     } else {
-        return launch(flash_fwd_kernel<T, DP>, kThreads, fwd_smem<DP>(), grid_of(B, S, H),
+        return launch(flash_fwd_kernel<DP>, kThreads, fwd_smem<DP>(), grid_of(B, S, H),
                       stream, (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
                       strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
                       strides_at(st, 3), S, H, D, causal, scale);
@@ -993,7 +1108,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
                       strides_at(st, 3), strides_at(st, 4), strides_at(st, 5), S, H, D,
                       causal, scale);
     } else {
-        return launch(flash_bwd_dkv_kernel<T, DP>, kThreads, dkv_smem<DP>(), grid_of(B, S, H),
+        return launch(flash_bwd_dkv_kernel<DP>, kThreads, dkv_smem<DP>(), grid_of(B, S, H),
                       stream, (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
                       (const float*)lse, (const float*)di, (T*)dk, (T*)dv, strides_at(st, 0),
                       strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
@@ -1005,11 +1120,20 @@ template <typename T, int DP>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
            const void* di, void* dq, const long long* st, int B, int S, int H, int D,
            int causal, float scale, cudaStream_t stream) {
-    return launch(flash_bwd_dq_kernel<T, DP>, kThreads, dq_smem<DP>(), grid_of(B, S, H),
-                  stream, (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-                  (const float*)di, (T*)dq, strides_at(st, 0), strides_at(st, 1),
-                  strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), S, H, D, causal,
-                  scale);
+    if constexpr (kTensorCores<T>) {
+        if (!aligned_rows({q, k, v, dout, dq}, st, 5)) return (int)cudaErrorMisalignedAddress;
+        return launch(flash_bwd_dq_kernel_wgmma<DP>, kWgThreads, dq_wgmma_smem<DP>(),
+                      grid_of(B, S, H), stream, (const T*)q, (const T*)k, (const T*)v,
+                      (const T*)dout, (const float*)lse, (const float*)di, (T*)dq,
+                      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+                      strides_at(st, 3), strides_at(st, 4), S, H, D, causal, scale);
+    } else {
+        return launch(flash_bwd_dq_kernel<DP>, kThreads, dq_smem<DP>(), grid_of(B, S, H),
+                      stream, (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+                      (const float*)lse, (const float*)di, (T*)dq, strides_at(st, 0),
+                      strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
+                      strides_at(st, 4), S, H, D, causal, scale);
+    }
 }
 
 bool valid(int B, int S, int H, int D, int dtype) {

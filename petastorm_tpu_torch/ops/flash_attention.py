@@ -11,10 +11,10 @@ raises: there is no dense branch on the card. On a CPU tensor it runs the
 plain versions through the same ``autograd.Function``, so the backward
 formulas the kernels implement are the ones the CPU tests exercise. The
 kernels take any S ≥ 1 (the tail tile is masked) and a head dim D ≤ 128
-that is a multiple of 8. bf16 inputs run the forward and dK/dV kernels on
-the tensor cores (``wgmma``), which copy rows in 16-byte pieces: a bf16
-view whose rows are not 16-byte aligned is copied first. f32 inputs, and
-dQ for both types, run scalar f32 kernels.
+that is a multiple of 8. bf16 inputs run all three kernels on the tensor
+cores (``wgmma``), which copy rows in 16-byte pieces: a bf16 view whose
+rows are not 16-byte aligned is copied first. f32 inputs run scalar f32
+kernels.
 """
 
 import ctypes
@@ -225,6 +225,7 @@ def flash_bwd_dq(q, k, v, do, lse, di, causal, sm_scale):
     _bwd_inputs(q, do, lse, di)
     if _device_kind(q) == 'cpu':
         return flash_bwd_dq_reference(q, k, v, do, lse, di, causal, sm_scale)
+    q, k, v, do = (_tensor_core_operand(t) for t in (q, k, v, do))
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(_kernels()[2], 'dQ',
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),

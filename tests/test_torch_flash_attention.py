@@ -77,7 +77,9 @@ def _assert_grads_close(got, want, dtype):
             assert np.abs(g - w).max() <= 2e-2 * np.abs(w).max(), 'd' + name
 
 
-@pytest.mark.parametrize('s,d', [(33, 16), (20, 96)], ids=['s33-d16', 's20-d96'])
+# S 130 crosses three 64-row tiles with a masked tail, at the flagship head dim
+@pytest.mark.parametrize('s,d', [(33, 16), (20, 96), (130, 96)],
+                         ids=['s33-d16', 's20-d96', 's130-d96'])
 @pytest.mark.parametrize('causal', [True, False], ids=['causal', 'bidir'])
 @pytest.mark.parametrize('dtype', ['f32', 'bf16'])
 def test_matches_jax_flash_attention_fused(dtype, causal, s, d):
@@ -255,8 +257,8 @@ def _card_inputs(shape, dtype, fused):
                          ids=[i for *_, i in _F32_CARD_CASES + _BF16_CARD_CASES])
 def test_kernels_match_plain_versions_on_the_card(shape, causal, dtype):
     """Each kernel against its plain version in f32 on the same inputs.
-    f32: the JAX kernel tests' tolerances. bf16 (the forward and dK/dV on
-    the tensor cores, q/k/v sliced from a fused projection): O max-abs
+    f32: the JAX kernel tests' tolerances. bf16 (all three kernels on the
+    tensor cores, q/k/v sliced from a fused projection): O max-abs
     2e-2, each grad max-abs within 2e-2 of its max-abs plus 1e-4 (dK of
     S = 1 is 0 in exact arithmetic; what is left is the f32 rounding of
     dP - Di, ~1e-6), lse 1e-4, as ``chip_smoke.py`` holds them."""
@@ -299,3 +301,49 @@ def test_autograd_on_the_card_launches_each_kernel_once():
         n + 1 for n in before)
     want = reference_attention(*(t.float().requires_grad_() for t in (q, k, v)))
     assert torch.isfinite(tq.grad).all() and want.shape == tq.shape
+
+
+def _bf16_dq_inputs(shape, causal, seed):
+    q, k, v, do = (torch.from_numpy(a).cuda().to(torch.bfloat16)
+                   for a in _arrays(shape, seed=seed))
+    scale = shape[-1] ** -0.5
+    o, lse = fa.flash_fwd_reference(q.float(), k.float(), v.float(), causal, scale)
+    return q, k, v, do, lse, fa.attention_delta(o, do.float()), scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('causal', [True, False], ids=['causal', 'bidir'])
+def test_bf16_dq_is_bitwise_the_same_on_two_calls(causal):
+    """Each block owns its dQ rows and sums its K/V tiles in one order: no
+    atomics, so the same inputs give the same bits."""
+    _need_cuda()
+    q, k, v, do, lse, di, scale = _bf16_dq_inputs((2, 300, 3, 96), causal, seed=11)
+    first = fa.flash_bwd_dq(q, k, v, do, lse, di, causal, scale)
+    second = fa.flash_bwd_dq(q, k, v, do, lse, di, causal, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(first).all() and torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('offset,stride_pad', [(1, 0), (0, 4), (3, 4)],
+                         ids=['misaligned-pointer', 'stride-not-8', 'both'])
+def test_bf16_dq_of_a_misaligned_view_equals_its_contiguous_copy(offset, stride_pad):
+    """A bf16 view the tensor-core kernel cannot read in place is copied by
+    the wrapper first; its dQ is the contiguous copy's, bit for bit."""
+    _need_cuda()
+    shape, causal = (2, 77, 3, 32), True
+    q, k, v, do, lse, di, scale = _bf16_dq_inputs(shape, causal, seed=12)
+    b, s, h, d = shape
+
+    def misaligned(t):
+        flat = torch.zeros(b * s * h * (d + stride_pad) + offset, dtype=t.dtype,
+                           device=t.device)
+        view = flat[offset:].view(b, s, h, d + stride_pad)[..., :d]
+        view.copy_(t)
+        assert not fa._rows_aligned(view)
+        return view
+
+    got = fa.flash_bwd_dq(*(misaligned(t) for t in (q, k, v, do)), lse, di, causal, scale)
+    want = fa.flash_bwd_dq(q, k, v, do, lse, di, causal, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
