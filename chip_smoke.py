@@ -5,9 +5,13 @@
 Phases, each printing one JSON line; any failure exits non-zero and the
 final ``{"ok": true, ...}`` line is printed only when every phase passed:
 
-1. ``build``: the card's name and power limit, and the ``nvcc`` build of
-   every kernel source in ``petastorm_tpu_torch/csrc`` (all started
-   together).
+1. ``build``: the card's name and power limit, the ``nvcc`` build of
+   every kernel source in ``petastorm_tpu_torch/csrc`` and the ``cc``
+   build of the native host decoders in ``petastorm_tpu_torch/native``
+   (all started together), and a ``probe`` of the machine's image stack
+   (cv2, the libjpeg, libpng, zlib and Python headers, ``ldconfig``).
+   Which decoders built decides the image codec of the ViT data: JPEG
+   with libjpeg and cv2, else PNG with zlib and cv2, else raw ``.npy``.
 2. ``kernel``: the normalize kernel against its plain PyTorch version on
    the card, at the main path's shape and the others listed in
    ``KERNEL_CASES``, with the kernel's and the plain version's times (see
@@ -41,15 +45,34 @@ final ``{"ok": true, ...}`` line is printed only when every phase passed:
    matmuls, AdamW, the rest), the device's idle share, and the names of
    the flash kernels the step ran: every one must be a tensor-core
    (``wgmma``) kernel, since the step is bf16.
+8. ``native_decode``: each native decoder that built against the per-cell
+   path (cv2, ``np.load``) on cells made here at the ViT's image shape,
+   byte for byte (JPEG in fancy upsampling), and its rate in images/s at
+   1 thread and at the threads knob's default.
+9. ``image_reference``: ``VIT_ROWS`` ImageNet-like 384×384 rows written
+   with the port; the card loader, which decodes the encoded cells
+   straight into its pinned slots (``fused-into-slot``), against the CPU
+   loader decoding on the workers, byte for byte; then ViT-Base width with
+   2 layers in f32 (TF32 off, flash attention): logits and one
+   parameter's loss gradient on the card (kernels) against the CPU (plain
+   versions).
+10. ``vit_path``: ``VIT_STEPS`` AdamW steps of ViT-Base (``bench.py``'s
+    ``vit_train`` configuration: 384/12, d 768, 12 heads of 64, 12
+    layers, batch 16, bf16) on that data through the fused loader, flips
+    and cutout on the card and the normalize kernel; normalize launches
+    once a step and each flash kernel 12 times, all bidirectional.
+11. ``vit_profile``: the ``lm_profile`` breakdown for a ViT-Base step.
 
-Then the ``kernels`` summary, the ``nvidia-smi`` name and power limit, and
-the ``ok`` line. The script needs CUDA and the repository beside it.
+Then the ``kernels`` summary (each kernel's launches on every path), the
+``nvidia-smi`` name and power limit, and the ``ok`` line. The script
+needs CUDA and the repository beside it.
 """
 
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -59,6 +82,8 @@ import time
 import torch
 
 TIMED_RUNS = 25
+# profiled windows tried before a time falls back to CUDA events
+PROFILE_ATTEMPTS = 3
 TRAIN_STEPS = 50
 BATCH_SIZE = 64
 MNIST_ROWS = 60000
@@ -77,8 +102,10 @@ KERNEL_CASES = [
     ('ragged_f32', (3, 7, 5, 3), torch.float32, False),
     ('misaligned_bf16', (64, 28, 28, 1), torch.bfloat16, True),
     ('misaligned_f32', (5, 9, 11, 3), torch.float32, True),
+    ('vit_bf16', (16, 384, 384, 3), torch.bfloat16, False),
 ]
 MAIN_PATH_CASE = 'mnist_bf16'
+VIT_KERNEL_CASE = 'vit_bf16'
 NORMALIZE_REPLACES = 'petastorm_tpu/ops/normalize.py:20'
 
 # dense tensor-core bf16 peak of the H100 SXM (NVIDIA data sheet)
@@ -99,8 +126,10 @@ FLASH_CASES = [
     ('d128_bidir_bf16', (4, 512, 8, 128), torch.bfloat16, False, 1.0),
     ('d128_ragged_causal_f32', (2, 130, 2, 128), torch.float32, True, 1.0),
     ('flagship_peaked_causal_bf16', (8, 1024, 16, 96), torch.bfloat16, True, 4.0),
+    ('vit_bidir_bf16', (16, 1024, 12, 64), torch.bfloat16, False, 1.0),
 ]
 FLASH_MAIN_CASE = 'flagship_causal_bf16'
+VIT_FLASH_CASE = 'vit_bidir_bf16'
 # name -> (launch counter in ops/flash_attention.py, key in a
 # flash_kernel case, outputs, the jax Pallas TPU kernel that
 # flash_attention_fused (petastorm_tpu/ops/flash_attention.py:59) reaches)
@@ -118,6 +147,13 @@ LM_STEPS = 20
 LM_BATCH = 8
 LM_SEQ = 1024
 LM_PROFILE_STEPS = 3
+
+# the image path: ImageNet-like rows at the ViT's 384 x 384, 64-row groups
+VIT_ROWS = 1024
+VIT_STEPS = 20
+VIT_BATCH = 16
+VIT_PROFILE_STEPS = 3
+NATIVE_DECODE_IMAGES = 64
 
 
 def emit(obj):
@@ -138,11 +174,14 @@ def time_ms(fn):
     issued, from ``torch.profiler`` over TIMED_RUNS calls after warm-up
     (the kernel's own time, without host launch overhead): the median
     call when each call issues one device activity, else the mean; ``wall_ms`` is
-    CUDA events around the same run of calls, divided by the count. Where
-    the profiler's trace is incomplete (no device time, fewer device
-    activities than calls, or a count that is not a multiple of the
-    calls: it has been seen to drop events on the card), ``device_ms``
-    falls back to ``wall_ms`` and ``timer`` says so."""
+    CUDA events around the same run of calls, divided by the count. The
+    profiler has been seen to drop events on the card: a trace with no
+    device time, or a count of device activities that is not a multiple
+    of the calls, is incomplete, and the profiled window runs again, up
+    to PROFILE_ATTEMPTS times. If every trace is incomplete, ``device_ms``
+    is ``wall_ms`` and ``timer`` says ``'cuda-events (not a kernel
+    time)'``: the host's launch rate bounds that number, so it is never
+    reported as a kernel's time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -156,18 +195,22 @@ def time_ms(fn):
     end.record()
     end.synchronize()
     wall_ms = start.elapsed_time(end) / TIMED_RUNS
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(TIMED_RUNS):
-            fn()
-        torch.cuda.synchronize()
-    device_us = [e.device_time_total for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-    if not sum(device_us) or len(device_us) % TIMED_RUNS:
-        return wall_ms, wall_ms, 'cuda-events'
-    if len(device_us) == TIMED_RUNS:
-        # one device activity per call: the median call
-        return statistics.median(device_us) / 1e3, wall_ms, 'torch.profiler median'
-    return sum(device_us) / TIMED_RUNS / 1e3, wall_ms, 'torch.profiler mean'
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TIMED_RUNS):
+                fn()
+            torch.cuda.synchronize()
+        device_us = [e.device_time_total for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+        if not sum(device_us) or len(device_us) % TIMED_RUNS:
+            continue
+        tried = '' if attempt == 1 else ' (trace %d of %d)' % (attempt, PROFILE_ATTEMPTS)
+        if len(device_us) == TIMED_RUNS:
+            # one device activity per call: the median call
+            return (statistics.median(device_us) / 1e3, wall_ms,
+                    'torch.profiler median' + tried)
+        return sum(device_us) / TIMED_RUNS / 1e3, wall_ms, 'torch.profiler mean' + tried
+    return wall_ms, wall_ms, 'cuda-events (not a kernel time)'
 
 
 def bf16_ulp_distance(a, b):
@@ -205,15 +248,59 @@ def ptxas_by_kernel(log):
     return out
 
 
+def probe_image_stack():
+    """What the machine offers for image decode: cv2, the headers the
+    native decoders and a CPython extension would need, and the image
+    libraries ``ldconfig`` knows."""
+    import sysconfig
+    try:
+        import cv2
+        cv2_version = cv2.__version__
+    except ImportError:
+        cv2_version = None
+    include_dirs = ('/usr/include', '/usr/local/include', '/usr/include/x86_64-linux-gnu')
+    headers = {h: any(os.path.exists(os.path.join(d, h)) for d in include_dirs)
+               for h in ('jpeglib.h', 'png.h', 'zlib.h')}
+    headers['Python.h'] = os.path.exists(os.path.join(sysconfig.get_paths()['include'],
+                                                       'Python.h'))
+    ldconfig = shutil.which('ldconfig') or '/sbin/ldconfig'
+    listing = (subprocess.run([ldconfig, '-p'], capture_output=True, text=True).stdout
+               if os.path.exists(ldconfig) else '')
+    libraries = {lib: sorted({line.split()[0] for line in listing.splitlines()
+                              if line.strip().startswith(lib)})
+                 for lib in ('libjpeg', 'libpng', 'libz.')}
+    return {'cv2': cv2_version, 'headers': headers, 'ldconfig': libraries}
+
+
+def image_codec_for(status, probe):
+    """The ViT data's image codec: JPEG where libjpeg's decoder built and
+    cv2 can encode, else PNG (zlib's decoder), else raw ``.npy`` cells."""
+    if probe['cv2'] and status['jpeg_batch'] == 'live':
+        return 'jpeg'
+    if probe['cv2'] and status['png_batch'] == 'live':
+        return 'png'
+    return 'npy'
+
+
 def phase_build():
+    from petastorm_tpu_torch import native
     from petastorm_tpu_torch.ops import build
     sources = sorted(f[:-3] for f in os.listdir(build.CSRC_DIR) if f.endswith('.cu'))
     t0 = time.perf_counter()
-    build.build(sources)
+    try:
+        build.build(sources + list(native.DECODERS))
+    except RuntimeError:
+        # a host decoder may lack its library; every kernel must build
+        if not all(os.path.exists(build.library_path(name)) for name in sources):
+            raise
+    status = native.load_all()
+    probe = probe_image_stack()
     logs = {name: entry['log'] for name, entry in build.build_log.items()}
     kernels = {k: v for log in logs.values() for k, v in ptxas_by_kernel(log).items()}
     emit({'phase': 'build', 'card': card_line(), 'sources': sources,
           'build_s': time.perf_counter() - t0, 'ptxas_by_kernel': kernels,
+          'native_decoders': status, 'probe': probe,
+          'image_codec': image_codec_for(status, probe),
           'warnings': {name: [line for line in log.splitlines() if 'warning' in line.lower()]
                        for name, log in logs.items()}})
     # the tensor-core kernels keep their accumulators in registers, and
@@ -224,6 +311,12 @@ def phase_build():
     serialized = [line for log in logs.values() for line in log.splitlines()
                   if 'wgmma' in line and 'serializ' in line.lower()]
     assert not serialized, serialized
+    # a decoder whose headers are here must have built
+    expected = {'npy_batch': True, 'jpeg_batch': probe['headers']['jpeglib.h'],
+                'png_batch': probe['headers']['zlib.h']}
+    missing = [name for name, want in expected.items() if want and status[name] != 'live']
+    assert not missing, (missing, status)
+    return status, probe
 
 
 def phase_kernel():
@@ -537,6 +630,8 @@ def _kernel_kind(name):
     for kernel in FLASH_KERNELS:
         if kernel + '_kernel' in name:
             return kernel
+    if 'normalize_u8_kernel' in name:
+        return 'normalize_images'
     low = name.lower()
     if any(tag in low for tag in ('gemm', 'xmma', 'nvjet', 'cublas', 'cutlass')):
         return 'matmul (cuBLAS)'
@@ -547,41 +642,29 @@ def _kernel_kind(name):
     return 'other (elementwise, norms, softmax, loss)'
 
 
-def phase_lm_profile():
-    """Where a flagship step's device time goes: ``torch.profiler`` over
-    ``LM_PROFILE_STEPS`` train steps (after 2 warm-up steps) of the same
-    model on one packed batch, device time summed by kind, and the
-    device's idle share of its window (profiling adds host work, so the
-    share is an upper bound)."""
+def profile_steps(phase, run_step, steps):
+    """Where a train step's device time goes: ``torch.profiler`` over
+    ``steps`` calls of ``run_step`` (after 2 warm-up calls), device time
+    summed by kind, and the device's idle share of its window (profiling
+    adds host work, so the share is an upper bound). Fails unless every
+    flash kernel the step ran is a tensor-core (``wgmma``) one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
-    from petastorm_tpu_torch.models.transformer import (
-        TransformerConfig, init_transformer, transformer_train_step,
-    )
-    config = TransformerConfig(max_seq_len=LM_SEQ, loss_chunk=256, attn_impl='flash',
-                               **FLAGSHIP_LM_KW)
-    model = init_transformer(0, config, 'cuda')
-    step = transformer_train_step(model, torch.optim.AdamW(
-        model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4))
-    gen = torch.Generator(device='cuda').manual_seed(0)
-    tokens = torch.randint(2, config.vocab_size, (LM_BATCH, LM_SEQ + 1), generator=gen,
-                           device='cuda', dtype=torch.int32)
     for _ in range(2):
-        step(tokens)
+        run_step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(LM_PROFILE_STEPS):
-            step(tokens)
+        for _ in range(steps):
+            run_step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / LM_PROFILE_STEPS
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     kinds = {}
     spans = []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             kind = _kernel_kind(e.name)
-            kinds[kind] = kinds.get(kind, 0.0) + e.device_time_total / 1e3 / LM_PROFILE_STEPS
+            kinds[kind] = kinds.get(kind, 0.0) + e.device_time_total / 1e3 / steps
             spans.append((e.time_range.start, e.time_range.end))
     assert spans, 'the profiler saw no device time'
     # busy = the union of the device activities' intervals, over the
@@ -597,16 +680,36 @@ def phase_lm_profile():
                                    if e.device_type == DeviceType.CUDA
                                    and _kernel_kind(e.name) == kernel})
                    for kernel in FLASH_KERNELS}
-    emit({'phase': 'lm_profile', 'steps': LM_PROFILE_STEPS, 'step_wall_ms': wall_ms,
-          'device_window_ms_per_step': window_us / 1e3 / LM_PROFILE_STEPS,
-          'device_busy_ms_per_step': busy_us / 1e3 / LM_PROFILE_STEPS,
-          'idle_share': 1 - busy_us / window_us,
-          'device_ms_per_step': dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
-          'share_of_device_time': {k: v / sum(kinds.values()) for k, v in kinds.items()},
-          'flash_kernel_names': flash_names})
+    result = {'phase': phase, 'steps': steps, 'step_wall_ms': wall_ms,
+              'device_window_ms_per_step': window_us / 1e3 / steps,
+              'device_busy_ms_per_step': busy_us / 1e3 / steps,
+              'idle_share': 1 - busy_us / window_us,
+              'device_ms_per_step': dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
+              'share_of_device_time': {k: v / sum(kinds.values()) for k, v in kinds.items()},
+              'flash_kernel_names': flash_names}
+    emit(result)
     # the bf16 step runs each flash kernel's tensor-core instance
     for kernel, names in flash_names.items():
         assert names and all('_wgmma' in n for n in names), (kernel, names)
+    return result
+
+
+def phase_lm_profile():
+    """Where a flagship step's device time goes (``profile_steps``), on one
+    packed batch."""
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
+    from petastorm_tpu_torch.models.transformer import (
+        TransformerConfig, init_transformer, transformer_train_step,
+    )
+    config = TransformerConfig(max_seq_len=LM_SEQ, loss_chunk=256, attn_impl='flash',
+                               **FLAGSHIP_LM_KW)
+    model = init_transformer(0, config, 'cuda')
+    step = transformer_train_step(model, torch.optim.AdamW(
+        model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4))
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    tokens = torch.randint(2, config.vocab_size, (LM_BATCH, LM_SEQ + 1), generator=gen,
+                           device='cuda', dtype=torch.int32)
+    profile_steps('lm_profile', lambda: step(tokens), LM_PROFILE_STEPS)
 
 
 def phase_reference(url):
@@ -671,6 +774,207 @@ def phase_main_path(url):
     return launches['normalize_images']
 
 
+def phase_native_decode(status):
+    """Each native decoder that built, against the per-cell path on cells
+    encoded here at the ViT's image shape: ``np.load`` for ``.npy``, cv2
+    for PNG and JPEG (the decoder in fancy upsampling, where libjpeg is
+    bit-identical to cv2); byte for byte. Rates in images/s, best of 3
+    passes, at 1 thread and at the threads knob's default."""
+    import numpy as np
+    from petastorm_tpu_torch import native
+    from petastorm_tpu_torch.codecs import (
+        CompressedImageCodec, NdarrayCodec, image_decoder_threads,
+    )
+    from petastorm_tpu_torch.examples.imagenet import imagenet_like_rows
+    from petastorm_tpu_torch.unischema import UnischemaField
+    images = [image for image, _ in imagenet_like_rows(NATIVE_DECODE_IMAGES, seed=0)]
+    shape = images[0].shape
+    threads = image_decoder_threads()
+    results = {}
+    for library in native.DECODERS:
+        if status[library] != 'live':
+            results[library] = {'status': status[library]}
+            continue
+        kind = library.split('_')[0]
+        codec = NdarrayCodec() if kind == 'npy' else CompressedImageCodec(kind, quality=90)
+        field = UnischemaField('image', np.uint8, shape, codec, False)
+        cells = native.PackedCells.from_cells([bytes(codec.encode(field, im)) for im in images])
+        if kind == 'npy':
+            def decode(out, n_threads):
+                return native.decode_npy_batch(cells, out, '|u1', "'shape': %r" % (shape,),
+                                               n_threads)
+        elif kind == 'png':
+            def decode(out, n_threads):
+                return native.decode_png_batch(cells, out, n_threads)
+        else:
+            def decode(out, n_threads):
+                return native.decode_jpeg_batch(cells, out, 1, n_threads)
+        t0 = time.perf_counter()
+        want = np.stack([codec.decode(field, cell) for cell in cells])
+        per_cell_s = time.perf_counter() - t0
+        rates = {}
+        for n_threads in (1, threads):
+            best = None
+            for _ in range(3):
+                out = np.empty((len(images),) + shape, np.uint8)
+                t0 = time.perf_counter()
+                done = decode(out, n_threads)
+                elapsed = time.perf_counter() - t0
+                best = elapsed if best is None else min(best, elapsed)
+                assert done == len(images), (library, done)
+                assert np.array_equal(out, want), (library, n_threads)
+            rates['threads_%d' % n_threads] = len(images) / best
+        results[library] = {'status': 'live', 'images': len(images), 'shape': list(shape),
+                            'encoded_bytes_per_image': cells.nbytes / len(images),
+                            'byte_exact_vs_per_cell': True,
+                            'images_per_s': rates,
+                            'per_cell_images_per_s': len(images) / per_cell_s}
+    emit({'phase': 'native_decode', 'threads_default': threads,
+          'reference': 'per cell: np.load (npy), cv2.imdecode (png, jpeg); jpeg in fancy mode',
+          'decoders': results})
+
+
+def write_vit_dataset(url, image_codec):
+    from petastorm_tpu_torch.examples.imagenet import generate_imagenet_like
+    t0 = time.perf_counter()
+    generate_imagenet_like(url, num_rows=VIT_ROWS, size=384, image_codec=image_codec)
+    emit({'phase': 'write', 'dataset': 'imagenet_like_384', 'rows': VIT_ROWS,
+          'image_codec': image_codec, 'rowgroup_rows': 64,
+          'seconds': time.perf_counter() - t0})
+
+
+def phase_image_reference(url, image_codec):
+    """The card loader (encoded cells decoded straight into its pinned
+    slots) against the CPU loader decoding on the workers, batch for batch
+    on the dummy pool, byte for byte; then ViT-Base width with 2 layers in
+    f32 (TF32 off, flash attention, a random head): logits and the
+    ``blocks.0.qkv`` loss gradient on the card (kernels) against the CPU
+    (plain versions)."""
+    import copy
+    import numpy as np
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    from petastorm_tpu_torch.examples.imagenet import VIT_BASE_KW
+    from petastorm_tpu_torch.models.vit import ViTConfig, init_vit, vit_forward, vit_loss
+    count = 8
+
+    def batches(device, defer):
+        with make_torch_loader(url, batch_size=VIT_BATCH, fields=['^image$', '^label$'],
+                               device=device, reader_pool_type='dummy',
+                               shuffle_row_groups=False, defer_image_decode=defer) as loader:
+            # all batches held: a recycled slot must not touch a held batch
+            held = [b for _, b in zip(range(count), loader)]
+            return held, loader.diagnostics
+
+    on_card, card_diag = batches('cuda', True)
+    on_host, host_diag = batches('cpu', False)
+    torch.cuda.synchronize()
+    assert all(t.is_cuda for b in on_card for t in b.values())
+    for a, b in zip(on_card, on_host):
+        assert sorted(a) == sorted(b)
+        for name in a:
+            assert torch.equal(a[name].cpu(), b[name]), name
+    want_mode = 'batched' if image_codec == 'npy' else 'fused-into-slot'
+    assert card_diag['fused_decode_mode'] == want_mode, card_diag
+    assert host_diag['fused_decode_mode'] == 'batched', host_diag
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = ViTConfig(**dict(VIT_BASE_KW, n_layers=2), attn_impl='flash',
+                       dtype=torch.float32)
+    model = init_vit(0, config, 'cpu')
+    with torch.no_grad():
+        model.head.copy_(torch.randn(model.head.shape, generator=torch.Generator().manual_seed(1))
+                         * 0.02)
+    images = (on_host[0]['image'][:2].float() / 255.0)
+    labels = on_host[0]['label'][:2]
+    out = {}
+    for device in ('cpu', 'cuda'):
+        m = copy.deepcopy(model).to(device)
+        with torch.no_grad():
+            logits = vit_forward(m, images.to(device))
+        vit_loss(m, images.to(device), labels.to(device)).backward()
+        out[device] = (logits.cpu(), m.blocks[0].qkv.grad.cpu())
+    (want, want_grad), (got, got_grad) = out['cpu'], out['cuda']
+    logits_err = float((got - want).abs().max())
+    grad_err = float((got_grad - want_grad).abs().max() / want_grad.abs().max())
+    emit({'phase': 'image_reference', 'image_codec': image_codec,
+          'loader_batches_compared': len(on_card), 'loader_equal': True,
+          'card_fused_decode_mode': card_diag['fused_decode_mode'],
+          'card_fused_decode_rows': card_diag['fused_decode_rows'],
+          'host_fused_decode_mode': host_diag['fused_decode_mode'],
+          'model': 'ViT-Base width, 2 layers, f32, flash, 2 images',
+          'logits_shape': list(got.shape), 'logits_max_abs_err': logits_err,
+          'logits_max_abs': float(want.abs().max()),
+          'logits_tolerance': 'atol 1e-4 (f32, TF32 off)',
+          'grad': 'blocks.0.qkv', 'grad_err_over_max_abs': grad_err,
+          'grad_tolerance': 'max-abs err / max|grad| <= 1e-4'})
+    assert torch.isfinite(got).all() and got.shape == (2, 1000)
+    assert logits_err <= 1e-4, logits_err
+    assert grad_err <= 1e-4, grad_err
+
+
+def phase_vit_path(url, image_codec):
+    from petastorm_tpu_torch import native
+    from petastorm_tpu_torch.examples.imagenet import VIT_BASE_KW, train_vit_fused
+    from petastorm_tpu_torch.telemetry import get_registry, reset_registry
+    reset_registry()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    result = train_vit_fused(url, steps=VIT_STEPS, batch_size=VIT_BATCH, device='cuda')
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    losses = result['losses']
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    diag = result['diagnostics']
+    decoded = {k: v for k, v in get_registry().snapshot()['counters'].items()
+               if k.startswith(native.DECODED_CELLS)}
+    emit({'phase': 'vit_path', 'model': VIT_BASE_KW, 'image_codec': image_codec,
+          'steps': len(losses), 'batch_size': VIT_BATCH,
+          'attention_positions': 1024, 'causal': False, 'launches': launches,
+          'batch_devices': result['batch_devices'], 'losses': losses,
+          'loss_first5_mean': first, 'loss_last5_mean': last,
+          'images_per_s': result['images_per_s'], 'steps_per_s': result['steps_per_s'],
+          'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+          'fused_decode_mode': diag['fused_decode_mode'],
+          'fused_decode_rows': diag['fused_decode_rows'],
+          'native_decoded_cells': decoded,
+          'consumer_wait_s': diag['consumer_wait_s'],
+          'stage_backpressure_s': diag['stage_backpressure_s'],
+          'stage_seconds': stage_seconds()})
+    assert len(losses) == VIT_STEPS
+    assert all(math.isfinite(v) for v in losses), losses
+    assert last < first, (first, last)
+    assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
+    assert launches['normalize_images'] == VIT_STEPS, launches
+    want = VIT_BASE_KW['n_layers'] * VIT_STEPS
+    for name in FLASH_KERNELS:
+        assert launches[name] == want, (name, launches[name], want)
+    library = {'jpeg': 'jpeg_batch', 'png': 'png_batch', 'npy': 'npy_batch'}[image_codec]
+    key = '%s{library="%s"}' % (native.DECODED_CELLS, library)
+    # the path decoded every staged row with the native decoder it expects
+    assert decoded.get(key, 0) >= VIT_STEPS * VIT_BATCH, decoded
+    if image_codec != 'npy':
+        assert diag['fused_decode_mode'] == 'fused-into-slot', diag
+    return launches
+
+
+def phase_vit_profile():
+    """Where a ViT-Base step's device time goes (``profile_steps``): flips,
+    cutout and the normalize kernel on one uint8 batch on the card, then
+    the train step."""
+    from petastorm_tpu_torch.examples.imagenet import VIT_BASE_KW, _adamw, _prepare
+    from petastorm_tpu_torch.models.vit import ViTConfig, init_vit, vit_train_step
+    config = ViTConfig(attn_impl='flash', **VIT_BASE_KW)
+    model = init_vit(0, config, 'cuda')
+    step = vit_train_step(model, _adamw(model, 1e-3))
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    images = torch.randint(0, 256, (VIT_BATCH, 384, 384, 3), generator=gen, device='cuda',
+                           dtype=torch.uint8)
+    labels = torch.randint(0, 1000, (VIT_BATCH,), generator=gen, device='cuda')
+    profile_steps('vit_profile', lambda: step(_prepare(images, gen, True, 48), labels),
+                  VIT_PROFILE_STEPS)
+
+
 def write_lm_dataset(url):
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, generate_c4_like
     from petastorm_tpu_torch.reader import make_batch_reader
@@ -683,6 +987,10 @@ def write_lm_dataset(url):
           'tokens': tokens, 'seconds': seconds})
 
 
+def _launches_by_path(name, paths):
+    return {path: counts[name] for path, counts in paths.items() if name in counts}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False',
@@ -690,10 +998,13 @@ def main():
         return 2
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    phase_build()
+    status, probe = phase_build()
+    image_codec = image_codec_for(status, probe)
     kernel = phase_kernel()
     flash = phase_flash_kernel()
+    phase_native_decode(status)
     from petastorm_tpu_torch.examples.mnist import generate_synthetic_mnist
+    paths = {}
     with tempfile.TemporaryDirectory() as tmp:
         url = 'file://' + os.path.join(tmp, 'mnist')
         t0 = time.perf_counter()
@@ -702,48 +1013,65 @@ def main():
         phase_reference(url)
         phase_lm_reference()
         phase_lm_reference_bf16()
-        normalize_launches = phase_main_path(url)
+        paths['main_path'] = {'normalize_images': phase_main_path(url)}
         lm_url = 'file://' + os.path.join(tmp, 'c4_like')
         write_lm_dataset(lm_url)
-        lm_launches = phase_lm_path(lm_url)
-    phase_lm_profile()
+        paths['lm_path'] = phase_lm_path(lm_url)
+        phase_lm_profile()
+        vit_url = 'file://' + os.path.join(tmp, 'imagenet_like')
+        write_vit_dataset(vit_url, image_codec)
+        phase_image_reference(vit_url, image_codec)
+        paths['vit_path'] = phase_vit_path(vit_url, image_codec)
+    phase_vit_profile()
+    # the headline numbers are this slice's path's: the ViT's shapes and
+    # launches; the earlier paths' shapes and launches stand beside them
+    vit_case = kernel[VIT_KERNEL_CASE]
     main_case = kernel[MAIN_PATH_CASE]
     kernels = [{
         'name': 'normalize_images', 'route': 'cuda',
         'source': 'petastorm_tpu_torch/csrc/normalize.cu',
-        'replaces': NORMALIZE_REPLACES, 'launches': normalize_launches,
-        'max_abs_err': main_case['max_abs_err'], 'ms': main_case['ms'],
-        'wall_ms': main_case['wall_ms'], 'timer': main_case['timer'],
-        'plain_ms': main_case['plain_ms'], 'bound_ms': main_case['bound_ms'],
-        'bound_by': main_case['bound_by'], 'library_ms': None,
-        'shape': main_case['shape'],
+        'replaces': NORMALIZE_REPLACES, 'launches': paths['vit_path']['normalize_images'],
+        'launches_by_path': _launches_by_path('normalize_images', paths),
+        'max_abs_err': vit_case['max_abs_err'], 'ms': vit_case['ms'],
+        'wall_ms': vit_case['wall_ms'], 'timer': vit_case['timer'],
+        'plain_ms': vit_case['plain_ms'], 'bound_ms': vit_case['bound_ms'],
+        'bound_by': vit_case['bound_by'], 'library_ms': None,
+        'shape': vit_case['shape'],
+        'mnist_bf16': {k: main_case[k] for k in ('shape', 'ms', 'wall_ms', 'timer', 'plain_ms',
+                                                'bound_ms', 'max_abs_err')},
         'imagenet_bf16': {k: kernel['imagenet_bf16'][k]
-                          for k in ('ms', 'wall_ms', 'plain_ms', 'bound_ms',
+                          for k in ('ms', 'wall_ms', 'timer', 'plain_ms', 'bound_ms',
                                     'max_abs_err')},
     }]
-    flash_case = flash[FLASH_MAIN_CASE]
     for name, (_, key, outputs, replaces) in FLASH_KERNELS.items():
-        timing = flash_case['kernels'][key]
-        kernels.append({
-            'name': name, 'route': 'cuda',
-            # bf16 runs the tensor-core instances (lm_profile checks their names)
-            'instruction': 'wgmma',
-            'source': 'petastorm_tpu_torch/csrc/flash_attention.cu',
-            'replaces': replaces, 'launches': lm_launches[name],
-            'max_abs_err': max(flash_case['errors'][g]['max_abs_err'] for g in outputs),
-            'ms': timing['ms'], 'wall_ms': timing['wall_ms'], 'timer': timing['timer'],
-            'plain_ms': timing['plain_ms'], 'bound_ms': timing['bound_ms'],
-            'bound_by': timing['bound_by'],
-            # SDPA's forward for the forward; SDPA's backward, which makes
-            # dQ, dK and dV together, for the dK/dV + dQ pair
-            'library_ms': flash_case['sdpa_fwd_ms' if name == 'flash_fwd' else 'sdpa_bwd_ms'],
-            'library_call': ('scaled_dot_product_attention forward' if name == 'flash_fwd'
-                             else 'scaled_dot_product_attention backward (dQ, dK, dV)'),
-            'sdpa_fwd_ms': flash_case['sdpa_fwd_ms'],
-            'sdpa_bwd_ms': flash_case['sdpa_bwd_ms'],
-            'sdpa_fwd_bwd_ms': flash_case['sdpa_fwd_bwd_ms'],
-            'shape': flash_case['shape'], 'dtype': flash_case['dtype'], 'causal': True,
-        })
+        entry = {'name': name, 'route': 'cuda',
+                 # bf16 runs the tensor-core instances (the profiles check their names)
+                 'instruction': 'wgmma',
+                 'source': 'petastorm_tpu_torch/csrc/flash_attention.cu',
+                 'replaces': replaces, 'launches': paths['vit_path'][name],
+                 'launches_by_path': _launches_by_path(name, paths)}
+        for label, case in ((VIT_FLASH_CASE, flash[VIT_FLASH_CASE]),
+                            (FLASH_MAIN_CASE, flash[FLASH_MAIN_CASE])):
+            timing = case['kernels'][key]
+            numbers = {
+                'max_abs_err': max(case['errors'][g]['max_abs_err'] for g in outputs),
+                'ms': timing['ms'], 'wall_ms': timing['wall_ms'], 'timer': timing['timer'],
+                'plain_ms': timing['plain_ms'], 'bound_ms': timing['bound_ms'],
+                'bound_by': timing['bound_by'],
+                # SDPA's forward for the forward; SDPA's backward, which
+                # makes dQ, dK and dV together, for the dK/dV + dQ pair
+                'library_ms': case['sdpa_fwd_ms' if name == 'flash_fwd' else 'sdpa_bwd_ms'],
+                'library_call': ('scaled_dot_product_attention forward' if name == 'flash_fwd'
+                                 else 'scaled_dot_product_attention backward (dQ, dK, dV)'),
+                'sdpa_fwd_ms': case['sdpa_fwd_ms'], 'sdpa_bwd_ms': case['sdpa_bwd_ms'],
+                'sdpa_fwd_bwd_ms': case['sdpa_fwd_bwd_ms'],
+                'shape': case['shape'], 'dtype': case['dtype'], 'causal': case['causal'],
+            }
+            if label == VIT_FLASH_CASE:
+                entry.update(numbers)
+            else:
+                entry[label] = numbers
+        kernels.append(entry)
     emit({'kernels': kernels, 'seconds': time.perf_counter() - t_start})
     print(card_line(), flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',

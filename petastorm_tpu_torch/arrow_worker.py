@@ -3,22 +3,39 @@
 Counterpart of ``petastorm_tpu/arrow_worker.py``. Per ventilated item:
 row-group read → shuffle-row-drop partition → codec decode of the kept
 rows → hive partition columns → TransformSpec → publish a
-:class:`ColumnBatch`. Predicates, caches, NGrams, readahead, fused decode
-and fault injection wait for their roadmap items (the Reader refuses them
-before a worker starts).
+:class:`ColumnBatch`. Binary codec columns reach the codecs as zero-copy
+views of the Arrow buffers, so fixed-shape ``NdarrayCodec`` and image
+columns decode in one native call per row-group; when the consumer
+deferred decode, eligible image columns travel still encoded
+(:mod:`petastorm_tpu_torch.fused`). Predicates, caches, NGrams,
+readahead and fault injection wait for their roadmap items (the Reader
+refuses them before a worker starts).
 """
 
+import logging
 from collections import OrderedDict
 
 import numpy as np
 import pyarrow.parquet as pq
 
-from petastorm_tpu_torch.codecs import decode_batch_with_nulls
+from petastorm_tpu_torch.codecs import (
+    CompressedImageCodec, NdarrayCodec, decode_batch_with_nulls,
+)
+from petastorm_tpu_torch.fused import EncodedImageColumn, alloc_column_slab, count_fallback
+from petastorm_tpu_torch.native import PackedCells, binary_cells
 from petastorm_tpu_torch.telemetry import span
 from petastorm_tpu_torch.workers.worker_base import WorkerBase
 
+logger = logging.getLogger(__name__)
+
 #: bound on the per-worker memo of open parquet files
 _PARQUET_FILE_CACHE_MAX = 64
+
+
+def defer_config_ok(transform_spec):
+    """Whether workers may defer image decode: not when a TransformSpec
+    needs the pixels on the worker (the Reader counts the decline once)."""
+    return transform_spec is None
 
 
 def typed_partition_value(field, value):
@@ -59,7 +76,7 @@ class ColumnBatch:
 class RowGroupWorker(WorkerBase):
     """Args (dict): dataset_info, loaded_schema (stored fields to read and
     decode), schema (output schema after the TransformSpec),
-    stored_schema, transform_spec, row_groups."""
+    stored_schema, transform_spec, row_groups, defer_image_decode."""
 
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
@@ -69,6 +86,8 @@ class RowGroupWorker(WorkerBase):
         self._stored_schema = args['stored_schema']
         self._transform_spec = args.get('transform_spec')
         self._row_groups = args['row_groups']
+        self._defer_decode = (bool(args.get('defer_image_decode'))
+                              and defer_config_ok(self._transform_spec))
         self._parquet_files = OrderedDict()
 
     def process(self, piece_index, shuffle_row_drop_partition=(0, 1),
@@ -141,8 +160,16 @@ class RowGroupWorker(WorkerBase):
     def _decode_column(self, name, arrow_col):
         """Arrow column → decoded numpy values: scalars to typed arrays,
         strings to unicode arrays, codec cells through the codec; uniform
-        shapes stack to ``(n,) + shape``, ragged values stay object arrays."""
+        shapes stack to ``(n,) + shape``, ragged values stay object arrays.
+        ``NdarrayCodec`` and image cells go to the codec as zero-copy views
+        of the Arrow buffers (one batched native call for a fixed shape)."""
         field = self._loaded_schema.fields.get(name) or self._stored_schema.fields.get(name)
+        if field is not None and isinstance(field.codec, (CompressedImageCodec, NdarrayCodec)):
+            cells = binary_cells(arrow_col)
+            if cells is not None:
+                if isinstance(field.codec, CompressedImageCodec):
+                    return self._image_column(field, cells, arrow_col)
+                return self._stack(decode_batch_with_nulls(field, cells))
         values = arrow_col.to_pylist()
         if field is not None and field.codec is not None:
             return self._stack(decode_batch_with_nulls(field, values))
@@ -159,6 +186,27 @@ class RowGroupWorker(WorkerBase):
                 and not any(v is None for v in values)):
             out = out.astype(field.numpy_dtype)
         return out
+
+    def _image_column(self, field, cells, arrow_col):
+        """One image column of one row-group: deferred (an
+        :class:`EncodedImageColumn` for the staging fill), decoded into a
+        page-aligned slab in one batched call, or per cell."""
+        dense_ok = field.shape and not any(d is None for d in field.shape) \
+            and isinstance(cells, PackedCells)
+        dtype = np.dtype(field.numpy_dtype)
+        if self._defer_decode:
+            if dense_ok and dtype.kind in 'iuf':
+                return EncodedImageColumn(field, cells, owner=arrow_col)
+            count_fallback('column-shape')
+        if dense_ok:
+            try:
+                return decode_batch_with_nulls(
+                    field, cells, out=alloc_column_slab((len(cells),) + tuple(field.shape),
+                                                        dtype))
+            except Exception:  # noqa: BLE001 - the slab path is an accelerator
+                logger.debug('Dense slab image decode failed; falling back to the per-cell '
+                             'path', exc_info=True)
+        return self._stack(decode_batch_with_nulls(field, cells))
 
     @staticmethod
     def _stack(items):

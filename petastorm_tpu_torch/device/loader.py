@@ -5,7 +5,10 @@ Counterpart of ``petastorm_tpu/jax/loader.py``. Decoded column batches are
 re-batched to a fixed size, optionally row-shuffled, cast per a dtype
 policy and staged onto the device by a background thread through the
 pinned slot ring of :mod:`petastorm_tpu_torch.device.staging`, ``prefetch``
-batches ahead of the consumer. Checkpoints are delivery-accurate: a
+batches ahead of the consumer. When it can (no row shuffle, the slot ring
+on), the loader asks the reader to leave fixed-shape image columns encoded
+and the staging fill decodes them straight into the pinned slot's rows
+(:mod:`petastorm_tpu_torch.fused`). Checkpoints are delivery-accurate: a
 row-group counts as consumed only once every one of its rows reached the
 consumer.
 
@@ -22,6 +25,7 @@ import time
 import numpy as np
 import torch
 
+from petastorm_tpu_torch import fused
 from petastorm_tpu_torch.device import staging
 from petastorm_tpu_torch.errors import unported
 from petastorm_tpu_torch.telemetry import (
@@ -91,6 +95,11 @@ def make_torch_loader(dataset_url_or_urls, batch_size, fields=None,
         raise unported('make_torch_loader(mixture=)', 7)
     device = resolve_device(device)
     from petastorm_tpu_torch.reader import make_batch_reader
+    # the fused-decode hand-shake: ask for encoded image cells whenever this
+    # loader's batch path can decode them into its staging buffers; other
+    # cases materialize them in the loader, so asking is never a bet
+    reader_kwargs.setdefault('defer_image_decode',
+                             not shuffle_rows and staging.staging_enabled())
     reader = make_batch_reader(dataset_url_or_urls, schema_fields=fields,
                                num_epochs=num_epochs, **reader_kwargs)
     try:
@@ -155,6 +164,9 @@ class TorchLoader:
         self._consumer_wait_s = 0.0
         self._stage_blocked_s = 0.0
         self._batches_delivered = 0
+        # the reason this loader last decoded a deferred column itself
+        # instead of letting the staging fill fuse it (None: never)
+        self._fused_fallback = None
 
     # -- iteration -----------------------------------------------------------
 
@@ -216,9 +228,11 @@ class TorchLoader:
             with self._drain_lock:
                 self._leftovers = []
         self._produce_done = threading.Event()
+        self._staging_on = staging.staging_enabled()
         self._stager = staging.StagingEngine(
-            self._batch_size, self._dtypes, self._last_batch, self._target,
-            num_slots=staging.staging_slots())
+            self._batch_size, self._dtypes, self._last_batch,
+            self._target if self._staging_on else None,
+            num_slots=staging.staging_slots(), device=self._device)
         self._out_queue = queue.Queue(maxsize=self._prefetch)
         self._stage_thread = threading.Thread(target=self._stage_loop, daemon=True)
         self._stage_thread.start()
@@ -354,6 +368,7 @@ class TorchLoader:
             with context:
                 buf = self._make_buffer()
                 for columns in self._pull_batches():
+                    columns = self._materialize_encoded(columns)
                     with span('collate'):
                         buf.add_many(columns)
                     while buf.can_retrieve:
@@ -374,6 +389,48 @@ class TorchLoader:
             # set happens-before put: see __iter__'s boundary probe
             self._produce_done.set()
             self._put_blocking(_SENTINEL_END)
+
+    def _materialize_encoded(self, columns):
+        """Decode the deferred image columns this pass cannot fuse: the
+        slot ring is off, rows are shuffled (the random buffer gathers
+        decoded rows), or a ``dtypes=`` cast retargets the column (the
+        fill writes the codec's dtype only). Still one batched decode per
+        column; each decline is counted by reason."""
+        out = None
+        for name, column in columns.items():
+            if not isinstance(column, fused.EncodedImageColumn):
+                continue
+            if not self._staging_on:
+                reason = 'staging-off'
+            elif self._shuffle_rows:
+                reason = 'shuffled-rows'
+            else:
+                # a device cast (bf16) applies after the copy, so the slot
+                # keeps the codec's dtype and the fill still fuses
+                host_cast = staging.resolve_cast_policy(
+                    {name: self._dtypes[name]} if name in self._dtypes else {})[0].get(name)
+                if host_cast is None or host_cast == column.dtype:
+                    continue  # fusable: the staging fill decodes it
+                reason = 'dtype-cast'
+            if out is None:
+                out = dict(columns)
+            with span('decode'):
+                out[name] = column.materialize()
+            fused.count_fallback(reason)
+            self._fused_fallback = reason
+        return out if out is not None else columns
+
+    def _fused_decode_mode(self):
+        """Where image decode ran this pass: ``'fused-into-slot'`` (the
+        pinned slot ring), ``'fused-into-slab'`` (fresh assembly),
+        ``'batched'`` (worker-side or loader-materialized batch decode), or
+        ``'pending'`` before the first delivery says which."""
+        stager = self._stager
+        if stager is not None and stager.fused_rows:
+            return stager.fused_mode
+        if self._fused_fallback is not None or self._batches_delivered:
+            return 'batched'
+        return 'pending'
 
     def _retrieve_and_emit(self, buf):
         """One batch out of ``buf``: the noop re-batcher hands out chunk
@@ -447,7 +504,11 @@ class TorchLoader:
             'pulls_in_flight': len(self._pull_info),
             'staging_slots_allocated': (self._stager.slabs_allocated
                                         if self._stager is not None else 0),
+            'fused_decode_mode': self._fused_decode_mode(),
+            'fused_decode_rows': self._stager.fused_rows if self._stager is not None else 0,
         })
+        if self._fused_fallback is not None:
+            diag['fused_decode_fallback'] = self._fused_fallback
         return diag
 
     def state_dict(self):

@@ -12,8 +12,14 @@ Counterpart of ``petastorm_tpu/jax/staging.py``. Two strategies, by target:
   on the batch's event before use, and every device tensor is
   ``record_stream``-ed on the consumer stream so the caching allocator
   cannot hand its memory out early.
-* **Fresh assembly** (``device='cpu'``): every batch assembles into fresh
-  host buffers; nothing is reused, so a held batch is never overwritten.
+* **Fresh assembly** (``device='cpu'``, or ``PETASTORM_TPU_STAGING=0``):
+  every batch assembles into fresh host buffers, copied to a CUDA device
+  with a plain ``.to()``; nothing is reused, so a held batch is never
+  overwritten.
+
+Encoded image parts (:class:`~petastorm_tpu_torch.fused.EncodedImageColumn`)
+decode in the fill, straight into the slot's (or the fresh buffer's)
+rows, under the ``decode_fused`` span: the fused pass.
 
 Pinning and the completion event belong to the target
 (:class:`CudaTarget`), so the ring logic also runs on a CPU build of torch
@@ -30,7 +36,10 @@ import numpy as np
 import torch
 
 from petastorm_tpu_torch.errors import unported
-from petastorm_tpu_torch.telemetry import get_registry, knobs, metrics_disabled, span
+from petastorm_tpu_torch.fused import EncodedImageColumn, count_fallback
+from petastorm_tpu_torch.telemetry import (
+    FUSED_BYTES, FUSED_ROWS, get_registry, knobs, metrics_disabled, span,
+)
 
 #: registry counter: bytes handed to the device transfer path
 H2D_BYTES = 'petastorm_tpu_h2d_bytes_total'
@@ -44,6 +53,11 @@ _MIN_SLOTS = 2
 def staging_slots():
     """Ring depth from ``PETASTORM_TPU_STAGING_SLOTS`` (default and floor 2)."""
     return knobs.get_int('PETASTORM_TPU_STAGING_SLOTS', _MIN_SLOTS, floor=_MIN_SLOTS)
+
+
+def staging_enabled():
+    """False when ``PETASTORM_TPU_STAGING`` turns the pinned slot ring off."""
+    return not knobs.is_disabled('PETASTORM_TPU_STAGING')
 
 
 def torch_dtype_of(np_dtype, name=None):
@@ -169,18 +183,25 @@ class _Slot:
 
 class StagingEngine:
     """Per-pass staging engine; only the loader's staging thread calls
-    :meth:`stage`. ``target=None`` selects fresh assembly on the host."""
+    :meth:`stage`. ``target=None`` selects fresh assembly on the host, whose
+    batches move to ``device`` when that is a CUDA device."""
 
     def __init__(self, batch_size, dtypes, last_batch, target=None,
-                 num_slots=_MIN_SLOTS):
+                 num_slots=_MIN_SLOTS, device=None):
         self._batch_size = batch_size
         self._host_casts, self._device_casts = resolve_cast_policy(dtypes)
         self._last_batch = last_batch
         self._target = target
+        self._device = device
         self._num_slots = max(_MIN_SLOTS, num_slots)
         self._rings = {}            # signature -> (slots, [cursor])
         #: ring slots allocated (startup only in steady state)
         self.slabs_allocated = 0
+        #: rows decoded straight into staging buffers, and where:
+        #: ``'fused-into-slot'`` (the pinned ring) or ``'fused-into-slab'``
+        #: (fresh assembly)
+        self.fused_rows = 0
+        self.fused_mode = None
 
     def _resolve_dtypes(self, parts):
         """Per-field host dtype: the cast policy wins; otherwise mixed-dtype
@@ -226,7 +247,8 @@ class StagingEngine:
         no concatenated intermediate exists. Returns a :class:`Handoff`
         without waiting for the transfer."""
         parts = columns if isinstance(columns, list) else [columns]
-        parts = [{name: np.asarray(arr) for name, arr in p.items()} for p in parts]
+        parts = [{name: arr if isinstance(arr, EncodedImageColumn) else np.asarray(arr)
+                  for name, arr in p.items()} for p in parts]
         for p in parts:
             for name, arr in p.items():
                 check_deviceable(name, arr)
@@ -242,6 +264,8 @@ class StagingEngine:
                                if name in self._device_casts else t)
                         for name, t in host.items()}
             self._account(host)
+            if self._device is not None and self._device.type == 'cuda':
+                return Handoff({name: t.to(self._device) for name, t in host.items()})
             return Handoff(host)
         slot = self._next_slot(parts[0], dtype_map, with_mask)
         with span('h2d_ready'):
@@ -272,7 +296,10 @@ class StagingEngine:
                     raise ValueError(
                         'staging: field %r chunk of shape %s does not fit the '
                         'batch slot of shape %s' % (name, column.shape, dst.shape))
-                np.copyto(dst[offset:offset + m], column, casting='unsafe')
+                if isinstance(column, EncodedImageColumn):
+                    self._fill_fused(column, dst[offset:offset + m])
+                else:
+                    np.copyto(dst[offset:offset + m], column, casting='unsafe')
                 offset += m
             if with_mask and not full:
                 dst[n:] = 0
@@ -282,6 +309,24 @@ class StagingEngine:
             mask[n:] = False
             return self._batch_size
         return min(n, self._batch_size)
+
+    def _fill_fused(self, column, dst):
+        """Decode one encoded part into its destination rows. A slot of
+        another dtype (the loader materializes those first) decodes to a
+        scratch batch and cast-copies: a fallback, not counted as fused."""
+        if dst.dtype != column.dtype:
+            count_fallback('dtype-cast')
+            with span('decode'):
+                np.copyto(dst, column.materialize(), casting='unsafe')
+            return
+        with span('decode_fused'):
+            column.decode_into(dst)
+        self.fused_rows += len(column)
+        self.fused_mode = 'fused-into-slab' if self._target is None else 'fused-into-slot'
+        if not metrics_disabled():
+            registry = get_registry()
+            registry.counter(FUSED_ROWS).inc(len(column))
+            registry.counter(FUSED_BYTES).inc(dst.nbytes)
 
     def release(self):
         """Pass end: drop the slots (and their pinned memory)."""

@@ -18,7 +18,6 @@ class MetadataError(PetastormTpuError):
 
 #: ``ROADMAP.md`` Queue 1 items the port has not reached yet, by number
 ROADMAP_ITEMS = {
-    1: 'native C decoders and fused decode',
     3: 'caches, readahead, pushdown, filters and predicates, faults, sanitizer',
     4: 'pad_ragged, bucket_boundaries, inmemory_cache_all',
     5: 'mesh via torch.distributed',

@@ -120,6 +120,23 @@ class _Block(nn.Module):
         self.mlp_out = _param(c.d_ff, c.d_model)
 
 
+@torch.no_grad()
+def reset_block(block, c, generator):
+    """A block's weights as the JAX init scales them (``fan_in**-0.5``
+    normals, norm gains of one), drawn from ``generator``."""
+    def normal(p, scale):
+        p.copy_(torch.randn(p.shape, generator=generator) * scale)
+
+    normal(block.qkv, c.d_model ** -0.5)
+    normal(block.attn_out, c.d_model ** -0.5)
+    block.ln1.fill_(1.0)
+    block.ln2.fill_(1.0)
+    normal(block.mlp_in, c.d_model ** -0.5)
+    if c.ffn == 'swiglu':
+        normal(block.mlp_gate, c.d_model ** -0.5)
+    normal(block.mlp_out, c.d_ff ** -0.5)
+
+
 class Transformer(nn.Module):
     """The JAX model's parameter tree as an ``nn.Module``: ``embed``,
     ``pos_embed`` (learned positions only), ``lm_head``, ``ln_f`` and
@@ -151,14 +168,7 @@ class Transformer(nn.Module):
         normal(self.lm_head, 0.02)
         self.ln_f.fill_(1.0)
         for block in self.blocks:
-            normal(block.qkv, c.d_model ** -0.5)
-            normal(block.attn_out, c.d_model ** -0.5)
-            block.ln1.fill_(1.0)
-            block.ln2.fill_(1.0)
-            normal(block.mlp_in, c.d_model ** -0.5)
-            if c.ffn == 'swiglu':
-                normal(block.mlp_gate, c.d_model ** -0.5)
-            normal(block.mlp_out, c.d_ff ** -0.5)
+            reset_block(block, c, generator)
 
     def forward(self, tokens):
         """tokens ``(B, S)`` int → logits ``(B, S, V)`` f32."""

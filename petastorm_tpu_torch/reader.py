@@ -12,7 +12,7 @@ naming their ``ROADMAP.md`` item.
 import os
 import time
 
-from petastorm_tpu_torch.arrow_worker import RowGroupWorker
+from petastorm_tpu_torch.arrow_worker import RowGroupWorker, defer_config_ok
 from petastorm_tpu_torch.errors import NoDataAvailableError, unported
 from petastorm_tpu_torch.etl.dataset_metadata import (
     ParquetDatasetInfo, infer_or_load_unischema, load_row_groups,
@@ -55,6 +55,10 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
         ``n`` of the list goes to shard ``n % shard_count``.
     :param transform_spec: a :class:`~petastorm_tpu_torch.transform.TransformSpec`
         run on the workers.
+    :param defer_image_decode: workers hand fixed-shape image columns on
+        still encoded, as :class:`~petastorm_tpu_torch.fused.EncodedImageColumn`
+        (the torch loader asks for this and decodes them straight into its
+        staging slots); declined with a TransformSpec.
     """
     if predicate is not None:
         raise unported('make_batch_reader(predicate=)', 3)
@@ -64,8 +68,6 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
         raise unported('cache_type=%r' % (cache_type,), 3)
     if filters:
         raise unported('make_batch_reader(filters=)', 3)
-    if defer_image_decode:
-        raise unported('defer_image_decode=True', 1)
     if poison_policy is not None:
         raise unported('poison_policy=', 9)
     info = ParquetDatasetInfo(dataset_url_or_urls)
@@ -76,7 +78,7 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
                   num_epochs=num_epochs, cur_shard=cur_shard,
                   shard_count=shard_count, seed=seed,
-                  transform_spec=transform_spec)
+                  transform_spec=transform_spec, defer_image_decode=defer_image_decode)
 
 
 def _make_pool(reader_pool_type, workers_count, results_queue_size):
@@ -121,7 +123,7 @@ class Reader:
     def __init__(self, dataset_info, schema_fields=None, reader_pool_type='thread',
                  workers_count=None, results_queue_size=50, shuffle_row_groups=True,
                  shuffle_row_drop_partitions=1, num_epochs=1, cur_shard=None,
-                 shard_count=None, seed=0, transform_spec=None):
+                 shard_count=None, seed=0, transform_spec=None, defer_image_decode=False):
         self.dataset_info = dataset_info
         self.stored_schema = infer_or_load_unischema(dataset_info)
         if schema_fields is not None:
@@ -172,6 +174,10 @@ class Reader:
                 self._pool.workers_count + _VENTILATE_EXTRA_ROWGROUPS),
             randomize_item_order=shuffle_row_groups, random_seed=seed,
             pass_epoch=True)
+        if defer_image_decode and not defer_config_ok(transform_spec):
+            # counted here, once per Reader, not by each worker
+            from petastorm_tpu_torch.fused import count_fallback
+            count_fallback('worker-config')
         self._pool.start(RowGroupWorker,
                          worker_args={
                              'dataset_info': dataset_info,
@@ -180,6 +186,7 @@ class Reader:
                              'stored_schema': self.stored_schema,
                              'transform_spec': transform_spec,
                              'row_groups': all_pieces,
+                             'defer_image_decode': defer_image_decode,
                          },
                          ventilator=self._ventilator, start_ventilator=False)
         self.last_row_consumed = False

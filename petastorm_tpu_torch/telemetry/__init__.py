@@ -17,6 +17,12 @@ from petastorm_tpu_torch.telemetry.spans import (  # noqa: F401
 STALL_PRODUCER_WAIT = 'petastorm_tpu_stall_producer_wait_seconds_total'
 STALL_CONSUMER_WAIT = 'petastorm_tpu_stall_consumer_wait_seconds_total'
 
+#: registry counters of fused decode: rows and decoded bytes written
+#: straight into staging buffers, and declines by ``reason``
+FUSED_ROWS = 'petastorm_tpu_fused_decode_rows_total'
+FUSED_BYTES = 'petastorm_tpu_fused_decode_bytes_total'
+FUSED_FALLBACKS = 'petastorm_tpu_fused_decode_fallbacks_total'
+
 #: waits shorter than this are scheduling noise, not stalls
 STALL_NOTE_FLOOR_S = 0.001
 

@@ -37,7 +37,11 @@ def test_port_has_modules_to_scan():
     assert 'chip_smoke.py' in rel
     for module in (('ops', 'normalize.py'), ('ops', 'flash_attention.py'),
                    ('ops', 'ring_attention.py'), ('models', 'transformer.py'),
-                   ('examples', 'lm_pretrain.py')):
+                   ('examples', 'lm_pretrain.py'), ('native', '__init__.py'),
+                   ('codecs.py',), ('fused.py',), ('arrow_worker.py',), ('reader.py',),
+                   ('device', 'staging.py'), ('device', 'loader.py'),
+                   ('ops', 'augment.py'), ('models', 'vit.py'),
+                   ('examples', 'imagenet.py'), ('telemetry', 'names.py')):
         assert os.path.join('petastorm_tpu_torch', *module) in rel
     assert len(rel) > 20
 

@@ -183,9 +183,9 @@ def test_state_dict_resumes_across_packages(synthetic_dataset, saver, loader):
     dict(reader_pool_type='service'),
     dict(cache_type='decoded'),
     dict(filters=[('id', '<', 5)]),
-    dict(defer_image_decode=True),
+    dict(rowgroup_selector=object()),
     dict(predicate=object()),
-], ids=['process', 'service', 'decoded-cache', 'filters', 'defer', 'predicate'])
+], ids=['process', 'service', 'decoded-cache', 'filters', 'rowgroup-selector', 'predicate'])
 def test_unported_kwargs_raise(synthetic_dataset, kwargs):
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         torch_make_batch_reader(synthetic_dataset.url, **kwargs)
