@@ -62,6 +62,22 @@ final ``{"ok": true, ...}`` line is printed only when every phase passed:
     and cutout on the card and the normalize kernel; normalize launches
     once a step and each flash kernel 12 times, all bidirectional.
 11. ``vit_profile``: the ``lm_profile`` breakdown for a ViT-Base step.
+12. ``varlen_reference``: the masked loss at the flagship width with 2
+    layers on bucketed batches of the C4-like documents at widths 128 and
+    512 (attention at S = 127 and 511): f32 on the card against the CPU,
+    and bf16 flash against dense attention on the card.
+13. ``varlen_path``: ``VARLEN_STEPS`` AdamW steps of the full flagship LM
+    through ``make_torch_loader(bucket_boundaries=...)``, one document a
+    row, bucketed at ``VARLEN_BOUNDARIES``, so the flash kernels run at S
+    = 63, 127, 255 and 511 as the buckets come; every batch's width is a
+    bound, at least three buckets are hit and each flash kernel launches
+    layers x steps times. ``varlen_profile``: the ``lm_profile`` breakdown
+    over one step of each bucket.
+14. ``inmemory_replay``: the bucketed loader with ``inmemory_cache_all``
+    over ``REPLAY_DOCS`` documents feeding the same step for two epochs;
+    the replay epoch serves the first epoch's tensors, reads, decodes and
+    stages nothing, and a profiled replay pass shows no host-to-device
+    copy.
 
 Then the ``kernels`` summary (each kernel's launches on every path), the
 ``nvidia-smi`` name and power limit, and the ``ok`` line. The script
@@ -127,9 +143,15 @@ FLASH_CASES = [
     ('d128_ragged_causal_f32', (2, 130, 2, 128), torch.float32, True, 1.0),
     ('flagship_peaked_causal_bf16', (8, 1024, 16, 96), torch.bfloat16, True, 4.0),
     ('vit_bidir_bf16', (16, 1024, 12, 64), torch.bfloat16, False, 1.0),
+    # the bucketed LM path's largest and a small bucket: S = bound - 1, a
+    # masked tail tile in every kernel
+    ('varlen511_causal_bf16', (16, 511, 16, 96), torch.bfloat16, True, 1.0),
+    ('varlen127_causal_bf16', (16, 127, 16, 96), torch.bfloat16, True, 1.0),
 ]
 FLASH_MAIN_CASE = 'flagship_causal_bf16'
 VIT_FLASH_CASE = 'vit_bidir_bf16'
+VARLEN_FLASH_CASE = 'varlen511_causal_bf16'
+VARLEN_TAIL_CASE = 'varlen127_causal_bf16'
 # name -> (launch counter in ops/flash_attention.py, key in a
 # flash_kernel case, outputs, the jax Pallas TPU kernel that
 # flash_attention_fused (petastorm_tpu/ops/flash_attention.py:59) reaches)
@@ -154,6 +176,14 @@ VIT_STEPS = 20
 VIT_BATCH = 16
 VIT_PROFILE_STEPS = 3
 NATIVE_DECODE_IMAGES = 64
+
+# the variable-length LM path: one document a row, bucketed by length
+VARLEN_STEPS = 40
+VARLEN_BATCH = 16
+VARLEN_BOUNDARIES = (64, 128, 256, 512)
+VARLEN_REFERENCE_WIDTHS = (128, 512)  # attention at S = 127 and 511
+VARLEN_PROFILE_STEPS = 4              # one step a bucket
+REPLAY_DOCS = 512                     # the JAX example's num_docs
 
 
 def emit(obj):
@@ -975,15 +1005,251 @@ def phase_vit_profile():
                   VIT_PROFILE_STEPS)
 
 
-def write_lm_dataset(url):
+def _flagship_adamw(model):
+    return torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def phase_varlen_reference(url):
+    """The masked loss at the flagship width with 2 layers on bucketed
+    batches from the C4-like documents (CPU loader, dummy pool, in order)
+    at widths 128 and 512, so attention runs at S = 127 and 511. In f32
+    (TF32 off, flash, ``loss_chunk=256``) on two rows of each batch, the
+    longest and the shortest: the loss and the ``blocks.0.qkv`` gradient on
+    the card (kernels) against the CPU (plain versions), loss within 1e-4
+    and ``max|err| / max|grad|`` within 1e-4. In bf16 on the whole batch on
+    the card: flash attention (the tensor-core kernels) against dense
+    attention with the same weights, within 3e-2 of the loss and of the
+    gradient's max-abs."""
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
+    from petastorm_tpu_torch.models.transformer import (
+        TransformerConfig, init_transformer, transformer_masked_loss,
+    )
+    from petastorm_tpu_torch.ops import flash_attention as fa
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batches = {}
+    with make_torch_loader(url, batch_size=VARLEN_BATCH, fields=['^tokens$'], device='cpu',
+                           reader_pool_type='dummy', shuffle_row_groups=False,
+                           bucket_boundaries={'tokens': list(VARLEN_BOUNDARIES)}) as loader:
+        for batch in loader:
+            batches.setdefault(batch['tokens'].shape[1], batch)
+            if all(w in batches for w in VARLEN_REFERENCE_WIDTHS):
+                break
+
+    def config(impl, dtype):
+        return TransformerConfig(**dict(FLAGSHIP_LM_KW, n_layers=2),
+                                 max_seq_len=VARLEN_BOUNDARIES[-1], loss_chunk=256,
+                                 attn_impl=impl, dtype=dtype)
+
+    def loss_and_grad(impl, dtype, device, tokens, lengths):
+        model = init_transformer(0, config(impl, dtype), device)
+        launches = fa.fwd_launches
+        loss = transformer_masked_loss(model, tokens.to(device), lengths.to(device))
+        loss.backward()
+        return float(loss), model.blocks[0].qkv.grad.float().cpu(), fa.fwd_launches - launches
+
+    cases = {}
+    for width in VARLEN_REFERENCE_WIDTHS:
+        tokens, lengths = batches[width]['tokens'], batches[width]['tokens_len']
+        order = torch.argsort(lengths)
+        rows = torch.stack([order[-1], order[0]])
+        want_loss, want_grad, _ = loss_and_grad('flash', torch.float32, 'cpu',
+                                                tokens[rows], lengths[rows])
+        got_loss, got_grad, _ = loss_and_grad('flash', torch.float32, 'cuda',
+                                              tokens[rows], lengths[rows])
+        dense_loss, dense_grad, _ = loss_and_grad('dense', torch.bfloat16, 'cuda', tokens, lengths)
+        flash_loss, flash_grad, flash_fwds = loss_and_grad('flash', torch.bfloat16, 'cuda',
+                                                           tokens, lengths)
+        torch.cuda.empty_cache()
+        cases['S%d' % (width - 1)] = {
+            'tokens_shape': list(tokens.shape), 'f32_rows_lengths': lengths[rows].tolist(),
+            'batch_lengths': [int(lengths.min()), int(lengths.max())],
+            'f32_loss': got_loss, 'f32_loss_abs_err': abs(got_loss - want_loss),
+            'f32_grad_err_over_max_abs': float((got_grad - want_grad).abs().max()
+                                               / want_grad.abs().max()),
+            'bf16_flash_loss': flash_loss, 'bf16_dense_loss': dense_loss,
+            'bf16_loss_rel_err': abs(flash_loss - dense_loss) / abs(dense_loss),
+            'bf16_grad_err_over_max_abs': float((flash_grad - dense_grad).abs().max()
+                                                / dense_grad.abs().max()),
+            'bf16_flash_fwd_launches': flash_fwds,
+            'finite': all(math.isfinite(v) for v in (got_loss, flash_loss, dense_loss)),
+        }
+    emit({'phase': 'varlen_reference',
+          'model': 'transformer flagship width, 2 layers, masked loss, loss_chunk 256',
+          'cases': cases,
+          'f32_tolerance': 'card (kernels) vs CPU (plain), 2 rows: loss abs 1e-4, '
+                           'grad max-abs err / max|grad| 1e-4 (TF32 off)',
+          'bf16_tolerance': 'flash vs dense on the card, whole batch: loss rel 3e-2, '
+                            'grad max-abs err / max|grad| 3e-2'})
+    for name, c in cases.items():
+        assert c['finite'], (name, c)
+        assert c['f32_loss_abs_err'] <= 1e-4, (name, c)
+        assert c['f32_grad_err_over_max_abs'] <= 1e-4, (name, c)
+        assert c['bf16_loss_rel_err'] <= 3e-2, (name, c)
+        assert c['bf16_grad_err_over_max_abs'] <= 3e-2, (name, c)
+        assert c['bf16_flash_fwd_launches'] == 2, (name, c)  # 2 layers, one forward
+
+
+def phase_varlen_path(url):
+    """``train_variable_length`` on the card at the flagship widths: one
+    document a row, bucketed at ``VARLEN_BOUNDARIES``, attention at S =
+    bound - 1 through the flash kernels."""
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
+    from petastorm_tpu_torch.device.staging import staging_slots
+    from petastorm_tpu_torch.examples.variable_length import train_variable_length
+    from petastorm_tpu_torch.telemetry import reset_registry
+    reset_registry()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    result = train_variable_length(url, batch_size=VARLEN_BATCH, steps=VARLEN_STEPS,
+                                   learning_rate=1e-3, boundaries=VARLEN_BOUNDARIES,
+                                   model_kw=FLAGSHIP_LM_KW, attn_impl='flash',
+                                   loss_chunk=256, dtype=torch.bfloat16, device='cuda')
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    losses = result['losses']
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    emit({'phase': 'varlen_path', 'model': FLAGSHIP_LM_KW, 'steps': len(losses),
+          'batch_size': VARLEN_BATCH, 'boundaries': list(VARLEN_BOUNDARIES),
+          'attention_positions_by_bucket': {b: b - 1 for b in VARLEN_BOUNDARIES},
+          'bucket_steps': result['bucket_steps'], 'widths': result['widths'],
+          'max_lens': result['max_lens'], 'launches': launches,
+          'batch_devices': result['batch_devices'], 'losses': losses,
+          'loss_first5_mean': first, 'loss_last5_mean': last,
+          'steps_per_s': result['steps_per_s'],
+          'target_tokens_per_s': result['target_tokens_per_s'],
+          'padded_positions_per_s': result['padded_positions_per_s'],
+          'pad_share': 1 - result['target_tokens_per_s'] / result['padded_positions_per_s'],
+          'step_ms_by_bucket': result['step_ms_by_bucket'],
+          'step_ms_timer': 'CUDA events around each step (device time incl. its gaps)',
+          'staging_slots_allocated': result['diagnostics']['staging_slots_allocated'],
+          'consumer_wait_s': result['diagnostics']['consumer_wait_s'],
+          'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+          'stage_seconds': stage_seconds()})
+    assert len(losses) == VARLEN_STEPS
+    assert all(math.isfinite(v) for v in losses), losses
+    assert last < first, (first, last)
+    assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
+    assert all(w in VARLEN_BOUNDARIES for w in result['widths']), result['widths']
+    assert all(m <= w for m, w in zip(result['max_lens'], result['widths']))
+    assert len(result['bucket_steps']) >= 3, result['bucket_steps']
+    # each bucket width staged through its own pinned ring
+    slots = result['diagnostics']['staging_slots_allocated']
+    assert (staging_slots() * len(result['bucket_steps']) <= slots
+            <= staging_slots() * len(VARLEN_BOUNDARIES)), slots
+    want = FLAGSHIP_LM_KW['n_layers'] * VARLEN_STEPS
+    for name in FLASH_KERNELS:
+        assert launches[name] == want, (name, launches[name], want)
+    return launches
+
+
+def phase_varlen_profile():
+    """Where a bucketed flagship step's device time goes
+    (``profile_steps``), one step at each bucket's width in turn; every
+    flash kernel it sees must be a ``_wgmma`` one."""
+    import itertools
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
+    from petastorm_tpu_torch.models.transformer import (
+        TransformerConfig, init_transformer, transformer_masked_train_step,
+    )
+    config = TransformerConfig(max_seq_len=VARLEN_BOUNDARIES[-1], loss_chunk=256,
+                               attn_impl='flash', **FLAGSHIP_LM_KW)
+    model = init_transformer(0, config, 'cuda')
+    step = transformer_masked_train_step(model, _flagship_adamw(model))
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    batches = []
+    for low, bound in zip((0,) + VARLEN_BOUNDARIES, VARLEN_BOUNDARIES):
+        tokens = torch.randint(2, config.vocab_size, (VARLEN_BATCH, bound), generator=gen,
+                               device='cuda', dtype=torch.int32)
+        lengths = torch.randint(low + 1, bound + 1, (VARLEN_BATCH,), generator=gen,
+                                device='cuda', dtype=torch.int32)
+        batches.append((tokens, lengths))
+    turns = itertools.cycle(batches[2:] + batches[:2])  # warm-up takes two
+    profile_steps('varlen_profile', lambda: step(*next(turns)), VARLEN_PROFILE_STEPS)
+
+
+def phase_inmemory_replay(url):
+    """The bucketed loader with ``inmemory_cache_all=True`` over
+    ``REPLAY_DOCS`` documents feeding the flagship masked train step for
+    two epochs: the replay epoch yields the first epoch's batches (the same
+    tensors, in another order), reads and decodes nothing and stages
+    nothing; a third pass under ``torch.profiler`` shows no host-to-device
+    copy on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    from petastorm_tpu_torch.device.staging import H2D_BYTES
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
+    from petastorm_tpu_torch.models.transformer import (
+        TransformerConfig, init_transformer, transformer_masked_train_step,
+    )
+    from petastorm_tpu_torch.telemetry import get_registry, reset_registry
+    reset_registry()
+    config = TransformerConfig(max_seq_len=VARLEN_BOUNDARIES[-1], loss_chunk=256,
+                               attn_impl='flash', **FLAGSHIP_LM_KW)
+    model = init_transformer(0, config, 'cuda')
+    step = transformer_masked_train_step(model, _flagship_adamw(model))
+    epochs = []
+    with make_torch_loader(url, batch_size=VARLEN_BATCH, fields=['^tokens$'],
+                           num_epochs=None, bucket_boundaries={'tokens': list(VARLEN_BOUNDARIES)},
+                           inmemory_cache_all=True, shuffle_row_groups=True,
+                           device='cuda') as loader:
+        for _ in range(2):
+            stages = stage_seconds()
+            h2d = get_registry().counter(H2D_BYTES).value
+            t0 = time.perf_counter()
+            batches, losses = [], []
+            for batch in loader:
+                losses.append(step(batch['tokens'], batch['tokens_len']))
+                batches.append(batch)
+            losses = [float(loss) for loss in losses]
+            elapsed = time.perf_counter() - t0
+            after = stage_seconds()
+            epochs.append({'steps': len(batches), 'steps_per_s': len(batches) / elapsed,
+                           'losses': losses, 'h2d_bytes': get_registry().counter(
+                               H2D_BYTES).value - h2d,
+                           'io_decode_s': {k: after.get(k, 0.0) - stages.get(k, 0.0)
+                                           for k in ('io', 'decode')},
+                           'tensor_ids': sorted(id(b['tokens']) for b in batches),
+                           'widths': sorted(b['tokens'].shape[1] for b in batches)})
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            checksum = sum(int(b['tokens'].sum()) for b in loader)
+            torch.cuda.synchronize()
+    device_events = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    htod = [name for name in device_events if 'HtoD' in name]
+    first, replay = epochs
+    emit({'phase': 'inmemory_replay', 'documents': REPLAY_DOCS, 'model': FLAGSHIP_LM_KW,
+          'batch_size': VARLEN_BATCH, 'boundaries': list(VARLEN_BOUNDARIES),
+          'epoch_steps': [e['steps'] for e in epochs],
+          'bucket_steps': {w: first['widths'].count(w) for w in sorted(set(first['widths']))},
+          'steps_per_s': {'first_epoch': first['steps_per_s'],
+                          'replay_epoch': replay['steps_per_s']},
+          'h2d_bytes': {'first_epoch': first['h2d_bytes'], 'replay_epoch': replay['h2d_bytes']},
+          'io_decode_s': {'first_epoch': first['io_decode_s'],
+                          'replay_epoch': replay['io_decode_s']},
+          'losses': {'first_epoch': first['losses'], 'replay_epoch': replay['losses']},
+          'profiled_replay_pass': {'device_events': len(device_events), 'htod_copies': htod,
+                                   'tokens_checksum': checksum}})
+    assert first['steps'] > 0 and replay['steps'] == first['steps']
+    # the same multiset of batches: the cached tensors themselves
+    assert replay['tensor_ids'] == first['tensor_ids']
+    assert first['h2d_bytes'] > 0 and replay['h2d_bytes'] == 0, epochs
+    assert all(v == 0.0 for v in replay['io_decode_s'].values()), replay['io_decode_s']
+    assert device_events and not htod, (len(device_events), htod)
+    assert all(math.isfinite(v) for e in epochs for v in e['losses'])
+
+
+def write_lm_dataset(url, num_docs=LM_DOCS):
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, generate_c4_like
     from petastorm_tpu_torch.reader import make_batch_reader
     t0 = time.perf_counter()
-    generate_c4_like(url, num_docs=LM_DOCS, vocab_size=FLAGSHIP_LM_KW['vocab_size'], seed=0)
+    generate_c4_like(url, num_docs=num_docs, vocab_size=FLAGSHIP_LM_KW['vocab_size'], seed=0)
     seconds = time.perf_counter() - t0
     with make_batch_reader(url, reader_pool_type='dummy', num_epochs=1) as reader:
         tokens = sum(len(doc) for batch in reader for doc in batch.tokens)
-    emit({'phase': 'write', 'dataset': 'c4_like', 'documents': LM_DOCS,
+    emit({'phase': 'write', 'dataset': 'c4_like', 'documents': num_docs,
           'tokens': tokens, 'seconds': seconds})
 
 
@@ -1018,13 +1284,21 @@ def main():
         write_lm_dataset(lm_url)
         paths['lm_path'] = phase_lm_path(lm_url)
         phase_lm_profile()
+        phase_varlen_reference(lm_url)
+        paths['varlen_path'] = phase_varlen_path(lm_url)
+        phase_varlen_profile()
+        replay_url = 'file://' + os.path.join(tmp, 'c4_like_%d' % REPLAY_DOCS)
+        write_lm_dataset(replay_url, num_docs=REPLAY_DOCS)
+        phase_inmemory_replay(replay_url)
         vit_url = 'file://' + os.path.join(tmp, 'imagenet_like')
         write_vit_dataset(vit_url, image_codec)
         phase_image_reference(vit_url, image_codec)
         paths['vit_path'] = phase_vit_path(vit_url, image_codec)
     phase_vit_profile()
-    # the headline numbers are this slice's path's: the ViT's shapes and
-    # launches; the earlier paths' shapes and launches stand beside them
+    # the headline numbers are this slice's path's: the flash kernels' at
+    # the bucketed LM path's largest bucket and their launches there;
+    # normalize's on the ViT path, the last path that runs it; the
+    # earlier paths' shapes and launches stand beside them
     vit_case = kernel[VIT_KERNEL_CASE]
     main_case = kernel[MAIN_PATH_CASE]
     kernels = [{
@@ -1048,10 +1322,10 @@ def main():
                  # bf16 runs the tensor-core instances (the profiles check their names)
                  'instruction': 'wgmma',
                  'source': 'petastorm_tpu_torch/csrc/flash_attention.cu',
-                 'replaces': replaces, 'launches': paths['vit_path'][name],
+                 'replaces': replaces, 'launches': paths['varlen_path'][name],
                  'launches_by_path': _launches_by_path(name, paths)}
-        for label, case in ((VIT_FLASH_CASE, flash[VIT_FLASH_CASE]),
-                            (FLASH_MAIN_CASE, flash[FLASH_MAIN_CASE])):
+        for label in (VARLEN_FLASH_CASE, VARLEN_TAIL_CASE, VIT_FLASH_CASE, FLASH_MAIN_CASE):
+            case = flash[label]
             timing = case['kernels'][key]
             numbers = {
                 'max_abs_err': max(case['errors'][g]['max_abs_err'] for g in outputs),
@@ -1067,10 +1341,9 @@ def main():
                 'sdpa_fwd_bwd_ms': case['sdpa_fwd_bwd_ms'],
                 'shape': case['shape'], 'dtype': case['dtype'], 'causal': case['causal'],
             }
-            if label == VIT_FLASH_CASE:
+            entry[label] = numbers
+            if label == VARLEN_FLASH_CASE:
                 entry.update(numbers)
-            else:
-                entry[label] = numbers
         kernels.append(entry)
     emit({'kernels': kernels, 'seconds': time.perf_counter() - t_start})
     print(card_line(), flush=True)

@@ -12,6 +12,12 @@ and the staging fill decodes them straight into the pinned slot's rows
 row-group counts as consumed only once every one of its rows reached the
 consumer.
 
+Variable-shape fields densify to static shapes with ``pad_ragged=`` or
+batch by length with ``bucket_boundaries=`` (one static width per
+bucket, each bucket with its own pinned slots), with a ``<field>_len``
+column of true sizes; ``inmemory_cache_all=True`` keeps the first pass's
+batches on the device and replays them (:class:`InMemoryCachedLoader`).
+
 The loader runs on the card (``device='cuda'``, the default) unless the
 caller asks for the CPU; it never falls back to the CPU on its own.
 """
@@ -38,9 +44,136 @@ _SENTINEL_END = object()
 _NO_ITEM = object()
 
 MASK_FIELD = staging.MASK_FIELD
+#: suffix of the true-size column added per pad_ragged/bucket_boundaries field
+LEN_SUFFIX = '_len'
 # hidden per-row provenance column: maps each row back to the reader pull
 # (row-group) it came from; added after the reader, stripped before staging
 _PULL_FIELD = '__petastorm_tpu_pull__'
+
+
+def _object_cells(col, name, policy):
+    """An object column as per-row ndarrays (None kept) and its first
+    non-None cell, which fixes the cells' dtype and trailing shape."""
+    cells = [None if c is None else np.asarray(c) for c in col]
+    first = next((c for c in cells if c is not None), None)
+    if first is None:
+        raise ValueError(
+            '%s[%r]: every cell in this batch is None; cell dtype/trailing shape '
+            'cannot be inferred. Filter all-null batches, or drop the field'
+            % (policy, name))
+    return cells, first
+
+
+def _reserve_len_column(columns, name, policy):
+    """The ``<name>_len`` column's name, after checking the batch does not
+    already carry one."""
+    len_name = name + LEN_SUFFIX
+    if len_name in columns:
+        raise ValueError('%s would add column %r but the batch already has one; '
+                         'rename the source column' % (policy, len_name))
+    return len_name
+
+
+def _densify_ragged(columns, pad_ragged):
+    """Apply a ``pad_ragged`` policy (``{field: sizes tuple}``) to one
+    reader chunk: each variable-shape column becomes a static-shape array
+    padded with zeros (or truncated), plus its ``<field>_len`` column of
+    true sizes. A None cell densifies to zeros with size 0. A chunk comes
+    as an object array from a ragged row-group or as a dense array from
+    a uniform one; both give the same static shape."""
+    out = dict(columns)
+    for name, targets in pad_ragged.items():
+        if name not in out:
+            # readers yield a stable schema: a field missing here is a wrong
+            # name, and skipping it would emit inconsistent column sets
+            raise ValueError(
+                'pad_ragged field %r is not in the batch (available: %s); check the '
+                'name against fields=/the schema'
+                % (name, sorted(n for n in columns if n != _PULL_FIELD)))
+        len_name = _reserve_len_column(out, name, 'pad_ragged')
+        col = out[name]
+        k = len(targets)
+        n = len(col)
+        if n == 0:
+            continue
+        if col.dtype == object:
+            cells, first = _object_cells(col, name, 'pad_ragged')
+            trailing = first.shape[k:]
+            dense = np.zeros((n,) + targets + trailing, first.dtype)
+            lens = np.zeros((n, k), np.int32)
+            for i, cell in enumerate(cells):
+                if cell is None:
+                    continue
+                if cell.ndim != k + len(trailing):
+                    raise ValueError(
+                        'pad_ragged[%r]: row has %d dims but the policy names %d '
+                        'variable dim(s) over trailing shape %r'
+                        % (name, cell.ndim, k, trailing))
+                lens[i] = cell.shape[:k]
+                clipped = tuple(slice(0, min(cell.shape[d], targets[d])) for d in range(k))
+                dense[(i,) + clipped] = cell[clipped]
+        else:
+            if col.ndim < 1 + k:
+                raise ValueError('pad_ragged[%r]: dense chunk has %d row dims but the '
+                                 'policy names %d variable dim(s)'
+                                 % (name, col.ndim - 1, k))
+            trailing = col.shape[1 + k:]
+            dense = np.zeros((n,) + targets + trailing, col.dtype)
+            region = (slice(None),) + tuple(slice(0, min(col.shape[1 + d], targets[d]))
+                                            for d in range(k))
+            dense[region] = col[region]
+            lens = np.broadcast_to(np.asarray(col.shape[1:1 + k], np.int32), (n, k)).copy()
+        out[name] = dense
+        out[len_name] = lens[:, 0] if k == 1 else lens
+    return out
+
+
+def _split_by_bucket(columns, name, bounds):
+    """Split one chunk by field ``name``'s per-row leading length. Yields
+    ``(bound, subcolumns)`` with the field densified to ``(rows, bound,
+    *trailing)`` and its ``<name>_len`` column of true lengths; rows longer
+    than the last bound truncate into the last bucket."""
+    if name not in columns:
+        raise ValueError(
+            'bucket_boundaries field %r is not in the batch (available: %s); check '
+            'the name against fields=/the schema'
+            % (name, sorted(n for n in columns if n != _PULL_FIELD)))
+    len_name = _reserve_len_column(columns, name, 'bucket_boundaries')
+    col = columns[name]
+    n = len(col)
+    if n == 0:
+        return
+    if col.dtype == object:
+        cells, first = _object_cells(col, name, 'bucket_boundaries')
+        if first.ndim < 1:
+            raise ValueError('bucket_boundaries[%r]: cells are scalars; bucketing '
+                             'needs a leading sequence dim' % name)
+        lens = np.asarray([0 if c is None else c.shape[0] for c in cells], np.int32)
+        trailing, dtype = first.shape[1:], first.dtype
+    else:
+        if col.ndim < 2:
+            raise ValueError('bucket_boundaries[%r]: column is scalar per row; '
+                             'bucketing needs a leading sequence dim' % name)
+        cells = None  # a uniform dense chunk: one length for every row
+        lens = np.full(n, col.shape[1], np.int32)
+        trailing, dtype = col.shape[2:], col.dtype
+    # the smallest bound >= the length; longer rows clamp into the last
+    bucket_idx = np.minimum(np.searchsorted(bounds, lens, side='left'), len(bounds) - 1)
+    for b in np.unique(bucket_idx):
+        bound = int(bounds[b])
+        rows = np.flatnonzero(bucket_idx == b)
+        dense = np.zeros((len(rows), bound) + trailing, dtype)
+        if cells is None:
+            keep = min(col.shape[1], bound)
+            dense[:, :keep] = col[rows, :keep]
+        else:
+            for j, i in enumerate(rows):
+                if cells[i] is not None:
+                    keep = min(cells[i].shape[0], bound)
+                    dense[j, :keep] = cells[i][:keep]
+        subcols = {k: (v[rows] if k != name else dense) for k, v in columns.items()}
+        subcols[len_name] = lens[rows]
+        yield bound, subcols
 
 
 def resolve_device(device):
@@ -63,8 +196,9 @@ def make_torch_loader(dataset_url_or_urls, batch_size, fields=None,
                       shuffle_rows=False, shuffling_queue_capacity=None,
                       min_after_retrieve=None, extra_capacity=None, seed=0,
                       last_batch='drop', dtypes=None, prefetch=2, num_epochs=1,
-                      device=None, mesh=None, inmemory_cache_all=False,
-                      pad_ragged=None, bucket_boundaries=None, mixture=None,
+                      device=None, mesh=None, data_axes=None,
+                      inmemory_cache_all=False, pad_ragged=None,
+                      bucket_boundaries=None, reader_factory=None, mixture=None,
                       **reader_kwargs):
     """A :class:`TorchLoader` over a Parquet dataset.
 
@@ -81,39 +215,72 @@ def make_torch_loader(dataset_url_or_urls, batch_size, fields=None,
     :param num_epochs: reader epochs; None = infinite.
     :param device: ``None``/``'cuda'``/``'cuda:N'`` (raises without CUDA)
         or ``'cpu'``.
-    :param reader_kwargs: forwarded to
-        :func:`~petastorm_tpu_torch.reader.make_batch_reader` (pool type,
+    :param inmemory_cache_all: keep the first pass's batches on the device
+        and replay them (see :class:`InMemoryCachedLoader`); needs
+        ``num_epochs`` 1 or None: re-iterate for more epochs.
+    :param pad_ragged: ``{field: size or (sizes...)}``: each variable dim
+        of a variable-shape field pads with zeros (or truncates) to a
+        static size, and a ``<field>_len`` int32 column carries each row's
+        true size(s), ``(B,)`` for one variable dim, ``(B, k)`` for ``k``.
+        A truncated row's length exceeds the padded extent, so
+        ``arange(L) < len`` masks saturate.
+    :param bucket_boundaries: ``{field: [b1, b2, ...]}`` (one field):
+        length-bucketed batching. Each row goes to the smallest bound at
+        least its leading length (longer rows truncate into the last
+        bucket), each bucket fills its own ``batch_size`` batches under
+        its own ``last_batch`` policy, and the field pads to the bucket's
+        bound, with the ``<field>_len`` column of true lengths. Shapes are
+        static per bucket, and each bucket's batches stage through their
+        own pinned slots. With ``shuffle_rows`` each bucket keeps its own
+        shuffling buffer. A bucket's rows wait until it fills or the
+        stream ends. Composes with ``pad_ragged`` on other fields.
+    :param reader_factory: reader constructor in place of
+        :func:`~petastorm_tpu_torch.reader.make_batch_reader`, called as it
+        is; the loader then asks it for no deferred image decode.
+    :param reader_kwargs: forwarded to the reader factory (pool type,
         ``cur_shard``/``shard_count``, ``shuffle_row_groups``, ...).
     """
     if mesh is not None:
         raise unported('make_torch_loader(mesh=)', 5)
-    if inmemory_cache_all:
-        raise unported('inmemory_cache_all=True', 4)
-    if pad_ragged is not None or bucket_boundaries is not None:
-        raise unported('pad_ragged=/bucket_boundaries=', 4)
+    if data_axes is not None:
+        raise unported('make_torch_loader(data_axes=)', 5)
     if mixture is not None:
         raise unported('make_torch_loader(mixture=)', 7)
+    if inmemory_cache_all and num_epochs not in (1, None):
+        raise ValueError(
+            'inmemory_cache_all caches exactly one epoch and replays it; '
+            'pass num_epochs=1 (the default) and re-iterate the loader for '
+            'more epochs (got num_epochs=%r)' % (num_epochs,))
     device = resolve_device(device)
-    from petastorm_tpu_torch.reader import make_batch_reader
-    # the fused-decode hand-shake: ask for encoded image cells whenever this
-    # loader's batch path can decode them into its staging buffers; other
-    # cases materialize them in the loader, so asking is never a bet
-    reader_kwargs.setdefault('defer_image_decode',
-                             not shuffle_rows and staging.staging_enabled())
-    reader = make_batch_reader(dataset_url_or_urls, schema_fields=fields,
-                               num_epochs=num_epochs, **reader_kwargs)
+    if reader_factory is None:
+        from petastorm_tpu_torch.reader import make_batch_reader as reader_factory
+        # the fused-decode hand-shake: ask for encoded image cells whenever
+        # this loader's batch path can decode them into its staging
+        # buffers; other cases materialize them in the loader, so asking
+        # is never a bet. A custom factory may not know the kwarg.
+        reader_kwargs.setdefault(
+            'defer_image_decode',
+            not shuffle_rows and bucket_boundaries is None
+            and staging.staging_enabled())
+    reader = reader_factory(dataset_url_or_urls, schema_fields=fields,
+                            num_epochs=1 if inmemory_cache_all else num_epochs,
+                            **reader_kwargs)
     try:
-        return TorchLoader(reader, batch_size, device=device,
-                           shuffle_rows=shuffle_rows,
-                           shuffling_queue_capacity=shuffling_queue_capacity,
-                           min_after_retrieve=min_after_retrieve,
-                           extra_capacity=extra_capacity, seed=seed,
-                           last_batch=last_batch, dtypes=dtypes,
-                           prefetch=prefetch)
+        loader = TorchLoader(reader, batch_size, device=device,
+                             shuffle_rows=shuffle_rows,
+                             shuffling_queue_capacity=shuffling_queue_capacity,
+                             min_after_retrieve=min_after_retrieve,
+                             extra_capacity=extra_capacity, seed=seed,
+                             last_batch=last_batch, dtypes=dtypes,
+                             prefetch=prefetch, pad_ragged=pad_ragged,
+                             bucket_boundaries=bucket_boundaries)
     except Exception:
         reader.stop()
         reader.join()
         raise
+    if inmemory_cache_all:
+        return InMemoryCachedLoader(loader, seed=seed)
+    return loader
 
 
 class TorchLoader:
@@ -126,10 +293,37 @@ class TorchLoader:
     def __init__(self, reader, batch_size, device, shuffle_rows=False,
                  shuffling_queue_capacity=None, min_after_retrieve=None,
                  extra_capacity=None, seed=0, last_batch='drop', dtypes=None,
-                 prefetch=2):
+                 prefetch=2, pad_ragged=None, bucket_boundaries=None):
         if last_batch not in ('drop', 'pad', 'short'):
             raise ValueError("last_batch must be 'drop', 'pad' or 'short'; "
                              'got %r' % (last_batch,))
+        self._pad_ragged = {
+            name: (sizes,) if np.ndim(sizes) == 0 else tuple(sizes)
+            for name, sizes in (pad_ragged or {}).items()}
+        for name, sizes in self._pad_ragged.items():
+            if not all(isinstance(s, (int, np.integer)) and s > 0 for s in sizes):
+                raise ValueError('pad_ragged[%r] must be a positive int or tuple of '
+                                 'positive ints; got %r' % (name, sizes))
+        self._bucket_field = None
+        self._bucket_bounds = None
+        if bucket_boundaries:
+            if len(bucket_boundaries) != 1:
+                raise ValueError('bucket_boundaries supports exactly one field; got %s'
+                                 % sorted(bucket_boundaries))
+            ((name, bounds),) = bucket_boundaries.items()
+            bounds = [int(b) for b in bounds]
+            if not bounds or bounds != sorted(set(bounds)) or bounds[0] <= 0:
+                raise ValueError('bucket_boundaries[%r] must be strictly ascending '
+                                 'positive ints; got %r' % (name, bounds))
+            if name in self._pad_ragged:
+                raise ValueError('field %r cannot be in both pad_ragged and '
+                                 'bucket_boundaries (the boundaries define its '
+                                 'padding)' % name)
+            self._bucket_field = name
+            self._bucket_bounds = np.asarray(bounds, np.int64)
+        if not getattr(reader, 'batched_output', True):
+            raise ValueError('TorchLoader requires a batched reader '
+                             '(make_batch_reader), which decodes codec fields too')
         self._reader = reader
         self._batch_size = batch_size
         self._device = resolve_device(device)
@@ -366,22 +560,7 @@ class TorchLoader:
                    else contextlib.nullcontext())
         try:
             with context:
-                buf = self._make_buffer()
-                for columns in self._pull_batches():
-                    columns = self._materialize_encoded(columns)
-                    with span('collate'):
-                        buf.add_many(columns)
-                    while buf.can_retrieve:
-                        self._retrieve_and_emit(buf)
-                        if self._stop_event.is_set():
-                            return
-                    if self._stop_event.is_set():
-                        return
-                buf.finish()
-                while buf.can_retrieve:
-                    self._retrieve_and_emit(buf)
-                    if self._stop_event.is_set():
-                        return
+                self._stage_buffers()
         except Exception as e:  # noqa: BLE001 - surfaced to the consumer
             self._stage_error = e
         finally:
@@ -390,12 +569,53 @@ class TorchLoader:
             self._produce_done.set()
             self._put_blocking(_SENTINEL_END)
 
+    def _stage_buffers(self):
+        """Reader chunks through the re-batching buffers to the stager.
+        Unbucketed, one buffer takes every chunk. Bucketed, each chunk
+        splits by the bucket field's per-row length, densified to its
+        bucket's bound, and each bucket keeps its own buffer; a batch
+        emits whenever a buffer fills, and at the end of the stream every
+        buffer flushes under the tail policy."""
+        buffers = {}
+        for columns in self._pull_batches():
+            columns = self._materialize_encoded(columns)
+            with span('collate'):
+                # densify before the buffers: a variable field comes as an
+                # object array from a ragged row-group and as a dense array
+                # from a uniform one, and a buffer holds one static shape
+                if self._pad_ragged:
+                    columns = _densify_ragged(columns, self._pad_ragged)
+                if self._bucket_field is None:
+                    split = [(None, columns)]
+                else:
+                    split = list(_split_by_bucket(columns, self._bucket_field,
+                                                  self._bucket_bounds))
+            for key, part in split:
+                buf = buffers.get(key)
+                if buf is None:
+                    buf = buffers[key] = self._make_buffer()
+                with span('collate'):
+                    buf.add_many(part)
+                while buf.can_retrieve:
+                    self._retrieve_and_emit(buf)
+                    if self._stop_event.is_set():
+                        return
+            if self._stop_event.is_set():
+                return
+        for buf in buffers.values():
+            buf.finish()
+            while buf.can_retrieve:
+                self._retrieve_and_emit(buf)
+                if self._stop_event.is_set():
+                    return
+
     def _materialize_encoded(self, columns):
         """Decode the deferred image columns this pass cannot fuse: the
         slot ring is off, rows are shuffled (the random buffer gathers
-        decoded rows), or a ``dtypes=`` cast retargets the column (the
-        fill writes the codec's dtype only). Still one batched decode per
-        column; each decline is counted by reason."""
+        decoded rows), batching is bucketed, or a ``dtypes=`` cast
+        retargets the column (the fill writes the codec's dtype only).
+        Still one batched decode per column; each decline is counted by
+        reason."""
         out = None
         for name, column in columns.items():
             if not isinstance(column, fused.EncodedImageColumn):
@@ -404,6 +624,8 @@ class TorchLoader:
                 reason = 'staging-off'
             elif self._shuffle_rows:
                 reason = 'shuffled-rows'
+            elif self._bucket_field is not None:
+                reason = 'bucketed'
             else:
                 # a device cast (bf16) applies after the copy, so the slot
                 # keeps the codec's dtype and the fill still fuses
@@ -485,6 +707,19 @@ class TorchLoader:
         return self._batch_size
 
     @property
+    def last_batch(self):
+        return self._last_batch
+
+    @property
+    def shuffle_rows(self):
+        return self._shuffle_rows
+
+    @property
+    def bucket_field(self):
+        """The ``bucket_boundaries`` field, or None."""
+        return self._bucket_field
+
+    @property
     def epoch(self):
         """Number of completed replay passes (0 during the first pass)."""
         return self._epoch
@@ -541,3 +776,188 @@ class TorchLoader:
     def __exit__(self, exc_type, exc_val, exc_tb):
         self.stop()
 
+
+class InMemoryCachedLoader:
+    """Epoch replay from device memory: read and decode once, train many
+    epochs.
+
+    Wraps a single-epoch :class:`TorchLoader`. The first pass streams as
+    usual and keeps every delivered batch; later passes serve those
+    tensors again, with no Parquet read, no decode and no host-to-device
+    copy of data, in a reshuffled order. The whole epoch must fit in the
+    device's memory. Replay has no reader position, so there is no
+    ``state_dict``.
+
+    Order: each replay draws from ``numpy.random.RandomState(seed +
+    replay epoch)``, as the JAX package's loader does. Without
+    ``shuffle_rows`` the batch order is shuffled and batch membership
+    stays. With ``shuffle_rows`` the epoch's valid rows are pooled on the
+    device (once, at the first replay) and re-batched under a fresh
+    permutation with ``index_select``; the permutation (8 bytes a row) is
+    the one host-to-device copy of such an epoch. Bucketed batches have a
+    width per bucket and cannot pool, so they replay in batch order.
+    """
+
+    def __init__(self, loader, seed=0):
+        self._loader = loader
+        self._seed = seed
+        self._cache = []
+        self._row_cache = None     # field -> one concatenated device tensor
+        self._row_count = 0
+        self._cache_epoch = None
+        self._complete = False
+        self._produced_any = False
+        self._stopped = False
+        self._replay_epoch = 0
+        self._steps_iter = None
+
+    def __iter__(self):
+        self._check_live()
+        if not self._complete:
+            return self._first_pass()
+        return self._replay()
+
+    def _check_live(self):
+        if self._stopped:
+            raise RuntimeError('InMemoryCachedLoader was stopped (its cache is '
+                               'released); construct a new loader to iterate again')
+
+    def _first_pass(self):
+        it = iter(self._loader)
+        if self._loader.epoch != self._cache_epoch:
+            # the wrapped loader began a new pass (an earlier first-pass
+            # generator was dropped at the epoch boundary): batches cached
+            # from the stale pass would duplicate every row
+            self._cache = []
+            self._cache_epoch = self._loader.epoch
+        for batch in it:
+            self._cache.append(batch)
+            self._produced_any = True
+            yield batch
+        self._complete = True
+
+    def _replay(self):
+        self._replay_epoch += 1
+        rng = np.random.RandomState(
+            None if self._seed is None else (self._seed + self._replay_epoch) % (2 ** 32))
+        if self._loader.shuffle_rows and self._loader.bucket_field is None:
+            yield from self._replay_rows(rng)
+            return
+        cache = self._cache
+        order = np.arange(len(cache))
+        rng.shuffle(order)
+        for i in order:
+            self._check_live()
+            yield cache[i]
+
+    def _ensure_row_cache(self):
+        """Pool the cached epoch's valid rows into one device tensor per
+        field, releasing the per-batch cache as the pooled copy replaces
+        it."""
+        if self._row_cache is not None:
+            return
+        if not self._cache:
+            self._row_cache, self._row_count = {}, 0
+            return
+        names = [n for n in self._cache[0] if n != MASK_FIELD]
+        parts = {n: [] for n in names}
+        for b in self._cache:
+            mask = b.get(MASK_FIELD)
+            for n in names:
+                parts[n].append(b[n] if mask is None else b[n][mask])
+        self._cache = []
+        pooled = {}
+        try:
+            for n in names:
+                pooled[n] = torch.cat(parts.pop(n), dim=0)
+        except Exception:
+            # the per-batch cache is gone: further replays must fail loudly
+            self._stopped = True
+            raise
+        self._row_cache = pooled
+        self._row_count = int(next(iter(pooled.values())).shape[0])
+
+    def _replay_rows(self, rng):
+        self._ensure_row_cache()
+        n = self._row_count
+        if n == 0:
+            return
+        bs = self._loader.batch_size
+        policy = self._loader.last_batch
+        row_cache = self._row_cache
+        device = next(iter(row_cache.values())).device
+        perm = torch.from_numpy(rng.permutation(n)).to(device)
+        stop = n - (n % bs) if policy == 'drop' else n
+        for start in range(0, stop, bs):
+            self._check_live()
+            idx = perm[start:start + bs]
+            k = int(idx.shape[0])
+            batch = {name: t.index_select(0, idx) for name, t in row_cache.items()}
+            if policy == 'pad':
+                if k < bs:
+                    batch = {name: torch.cat([t, t.new_zeros((bs - k,) + t.shape[1:])])
+                             for name, t in batch.items()}
+                batch[MASK_FIELD] = torch.arange(bs, device=device) < k
+            yield batch
+
+    def iter_steps(self, num_steps):
+        """Exactly ``num_steps`` batches, continuing across calls and epoch
+        boundaries (see :meth:`TorchLoader.iter_steps`)."""
+        self._check_live()
+        it = self._steps_iter
+        for _ in range(num_steps):
+            while True:
+                if it is None:
+                    it = iter(self)
+                try:
+                    yield next(it)
+                    break
+                except StopIteration:
+                    if not self._produced_any:
+                        raise RuntimeError(
+                            'inmemory_cache_all loader produced no batches; the '
+                            "dataset is empty (or every batch was dropped by "
+                            "last_batch='drop')") from None
+                    it = None
+        self._steps_iter = it
+
+    @property
+    def schema(self):
+        return self._loader.schema
+
+    @property
+    def reader(self):
+        return self._loader.reader
+
+    @property
+    def batch_size(self):
+        return self._loader.batch_size
+
+    @property
+    def diagnostics(self):
+        return self._loader.diagnostics
+
+    def state_dict(self):
+        raise RuntimeError(
+            'inmemory_cache_all loaders have no checkpointable reader position '
+            '(replay epochs never touch the reader); checkpoint the train state '
+            'alone and replay the cached epoch on resume')
+
+    def load_state_dict(self, state):
+        raise RuntimeError(
+            'inmemory_cache_all loaders have no checkpointable reader position to '
+            'restore; replay the cached epoch from its start instead')
+
+    def stop(self):
+        self._stopped = True
+        self._loader.stop()
+        self._cache = []
+        self._row_cache = None
+        # a saved iter_steps cursor over the released cache must not survive
+        self._steps_iter = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        self.stop()

@@ -35,8 +35,8 @@ import contextlib
 import numpy as np
 import torch
 
-from petastorm_tpu_torch.errors import unported
 from petastorm_tpu_torch.fused import EncodedImageColumn, count_fallback
+from petastorm_tpu_torch.ragged import STRING_MESSAGE, reject_object_column
 from petastorm_tpu_torch.telemetry import (
     FUSED_BYTES, FUSED_ROWS, get_registry, knobs, metrics_disabled, span,
 )
@@ -94,14 +94,13 @@ def resolve_cast_policy(dtypes):
 
 
 def check_deviceable(name, arr):
-    """Refuse columns that cannot become tensors, with the reason."""
+    """Refuse columns that cannot become tensors, with the classified
+    reason (:mod:`petastorm_tpu_torch.ragged`): a ragged column's message
+    names ``pad_ragged=``/``bucket_boundaries=``."""
     if arr.dtype == object:
-        raise TypeError('field %r is ragged or nullable (an object column) and '
-                        'cannot be staged as a tensor: %s' % (name, unported(
-                            'densifying it with pad_ragged=', 4)))
+        reject_object_column(name, arr)
     if arr.dtype.kind in 'US':
-        raise TypeError('field %r holds strings, which have no tensor form; '
-                        'drop it with fields=' % name)
+        raise TypeError(STRING_MESSAGE % name)
 
 
 class CudaTarget:

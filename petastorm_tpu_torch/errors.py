@@ -19,12 +19,12 @@ class MetadataError(PetastormTpuError):
 #: ``ROADMAP.md`` Queue 1 items the port has not reached yet, by number
 ROADMAP_ITEMS = {
     3: 'caches, readahead, pushdown, filters and predicates, faults, sanitizer',
-    4: 'pad_ragged, bucket_boundaries, inmemory_cache_all',
     5: 'mesh via torch.distributed',
     7: 'checkpointing and stream combinators',
     8: 'LM consumer layer: MoE, ring/Ulysses attention, pipeline, generate',
     9: 'process and service pools, HDFS and object stores',
     10: 'write plane and ETL tools',
+    11: 'bridges, benchmark, examples and test utilities',
 }
 
 

@@ -291,10 +291,15 @@ def _write_dataset_footer(dataset_url, schema, storage_options=None):
 
 
 @contextmanager
-def materialize_dataset(dataset_url, schema, storage_options=None):
+def materialize_dataset(dataset_url, schema, row_group_size_mb=None,
+                        storage_options=None, spark=None):
     """Run any parquet-producing job in the body; on exit the footer
     (``_common_metadata`` with the schema JSON and row-group counts) is
-    written."""
+    written. ``row_group_size_mb`` is accepted as the reference accepts it:
+    there it only sets a Spark session's parquet block size, and ``spark=``
+    (the Spark bridge) is not ported yet."""
+    if spark is not None:
+        raise unported('materialize_dataset(spark=)', 11)
     yield
     _write_dataset_footer(normalize_dir_url(dataset_url), schema, storage_options)
 
@@ -306,7 +311,14 @@ class DatasetWriter:
 
     def __init__(self, dataset_url, schema, rowgroup_size_rows=1000,
                  partition_by=(), file_prefix='part', storage_options=None,
-                 rowgroup_size_mb=None, compression='auto'):
+                 rowgroup_size_mb=None, compression='auto',
+                 workers_count=None, sort_by=None, filesystem=None):
+        if workers_count not in (None, 0, 1):
+            raise unported('DatasetWriter(workers_count=)', 10)
+        if sort_by is not None:
+            raise unported('DatasetWriter(sort_by=)', 10)
+        if filesystem is not None:
+            raise unported('DatasetWriter(filesystem=)', 10)
         self.schema = schema
         self._compression = compression
         self.rowgroup_size_rows = rowgroup_size_rows

@@ -1,12 +1,15 @@
-"""MNIST rows/s and LM tokens/s of the port in a given checkout, on the card.
+"""MNIST rows/s, LM tokens/s and ViT images/s of the port in a given
+checkout, on the card.
 
     python3 petastorm_tpu_torch/examples/loader_rates.py --tree DIR
 
 Runs ``petastorm_tpu_torch`` as found under ``DIR`` (another commit's
-checkout, or this one) through ``chip_smoke.py``'s ``main_path`` and
-``lm_path`` settings: 50 SGD steps of the MNIST CNN on 60,000 synthetic
-rows, and 20 AdamW steps of the flagship LM on 8192 C4-like documents.
-The kernels build first, and a 5-step MNIST run warms the card's
+checkout, or this one) through ``chip_smoke.py``'s ``main_path``,
+``lm_path`` and ``vit_path`` settings: 50 SGD steps of the MNIST CNN on
+60,000 synthetic rows, 20 AdamW steps of the flagship LM on 8192 C4-like
+documents, and 20 AdamW steps of ViT-Base on 1024 ImageNet-like 384² PNG
+rows (the codec the H100 machine's decoders build for). The kernels
+build first, and a 5-step MNIST run and a 3-step ViT run warm the card's
 libraries, so no timed step pays for either. Prints one JSON line
 with the rates, the host stage seconds and the card. Run it as a script,
 not as a module, so that the package is imported from ``DIR`` only;
@@ -30,6 +33,7 @@ def main():
     from petastorm_tpu_torch.examples.lm_pretrain import (
         FLAGSHIP_LM_KW, generate_c4_like, pretrain,
     )
+    from petastorm_tpu_torch.examples.imagenet import generate_imagenet_like, train_vit_fused
     from petastorm_tpu_torch.examples.mnist import generate_synthetic_mnist, train
     from petastorm_tpu_torch.ops import build
     from petastorm_tpu_torch.telemetry import get_registry, reset_registry
@@ -55,6 +59,12 @@ def main():
         lm = pretrain(lm_url, batch_size=8, steps=20, seq_len=1024, model_kw=FLAGSHIP_LM_KW,
                       attn_impl='flash', device='cuda')
         out.update(lm_tokens_per_s=lm['tokens_per_s'], lm_stage_seconds=stage_seconds())
+        vit_url = 'file://' + os.path.join(tmp, 'imagenet_like')
+        generate_imagenet_like(vit_url, num_rows=1024, size=384, image_codec='png')
+        train_vit_fused(vit_url, steps=3, batch_size=16, device='cuda')
+        reset_registry()
+        vit = train_vit_fused(vit_url, steps=20, batch_size=16, device='cuda')
+        out.update(vit_images_per_s=vit['images_per_s'], vit_stage_seconds=stage_seconds())
     out['card'] = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                                   '--format=csv,noheader'], capture_output=True,
                                  text=True).stdout.strip()

@@ -13,8 +13,9 @@ card), as the JAX package leaves them to XLA; norms, softmax and the loss
 run in f32.
 
 Weights carry across from the JAX package with :func:`params_from_jax`.
-MoE blocks, sequence parallelism, the pipelined forward, the masked loss
-and decoding are not ported yet (``ROADMAP.md`` Queue 1 items 4 and 8).
+:func:`transformer_masked_loss` trains on the loader's padded or bucketed
+batches. MoE blocks, sequence parallelism, the pipelined forward and
+decoding are not ported yet (``ROADMAP.md`` Queue 1 item 8).
 """
 
 import dataclasses
@@ -357,6 +358,48 @@ def transformer_loss(model, tokens):
     logits, aux = transformer_forward_with_aux(model, tokens[:, :-1])
     ll = torch.log_softmax(logits, dim=-1).gather(-1, targets[..., None])[..., 0]
     return -ll.mean() + c.moe_aux_weight * aux
+
+
+def transformer_masked_loss(model, tokens, lengths):
+    """Next-token cross-entropy over right-padded ``(B, S)`` batches:
+    position ``i`` predicts ``i + 1`` and counts only when ``i + 1 <
+    min(length, S)``, with ``lengths`` the loader's ``<field>_len`` column
+    (a truncated row's length exceeds S and saturates). The mean is over
+    real targets, so the gradient's scale does not depend on padding; a
+    batch without one gives 0. Causal attention over right-padded rows
+    needs no key mask: a real position attends only to positions before
+    it, all real. ``config.loss_chunk > 0`` computes it chunked. Dense
+    configs only, as the JAX version (the port has no MoE blocks)."""
+    c = model.config
+    targets = tokens[:, 1:].long()
+    positions = torch.arange(targets.shape[1], device=tokens.device)
+    limit = torch.clamp(lengths.to(device=tokens.device, dtype=torch.long),
+                        max=tokens.shape[1])
+    mask = (positions[None, :] + 1 < limit[:, None]).float()
+    if c.loss_chunk > 0:
+        x, aux = _features_with_aux(model, tokens[:, :-1])
+        nll, cnt = _chunked_next_token_nll(x, model.lm_head, targets, mask, c.loss_chunk,
+                                           c.dtype)
+        return nll / torch.clamp(cnt, min=1) + c.moe_aux_weight * aux
+    logits, aux = transformer_forward_with_aux(model, tokens[:, :-1])
+    ll = torch.log_softmax(logits, dim=-1).gather(-1, targets[..., None])[..., 0]
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1) + c.moe_aux_weight * aux
+
+
+def transformer_masked_train_step(model, optimizer):
+    """A ``(tokens, lengths) -> loss`` step over padded or bucketed batches
+    (see :func:`transformer_masked_loss`): forward, backward and one
+    optimizer update. Nothing is compiled per shape, so one step serves
+    every bucket's width."""
+
+    def step(tokens, lengths):
+        optimizer.zero_grad(set_to_none=True)
+        loss = transformer_masked_loss(model, tokens, lengths)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
 
 
 def transformer_train_step(model, optimizer, accum_steps=1):

@@ -38,8 +38,11 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
                       shuffle_row_drop_partitions=1, predicate=None,
                       rowgroup_selector=None, num_epochs=1, cur_shard=None,
                       shard_count=None, seed=0, cache_type='null',
-                      transform_spec=None, filters=None,
-                      defer_image_decode=False, poison_policy=None):
+                      cache_location=None, cache_size_limit=None,
+                      cache_row_size_estimate=None, transform_spec=None,
+                      filters=None, storage_options=None, filesystem=None,
+                      defer_image_decode=False, poison_policy=None,
+                      mixture_interleave=None, max_staleness_s=None):
     """Reader yielding whole row-groups as namedtuples of column arrays,
     over any Parquet store, petastorm metadata or not.
 
@@ -59,6 +62,10 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
         still encoded, as :class:`~petastorm_tpu_torch.fused.EncodedImageColumn`
         (the torch loader asks for this and decodes them straight into its
         staging slots); declined with a TransformSpec.
+
+    The reference's other kwargs are taken under its names and at its
+    positions; each one set raises ``NotImplementedError`` naming the
+    ``ROADMAP.md`` item that ports it.
     """
     if predicate is not None:
         raise unported('make_batch_reader(predicate=)', 3)
@@ -66,11 +73,20 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
         raise unported('make_batch_reader(rowgroup_selector=)', 10)
     if cache_type not in (None, 'null', 'none'):
         raise unported('cache_type=%r' % (cache_type,), 3)
+    for name, value in (('cache_location', cache_location),
+                        ('cache_size_limit', cache_size_limit),
+                        ('cache_row_size_estimate', cache_row_size_estimate)):
+        if value is not None:
+            raise unported('make_batch_reader(%s=)' % name, 3)
     if filters:
         raise unported('make_batch_reader(filters=)', 3)
     if poison_policy is not None:
         raise unported('poison_policy=', 9)
-    info = ParquetDatasetInfo(dataset_url_or_urls)
+    if mixture_interleave is not None:
+        raise unported('make_batch_reader(mixture_interleave=)', 7)
+    if max_staleness_s is not None:
+        raise unported('make_batch_reader(max_staleness_s=)', 10)
+    info = ParquetDatasetInfo(dataset_url_or_urls, storage_options, filesystem=filesystem)
     return Reader(info, schema_fields=schema_fields,
                   reader_pool_type=reader_pool_type, workers_count=workers_count,
                   results_queue_size=results_queue_size,

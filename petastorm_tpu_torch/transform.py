@@ -3,6 +3,7 @@
 as a pandas DataFrame; device-side transforms belong in
 :mod:`petastorm_tpu_torch.ops`."""
 
+from petastorm_tpu_torch.errors import unported
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 
 
@@ -16,10 +17,13 @@ class TransformSpec:
     :param removed_fields: field names the transform deletes.
     :param selected_fields: if not None, exactly these fields remain, in
         this order (exclusive with ``removed_fields``).
+    :param cacheable: the decoded cache's opt-in; not ported yet.
     """
 
     def __init__(self, func=None, edit_fields=None, removed_fields=None,
-                 selected_fields=None):
+                 selected_fields=None, cacheable=None):
+        if cacheable is not None:
+            raise unported('TransformSpec(cacheable=)', 3)
         if removed_fields and selected_fields:
             raise ValueError('removed_fields and selected_fields are mutually exclusive')
         self.func = func

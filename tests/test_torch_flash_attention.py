@@ -237,6 +237,10 @@ _BF16_CARD_CASES = [((2, s, 3, d), causal,
                      'bf16-s%d-d%d-%s' % (s, d, 'causal' if causal else 'bidir'))
                     for d in (32, 64, 96, 128) for s in (1, 77, 130, 1000)
                     for causal in (True, False)]
+# the bucketed LM path's shapes: attention at each bucket's bound - 1, so
+# every kernel ends in a masked tail tile
+_BF16_CARD_CASES += [((2, s, 4, 96), True, 'bf16-varlen-s%d-d96-causal' % s)
+                     for s in (63, 127, 255, 511)]
 
 
 def _card_inputs(shape, dtype, fused):

@@ -41,7 +41,8 @@ def test_port_has_modules_to_scan():
                    ('codecs.py',), ('fused.py',), ('arrow_worker.py',), ('reader.py',),
                    ('device', 'staging.py'), ('device', 'loader.py'),
                    ('ops', 'augment.py'), ('models', 'vit.py'),
-                   ('examples', 'imagenet.py'), ('telemetry', 'names.py')):
+                   ('examples', 'imagenet.py'), ('telemetry', 'names.py'),
+                   ('ragged.py',), ('examples', 'variable_length.py')):
         assert os.path.join('petastorm_tpu_torch', *module) in rel
     assert len(rel) > 20
 

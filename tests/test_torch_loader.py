@@ -131,17 +131,56 @@ def test_iter_steps_crosses_epochs_and_replays(scalar_dataset):
     assert first == second == list(range(100))
 
 
-@pytest.mark.parametrize('kwargs', [
-    dict(mesh=object()),
-    dict(inmemory_cache_all=True),
-    dict(pad_ragged={'x': 3}),
-    dict(bucket_boundaries={'x': [2]}),
-    dict(mixture=object()),
-    dict(reader_pool_type='process'),
-], ids=['mesh', 'inmemory', 'pad-ragged', 'buckets', 'mixture', 'process'])
-def test_unported_kwargs_raise(scalar_dataset, kwargs):
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+@pytest.mark.parametrize('kwargs,item', [
+    (dict(mesh=object()), 5),
+    (dict(data_axes=('data',)), 5),
+    (dict(mixture=object()), 7),
+    (dict(reader_pool_type='process'), 9),
+], ids=['mesh', 'data-axes', 'mixture', 'process'])
+def test_unported_kwargs_raise(scalar_dataset, kwargs, item):
+    with pytest.raises(NotImplementedError, match='ROADMAP.md: Queue 1 item %d,' % item):
         make_torch_loader(scalar_dataset.url, batch_size=4, device='cpu', **kwargs)
+
+
+def test_reader_factory_replaces_make_batch_reader(scalar_dataset, jax_staging_off):
+    from petastorm_tpu.reader import make_batch_reader as jax_reader
+    from petastorm_tpu_torch.reader import make_batch_reader as torch_reader
+    calls = []
+
+    def factory(maker):
+        def make(url, **kwargs):
+            calls.append(sorted(kwargs))
+            return maker(url, reader_pool_type='dummy', **kwargs)
+        return make
+
+    kw = dict(batch_size=16, last_batch='short', fields=['^id$', '^float64$'], seed=3,
+              shuffle_row_groups=True)
+    with make_jax_loader(scalar_dataset.url, reader_factory=factory(jax_reader), **kw) as loader:
+        want = [{k: np.asarray(v) for k, v in b.items()} for b in loader]
+    with make_torch_loader(scalar_dataset.url, device='cpu',
+                           reader_factory=factory(torch_reader), **kw) as loader:
+        got = [{k: v.numpy() for k, v in b.items()} for b in loader]
+    _assert_same_batches(want, got)
+    # called as make_batch_reader is, and with no fused-decode hand-shake
+    assert calls == [['num_epochs', 'schema_fields', 'shuffle_row_groups']] * 2
+
+
+def test_reader_factory_must_give_a_batched_reader(scalar_dataset):
+    stopped = []
+
+    class RowReader:
+        batched_output = False
+
+        def stop(self):
+            stopped.append('stop')
+
+        def join(self):
+            stopped.append('join')
+
+    with pytest.raises(ValueError, match='batched reader'):
+        make_torch_loader(scalar_dataset.url, batch_size=4, device='cpu',
+                          reader_factory=lambda url, **kw: RowReader())
+    assert stopped == ['stop', 'join']
 
 
 def test_string_field_refused_with_reason(scalar_dataset):

@@ -189,3 +189,72 @@ def test_state_dict_resumes_across_packages(synthetic_dataset, saver, loader):
 def test_unported_kwargs_raise(synthetic_dataset, kwargs):
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         torch_make_batch_reader(synthetic_dataset.url, **kwargs)
+
+
+# the reference's kwargs the port takes at the reference's positions, each
+# raising its own ROADMAP item
+REFERENCE_KWARGS = {
+    'cache_location': ('/tmp/cache', 3),
+    'cache_size_limit': (1 << 20, 3),
+    'cache_row_size_estimate': (1024, 3),
+    'mixture_interleave': ({'share': 0.5}, 7),
+    'storage_options': ({'anon': True}, 9),
+    'filesystem': (object(), 9),
+    'max_staleness_s': (1.0, 10),
+}
+
+
+@pytest.mark.parametrize('name', sorted(REFERENCE_KWARGS))
+def test_reference_kwargs_raise_their_item(synthetic_dataset, name):
+    import inspect
+    value, item = REFERENCE_KWARGS[name]
+    with pytest.raises(NotImplementedError,
+                       match=r'ROADMAP.md: Queue 1 item %d,' % item):
+        torch_make_batch_reader(synthetic_dataset.url, **{name: value})
+    want = list(inspect.signature(jax_make_batch_reader).parameters)
+    got = list(inspect.signature(torch_make_batch_reader).parameters)
+    assert got.index(name) == want.index(name)
+
+
+def test_materialize_dataset_takes_row_group_size_mb(tmp_path):
+    """``materialize_dataset(url, schema, 256)``: the third parameter is the
+    reference's ``row_group_size_mb`` (a Spark conf there), accepted without
+    Spark; the footer the port writes reads back in both packages."""
+    import inspect
+
+    from petastorm_tpu.etl.dataset_metadata import materialize_dataset as jax_materialize
+    from petastorm_tpu_torch.etl.dataset_metadata import DatasetWriter, materialize_dataset
+    schema = TorchUnischema.from_json_dict(TestSchema.to_json_dict())
+    url = 'file://%s/ds' % tmp_path
+    with materialize_dataset(url, schema, 256):
+        with DatasetWriter(url, schema, rowgroup_size_rows=10) as writer:
+            writer.write_row_dicts([_row(i) for i in range(30)])
+    for package in ('jax', 'torch'):
+        ids = sorted(i for b in _read(package, url, reader_pool_type='dummy',
+                                      schema_fields=['^id$']) for i in b['id'].tolist())
+        assert ids == list(range(30))
+    assert (list(inspect.signature(materialize_dataset).parameters)
+            == list(inspect.signature(jax_materialize).parameters))
+
+
+@pytest.mark.parametrize('call,item', [
+    ('materialize-spark', 11),
+    ('writer-workers-count', 10),
+    ('writer-sort-by', 10),
+    ('writer-filesystem', 10),
+    ('transform-cacheable', 3),
+])
+def test_write_and_transform_kwargs_raise_their_item(tmp_path, call, item):
+    from petastorm_tpu_torch.etl.dataset_metadata import DatasetWriter, materialize_dataset
+    schema = TorchUnischema.from_json_dict(TestSchema.to_json_dict())
+    url = 'file://%s/ds' % tmp_path
+    calls = {
+        'materialize-spark': lambda: materialize_dataset(url, schema, 256,
+                                                         spark=object()).__enter__(),
+        'writer-workers-count': lambda: DatasetWriter(url, schema, workers_count=4),
+        'writer-sort-by': lambda: DatasetWriter(url, schema, sort_by='id'),
+        'writer-filesystem': lambda: DatasetWriter(url, schema, filesystem=object()),
+        'transform-cacheable': lambda: TorchTransformSpec(lambda f: f, cacheable=True),
+    }
+    with pytest.raises(NotImplementedError, match=r'ROADMAP.md: Queue 1 item %d,' % item):
+        calls[call]()

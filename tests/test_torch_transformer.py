@@ -229,3 +229,83 @@ def test_default_device_is_the_card():
         return
     with pytest.raises((RuntimeError, AssertionError)):
         tt.init_transformer(0, torch_config)
+
+
+# -- the masked loss over padded / bucketed batches ------------------------------
+# Tolerances as above: f32 losses atol/rtol 2e-5, f32 grads atol 1e-5 rtol 1e-4.
+
+def _padded(b, s, lengths, seed, pad_value=0):
+    """Right-padded ``(b, s)`` token rows: row ``i`` is real up to
+    ``min(lengths[i], s)`` and ``pad_value`` after."""
+    tokens = _tokens(b, s, seed)
+    real = np.arange(s)[None, :] < np.minimum(lengths, s)[:, None]
+    return np.where(real, tokens, pad_value).astype(np.int32), np.asarray(lengths, np.int32)
+
+
+MASKED_CASES = {
+    'dense': dict(),
+    'flash': dict(attn_impl='flash'),
+    'dense-chunked': dict(loss_chunk=5),
+    'flash-chunked': dict(attn_impl='flash', loss_chunk=7),
+    'flash-rope-chunked-64': dict(attn_impl='flash', pos_encoding='rope', loss_chunk=64),
+}
+
+
+@pytest.mark.parametrize('case', sorted(MASKED_CASES))
+def test_masked_loss_and_grads_match_jax(case):
+    jax_config, torch_config = _configs(**MASKED_CASES[case])
+    params, model = _models(jax_config, torch_config)
+    # a full row, short rows, a 1-token row (no target), an empty row and a
+    # truncated row whose length exceeds S
+    tokens, lengths = _padded(6, 17, [17, 5, 11, 1, 0, 40], seed=21)
+    loss, grads = jax.value_and_grad(jt.transformer_masked_loss)(
+        params, jnp.asarray(tokens), jnp.asarray(lengths), jax_config)
+    got = tt.transformer_masked_loss(model, torch.from_numpy(tokens), torch.from_numpy(lengths))
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(loss), atol=2e-5, rtol=2e-5)
+    want = tt.params_from_jax(jax.tree_util.tree_map(np.asarray, grads))
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(), atol=1e-5,
+                                   rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize('chunk', [0, 6])
+def test_masked_loss_ignores_pad_values(chunk):
+    _, torch_config = _configs(attn_impl='flash', loss_chunk=chunk)
+    model = tt.init_transformer(0, torch_config, 'cpu')
+    losses = []
+    for pad_value in (0, 7, 63):
+        tokens, lengths = _padded(4, 19, [19, 3, 12, 8], seed=22, pad_value=pad_value)
+        losses.append(tt.transformer_masked_loss(model, torch.from_numpy(tokens),
+                                                 torch.from_numpy(lengths)).item())
+    np.testing.assert_allclose(losses, losses[0], atol=1e-6, rtol=0)
+
+
+def test_masked_loss_of_full_rows_is_the_loss_and_lengths_saturate():
+    _, torch_config = _configs(attn_impl='flash')
+    model = tt.init_transformer(0, torch_config, 'cpu')
+    tokens = torch.from_numpy(_tokens(3, 16, seed=23))
+    want = tt.transformer_loss(model, tokens).item()
+    for length in (16, 17, 1000):
+        got = tt.transformer_masked_loss(model, tokens, torch.full((3,), length)).item()
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+    # no real target in the batch: 0, not a division by zero
+    empty = tt.transformer_masked_loss(model, tokens, torch.tensor([0, 1, 1]))
+    assert empty.item() == 0.0
+
+
+def test_masked_train_steps_match_optax():
+    jax_config, torch_config = _configs(attn_impl='flash', loss_chunk=8)
+    params, model = _models(jax_config, torch_config)
+    optimizer = optax.adamw(1e-3)
+    opt_state = optimizer.init(params)
+    jax_step = jt.transformer_masked_train_step(jax_config, optimizer)
+    step = tt.transformer_masked_train_step(model, _adamw(model))
+    # bucket widths change from step to step
+    for i, (s, lengths) in enumerate([(9, [9, 4, 2]), (17, [17, 13, 10]), (9, [5, 9, 7])]):
+        tokens, lengths = _padded(3, s, lengths, seed=30 + i)
+        params, opt_state, jax_loss = jax_step(params, opt_state, jnp.asarray(tokens),
+                                               jnp.asarray(lengths))
+        loss = step(torch.from_numpy(tokens), torch.from_numpy(lengths))
+        np.testing.assert_allclose(float(loss), float(jax_loss), atol=2e-5, rtol=2e-5)
+    _assert_params_match(params, model, atol=1e-4)
