@@ -147,11 +147,16 @@ FLASH_CASES = [
     # masked tail tile in every kernel
     ('varlen511_causal_bf16', (16, 511, 16, 96), torch.bfloat16, True, 1.0),
     ('varlen127_causal_bf16', (16, 127, 16, 96), torch.bfloat16, True, 1.0),
+    # the two other buckets: S = 63 is a single tile, where the diagonal
+    # and the tail masks fall on the same tile
+    ('varlen63_causal_bf16', (16, 63, 16, 96), torch.bfloat16, True, 1.0),
+    ('varlen255_causal_bf16', (16, 255, 16, 96), torch.bfloat16, True, 1.0),
 ]
 FLASH_MAIN_CASE = 'flagship_causal_bf16'
 VIT_FLASH_CASE = 'vit_bidir_bf16'
 VARLEN_FLASH_CASE = 'varlen511_causal_bf16'
-VARLEN_TAIL_CASE = 'varlen127_causal_bf16'
+# the bucketed path's other buckets, listed beside it in the kernels line
+VARLEN_TAIL_CASES = ('varlen127_causal_bf16', 'varlen255_causal_bf16', 'varlen63_causal_bf16')
 # name -> (launch counter in ops/flash_attention.py, key in a
 # flash_kernel case, outputs, the jax Pallas TPU kernel that
 # flash_attention_fused (petastorm_tpu/ops/flash_attention.py:59) reaches)
@@ -729,13 +734,12 @@ def phase_lm_profile():
     packed batch."""
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
     from petastorm_tpu_torch.models.transformer import (
-        TransformerConfig, init_transformer, transformer_train_step,
+        TransformerConfig, adamw, init_transformer, transformer_train_step,
     )
     config = TransformerConfig(max_seq_len=LM_SEQ, loss_chunk=256, attn_impl='flash',
                                **FLAGSHIP_LM_KW)
     model = init_transformer(0, config, 'cuda')
-    step = transformer_train_step(model, torch.optim.AdamW(
-        model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4))
+    step = transformer_train_step(model, adamw(model))
     gen = torch.Generator(device='cuda').manual_seed(0)
     tokens = torch.randint(2, config.vocab_size, (LM_BATCH, LM_SEQ + 1), generator=gen,
                            device='cuda', dtype=torch.int32)
@@ -992,22 +996,18 @@ def phase_vit_profile():
     """Where a ViT-Base step's device time goes (``profile_steps``): flips,
     cutout and the normalize kernel on one uint8 batch on the card, then
     the train step."""
-    from petastorm_tpu_torch.examples.imagenet import VIT_BASE_KW, _adamw, _prepare
+    from petastorm_tpu_torch.examples.imagenet import VIT_BASE_KW, _prepare
+    from petastorm_tpu_torch.models.transformer import adamw
     from petastorm_tpu_torch.models.vit import ViTConfig, init_vit, vit_train_step
     config = ViTConfig(attn_impl='flash', **VIT_BASE_KW)
     model = init_vit(0, config, 'cuda')
-    step = vit_train_step(model, _adamw(model, 1e-3))
+    step = vit_train_step(model, adamw(model))
     gen = torch.Generator(device='cuda').manual_seed(0)
     images = torch.randint(0, 256, (VIT_BATCH, 384, 384, 3), generator=gen, device='cuda',
                            dtype=torch.uint8)
     labels = torch.randint(0, 1000, (VIT_BATCH,), generator=gen, device='cuda')
     profile_steps('vit_profile', lambda: step(_prepare(images, gen, True, 48), labels),
                   VIT_PROFILE_STEPS)
-
-
-def _flagship_adamw(model):
-    return torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=1e-4)
 
 
 def phase_varlen_reference(url):
@@ -1019,8 +1019,10 @@ def phase_varlen_reference(url):
     the card (kernels) against the CPU (plain versions), loss within 1e-4
     and ``max|err| / max|grad|`` within 1e-4. In bf16 on the whole batch on
     the card: flash attention (the tensor-core kernels) against dense
-    attention with the same weights, within 3e-2 of the loss and of the
-    gradient's max-abs."""
+    attention with the same weights: the loss within 1e-3 relative and the
+    gradient within 3e-2 of its max-abs. At init the loss sits near
+    ln(vocab) whatever attention computes, so the gradient gate is the one
+    that catches a wrong kernel."""
     from petastorm_tpu_torch.device.loader import make_torch_loader
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
     from petastorm_tpu_torch.models.transformer import (
@@ -1081,13 +1083,13 @@ def phase_varlen_reference(url):
           'cases': cases,
           'f32_tolerance': 'card (kernels) vs CPU (plain), 2 rows: loss abs 1e-4, '
                            'grad max-abs err / max|grad| 1e-4 (TF32 off)',
-          'bf16_tolerance': 'flash vs dense on the card, whole batch: loss rel 3e-2, '
+          'bf16_tolerance': 'flash vs dense on the card, whole batch: loss rel 1e-3, '
                             'grad max-abs err / max|grad| 3e-2'})
     for name, c in cases.items():
         assert c['finite'], (name, c)
         assert c['f32_loss_abs_err'] <= 1e-4, (name, c)
         assert c['f32_grad_err_over_max_abs'] <= 1e-4, (name, c)
-        assert c['bf16_loss_rel_err'] <= 3e-2, (name, c)
+        assert c['bf16_loss_rel_err'] <= 1e-3, (name, c)
         assert c['bf16_grad_err_over_max_abs'] <= 3e-2, (name, c)
         assert c['bf16_flash_fwd_launches'] == 2, (name, c)  # 2 layers, one forward
 
@@ -1152,12 +1154,12 @@ def phase_varlen_profile():
     import itertools
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
     from petastorm_tpu_torch.models.transformer import (
-        TransformerConfig, init_transformer, transformer_masked_train_step,
+        TransformerConfig, adamw, init_transformer, transformer_masked_train_step,
     )
     config = TransformerConfig(max_seq_len=VARLEN_BOUNDARIES[-1], loss_chunk=256,
                                attn_impl='flash', **FLAGSHIP_LM_KW)
     model = init_transformer(0, config, 'cuda')
-    step = transformer_masked_train_step(model, _flagship_adamw(model))
+    step = transformer_masked_train_step(model, adamw(model))
     gen = torch.Generator(device='cuda').manual_seed(0)
     batches = []
     for low, bound in zip((0,) + VARLEN_BOUNDARIES, VARLEN_BOUNDARIES):
@@ -1183,14 +1185,14 @@ def phase_inmemory_replay(url):
     from petastorm_tpu_torch.device.staging import H2D_BYTES
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
     from petastorm_tpu_torch.models.transformer import (
-        TransformerConfig, init_transformer, transformer_masked_train_step,
+        TransformerConfig, adamw, init_transformer, transformer_masked_train_step,
     )
     from petastorm_tpu_torch.telemetry import get_registry, reset_registry
     reset_registry()
     config = TransformerConfig(max_seq_len=VARLEN_BOUNDARIES[-1], loss_chunk=256,
                                attn_impl='flash', **FLAGSHIP_LM_KW)
     model = init_transformer(0, config, 'cuda')
-    step = transformer_masked_train_step(model, _flagship_adamw(model))
+    step = transformer_masked_train_step(model, adamw(model))
     epochs = []
     with make_torch_loader(url, batch_size=VARLEN_BATCH, fields=['^tokens$'],
                            num_epochs=None, bucket_boundaries={'tokens': list(VARLEN_BOUNDARIES)},
@@ -1324,7 +1326,7 @@ def main():
                  'source': 'petastorm_tpu_torch/csrc/flash_attention.cu',
                  'replaces': replaces, 'launches': paths['varlen_path'][name],
                  'launches_by_path': _launches_by_path(name, paths)}
-        for label in (VARLEN_FLASH_CASE, VARLEN_TAIL_CASE, VIT_FLASH_CASE, FLASH_MAIN_CASE):
+        for label in (VARLEN_FLASH_CASE, *VARLEN_TAIL_CASES, VIT_FLASH_CASE, FLASH_MAIN_CASE):
             case = flash[label]
             timing = case['kernels'][key]
             numbers = {

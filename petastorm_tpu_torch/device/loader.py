@@ -74,30 +74,31 @@ def _reserve_len_column(columns, name, policy):
     return len_name
 
 
-def _densify_ragged(columns, pad_ragged):
+def _densify_ragged(columns, pad_ragged, policy='pad_ragged'):
     """Apply a ``pad_ragged`` policy (``{field: sizes tuple}``) to one
     reader chunk: each variable-shape column becomes a static-shape array
     padded with zeros (or truncated), plus its ``<field>_len`` column of
     true sizes. A None cell densifies to zeros with size 0. A chunk comes
     as an object array from a ragged row-group or as a dense array from
-    a uniform one; both give the same static shape."""
+    a uniform one; both give the same static shape. ``policy`` names the
+    option in error messages."""
     out = dict(columns)
     for name, targets in pad_ragged.items():
         if name not in out:
             # readers yield a stable schema: a field missing here is a wrong
             # name, and skipping it would emit inconsistent column sets
             raise ValueError(
-                'pad_ragged field %r is not in the batch (available: %s); check the '
+                '%s field %r is not in the batch (available: %s); check the '
                 'name against fields=/the schema'
-                % (name, sorted(n for n in columns if n != _PULL_FIELD)))
-        len_name = _reserve_len_column(out, name, 'pad_ragged')
+                % (policy, name, sorted(n for n in columns if n != _PULL_FIELD)))
+        len_name = _reserve_len_column(out, name, policy)
         col = out[name]
         k = len(targets)
         n = len(col)
         if n == 0:
             continue
         if col.dtype == object:
-            cells, first = _object_cells(col, name, 'pad_ragged')
+            cells, first = _object_cells(col, name, policy)
             trailing = first.shape[k:]
             dense = np.zeros((n,) + targets + trailing, first.dtype)
             lens = np.zeros((n, k), np.int32)
@@ -106,17 +107,17 @@ def _densify_ragged(columns, pad_ragged):
                     continue
                 if cell.ndim != k + len(trailing):
                     raise ValueError(
-                        'pad_ragged[%r]: row has %d dims but the policy names %d '
+                        '%s[%r]: row has %d dims but the policy names %d '
                         'variable dim(s) over trailing shape %r'
-                        % (name, cell.ndim, k, trailing))
+                        % (policy, name, cell.ndim, k, trailing))
                 lens[i] = cell.shape[:k]
                 clipped = tuple(slice(0, min(cell.shape[d], targets[d])) for d in range(k))
                 dense[(i,) + clipped] = cell[clipped]
         else:
             if col.ndim < 1 + k:
-                raise ValueError('pad_ragged[%r]: dense chunk has %d row dims but the '
+                raise ValueError('%s[%r]: dense chunk has %d row dims but the '
                                  'policy names %d variable dim(s)'
-                                 % (name, col.ndim - 1, k))
+                                 % (policy, name, col.ndim - 1, k))
             trailing = col.shape[1 + k:]
             dense = np.zeros((n,) + targets + trailing, col.dtype)
             region = (slice(None),) + tuple(slice(0, min(col.shape[1 + d], targets[d]))
@@ -133,47 +134,27 @@ def _split_by_bucket(columns, name, bounds):
     ``(bound, subcolumns)`` with the field densified to ``(rows, bound,
     *trailing)`` and its ``<name>_len`` column of true lengths; rows longer
     than the last bound truncate into the last bucket."""
-    if name not in columns:
-        raise ValueError(
-            'bucket_boundaries field %r is not in the batch (available: %s); check '
-            'the name against fields=/the schema'
-            % (name, sorted(n for n in columns if n != _PULL_FIELD)))
-    len_name = _reserve_len_column(columns, name, 'bucket_boundaries')
-    col = columns[name]
-    n = len(col)
-    if n == 0:
-        return
-    if col.dtype == object:
-        cells, first = _object_cells(col, name, 'bucket_boundaries')
-        if first.ndim < 1:
-            raise ValueError('bucket_boundaries[%r]: cells are scalars; bucketing '
-                             'needs a leading sequence dim' % name)
-        lens = np.asarray([0 if c is None else c.shape[0] for c in cells], np.int32)
-        trailing, dtype = first.shape[1:], first.dtype
-    else:
-        if col.ndim < 2:
+    col = columns.get(name)
+    if col is not None and len(col):
+        if col.dtype == object:
+            if _object_cells(col, name, 'bucket_boundaries')[1].ndim < 1:
+                raise ValueError('bucket_boundaries[%r]: cells are scalars; bucketing '
+                                 'needs a leading sequence dim' % name)
+        elif col.ndim < 2:
             raise ValueError('bucket_boundaries[%r]: column is scalar per row; '
                              'bucketing needs a leading sequence dim' % name)
-        cells = None  # a uniform dense chunk: one length for every row
-        lens = np.full(n, col.shape[1], np.int32)
-        trailing, dtype = col.shape[2:], col.dtype
+    # densify once at the last bound, then cut each bucket's rows to its own
+    out = _densify_ragged(columns, {name: (int(bounds[-1]),)}, 'bucket_boundaries')
+    len_name = name + LEN_SUFFIX
+    if len_name not in out:
+        return  # an empty chunk
     # the smallest bound >= the length; longer rows clamp into the last
-    bucket_idx = np.minimum(np.searchsorted(bounds, lens, side='left'), len(bounds) - 1)
+    bucket_idx = np.minimum(np.searchsorted(bounds, out[len_name], side='left'),
+                            len(bounds) - 1)
     for b in np.unique(bucket_idx):
         bound = int(bounds[b])
         rows = np.flatnonzero(bucket_idx == b)
-        dense = np.zeros((len(rows), bound) + trailing, dtype)
-        if cells is None:
-            keep = min(col.shape[1], bound)
-            dense[:, :keep] = col[rows, :keep]
-        else:
-            for j, i in enumerate(rows):
-                if cells[i] is not None:
-                    keep = min(cells[i].shape[0], bound)
-                    dense[j, :keep] = cells[i][:keep]
-        subcols = {k: (v[rows] if k != name else dense) for k, v in columns.items()}
-        subcols[len_name] = lens[rows]
-        yield bound, subcols
+        yield bound, {k: (v[rows, :bound] if k == name else v[rows]) for k, v in out.items()}
 
 
 def resolve_device(device):

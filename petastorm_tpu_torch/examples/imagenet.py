@@ -128,12 +128,13 @@ def train_vit(dataset_url, batch_size=8, steps=8, size=64, patch_size=16, n_clas
     dataset, resized on the workers, with flips and cutout on the device;
     returns the losses. AdamW carries optax ``adamw``'s defaults."""
     from petastorm_tpu_torch.device.loader import make_torch_loader, resolve_device
+    from petastorm_tpu_torch.models.transformer import adamw
     from petastorm_tpu_torch.models.vit import ViTConfig, init_vit, vit_train_step
     device = resolve_device(device)
     config = ViTConfig(image_size=size, patch_size=patch_size, n_classes=n_classes,
                        d_model=64, n_heads=4, n_layers=2, d_ff=256)
     model = init_vit(0, config, device)
-    step = vit_train_step(model, _adamw(model, learning_rate))
+    step = vit_train_step(model, adamw(model, learning_rate))
     generator = torch.Generator(device=device).manual_seed(1)
     losses = []
     with make_torch_loader(dataset_url, batch_size=batch_size,
@@ -145,12 +146,6 @@ def train_vit(dataset_url, batch_size=8, steps=8, size=64, patch_size=16, n_clas
             if i % 4 == 0 or i == steps - 1:
                 log('step %3d  loss %.4f' % (i, losses[-1]))
     return losses
-
-
-def _adamw(model, learning_rate):
-    # optax adamw's defaults (torch's own weight decay default is 0.01)
-    return torch.optim.AdamW(model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
-                             eps=1e-8, weight_decay=1e-4)
 
 
 def imagenet_like_schema(size=384, image_codec='jpeg'):
@@ -204,11 +199,12 @@ def train_vit_fused(dataset_url, steps=20, batch_size=16, model_kw=None, attn_im
     rates are timed on the host from the first step's start to the last
     loss."""
     from petastorm_tpu_torch.device.loader import make_torch_loader, resolve_device
+    from petastorm_tpu_torch.models.transformer import adamw
     from petastorm_tpu_torch.models.vit import ViTConfig, init_vit, vit_train_step
     device = resolve_device(device)
     config = ViTConfig(attn_impl=attn_impl, **(VIT_BASE_KW if model_kw is None else model_kw))
     model = init_vit(seed, config, device)
-    step = vit_train_step(model, _adamw(model, learning_rate))
+    step = vit_train_step(model, adamw(model, learning_rate))
     generator = torch.Generator(device=device).manual_seed(seed + 1)
     losses, devices = [], set()
     with make_torch_loader(dataset_url, batch_size=batch_size,

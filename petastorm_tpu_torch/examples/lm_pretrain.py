@@ -80,16 +80,14 @@ def pretrain(dataset_url, batch_size=8, steps=20, seq_len=1024, model_kw=None,
     host, and count ``batch_size * seq_len`` trained positions a step."""
     from petastorm_tpu_torch.device.loader import make_torch_loader, resolve_device
     from petastorm_tpu_torch.models.transformer import (
-        TransformerConfig, init_transformer, transformer_train_step,
+        TransformerConfig, adamw, init_transformer, transformer_train_step,
     )
 
     device = resolve_device(device)
     config = TransformerConfig(max_seq_len=seq_len, loss_chunk=256, attn_impl=attn_impl,
                                **(FLAGSHIP_LM_KW if model_kw is None else model_kw))
     model = init_transformer(0, config, device)
-    optimizer = torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
-                                  weight_decay=1e-4)
-    step = transformer_train_step(model, optimizer)
+    step = transformer_train_step(model, adamw(model))
     losses = []
     devices = set()
     with make_torch_loader(dataset_url, batch_size=batch_size, fields=['^tokens$'],

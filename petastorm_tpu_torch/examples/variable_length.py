@@ -50,7 +50,7 @@ def train_variable_length(dataset_url, batch_size=16, steps=20, learning_rate=1e
     around its steps."""
     from petastorm_tpu_torch.device.loader import make_torch_loader, resolve_device
     from petastorm_tpu_torch.models.transformer import (
-        TransformerConfig, init_transformer, transformer_masked_train_step,
+        TransformerConfig, adamw, init_transformer, transformer_masked_train_step,
     )
 
     device = resolve_device(device)
@@ -58,9 +58,7 @@ def train_variable_length(dataset_url, batch_size=16, steps=20, learning_rate=1e
                                loss_chunk=loss_chunk, dtype=dtype,
                                **(EXAMPLE_MODEL_KW if model_kw is None else model_kw))
     model = init_transformer(0, config, device)
-    optimizer = torch.optim.AdamW(model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
-                                  eps=1e-8, weight_decay=1e-4)
-    step = transformer_masked_train_step(model, optimizer)
+    step = transformer_masked_train_step(model, adamw(model, learning_rate))
     loader_kwargs.setdefault('shuffle_row_groups', True)
     losses, widths, max_lens, targets, events = [], [], [], [], []
     devices = set()

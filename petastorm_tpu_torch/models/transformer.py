@@ -432,3 +432,11 @@ def transformer_train_step(model, optimizer, accum_steps=1):
         return loss.detach()
 
     return step
+
+
+def adamw(model, learning_rate=1e-3):
+    """``torch.optim.AdamW`` with optax ``adamw``'s defaults (betas
+    0.9/0.999, eps 1e-8, weight decay 1e-4; torch's own weight decay
+    default is 0.01), the optimizer of every recipe in the port."""
+    return torch.optim.AdamW(model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=1e-4)

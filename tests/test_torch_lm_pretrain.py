@@ -89,8 +89,7 @@ def test_slice_end_to_end_matches_jax(c4_datasets):
     optimizer = optax.adamw(1e-3)
     opt_state = optimizer.init(params)
     jax_step = jt.transformer_train_step(jax_config, optimizer)
-    step = tt.transformer_train_step(model, torch.optim.AdamW(
-        model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4))
+    step = tt.transformer_train_step(model, tt.adamw(model))
     for want_tokens, tokens in zip(jax_batches, torch_batches):
         params, opt_state, jax_loss = jax_step(params, opt_state, jnp.asarray(want_tokens))
         np.testing.assert_allclose(float(step(tokens)), float(jax_loss), atol=2e-5, rtol=2e-5)

@@ -116,11 +116,6 @@ def test_loss_chunk_matches_unchunked_and_jax(chunk):
         torch.testing.assert_close(a.grad, b.grad, atol=1e-6, rtol=1e-5, msg=name)
 
 
-def _adamw(model):
-    return torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=1e-4)
-
-
 def _assert_params_match(params, model, atol):
     want = tt.params_from_jax(jax.tree_util.tree_map(np.asarray, params))
     got = model.state_dict()
@@ -137,7 +132,7 @@ def test_three_adamw_steps_match_optax(case):
     optimizer = optax.adamw(1e-3)
     opt_state = optimizer.init(params)
     jax_step = jt.transformer_train_step(jax_config, optimizer)
-    step = tt.transformer_train_step(model, _adamw(model))
+    step = tt.transformer_train_step(model, tt.adamw(model))
     for i in range(3):
         tokens = _tokens(2, 17, seed=10 + i)
         params, opt_state, jax_loss = jax_step(params, opt_state, jnp.asarray(tokens))
@@ -151,15 +146,15 @@ def test_accum_steps_matches_one_full_batch_step():
     full = tt.init_transformer(0, torch_config, 'cpu')
     accum = tt.init_transformer(0, torch_config, 'cpu')
     tokens = torch.from_numpy(_tokens(4, 17, seed=6))
-    loss_full = tt.transformer_train_step(full, _adamw(full))(tokens)
-    loss_accum = tt.transformer_train_step(accum, _adamw(accum), accum_steps=2)(tokens)
+    loss_full = tt.transformer_train_step(full, tt.adamw(full))(tokens)
+    loss_accum = tt.transformer_train_step(accum, tt.adamw(accum), accum_steps=2)(tokens)
     torch.testing.assert_close(loss_accum, loss_full, atol=1e-6, rtol=1e-6)
     for (name, a), b in zip(full.named_parameters(), accum.parameters()):
         torch.testing.assert_close(b, a, atol=1e-6, rtol=0, msg=name)
     with pytest.raises(ValueError, match='divisible'):
-        tt.transformer_train_step(full, _adamw(full), accum_steps=3)(tokens)
+        tt.transformer_train_step(full, tt.adamw(full), accum_steps=3)(tokens)
     with pytest.raises(ValueError):
-        tt.transformer_train_step(full, _adamw(full), accum_steps=0)
+        tt.transformer_train_step(full, tt.adamw(full), accum_steps=0)
 
 
 def test_parameter_tree_matches_jax():
@@ -300,7 +295,7 @@ def test_masked_train_steps_match_optax():
     optimizer = optax.adamw(1e-3)
     opt_state = optimizer.init(params)
     jax_step = jt.transformer_masked_train_step(jax_config, optimizer)
-    step = tt.transformer_masked_train_step(model, _adamw(model))
+    step = tt.transformer_masked_train_step(model, tt.adamw(model))
     # bucket widths change from step to step
     for i, (s, lengths) in enumerate([(9, [9, 4, 2]), (17, [17, 13, 10]), (9, [5, 9, 7])]):
         tokens, lengths = _padded(3, s, lengths, seed=30 + i)
