@@ -78,6 +78,23 @@ final ``{"ok": true, ...}`` line is printed only when every phase passed:
     the replay epoch serves the first epoch's tensors, reads, decodes and
     stages nothing, and a profiled replay pass shows no host-to-device
     copy.
+15. ``mixture_path`` (configuration lm-mixture-flagship): two token
+    corpora written as ``bench.py``'s ``_build_mixture_source`` writes
+    them (``web``, 3072 documents, and ``code``, 1024), mixed 3:1 and
+    packed on the host into rows of 1025 tokens by
+    ``make_torch_loader(mixture=)``, then ``MIXTURE_STEPS`` AdamW steps of
+    the flagship LM (``pretrain_mixture``): packed tokens/s, the packer's
+    fill ratio, the realized deviation from 3:1, documents per source,
+    ``stage_seconds`` with ``pack``, and 10 launches of each flash kernel
+    a step. ``mixture_profile``: the ``lm_profile`` breakdown over steps
+    fed by that loader.
+16. ``resume``: run A trains ``RESUME_STEPS`` unbroken steps on the
+    mixture; run B trains half of them, saves model, optimizer and data
+    position with ``TrainCheckpointer``, and a second call builds a fresh
+    loader, model and optimizer, restores them and trains the rest. The
+    token batches after the restore equal run A's bit for bit, and the
+    losses agree within 1e-3 relative; the checkpoint's bytes and its save
+    and restore seconds are printed.
 
 Then the ``kernels`` summary (each kernel's launches on every path), the
 ``nvidia-smi`` name and power limit, and the ``ok`` line. The script
@@ -189,6 +206,15 @@ VARLEN_BOUNDARIES = (64, 128, 256, 512)
 VARLEN_REFERENCE_WIDTHS = (128, 512)  # attention at S = 127 and 511
 VARLEN_PROFILE_STEPS = 4              # one step a bucket
 REPLAY_DOCS = 512                     # the JAX example's num_docs
+
+# lm-mixture-flagship: bench.py's mixture_stream corpora (MIXTURE_DOCS_A/B,
+# seeds 1 and 2) mixed 3:1, packed to 1025 tokens, the flagship on them
+MIXTURE_SOURCES = (('web', 3, 3072, 1), ('code', 1, 1024, 2))  # name, weight, docs, seed
+MIXTURE_ROW = LM_SEQ + 1
+MIXTURE_STEPS = 20
+MIXTURE_PROFILE_STEPS = 3
+RESUME_STEPS = 16
+RESUME_LOSS_RTOL = 1e-3
 
 
 def emit(obj):
@@ -1243,6 +1269,127 @@ def phase_inmemory_replay(url):
     assert all(math.isfinite(v) for e in epochs for v in e['losses'])
 
 
+def write_mixture_corpora(root):
+    """The two token corpora of lm-mixture-flagship; returns its spec."""
+    from petastorm_tpu_torch.examples.lm_pretrain import write_token_corpus
+    from petastorm_tpu_torch.mixture import MixtureSource, MixtureSpec
+    sources = []
+    t0 = time.perf_counter()
+    for name, weight, docs, seed in MIXTURE_SOURCES:
+        url = write_token_corpus('file://' + os.path.join(root, name), docs, seed)
+        sources.append(MixtureSource(name, weight, url=url))
+    emit({'phase': 'write', 'dataset': 'lm-mixture-flagship',
+          'sources': {name: {'documents': docs, 'weight': weight, 'seed': seed}
+                      for name, weight, docs, seed in MIXTURE_SOURCES},
+          'seconds': time.perf_counter() - t0})
+    return MixtureSpec(sources, seed=0, seq_len=MIXTURE_ROW)
+
+
+def phase_mixture_path(spec):
+    """``pretrain_mixture`` on the card: the flagship on packed rows of the
+    3:1 mixture, each flash kernel 10 times a step."""
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, pretrain_mixture
+    from petastorm_tpu_torch.telemetry import reset_registry
+    reset_registry()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    result = pretrain_mixture(spec, batch_size=LM_BATCH, steps=MIXTURE_STEPS,
+                              model_kw=FLAGSHIP_LM_KW, attn_impl='flash', device='cuda')
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    stages = stage_seconds()
+    losses = result['losses']
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    weights = {s.name: s.weight for s in spec.sources}
+    docs = result['source_docs']
+    emit({'phase': 'mixture_path', 'config': 'lm-mixture-flagship', 'model': FLAGSHIP_LM_KW,
+          'steps': len(losses), 'batch_size': LM_BATCH, 'packed_row_tokens': MIXTURE_ROW,
+          'attention_positions': MIXTURE_ROW - 1, 'weights': weights,
+          'launches': launches,
+          'launches_per_step': {k: v / MIXTURE_STEPS for k, v in launches.items()},
+          'batch_devices': result['batch_devices'], 'losses': losses,
+          'loss_first5_mean': first, 'loss_last5_mean': last,
+          'tokens_per_s': result['tokens_per_s'], 'steps_per_s': result['steps_per_s'],
+          'tokens_per_s_counts': 'trained positions: batch_size x (packed_row_tokens - 1) a step',
+          'pack_stats': result['pack_stats'], 'source_docs': docs,
+          'source_share': {k: v / sum(docs.values()) for k, v in docs.items()},
+          'realized_deviation': result['realized_deviation'],
+          'consumer_wait_s': result['diagnostics']['consumer_wait_s'],
+          'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+          'stage_seconds': stages})
+    assert len(losses) == MIXTURE_STEPS
+    assert all(math.isfinite(v) for v in losses), losses
+    assert last < first, (first, last)
+    assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
+    assert stages.get('pack', 0.0) > 0.0, stages
+    assert result['pack_stats']['rows'] >= MIXTURE_STEPS * LM_BATCH, result['pack_stats']
+    assert result['realized_deviation'] <= 1.0, result['realized_deviation']
+    want = FLAGSHIP_LM_KW['n_layers'] * MIXTURE_STEPS
+    for name in FLASH_KERNELS:
+        assert launches[name] == want, (name, launches[name], want)
+    return launches
+
+
+def phase_mixture_profile(spec):
+    """Where a flagship step fed by the mixture loader goes
+    (``profile_steps``): each profiled step pulls its packed batch from
+    ``make_torch_loader(mixture=)``."""
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
+    from petastorm_tpu_torch.models.transformer import (
+        TransformerConfig, adamw, init_transformer, transformer_train_step,
+    )
+    config = TransformerConfig(max_seq_len=MIXTURE_ROW - 1, loss_chunk=256, attn_impl='flash',
+                               **FLAGSHIP_LM_KW)
+    model = init_transformer(0, config, 'cuda')
+    step = transformer_train_step(model, adamw(model))
+    with make_torch_loader(None, batch_size=LM_BATCH, mixture=spec, num_epochs=None,
+                           device='cuda') as loader:
+        batches = iter(loader)
+        profile_steps('mixture_profile', lambda: step(next(batches)['tokens']),
+                      MIXTURE_PROFILE_STEPS)
+
+
+def phase_resume(spec):
+    """Run A: ``RESUME_STEPS`` unbroken steps. Run B: half of them and a
+    ``TrainCheckpointer`` save, then a second call that builds a fresh
+    loader, model and optimizer, restores all three and trains the rest.
+    The token batches after the restore equal run A's bit for bit; the
+    losses agree within ``RESUME_LOSS_RTOL``."""
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, pretrain_mixture
+    half = RESUME_STEPS // 2
+
+    def run(steps, checkpoint_dir=None, checkpoint_every=half):
+        batches = {}
+        result = pretrain_mixture(
+            spec, batch_size=LM_BATCH, steps=steps, model_kw=FLAGSHIP_LM_KW,
+            attn_impl='flash', device='cuda', checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every,
+            on_step=lambda i, batch, loss: batches.__setitem__(i, batch['tokens'].cpu()))
+        return result, batches
+
+    unbroken, want = run(RESUME_STEPS)
+    with tempfile.TemporaryDirectory() as directory:
+        head, _ = run(half, directory)
+        # restores step `half` and saves no more
+        tail, got = run(RESUME_STEPS, directory, checkpoint_every=RESUME_STEPS + 1)
+    same = [torch.equal(got[i], want[i]) for i in range(half + 1, RESUME_STEPS + 1)]
+    pairs = list(zip(unbroken['losses'][half:], tail['losses']))
+    gaps = [abs(b - a) / abs(a) for a, b in pairs]
+    save = head['saves'][0]
+    emit({'phase': 'resume', 'config': 'lm-mixture-flagship', 'steps': RESUME_STEPS,
+          'restored_at': tail['start_step'], 'batches_bit_identical': same,
+          'losses_unbroken': unbroken['losses'], 'losses_resumed': head['losses'] + tail['losses'],
+          'max_loss_rel_gap': max(gaps), 'tolerance': 'rel <= %g' % RESUME_LOSS_RTOL,
+          'checkpoint_bytes': save['bytes'], 'save_s': save['seconds'],
+          'restore_s': tail['restore_s'],
+          'restore_counts': 'restore_loader + restore_state, host seconds'})
+    assert tail['start_step'] == half, tail['start_step']
+    assert sorted(got) == list(range(half + 1, RESUME_STEPS + 1)), sorted(got)
+    assert all(same), same
+    assert max(gaps) <= RESUME_LOSS_RTOL, gaps
+
+
 def write_lm_dataset(url, num_docs=LM_DOCS):
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, generate_c4_like
     from petastorm_tpu_torch.reader import make_batch_reader
@@ -1292,13 +1439,17 @@ def main():
         replay_url = 'file://' + os.path.join(tmp, 'c4_like_%d' % REPLAY_DOCS)
         write_lm_dataset(replay_url, num_docs=REPLAY_DOCS)
         phase_inmemory_replay(replay_url)
+        mixture = write_mixture_corpora(tmp)
+        paths['mixture_path'] = phase_mixture_path(mixture)
+        phase_mixture_profile(mixture)
+        phase_resume(mixture)
         vit_url = 'file://' + os.path.join(tmp, 'imagenet_like')
         write_vit_dataset(vit_url, image_codec)
         phase_image_reference(vit_url, image_codec)
         paths['vit_path'] = phase_vit_path(vit_url, image_codec)
     phase_vit_profile()
     # the headline numbers are this slice's path's: the flash kernels' at
-    # the bucketed LM path's largest bucket and their launches there;
+    # the mixture path's shape (the flagship's) and their launches there;
     # normalize's on the ViT path, the last path that runs it; the
     # earlier paths' shapes and launches stand beside them
     vit_case = kernel[VIT_KERNEL_CASE]
@@ -1324,7 +1475,7 @@ def main():
                  # bf16 runs the tensor-core instances (the profiles check their names)
                  'instruction': 'wgmma',
                  'source': 'petastorm_tpu_torch/csrc/flash_attention.cu',
-                 'replaces': replaces, 'launches': paths['varlen_path'][name],
+                 'replaces': replaces, 'launches': paths['mixture_path'][name],
                  'launches_by_path': _launches_by_path(name, paths)}
         for label in (VARLEN_FLASH_CASE, *VARLEN_TAIL_CASES, VIT_FLASH_CASE, FLASH_MAIN_CASE):
             case = flash[label]
@@ -1344,7 +1495,7 @@ def main():
                 'shape': case['shape'], 'dtype': case['dtype'], 'causal': case['causal'],
             }
             entry[label] = numbers
-            if label == VARLEN_FLASH_CASE:
+            if label == FLASH_MAIN_CASE:
                 entry.update(numbers)
         kernels.append(entry)
     emit({'kernels': kernels, 'seconds': time.perf_counter() - t_start})

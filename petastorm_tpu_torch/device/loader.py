@@ -17,6 +17,8 @@ batch by length with ``bucket_boundaries=`` (one static width per
 bucket, each bucket with its own pinned slots), with a ``<field>_len``
 column of true sizes; ``inmemory_cache_all=True`` keeps the first pass's
 batches on the device and replays them (:class:`InMemoryCachedLoader`).
+``mixture=`` feeds the loader packed token rows from a weighted mixture
+of datasets (:mod:`petastorm_tpu_torch.mixture`).
 
 The loader runs on the card (``device='cuda'``, the default) unless the
 caller asks for the CPU; it never falls back to the CPU on its own.
@@ -34,6 +36,7 @@ import torch
 from petastorm_tpu_torch import fused
 from petastorm_tpu_torch.device import staging
 from petastorm_tpu_torch.errors import unported
+from petastorm_tpu_torch.mixture import MixtureBatchReader, MixtureStream
 from petastorm_tpu_torch.telemetry import (
     STALL_NOTE_FLOOR_S, note_consumer_wait, note_producer_wait, span,
 )
@@ -218,6 +221,16 @@ def make_torch_loader(dataset_url_or_urls, batch_size, fields=None,
     :param reader_factory: reader constructor in place of
         :func:`~petastorm_tpu_torch.reader.make_batch_reader`, called as it
         is; the loader then asks it for no deferred image decode.
+    :param mixture: a :class:`petastorm_tpu_torch.mixture.MixtureSpec`:
+        feed the loader a deterministic weighted mixture of several
+        datasets, packed into rows of ``seq_len`` tokens (``tokens``,
+        ``loss_mask`` and ``segment_ids`` int32 columns; the spec needs
+        ``seq_len``), in place of one dataset: ``dataset_url_or_urls``
+        must then be None, as the sources carry their own URLs.
+        ``reader_kwargs`` flow to every source's reader. Each batch is one
+        pull of ``batch_size`` rows from the mixture, and the loader's
+        ``state_dict`` is the mixture's position, the same JSON as the JAX
+        loader's.
     :param reader_kwargs: forwarded to the reader factory (pool type,
         ``cur_shard``/``shard_count``, ``shuffle_row_groups``, ...).
     """
@@ -226,26 +239,42 @@ def make_torch_loader(dataset_url_or_urls, batch_size, fields=None,
     if data_axes is not None:
         raise unported('make_torch_loader(data_axes=)', 5)
     if mixture is not None:
-        raise unported('make_torch_loader(mixture=)', 7)
-    if inmemory_cache_all and num_epochs not in (1, None):
+        if dataset_url_or_urls is not None:
+            raise ValueError('mixture= and dataset_url_or_urls are mutually '
+                             'exclusive: the MixtureSpec sources carry their '
+                             'own URLs')
+        if reader_factory is not None:
+            raise ValueError('mixture= builds its own source readers; give '
+                             'per-source factories on the MixtureSource '
+                             'entries instead of reader_factory=')
+        if fields is not None:
+            raise ValueError('mixture= emits fixed packed columns (tokens/'
+                             'loss_mask/segment_ids); fields= does not apply')
+        if inmemory_cache_all:
+            raise ValueError('mixture= does not support inmemory_cache_all')
+    elif inmemory_cache_all and num_epochs not in (1, None):
         raise ValueError(
             'inmemory_cache_all caches exactly one epoch and replays it; '
             'pass num_epochs=1 (the default) and re-iterate the loader for '
             'more epochs (got num_epochs=%r)' % (num_epochs,))
     device = resolve_device(device)
-    if reader_factory is None:
-        from petastorm_tpu_torch.reader import make_batch_reader as reader_factory
-        # the fused-decode hand-shake: ask for encoded image cells whenever
-        # this loader's batch path can decode them into its staging
-        # buffers; other cases materialize them in the loader, so asking
-        # is never a bet. A custom factory may not know the kwarg.
-        reader_kwargs.setdefault(
-            'defer_image_decode',
-            not shuffle_rows and bucket_boundaries is None
-            and staging.staging_enabled())
-    reader = reader_factory(dataset_url_or_urls, schema_fields=fields,
-                            num_epochs=1 if inmemory_cache_all else num_epochs,
-                            **reader_kwargs)
+    if mixture is not None:
+        reader = _mixture_reader(mixture, batch_size, num_epochs, reader_kwargs)
+    else:
+        if reader_factory is None:
+            from petastorm_tpu_torch.reader import make_batch_reader as reader_factory
+            # the fused-decode hand-shake: ask for encoded image cells
+            # whenever this loader's batch path can decode them into its
+            # staging buffers; other cases materialize them in the loader,
+            # so asking is never a bet. A custom factory may not know the
+            # kwarg.
+            reader_kwargs.setdefault(
+                'defer_image_decode',
+                not shuffle_rows and bucket_boundaries is None
+                and staging.staging_enabled())
+        reader = reader_factory(dataset_url_or_urls, schema_fields=fields,
+                                num_epochs=1 if inmemory_cache_all else num_epochs,
+                                **reader_kwargs)
     try:
         loader = TorchLoader(reader, batch_size, device=device,
                              shuffle_rows=shuffle_rows,
@@ -262,6 +291,18 @@ def make_torch_loader(dataset_url_or_urls, batch_size, fields=None,
     if inmemory_cache_all:
         return InMemoryCachedLoader(loader, seed=seed)
     return loader
+
+
+def _mixture_reader(spec, batch_size, num_epochs, reader_kwargs):
+    """The mixture's packed rows as a batched reader: one pull of
+    ``batch_size`` rows a batch (the JAX loader's ``mixture=`` build)."""
+    stream = MixtureStream(spec, num_epochs=num_epochs, **reader_kwargs)
+    try:
+        return MixtureBatchReader(stream, rows_per_pull=batch_size)
+    except Exception:
+        stream.stop()
+        stream.join()
+        raise
 
 
 class TorchLoader:

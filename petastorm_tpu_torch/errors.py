@@ -20,7 +20,7 @@ class MetadataError(PetastormTpuError):
 ROADMAP_ITEMS = {
     3: 'caches, readahead, pushdown, filters and predicates, faults, sanitizer',
     5: 'mesh via torch.distributed',
-    7: 'checkpointing and stream combinators',
+    7: 'the row reader: make_reader and NGram',
     8: 'LM consumer layer: MoE, ring/Ulysses attention, pipeline, generate',
     9: 'process and service pools, HDFS and object stores',
     10: 'write plane and ETL tools',

@@ -6,12 +6,16 @@ repository's flagship LM (``bench.py``'s ``FLAGSHIP_LM_KW``). Documents
 are variable-length int32 token arrays (``NdarrayCodec``); a worker-side
 ``TransformSpec`` packs each row-group's documents, EOS-separated, into
 fixed rows of ``seq_len + 1`` tokens. The loss shifts a row by one, so
-attention runs at exactly ``seq_len`` positions.
+attention runs at exactly ``seq_len`` positions. :func:`pretrain_mixture`
+trains the same way on a weighted mixture of corpora packed on the host
+(``make_torch_loader(mixture=)``); both resume from a
+``checkpoint_dir``.
 
     python -m petastorm_tpu_torch.examples.lm_pretrain --generate --steps 20
 """
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -47,6 +51,28 @@ def generate_c4_like(url, num_docs=512, vocab_size=256, seed=0, rowgroup_size_ro
     return url
 
 
+def write_token_corpus(url, num_docs, seed):
+    """A plain-Parquet token corpus, as ``bench.py``'s
+    ``_build_mixture_source`` writes it: ``doc_id`` and list<int64>
+    ``tokens`` with ids 2-999 and lengths 20-399, in two files of 64-row
+    groups. The mixture recipes' input."""
+    import pyarrow.parquet as pq
+    path = url[len('file://'):]
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    per_file = (num_docs + 1) // 2
+    doc_id = 0
+    for file_idx in range(2):
+        n = min(per_file, num_docs - doc_id)
+        tokens = [rng.randint(2, 1000, size=int(rng.randint(20, 400))).tolist()
+                  for _ in range(n)]
+        table = pa.table({'doc_id': np.arange(doc_id, doc_id + n), 'tokens': tokens})
+        pq.write_table(table, os.path.join(path, 'part-%d.parquet' % file_idx),
+                       row_group_size=64)
+        doc_id += n
+    return url
+
+
 def packing_transform(seq_len):
     """TransformSpec packing a row-group's documents into ``seq_len``-token
     rows: concatenate with EOS separators, cut, drop the ragged tail. The
@@ -66,19 +92,17 @@ def packing_transform(seq_len):
                          selected_fields=['tokens'])
 
 
-def pretrain(dataset_url, batch_size=8, steps=20, seq_len=1024, model_kw=None,
-             attn_impl='flash', device=None):
-    """``steps`` AdamW steps of the bf16 transformer (seed 0) on packed
-    rows of ``seq_len + 1`` tokens, so attention runs at ``seq_len``
-    positions; the loss is chunked by 256 positions, as the flagship
-    benchmark runs it.
+def _tree_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, name))
+               for root, _, names in os.walk(path) for name in names)
 
-    AdamW carries optax ``adamw(1e-3)``'s defaults (betas 0.9/0.999, eps
-    1e-8, weight decay 1e-4; torch's own default decay is 0.01). Returns
-    ``{'losses', 'tokens_per_s', 'steps_per_s', 'batch_devices'}``; the
-    rates are timed from the first step's start to the last loss on the
-    host, and count ``batch_size * seq_len`` trained positions a step."""
-    from petastorm_tpu_torch.device.loader import make_torch_loader, resolve_device
+
+def _train(make_loader, steps, batch_size, seq_len, model_kw, attn_impl, device,
+           checkpoint_dir, checkpoint_every, on_step, report=None):
+    """The AdamW loop both recipes share (see :func:`pretrain`);
+    ``report(loader)`` adds entries to the result at the end."""
+    from petastorm_tpu_torch.checkpoint import TrainCheckpointer
+    from petastorm_tpu_torch.device.loader import resolve_device
     from petastorm_tpu_torch.models.transformer import (
         TransformerConfig, adamw, init_transformer, transformer_train_step,
     )
@@ -87,20 +111,122 @@ def pretrain(dataset_url, batch_size=8, steps=20, seq_len=1024, model_kw=None,
     config = TransformerConfig(max_seq_len=seq_len, loss_chunk=256, attn_impl=attn_impl,
                                **(FLAGSHIP_LM_KW if model_kw is None else model_kw))
     model = init_transformer(0, config, device)
-    step = transformer_train_step(model, adamw(model))
+    optimizer = adamw(model)
+    step = transformer_train_step(model, optimizer)
+    state = {'model': model, 'optimizer': optimizer}
+    ckpt = TrainCheckpointer(checkpoint_dir) if checkpoint_dir is not None else None
     losses = []
     devices = set()
-    with make_torch_loader(dataset_url, batch_size=batch_size, fields=['^tokens$'],
-                           transform_spec=packing_transform(seq_len + 1), num_epochs=None,
-                           shuffle_row_groups=True, device=device) as loader:
+    saves = []
+    restore_s = None
+    with make_loader(device) as loader:
+        start_step = 0
+        if ckpt is not None:
+            t0 = time.perf_counter()
+            start_step = ckpt.restore_loader(loader)
+            ckpt.restore_state(state)
+            restore_s = time.perf_counter() - t0
+            if start_step >= steps:
+                print('checkpoint already at step %d >= requested %d steps; nothing '
+                      'to train' % (start_step, steps))
+                return None
         start = time.perf_counter()
-        for batch in loader.iter_steps(steps):
+        for i, batch in enumerate(loader.iter_steps(steps - start_step), start_step + 1):
             devices.add(str(batch['tokens'].device))
-            losses.append(step(batch['tokens']))
+            loss = step(batch['tokens'])
+            losses.append(loss)
+            if on_step is not None:
+                on_step(i, batch, loss)
+            if ckpt is not None and i % checkpoint_every == 0:
+                float(loss)  # the step finishes before the save is timed
+                t0 = time.perf_counter()
+                path = ckpt.save(i, state, loader)
+                saves.append({'step': i, 'seconds': time.perf_counter() - t0,
+                              'bytes': _tree_bytes(path)})
         losses = [float(loss) for loss in losses]
         elapsed = time.perf_counter() - start
-    return {'losses': losses, 'tokens_per_s': steps * batch_size * seq_len / elapsed,
-            'steps_per_s': steps / elapsed, 'batch_devices': sorted(devices)}
+        trained = steps - start_step
+        result = {'losses': losses, 'start_step': start_step,
+                  'tokens_per_s': trained * batch_size * seq_len / elapsed,
+                  'steps_per_s': trained / elapsed, 'batch_devices': sorted(devices),
+                  'diagnostics': loader.diagnostics, 'restore_s': restore_s,
+                  'saves': saves}
+        if report is not None:
+            result.update(report(loader))
+        return result
+
+
+def pretrain(dataset_url, batch_size=8, steps=20, seq_len=1024, model_kw=None,
+             attn_impl='flash', device=None, checkpoint_dir=None, checkpoint_every=10,
+             on_step=None):
+    """``steps`` AdamW steps of the bf16 transformer (seed 0) on packed
+    rows of ``seq_len + 1`` tokens, so attention runs at ``seq_len``
+    positions; the loss is chunked by 256 positions, as the flagship
+    benchmark runs it.
+
+    AdamW carries optax ``adamw(1e-3)``'s defaults (betas 0.9/0.999, eps
+    1e-8, weight decay 1e-4; torch's own default decay is 0.01). With
+    ``checkpoint_dir``, the run resumes from the latest checkpoint there
+    (model, optimizer and data position, see
+    :class:`~petastorm_tpu_torch.checkpoint.TrainCheckpointer`), returns
+    None without training when that checkpoint is at ``steps`` or past
+    it, and saves all three every ``checkpoint_every`` steps: rows in
+    flight at a save are re-read on resume, rows already trained on are
+    not (at-least-once row-groups). ``on_step(step, batch, loss)`` sees
+    each step (1-based). Returns ``{'losses', 'start_step',
+    'tokens_per_s', 'steps_per_s', 'batch_devices', 'diagnostics',
+    'restore_s', 'saves'}`` for the steps this call trained; the rates are
+    timed from the first step's start to the last loss on the host (saves
+    included), and count ``batch_size * seq_len`` trained positions a
+    step. ``restore_s`` is the host seconds of the restore (None without
+    a checkpoint directory) and ``saves`` lists each save's step, host
+    seconds and bytes on disk."""
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+
+    def make_loader(device):
+        return make_torch_loader(dataset_url, batch_size=batch_size, fields=['^tokens$'],
+                                 transform_spec=packing_transform(seq_len + 1),
+                                 num_epochs=None, shuffle_row_groups=True, device=device)
+
+    return _train(make_loader, steps, batch_size, seq_len, model_kw, attn_impl, device,
+                  checkpoint_dir, checkpoint_every, on_step)
+
+
+def pretrain_mixture(spec, batch_size=8, steps=20, model_kw=None, attn_impl='flash',
+                     device=None, checkpoint_dir=None, checkpoint_every=10, on_step=None,
+                     **reader_kwargs):
+    """:func:`pretrain`'s loop on a weighted mixture of token corpora:
+    ``make_torch_loader(mixture=spec)`` packs the documents into rows of
+    ``spec.seq_len`` tokens on the host, so attention runs at
+    ``spec.seq_len - 1`` positions. The mixture never runs dry (its
+    sources repeat their epochs), and a checkpoint taken at a step
+    boundary resumes the same rows, bit for bit. ``reader_kwargs`` go to
+    every source's reader (pool type, workers).
+
+    Adds to :func:`pretrain`'s result ``'pack_stats'`` (the packer's rows,
+    fill ratio, split documents), ``'source_docs'`` (documents drawn from
+    each source) and ``'realized_deviation'`` (the largest gap, over the
+    draws so far, between a source's count and its exact share); all
+    three count what the mixture produced, prefetched rows included."""
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    from petastorm_tpu_torch.mixture import InterleaveSchedule, realized_deviation
+
+    if spec.seq_len is None:
+        raise ValueError('pretrain_mixture needs a MixtureSpec with seq_len')
+
+    def make_loader(device):
+        return make_torch_loader(None, batch_size=batch_size, mixture=spec, num_epochs=None,
+                                 device=device, **reader_kwargs)
+
+    def report(loader):
+        stream = loader.reader.stream
+        docs = stream.source_doc_counts
+        order = InterleaveSchedule.order(spec.weights, spec.seed, 0, sum(docs))
+        return {'pack_stats': stream.pack_stats, 'source_docs': dict(zip(spec.names, docs)),
+                'realized_deviation': realized_deviation(order, spec.weights)}
+
+    return _train(make_loader, steps, batch_size, spec.seq_len - 1, model_kw, attn_impl,
+                  device, checkpoint_dir, checkpoint_every, on_step, report)
 
 
 if __name__ == '__main__':
@@ -110,10 +236,15 @@ if __name__ == '__main__':
     parser.add_argument('--steps', type=int, default=20)
     parser.add_argument('--batch-size', type=int, default=8)
     parser.add_argument('--device', default=None)
+    parser.add_argument('--checkpoint-dir', default=None,
+                        help='joint model and data checkpoints; rerun the same '
+                             'command to resume after an interruption')
     args = parser.parse_args()
     if args.generate:
         generate_c4_like(args.dataset_url, num_docs=8192,
                          vocab_size=FLAGSHIP_LM_KW['vocab_size'])
     result = pretrain(args.dataset_url, batch_size=args.batch_size, steps=args.steps,
-                      device=args.device)
-    print('final loss %.4f, %.1f tokens/s' % (result['losses'][-1], result['tokens_per_s']))
+                      device=args.device, checkpoint_dir=args.checkpoint_dir)
+    if result is not None:
+        print('final loss %.4f, %.1f tokens/s' % (result['losses'][-1],
+                                                 result['tokens_per_s']))

@@ -22,7 +22,7 @@ from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.workers import EmptyResultError
 from petastorm_tpu_torch.workers.dummy_pool import DummyPool
 from petastorm_tpu_torch.workers.thread_pool import ThreadPool
-from petastorm_tpu_torch.workers.ventilator import ConcurrentVentilator
+from petastorm_tpu_torch.workers.ventilator import ConcurrentVentilator, epoch_order
 
 # row-groups ventilated beyond the worker count: bounds host memory while
 # keeping workers busy
@@ -62,6 +62,13 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
         still encoded, as :class:`~petastorm_tpu_torch.fused.EncodedImageColumn`
         (the torch loader asks for this and decodes them straight into its
         staging slots); declined with a TransformSpec.
+    :param mixture_interleave: set by the mixture engine
+        (:mod:`petastorm_tpu_torch.mixture`) when this reader serves one
+        source of a weighted mixture: a dict with the source's exact
+        interleave ``share`` in (0, 1]. It is validated and kept on the
+        reader as ``mixture_interleave`` and changes nothing in the stream:
+        in the JAX package it sizes the readahead plan, which is ROADMAP
+        item 3.
 
     The reference's other kwargs are taken under its names and at its
     positions; each one set raises ``NotImplementedError`` naming the
@@ -83,7 +90,10 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
     if poison_policy is not None:
         raise unported('poison_policy=', 9)
     if mixture_interleave is not None:
-        raise unported('make_batch_reader(mixture_interleave=)', 7)
+        share = float(mixture_interleave.get('share', 1.0))
+        if not 0.0 < share <= 1.0:
+            raise ValueError('interleave share must be in (0, 1], got %r' % (share,))
+        mixture_interleave = dict(mixture_interleave, share=share)
     if max_staleness_s is not None:
         raise unported('make_batch_reader(max_staleness_s=)', 10)
     info = ParquetDatasetInfo(dataset_url_or_urls, storage_options, filesystem=filesystem)
@@ -94,7 +104,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
                   num_epochs=num_epochs, cur_shard=cur_shard,
                   shard_count=shard_count, seed=seed,
-                  transform_spec=transform_spec, defer_image_decode=defer_image_decode)
+                  transform_spec=transform_spec, defer_image_decode=defer_image_decode,
+                  mixture_interleave=mixture_interleave)
 
 
 def _make_pool(reader_pool_type, workers_count, results_queue_size):
@@ -135,12 +146,16 @@ class Reader:
     """
 
     batched_output = True
+    #: NGram windows come with the row reader (ROADMAP item 7)
+    ngram = None
 
     def __init__(self, dataset_info, schema_fields=None, reader_pool_type='thread',
                  workers_count=None, results_queue_size=50, shuffle_row_groups=True,
                  shuffle_row_drop_partitions=1, num_epochs=1, cur_shard=None,
-                 shard_count=None, seed=0, transform_spec=None, defer_image_decode=False):
+                 shard_count=None, seed=0, transform_spec=None, defer_image_decode=False,
+                 mixture_interleave=None):
         self.dataset_info = dataset_info
+        self.mixture_interleave = mixture_interleave
         self.stored_schema = infer_or_load_unischema(dataset_info)
         if schema_fields is not None:
             self.loaded_schema = self.stored_schema.create_schema_view(schema_fields)
@@ -184,6 +199,10 @@ class Reader:
 
         self._pool = _make_pool(reader_pool_type, workers_count, results_queue_size)
         self._num_epochs = num_epochs
+        self._shuffle_row_groups = shuffle_row_groups
+        # the resume epoch's already-consumed items, which never ventilate
+        # again: ventilation_order leaves them out too
+        self._resume_excluded = {}
         self._ventilator = ConcurrentVentilator(
             self._pool.ventilate, items, iterations=num_epochs,
             max_ventilation_queue_size=lambda: (
@@ -262,6 +281,23 @@ class Reader:
         self._ventilator.reset()
         self.last_row_consumed = False
         self._consumed_by_epoch = {}
+        self._resume_excluded = {}
+
+    def ventilation_order(self, epoch):
+        """Item indices the ventilator will emit for ``epoch``, in order:
+        the epoch's permutation under the ventilator's live seed, without
+        the items a restored reader's resume epoch already consumed. The
+        mixture engine's ordered sources turn the pool's completion-order
+        deliveries back into this order."""
+        order = epoch_order(self._num_items, self._ventilator.state_dict()['seed'],
+                            epoch, self._shuffle_row_groups)
+        skip = self._resume_excluded.get(epoch, ())
+        return [int(i) for i in order if i not in skip]
+
+    @property
+    def num_epochs(self):
+        """Requested epoch count (None = infinite)."""
+        return self._num_epochs
 
     def stop(self):
         self._pool.stop()
@@ -357,6 +393,7 @@ class Reader:
             'iterations_remaining': state['iterations_remaining'],
         })
         self._ventilator.exclude_from_next_epoch(state['consumed_items'])
+        self._resume_excluded = {int(state['epoch']): frozenset(state['consumed_items'])}
         self._consumed_by_epoch = self.consumption_record_for_resume(state)
 
     def consumption_record_for_resume(self, state):

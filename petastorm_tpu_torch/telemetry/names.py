@@ -13,10 +13,11 @@ package), so its spans read the same as the reference's.
 #: ``h2d_ready`` staging ring blocked until a slot's previous transfer
 #: completed · ``stage_fill`` cast/pad/mask copy into the slot ·
 #: ``decode_fused`` encoded image cells decoded straight into the slot's
-#: rows · ``h2d_dispatch`` async transfer dispatch · ``encode`` write-path
-#: codec encode · ``write_flush`` one row-group flushed into a part file
+#: rows · ``h2d_dispatch`` async transfer dispatch · ``pack`` mixture
+#: documents packed into fixed rows · ``encode`` write-path codec encode ·
+#: ``write_flush`` one row-group flushed into a part file
 STAGES = ('ventilate', 'io', 'decode', 'transform', 'queue_wait', 'collate',
-          'h2d_ready', 'stage_fill', 'decode_fused', 'h2d_dispatch', 'encode',
+          'h2d_ready', 'stage_fill', 'decode_fused', 'h2d_dispatch', 'pack', 'encode',
           'write_flush')
 
 #: environment knobs the port reads (the native decoders read the two
@@ -26,6 +27,8 @@ KNOWN_KNOBS = frozenset([
     'PETASTORM_TPU_JPEG_DCT',
     'PETASTORM_TPU_JPEG_FANCY',
     'PETASTORM_TPU_METRICS',
+    'PETASTORM_TPU_MIXTURE_OPEN_BINS',
+    'PETASTORM_TPU_MIXTURE_RESEQ_MAX',
     'PETASTORM_TPU_NATIVE',
     'PETASTORM_TPU_STAGING',
     'PETASTORM_TPU_STAGING_SLOTS',

@@ -1,5 +1,5 @@
 """petastorm_tpu_torch stands alone: no module of the port, and not
-chip_smoke.py, imports JAX, Flax, Optax or the JAX package."""
+chip_smoke.py, imports JAX, Flax, Optax, Orbax or the JAX package."""
 
 import ast
 import os
@@ -7,7 +7,7 @@ import os
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'petastorm_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'petastorm_tpu')
 
 
 def _sources():
@@ -42,7 +42,11 @@ def test_port_has_modules_to_scan():
                    ('device', 'staging.py'), ('device', 'loader.py'),
                    ('ops', 'augment.py'), ('models', 'vit.py'),
                    ('examples', 'imagenet.py'), ('telemetry', 'names.py'),
-                   ('ragged.py',), ('examples', 'variable_length.py')):
+                   ('ragged.py',), ('examples', 'variable_length.py'),
+                   ('mixture', 'spec.py'), ('mixture', 'interleave.py'),
+                   ('mixture', 'packing.py'), ('mixture', 'engine.py'),
+                   ('mixture', 'adapter.py'), ('checkpoint.py',),
+                   ('weighted_sampling_reader.py',)):
         assert os.path.join('petastorm_tpu_torch', *module) in rel
     assert len(rel) > 20
 

@@ -123,3 +123,80 @@ def test_pretrain_packs_one_more_token_than_attention_sees(c4_datasets, monkeypa
 def test_flagship_numbers_are_the_benchmarks():
     import bench
     assert lm_pretrain.FLAGSHIP_LM_KW == bench.FLAGSHIP_LM_KW
+
+
+def test_pretrain_resumes_from_its_checkpoint(c4_datasets, tmp_path):
+    """``pretrain(checkpoint_dir=)`` saves model, optimizer and data
+    position every ``checkpoint_every`` steps, resumes from the latest
+    step, and trains nothing once the checkpoint is at the requested step."""
+    from petastorm_tpu_torch.checkpoint import TrainCheckpointer
+    kw = dict(batch_size=2, seq_len=SEQ - 1, model_kw=MODEL_KW, device='cpu',
+              checkpoint_dir=str(tmp_path / 'ckpt'), checkpoint_every=2)
+    first = lm_pretrain.pretrain(c4_datasets[1], steps=4, **kw)
+    assert first['start_step'] == 0 and len(first['losses']) == 4
+    assert TrainCheckpointer(kw['checkpoint_dir']).all_steps() == [2, 4]
+    steps_seen = []
+    second = lm_pretrain.pretrain(c4_datasets[1], steps=6,
+                                  on_step=lambda i, batch, loss: steps_seen.append(i), **kw)
+    assert second['start_step'] == 4 and steps_seen == [5, 6]
+    assert len(second['losses']) == 2 and all(np.isfinite(second['losses']))
+    assert TrainCheckpointer(kw['checkpoint_dir']).latest_step == 6
+    assert lm_pretrain.pretrain(c4_datasets[1], steps=6, **kw) is None
+
+
+@pytest.fixture(scope='module')
+def token_corpora(tmp_path_factory):
+    """Two token corpora of 96 and 32 documents from the port's writer."""
+    root = tmp_path_factory.mktemp('corpora')
+    return {name: lm_pretrain.write_token_corpus('file://%s/%s' % (root, name), docs, seed)
+            for name, docs, seed in (('web', 96, 1), ('code', 32, 2))}
+
+
+def test_token_corpus_is_the_benchmarks(tmp_path):
+    """``write_token_corpus`` writes what ``bench.py``'s
+    ``_build_mixture_source`` writes: the same tables in the same files
+    and row-groups."""
+    import bench
+    want, got = 'file://%s/bench' % tmp_path, 'file://%s/port' % tmp_path
+    bench._build_mixture_source(want, 129, seed=3)
+    lm_pretrain.write_token_corpus(got, 129, seed=3)
+    for part in ('part-0.parquet', 'part-1.parquet'):
+        a = pq.ParquetFile('%s/bench/%s' % (tmp_path, part))
+        b = pq.ParquetFile('%s/port/%s' % (tmp_path, part))
+        assert a.read().equals(b.read())
+        assert a.metadata.num_row_groups == b.metadata.num_row_groups
+
+
+def test_pretrain_mixture_resumes_bit_for_bit(token_corpora, tmp_path):
+    """``pretrain_mixture`` on a 3:1 mixture: a run checkpointed at step 3
+    and resumed in fresh objects trains steps 4-6 on the same token rows,
+    to the same losses, as the unbroken run (exact on the CPU)."""
+    from petastorm_tpu_torch.mixture import MixtureSource, MixtureSpec
+    spec = MixtureSpec([MixtureSource('web', 3, url=token_corpora['web']),
+                        MixtureSource('code', 1, url=token_corpora['code'])],
+                       seed=0, seq_len=SEQ)
+
+    def run(steps, checkpoint_dir=None):
+        batches = []
+        result = lm_pretrain.pretrain_mixture(
+            spec, batch_size=2, steps=steps, model_kw=dict(MODEL_KW, vocab_size=1024),
+            device='cpu',
+            checkpoint_dir=checkpoint_dir, checkpoint_every=3, workers_count=2,
+            on_step=lambda i, batch, loss: batches.append((i, batch['tokens'].clone())))
+        return result, batches
+
+    unbroken, want = run(6)
+    assert unbroken['batch_devices'] == ['cpu'] and len(unbroken['losses']) == 6
+    assert unbroken['pack_stats']['fill_ratio'] > 0.9
+    assert set(unbroken['source_docs']) == {'web', 'code'}
+    assert unbroken['realized_deviation'] <= 1.0
+    directory = str(tmp_path / 'ckpt')
+    head, _ = run(3, directory)
+    tail, got = run(6, directory)
+    assert unbroken['restore_s'] is None and unbroken['saves'] == []
+    assert [save['step'] for save in head['saves']] == [3] and head['saves'][0]['bytes'] > 0
+    assert [save['step'] for save in tail['saves']] == [6] and tail['restore_s'] > 0
+    assert tail['start_step'] == 3 and [i for i, _ in got] == [4, 5, 6]
+    for (i, tokens), (j, want_tokens) in zip(got, want[3:]):
+        assert i == j and torch.equal(tokens, want_tokens)
+    assert head['losses'] + tail['losses'] == unbroken['losses']

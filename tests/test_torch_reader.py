@@ -192,12 +192,12 @@ def test_unported_kwargs_raise(synthetic_dataset, kwargs):
 
 
 # the reference's kwargs the port takes at the reference's positions, each
-# raising its own ROADMAP item
+# raising its own ROADMAP item; None: ported, taken and kept on the reader
 REFERENCE_KWARGS = {
     'cache_location': ('/tmp/cache', 3),
     'cache_size_limit': (1 << 20, 3),
     'cache_row_size_estimate': (1024, 3),
-    'mixture_interleave': ({'share': 0.5}, 7),
+    'mixture_interleave': ({'share': 0.5}, None),
     'storage_options': ({'anon': True}, 9),
     'filesystem': (object(), 9),
     'max_staleness_s': (1.0, 10),
@@ -208,9 +208,14 @@ REFERENCE_KWARGS = {
 def test_reference_kwargs_raise_their_item(synthetic_dataset, name):
     import inspect
     value, item = REFERENCE_KWARGS[name]
-    with pytest.raises(NotImplementedError,
-                       match=r'ROADMAP.md: Queue 1 item %d,' % item):
-        torch_make_batch_reader(synthetic_dataset.url, **{name: value})
+    if item is None:
+        with torch_make_batch_reader(synthetic_dataset.url, reader_pool_type='dummy',
+                                     **{name: value}) as reader:
+            assert getattr(reader, name) == value
+    else:
+        with pytest.raises(NotImplementedError,
+                           match=r'ROADMAP.md: Queue 1 item %d,' % item):
+            torch_make_batch_reader(synthetic_dataset.url, **{name: value})
     want = list(inspect.signature(jax_make_batch_reader).parameters)
     got = list(inspect.signature(torch_make_batch_reader).parameters)
     assert got.index(name) == want.index(name)
