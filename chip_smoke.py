@@ -95,6 +95,44 @@ final ``{"ok": true, ...}`` line is printed only when every phase passed:
     token batches after the restore equal run A's bit for bit, and the
     losses agree within 1e-3 relative; the checkpoint's bytes and its save
     and restore seconds are printed.
+Phases 17 to 21 run right after ``main_path``, on its dataset; 22 after
+``lm_profile``, on its.
+
+17. ``row_reference``: ``ROW_REFERENCE_STEPS`` steps of the PyTorch
+    example (``examples/mnist_pytorch.py``: ``make_reader``, the row
+    ``DataLoader`` onto the card, the example's CNN) from one set of
+    initial weights, run twice on the same batches: normalized by the
+    kernel and by its plain version; the normalized batches agree within
+    1e-6 and the losses within 1e-5 relative (TF32 off, cuDNN
+    deterministic). Phase ``kernel`` holds the kernel at the example's
+    shape, (32, 28, 28, 1) u8 -> f32.
+18. ``pytorch_path``: the example's ``train`` for one epoch of the
+    60,000 MNIST rows (1,875 steps, thread pool), then ``evaluate``:
+    rows/s, steps/s, consumer wait, stage seconds, one normalize launch a
+    step, peak memory, the loss falling, the accuracy.
+19. ``batched_bridge_path``: ``BatchedDataLoader(make_batch_reader)``
+    (batch 64, 4,096-row shuffle buffer) into the same CNN for one epoch,
+    again with ``inmemory_cache_all`` over two epochs (the replay copies
+    host memory to the card again), and ``make_torch_loader`` into it too:
+    the three ways in, by rows/s, beside ``main_path``'s.
+20. ``row_resume``: a row reader stopped after 25,000 rows, its state
+    restored in a new reader that reads on: every row read, repeats only
+    from the row-group in flight; then ``WeightedSamplingReader``
+    (deterministic, 3:1) over the two shards' row readers through
+    ``DataLoader`` onto the card, the realized share within the
+    schedule's bound.
+21. ``ngram_path`` (configuration ngram-timeseries-100k): 100,000 rows of
+    a driving log (``ts`` with a jump after every 997th row, a 128-float
+    ``sensor`` frame, ``steering``) in 1,000-row groups, read as windows
+    of three consecutive frames by ``make_reader(ngram=...)`` on the
+    thread pool with two row-drop partitions, stacked 64 windows at a
+    time onto the card: the window count equals the one worked out from
+    the written ``ts``, every window's ``ts`` are consecutive on the card.
+22. ``bridge_lm``: the C4-like documents packed by ``lm_path``'s
+    ``TransformSpec`` through ``BatchedDataLoader(batch_size=8)`` into the
+    full flagship for ``BRIDGE_LM_STEPS`` bf16 steps, each flash kernel
+    10 times a step, tokens/s beside ``lm_path``'s; a profiled window
+    (``bridge_lm_profile``) whose flash kernels are all ``_wgmma`` ones.
 
 Then the ``kernels`` summary (each kernel's launches on every path), the
 ``nvidia-smi`` name and power limit, and the ``ok`` line. The script
@@ -136,9 +174,11 @@ KERNEL_CASES = [
     ('misaligned_bf16', (64, 28, 28, 1), torch.bfloat16, True),
     ('misaligned_f32', (5, 9, 11, 3), torch.float32, True),
     ('vit_bf16', (16, 384, 384, 3), torch.bfloat16, False),
+    ('mnist_pytorch_f32', (32, 28, 28, 1), torch.float32, False),
 ]
 MAIN_PATH_CASE = 'mnist_bf16'
 VIT_KERNEL_CASE = 'vit_bf16'
+PYTORCH_KERNEL_CASE = 'mnist_pytorch_f32'
 NORMALIZE_REPLACES = 'petastorm_tpu/ops/normalize.py:20'
 
 # dense tensor-core bf16 peak of the H100 SXM (NVIDIA data sheet)
@@ -215,6 +255,33 @@ MIXTURE_STEPS = 20
 MIXTURE_PROFILE_STEPS = 3
 RESUME_STEPS = 16
 RESUME_LOSS_RTOL = 1e-3
+
+# the row reader and the PyTorch bridge: examples/mnist/pytorch_example.py
+# on mnist-synthetic-60k (batch 32, row buffer 256), one epoch
+PYTORCH_BATCH = 32
+PYTORCH_STEPS = MNIST_ROWS // PYTORCH_BATCH    # 1875
+ROW_REFERENCE_STEPS = 20
+ROW_REFERENCE_NORM_ATOL = 1e-6
+ROW_REFERENCE_LOSS_RTOL = 1e-5
+# one epoch of the example's recipe separates 8-10 of the 10 synthetic
+# classes (8 and 9 lie 19 grey levels apart); chance is 0.1
+PYTORCH_MIN_ACCURACY = 0.3
+BRIDGE_BATCH = 64
+BRIDGE_SHUFFLE = 4096
+BRIDGE_LM_STEPS = 10
+BRIDGE_LM_PROFILE_STEPS = 2
+# ngram-timeseries-100k: a driving log's consecutive sensor frames
+NGRAM_ROWS = 100_000
+NGRAM_ROWGROUP = 1000
+NGRAM_JUMP_EVERY = 997       # ts steps by NGRAM_JUMP after every 997th row
+NGRAM_JUMP = 5
+NGRAM_SENSOR = 128
+NGRAM_BATCH = 64
+NGRAM_DROP_PARTITIONS = 2
+NGRAM_FIELDS = {-1: ['ts', 'sensor'], 0: ['ts', 'sensor', 'steering'], 1: ['ts', 'steering']}
+ROW_RESUME_STOP = 25_000
+MNIST_ROWGROUP = 256         # generate_synthetic_mnist's row-group size
+WEIGHTED_ROWS = 64 * 200
 
 
 def emit(obj):
@@ -683,7 +750,7 @@ def phase_lm_path(url):
     want = FLAGSHIP_LM_KW['n_layers'] * LM_STEPS
     for name in FLASH_KERNELS:
         assert launches[name] == want, (name, launches[name], want)
-    return launches
+    return launches, result['tokens_per_s']
 
 
 def _kernel_kind(name):
@@ -831,7 +898,7 @@ def phase_main_path(url):
     assert last < first, (first, last)
     assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
     assert launches['normalize_images'] == TRAIN_STEPS, launches
-    return launches['normalize_images']
+    return launches['normalize_images'], result['rows_per_s']
 
 
 def phase_native_decode(status):
@@ -1390,6 +1457,418 @@ def phase_resume(spec):
     assert max(gaps) <= RESUME_LOSS_RTOL, gaps
 
 
+def consumer_wait_s():
+    """Seconds the consumer blocked on the reader (pulls over 10 ms)."""
+    from petastorm_tpu_torch.telemetry import STALL_CONSUMER_WAIT, get_registry
+    return get_registry().counter(STALL_CONSUMER_WAIT).value
+
+
+def phase_row_reference(url):
+    """``ROW_REFERENCE_STEPS`` steps of the PyTorch example's ``train`` on
+    the card from one set of initial weights, twice on the same batches
+    (dummy pool, seeded row buffer): once normalizing through the kernel,
+    once through its plain version. TF32 off and cuDNN deterministic, so
+    the two runs differ only by the normalize outputs."""
+    from petastorm_tpu_torch.examples import mnist_pytorch
+    from petastorm_tpu_torch.ops.normalize import normalize_images, normalize_images_reference
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.manual_seed(0)
+    init = mnist_pytorch.Net().state_dict()
+    runs = {}
+    try:
+        for name, normalize in (('kernel', normalize_images),
+                                ('plain', normalize_images_reference)):
+            seen = []
+
+            def recording(images, normalize=normalize, seen=seen, **kw):
+                out = normalize(images, **kw)
+                seen.append(out.clone())
+                return out
+
+            model = mnist_pytorch.Net()
+            model.load_state_dict(init)
+            result = mnist_pytorch.train(url, device='cuda', model=model, seed=0,
+                                         max_steps=ROW_REFERENCE_STEPS, reader_pool_type='dummy',
+                                         log_interval=0, normalize=recording)
+            runs[name] = (result, seen)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.synchronize()
+    (kernel, kernel_batches), (plain, plain_batches) = runs['kernel'], runs['plain']
+    norm_err = max(float((a - b).abs().max()) for a, b in zip(kernel_batches, plain_batches))
+    gaps = [abs(a - b) / abs(b) for a, b in zip(kernel['losses'], plain['losses'])]
+    emit({'phase': 'row_reference', 'steps': ROW_REFERENCE_STEPS, 'batch_size': PYTORCH_BATCH,
+          'normalized_batches': len(kernel_batches),
+          'normalized_max_abs_err': norm_err,
+          'normalized_tolerance': 'atol %g' % ROW_REFERENCE_NORM_ATOL,
+          'losses_kernel': kernel['losses'], 'losses_plain': plain['losses'],
+          'max_loss_rel_gap': max(gaps),
+          'loss_tolerance': 'rel %g (TF32 off, cuDNN deterministic)' % ROW_REFERENCE_LOSS_RTOL,
+          'batch_devices': kernel['batch_devices']})
+    assert len(kernel_batches) == len(plain_batches) == ROW_REFERENCE_STEPS
+    assert all(b.is_cuda and b.dtype == torch.float32
+               and b.shape == (PYTORCH_BATCH, 28, 28, 1) for b in kernel_batches)
+    assert norm_err <= ROW_REFERENCE_NORM_ATOL, norm_err
+    assert all(math.isfinite(v) for v in kernel['losses'] + plain['losses'])
+    assert max(gaps) <= ROW_REFERENCE_LOSS_RTOL, gaps
+    assert kernel['batch_devices'] == ['cuda:0'], kernel['batch_devices']
+
+
+def phase_pytorch_path(url):
+    """The PyTorch example as a user runs it: ``train`` for one epoch of
+    mnist-synthetic-60k (``make_reader`` on the thread pool, the row
+    ``DataLoader`` onto the card, the normalize kernel, SGD), then
+    ``evaluate``."""
+    from petastorm_tpu_torch.examples import mnist_pytorch
+    from petastorm_tpu_torch.telemetry import reset_registry
+    reset_registry()
+    torch.cuda.reset_peak_memory_stats()
+    torch.manual_seed(0)
+    reset_launch_counts()
+    result = mnist_pytorch.train(url, device='cuda', seed=0, log_interval=500)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    wait = consumer_wait_s()
+    stages = stage_seconds()
+    t0 = time.perf_counter()
+    accuracy = mnist_pytorch.evaluate(url, result['model'], device='cuda')
+    evaluate_s = time.perf_counter() - t0
+    losses = result['losses']
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    emit({'phase': 'pytorch_path', 'config': 'mnist-synthetic-60k',
+          'entry': 'make_reader -> pytorch.DataLoader -> normalize kernel -> Net, SGD(0.01, 0.5)',
+          'steps': len(losses), 'batch_size': PYTORCH_BATCH,
+          'rows_per_s': result['rows_per_s'], 'steps_per_s': result['steps_per_s'],
+          'consumer_wait_s': wait, 'stage_seconds': stages, 'launches': launches,
+          'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+          'loss_first10_mean': first, 'loss_last10_mean': last, 'accuracy': accuracy,
+          'accuracy_gate': '> %g (chance 0.1)' % PYTORCH_MIN_ACCURACY,
+          'evaluate_s': evaluate_s, 'batch_devices': result['batch_devices']})
+    assert len(losses) == PYTORCH_STEPS, len(losses)
+    assert all(math.isfinite(v) for v in losses)
+    assert last < first, (first, last)
+    assert launches['normalize_images'] == PYTORCH_STEPS, launches
+    assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
+    assert accuracy > PYTORCH_MIN_ACCURACY, accuracy
+    return launches
+
+
+def _net_step(model, optimizer, batch):
+    """One SGD step of the example's Net on a card batch; also the largest
+    gap between an image's mean grey level and the one its digit encodes
+    (``generate_synthetic_mnist``: 31.5 + 19 * digit on average), as a
+    device scalar, so a row whose image and label parted would show."""
+    import torch.nn.functional as F
+    from petastorm_tpu_torch.examples.mnist_pytorch import normalized_images
+    images, digits = batch['image'], batch['digit'].long()
+    drift = (images.float().mean(dim=(1, 2)) - (31.5 + 19.0 * digits)).abs().max()
+    optimizer.zero_grad()
+    loss = F.nll_loss(model(normalized_images(images)), digits)
+    loss.backward()
+    optimizer.step()
+    return loss.detach(), drift
+
+
+def _net_epochs(loader, epochs):
+    """``epochs`` passes of ``loader`` into a fresh Net: per pass rows,
+    seconds, rows/s, H2D bytes and the largest label drift."""
+    from petastorm_tpu_torch.device.staging import H2D_BYTES
+    from petastorm_tpu_torch.examples.mnist_pytorch import Net
+    from petastorm_tpu_torch.telemetry import get_registry
+    torch.manual_seed(0)
+    model = Net().cuda()
+    optimizer = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.5)
+    out = []
+    for _ in range(epochs):
+        h2d = get_registry().counter(H2D_BYTES).value
+        rows, drifts, losses = 0, [], []
+        t0 = time.perf_counter()
+        for batch in loader:
+            loss, drift = _net_step(model, optimizer, batch)
+            losses.append(loss)
+            drifts.append(drift)
+            rows += len(batch['digit'])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        out.append({'rows': rows, 'seconds': seconds, 'rows_per_s': rows / seconds,
+                    'h2d_bytes': get_registry().counter(H2D_BYTES).value - h2d,
+                    'max_label_drift': float(torch.stack(drifts).max()),
+                    'loss_first10_mean': float(torch.stack(losses[:10]).mean()),
+                    'loss_last10_mean': float(torch.stack(losses[-10:]).mean())})
+    return out
+
+
+def phase_batched_bridge_path(url, main_rows_per_s):
+    """Three ways into the PyTorch example's Net on mnist-synthetic-60k,
+    each for one epoch: ``BatchedDataLoader(make_batch_reader)`` with a
+    4096-row shuffle buffer, the same with ``inmemory_cache_all`` over two
+    epochs (the second replays host memory), and ``make_torch_loader``;
+    ``main_path``'s rows/s stands beside them."""
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    from petastorm_tpu_torch.pytorch import BatchedDataLoader
+    from petastorm_tpu_torch.reader import make_batch_reader
+    from petastorm_tpu_torch.telemetry import reset_registry
+    fields = ['^digit$', '^image$']
+    reset_registry()
+    reset_launch_counts()
+
+    def bridge(inmemory):
+        return BatchedDataLoader(make_batch_reader(url, schema_fields=fields, num_epochs=1),
+                                 batch_size=BRIDGE_BATCH, shuffling_queue_capacity=BRIDGE_SHUFFLE,
+                                 seed=0, inmemory_cache_all=inmemory, device='cuda')
+
+    with bridge(False) as loader:
+        (plain,) = _net_epochs(loader, 1)
+    launches = launch_counts()
+    with bridge(True) as loader:
+        cached, replay = _net_epochs(loader, 2)
+    with make_torch_loader(url, batch_size=BRIDGE_BATCH, fields=fields, shuffle_rows=True,
+                           seed=0, last_batch='short', device='cuda') as loader:
+        (torch_loader,) = _net_epochs(loader, 1)
+    wait = consumer_wait_s()
+    runs = {'batched_bridge': plain, 'batched_bridge_inmemory_first': cached,
+            'batched_bridge_inmemory_replay': replay, 'make_torch_loader': torch_loader}
+    emit({'phase': 'batched_bridge_path', 'config': 'mnist-synthetic-60k',
+          'batch_size': BRIDGE_BATCH, 'shuffling_queue_capacity': BRIDGE_SHUFFLE,
+          'runs': runs, 'rows_per_s': {k: v['rows_per_s'] for k, v in runs.items()},
+          'main_path_rows_per_s': main_rows_per_s,
+          'main_path_note': 'make_torch_loader into the bf16 MnistCNN, batch 64, 50 steps',
+          'replay_h2d_bytes': replay['h2d_bytes'], 'consumer_wait_s': wait,
+          'launches': launches, 'stage_seconds': stage_seconds()})
+    for name, run in runs.items():
+        assert run['rows'] == MNIST_ROWS, (name, run['rows'])
+        # half the 19 grey levels between two digits' means
+        assert run['max_label_drift'] < 9.5, (name, run['max_label_drift'])
+        assert math.isfinite(run['loss_last10_mean']), name
+    assert plain['loss_last10_mean'] < plain['loss_first10_mean'], plain
+    # the replay copies the cached host batches to the card again
+    assert replay['h2d_bytes'] == cached['h2d_bytes'] > 0, (cached, replay)
+    steps = -(-MNIST_ROWS // BRIDGE_BATCH)
+    assert launches['normalize_images'] == steps, launches
+    return launches
+
+
+def phase_bridge_lm(url, lm_tokens_per_s):
+    """The LM path through the bridge: the C4-like documents packed by
+    ``lm_path``'s ``TransformSpec`` on the workers of ``make_batch_reader``,
+    ``BatchedDataLoader(batch_size=8)`` onto the card, ``BRIDGE_LM_STEPS``
+    bf16 AdamW steps of the full flagship; then a profiled window whose
+    flash kernels must all be ``_wgmma`` ones."""
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, packing_transform
+    from petastorm_tpu_torch.models.transformer import (
+        TransformerConfig, adamw, init_transformer, transformer_train_step,
+    )
+    from petastorm_tpu_torch.pytorch import BatchedDataLoader
+    from petastorm_tpu_torch.reader import make_batch_reader
+    from petastorm_tpu_torch.telemetry import reset_registry
+    reset_registry()
+    torch.cuda.reset_peak_memory_stats()
+    config = TransformerConfig(max_seq_len=LM_SEQ, loss_chunk=256, attn_impl='flash',
+                               **FLAGSHIP_LM_KW)
+    model = init_transformer(0, config, 'cuda')
+    step = transformer_train_step(model, adamw(model))
+    reader = make_batch_reader(url, schema_fields=['^tokens$'], num_epochs=None,
+                               transform_spec=packing_transform(LM_SEQ + 1))
+    with BatchedDataLoader(reader, batch_size=LM_BATCH, device='cuda') as loader:
+        batches = iter(loader)
+        reset_launch_counts()
+        losses, devices, shapes = [], set(), set()
+        start = time.perf_counter()
+        for _ in range(BRIDGE_LM_STEPS):
+            tokens = next(batches)['tokens']
+            devices.add(str(tokens.device))
+            shapes.add((tuple(tokens.shape), str(tokens.dtype)))
+            losses.append(step(tokens))
+        losses = [float(loss) for loss in losses]
+        elapsed = time.perf_counter() - start
+        launches = launch_counts()
+        wait = consumer_wait_s()
+        peak = torch.cuda.max_memory_allocated()
+        profile = profile_steps('bridge_lm_profile', lambda: step(next(batches)['tokens']),
+                                BRIDGE_LM_PROFILE_STEPS)
+    tokens_per_s = BRIDGE_LM_STEPS * LM_BATCH * LM_SEQ / elapsed
+    emit({'phase': 'bridge_lm', 'config': 'lm-c4like-flagship', 'model': FLAGSHIP_LM_KW,
+          'entry': 'make_batch_reader(transform_spec=packing) -> pytorch.BatchedDataLoader',
+          'steps': BRIDGE_LM_STEPS, 'batch_size': LM_BATCH, 'attention_positions': LM_SEQ,
+          'batch_shapes': sorted(shapes), 'batch_devices': sorted(devices), 'losses': losses,
+          'tokens_per_s': tokens_per_s, 'lm_path_tokens_per_s': lm_tokens_per_s,
+          'steps_per_s': BRIDGE_LM_STEPS / elapsed, 'launches': launches,
+          'launches_per_step': {k: v / BRIDGE_LM_STEPS for k, v in launches.items()},
+          'consumer_wait_s': wait, 'peak_memory_bytes': peak,
+          'flash_kernel_names': profile['flash_kernel_names']})
+    assert devices == {'cuda:0'}, devices
+    assert shapes == {((LM_BATCH, LM_SEQ + 1), 'torch.int32')}, shapes
+    assert all(math.isfinite(v) for v in losses), losses
+    want = FLAGSHIP_LM_KW['n_layers'] * BRIDGE_LM_STEPS
+    for name in FLASH_KERNELS:
+        assert launches[name] == want, (name, launches[name], want)
+    return launches
+
+
+def write_ngram_dataset(url):
+    """ngram-timeseries-100k: ``NGRAM_ROWS`` rows of a driving log, ``ts``
+    int64 stepping by 1 with a jump of ``NGRAM_JUMP`` after every
+    ``NGRAM_JUMP_EVERY``-th row, a float32 ``sensor`` frame of
+    ``NGRAM_SENSOR`` values and a float32 ``steering`` angle, in row-groups
+    of ``NGRAM_ROWGROUP``; returns the written ``ts``."""
+    import numpy as np
+    import pyarrow as pa
+    from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
+    from petastorm_tpu_torch.etl.dataset_metadata import write_dataset
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+    schema = Unischema('TimeseriesSchema', [
+        UnischemaField('ts', np.int64, (), ScalarCodec(pa.int64()), False),
+        UnischemaField('sensor', np.float32, (NGRAM_SENSOR,), NdarrayCodec(), False),
+        UnischemaField('steering', np.float32, (), ScalarCodec(pa.float32()), False),
+    ])
+    steps = np.ones(NGRAM_ROWS, np.int64)
+    steps[0] = 0
+    steps[NGRAM_JUMP_EVERY::NGRAM_JUMP_EVERY] = NGRAM_JUMP
+    ts = np.cumsum(steps)
+    rng = np.random.RandomState(0)
+    sensor = rng.standard_normal((NGRAM_ROWS, NGRAM_SENSOR)).astype(np.float32)
+    steering = rng.uniform(-1.0, 1.0, NGRAM_ROWS).astype(np.float32)
+    t0 = time.perf_counter()
+    write_dataset(url, schema, [{'ts': int(ts[i]), 'sensor': sensor[i], 'steering': steering[i]}
+                                for i in range(NGRAM_ROWS)],
+                  rowgroup_size_rows=NGRAM_ROWGROUP)
+    emit({'phase': 'write', 'dataset': 'ngram-timeseries-100k', 'rows': NGRAM_ROWS,
+          'rowgroup_rows': NGRAM_ROWGROUP, 'jumps': int((steps > 1).sum()),
+          'seconds': time.perf_counter() - t0})
+    return ts
+
+
+def expected_ngram_windows(ts, length):
+    """Windows an NGram of ``length`` consecutive steps (delta threshold 1)
+    admits in ``ts``: within each row-group, within each of the
+    ``NGRAM_DROP_PARTITIONS`` row-drop partitions, each of which borrows
+    the next partition's first ``length - 1`` rows."""
+    count = 0
+    for start in range(0, len(ts), NGRAM_ROWGROUP):
+        rows = list(range(start, min(start + NGRAM_ROWGROUP, len(ts))))
+        size = -(-len(rows) // NGRAM_DROP_PARTITIONS)
+        for j in range(NGRAM_DROP_PARTITIONS):
+            part = rows[j * size:(j + 1) * size + (length - 1)]
+            t = [int(ts[i]) for i in part]
+            count += sum(all(t[i + k + 1] - t[i + k] <= 1 for k in range(length - 1))
+                         for i in range(len(t) - length + 1))
+    return count
+
+
+def phase_ngram_path(url, ts):
+    """NGram windows of three consecutive frames from ``make_reader`` on
+    the thread pool, with row-drop partitions: each batch of
+    ``NGRAM_BATCH`` windows stacked per timestep and field and copied to
+    the card, where every window's ``ts`` are checked consecutive."""
+    import numpy as np
+    from petastorm_tpu_torch.ngram import NGram
+    from petastorm_tpu_torch.reader import make_reader
+    from petastorm_tpu_torch.telemetry import reset_registry
+    reset_registry()
+    ngram = NGram(NGRAM_FIELDS, delta_threshold=1, timestamp_field='ts')
+    expected = expected_ngram_windows(ts, ngram.length)
+    bad = torch.zeros((), dtype=torch.int64, device='cuda')
+    starts, shapes = [], set()
+
+    def to_card(windows):
+        nonlocal bad
+        card = {k: {f: torch.from_numpy(np.stack([getattr(w[k], f) for w in windows]))
+                    .pin_memory().to('cuda', non_blocking=True)
+                    for f in windows[0][k]._fields} for k in windows[0]}
+        shapes.update((k, f, tuple(t.shape[1:]), str(t.dtype))
+                      for k, fields in card.items() for f, t in fields.items())
+        bad = bad + ((card[0]['ts'] - card[-1]['ts'] != 1)
+                     | (card[1]['ts'] - card[0]['ts'] != 1)).sum()
+
+    with make_reader(url, ngram=ngram, reader_pool_type='thread',
+                     shuffle_row_drop_partitions=NGRAM_DROP_PARTITIONS) as reader:
+        t0 = time.perf_counter()
+        pending = []
+        for window in reader:
+            starts.append(int(window[-1].ts))
+            pending.append(window)
+            if len(pending) == NGRAM_BATCH:
+                to_card(pending)
+                pending = []
+        if pending:
+            to_card(pending)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    bad = int(bad)
+    emit({'phase': 'ngram_path', 'config': 'ngram-timeseries-100k', 'rows': NGRAM_ROWS,
+          'ngram_fields': {str(k): v for k, v in NGRAM_FIELDS.items()}, 'length': ngram.length,
+          'shuffle_row_drop_partitions': NGRAM_DROP_PARTITIONS, 'windows': len(starts),
+          'expected_windows': expected, 'windows_per_s': len(starts) / seconds,
+          'seconds': seconds, 'consumer_wait_s': consumer_wait_s(),
+          'non_consecutive_windows': bad, 'card_shapes': sorted(map(str, shapes)),
+          'stage_seconds': stage_seconds()})
+    assert len(starts) == expected, (len(starts), expected)
+    assert len(set(starts)) == len(starts), 'a window was read twice'
+    assert bad == 0, bad
+    # no admitted window spans a jump: no start within 2 rows before one
+    jump_rows = set(np.flatnonzero(np.diff(ts) > 1).tolist())
+    index = {int(t): i for i, t in enumerate(ts)}
+    assert not any(index[s] in jump_rows or index[s] + 1 in jump_rows for s in starts)
+
+
+def phase_row_resume(url):
+    """A row reader (dummy pool, seed 0) stopped after ``ROW_RESUME_STOP``
+    rows, its ``state_dict`` restored in a new reader that reads to the
+    end: every row is read, and the only repeats are the row-group that
+    was in flight. Then ``WeightedSamplingReader`` (deterministic, 3:1)
+    over two row readers of the two shards, through ``DataLoader`` onto
+    the card: the realized share stays within the schedule's bound."""
+    from petastorm_tpu_torch.mixture import realized_deviation
+    from petastorm_tpu_torch.pytorch import DataLoader
+    from petastorm_tpu_torch.reader import make_reader
+    from petastorm_tpu_torch.weighted_sampling_reader import WeightedSamplingReader
+    kw = dict(reader_pool_type='dummy', seed=0, schema_fields=['^idx$', '^digit$'])
+    t0 = time.perf_counter()
+    with make_reader(url, **kw) as reader:
+        head = [int(next(reader).idx) for _ in range(ROW_RESUME_STOP)]
+        state = json.loads(json.dumps(reader.state_dict()))
+    with make_reader(url, **kw) as reader:
+        reader.load_state_dict(state)
+        tail = [int(row.idx) for row in reader]
+    resume_s = time.perf_counter() - t0
+    repeated = set(head) & set(tail)
+    in_flight = {i // MNIST_ROWGROUP for i in repeated}
+
+    weights = [3, 1]
+    readers = [make_reader(url, reader_pool_type='dummy', seed=0, num_epochs=None,
+                           cur_shard=shard, shard_count=2,
+                           schema_fields=['^idx$', '^digit$', '^image$'])
+               for shard in range(2)]
+    mix = WeightedSamplingReader(readers, weights, seed=0, deterministic=True)
+    order, devices = [], set()
+    t0 = time.perf_counter()
+    with DataLoader(mix, batch_size=BRIDGE_BATCH, device='cuda') as loader:
+        for batch in loader:
+            devices.update(str(t.device) for t in batch.values())
+            # shard s holds the row-groups n with n % 2 == s
+            order.extend(((batch['idx'] // MNIST_ROWGROUP) % 2).tolist())
+            if len(order) >= WEIGHTED_ROWS:
+                break
+    mix_s = time.perf_counter() - t0
+    deviation = realized_deviation(order, weights)
+    emit({'phase': 'row_resume', 'config': 'mnist-synthetic-60k', 'stopped_after': len(head),
+          'state_epoch': state['epoch'], 'state_consumed_items': len(state['consumed_items']),
+          'rows_after_restore': len(tail), 'repeated_rows': len(repeated),
+          'repeated_rowgroups': sorted(in_flight), 'seconds': resume_s,
+          'weighted': {'weights': weights, 'rows': len(order),
+                       'share': [order.count(i) / len(order) for i in range(2)],
+                       'realized_deviation': deviation, 'bound': 1.0,
+                       'rows_per_s': len(order) / mix_s, 'batch_devices': sorted(devices)}})
+    assert set(head) | set(tail) == set(range(MNIST_ROWS))
+    assert len(head) + len(tail) - MNIST_ROWS == len(repeated)
+    assert len(in_flight) <= 1 and len(repeated) <= MNIST_ROWGROUP, (len(repeated), in_flight)
+    assert devices == {'cuda:0'}, devices
+    assert len(order) >= WEIGHTED_ROWS and deviation <= 1.0, deviation
+
+
 def write_lm_dataset(url, num_docs=LM_DOCS):
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, generate_c4_like
     from petastorm_tpu_torch.reader import make_batch_reader
@@ -1428,11 +1907,23 @@ def main():
         phase_reference(url)
         phase_lm_reference()
         phase_lm_reference_bf16()
-        paths['main_path'] = {'normalize_images': phase_main_path(url)}
+        main_launches, main_rows_per_s = phase_main_path(url)
+        paths['main_path'] = {'normalize_images': main_launches}
+        phase_row_reference(url)
+        paths['pytorch_path'] = {
+            'normalize_images': phase_pytorch_path(url)['normalize_images']}
+        paths['batched_bridge_path'] = {
+            'normalize_images': phase_batched_bridge_path(url, main_rows_per_s)[
+                'normalize_images']}
+        phase_row_resume(url)
+        ngram_url = 'file://' + os.path.join(tmp, 'ngram_timeseries')
+        phase_ngram_path(ngram_url, write_ngram_dataset(ngram_url))
         lm_url = 'file://' + os.path.join(tmp, 'c4_like')
         write_lm_dataset(lm_url)
-        paths['lm_path'] = phase_lm_path(lm_url)
+        paths['lm_path'], lm_tokens_per_s = phase_lm_path(lm_url)
         phase_lm_profile()
+        bridge = phase_bridge_lm(lm_url, lm_tokens_per_s)
+        paths['bridge_lm'] = {name: bridge[name] for name in FLASH_KERNELS}
         phase_varlen_reference(lm_url)
         paths['varlen_path'] = phase_varlen_path(lm_url)
         phase_varlen_profile()
@@ -1454,6 +1945,7 @@ def main():
     # earlier paths' shapes and launches stand beside them
     vit_case = kernel[VIT_KERNEL_CASE]
     main_case = kernel[MAIN_PATH_CASE]
+    pytorch_case = kernel[PYTORCH_KERNEL_CASE]
     kernels = [{
         'name': 'normalize_images', 'route': 'cuda',
         'source': 'petastorm_tpu_torch/csrc/normalize.cu',
@@ -1466,6 +1958,11 @@ def main():
         'shape': vit_case['shape'],
         'mnist_bf16': {k: main_case[k] for k in ('shape', 'ms', 'wall_ms', 'timer', 'plain_ms',
                                                 'bound_ms', 'max_abs_err')},
+        # the PyTorch example's batches (pytorch_path): (32, 28, 28, 1) -> f32
+        PYTORCH_KERNEL_CASE: dict(
+            {k: pytorch_case[k] for k in ('shape', 'out_dtype', 'ms', 'wall_ms', 'timer',
+                                          'plain_ms', 'bound_ms', 'bound_by', 'max_abs_err')},
+            launches=paths['pytorch_path']['normalize_images'], library_ms=None),
         'imagenet_bf16': {k: kernel['imagenet_bf16'][k]
                           for k in ('ms', 'wall_ms', 'timer', 'plain_ms', 'bound_ms',
                                     'max_abs_err')},

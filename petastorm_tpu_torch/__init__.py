@@ -4,8 +4,21 @@ Reads Parquet datasets written by either package and feeds
 ``{field: torch.Tensor}`` batches to a training step on an NVIDIA GPU
 (Hopper kernels in ``csrc/``). It imports nothing of the JAX package.
 
-Entry points: :func:`petastorm_tpu_torch.reader.make_batch_reader`,
+Entry points: :func:`make_reader` (rows and NGram windows, from
+:mod:`petastorm_tpu_torch.reader`) with
+:class:`petastorm_tpu_torch.pytorch.DataLoader`, :func:`make_batch_reader`
+with :class:`petastorm_tpu_torch.pytorch.BatchedDataLoader`,
 :func:`petastorm_tpu_torch.device.loader.make_torch_loader`,
 :func:`petastorm_tpu_torch.etl.dataset_metadata.write_dataset` and
 :func:`petastorm_tpu_torch.ops.normalize.normalize_images`.
 """
+
+
+def make_reader(*args, **kwargs):
+    from petastorm_tpu_torch.reader import make_reader as _make_reader
+    return _make_reader(*args, **kwargs)
+
+
+def make_batch_reader(*args, **kwargs):
+    from petastorm_tpu_torch.reader import make_batch_reader as _make_batch_reader
+    return _make_batch_reader(*args, **kwargs)

@@ -7,9 +7,11 @@ rows → hive partition columns → TransformSpec → publish a
 views of the Arrow buffers, so fixed-shape ``NdarrayCodec`` and image
 columns decode in one native call per row-group; when the consumer
 deferred decode, eligible image columns travel still encoded
-(:mod:`petastorm_tpu_torch.fused`). Predicates, caches, NGrams,
-readahead and fault injection wait for their roadmap items (the Reader
-refuses them before a worker starts).
+(:mod:`petastorm_tpu_torch.fused`). With an NGram the worker publishes
+one ``{'window', 'item_index', 'epoch', 'last'}`` dict per admitted
+window instead of the batch. Predicates, caches, readahead and fault
+injection wait for their roadmap items (the Reader refuses them before a
+worker starts).
 """
 
 import logging
@@ -32,10 +34,11 @@ logger = logging.getLogger(__name__)
 _PARQUET_FILE_CACHE_MAX = 64
 
 
-def defer_config_ok(transform_spec):
-    """Whether workers may defer image decode: not when a TransformSpec
-    needs the pixels on the worker (the Reader counts the decline once)."""
-    return transform_spec is None
+def defer_config_ok(transform_spec, ngram=None):
+    """Whether workers may defer image decode: not when a TransformSpec or
+    an NGram needs the pixels on the worker (the Reader counts the decline
+    once)."""
+    return transform_spec is None and ngram is None
 
 
 def typed_partition_value(field, value):
@@ -72,11 +75,14 @@ class ColumnBatch:
         self.item_index = item_index
         self.epoch = epoch
 
+    def row(self, i):
+        return {name: col[i] for name, col in self.columns.items()}
+
 
 class RowGroupWorker(WorkerBase):
     """Args (dict): dataset_info, loaded_schema (stored fields to read and
     decode), schema (output schema after the TransformSpec),
-    stored_schema, transform_spec, row_groups, defer_image_decode."""
+    stored_schema, transform_spec, ngram, row_groups, defer_image_decode."""
 
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
@@ -85,19 +91,28 @@ class RowGroupWorker(WorkerBase):
         self._loaded_schema = args['loaded_schema']
         self._stored_schema = args['stored_schema']
         self._transform_spec = args.get('transform_spec')
+        self._ngram = args.get('ngram')
         self._row_groups = args['row_groups']
         self._defer_decode = (bool(args.get('defer_image_decode'))
-                              and defer_config_ok(self._transform_spec))
+                              and defer_config_ok(self._transform_spec, self._ngram))
         self._parquet_files = OrderedDict()
 
     def process(self, piece_index, shuffle_row_drop_partition=(0, 1),
                 item_index=None, epoch=None):
         batch = self._load_rowgroup(self._row_groups[piece_index],
                                     shuffle_row_drop_partition)
-        if batch is not None and batch.length > 0:
+        if batch is None or batch.length == 0:
+            return
+        if self._ngram is None:
             batch.item_index = item_index
             batch.epoch = epoch
             self.publish_func(batch)
+            return
+        windows = self._ngram.form_ngram(batch, self._schema)
+        for i, window in enumerate(windows):
+            # 'last' lets the consumer mark the whole item consumed
+            self.publish_func({'window': window, 'item_index': item_index,
+                               'epoch': epoch, 'last': i == len(windows) - 1})
 
     def shutdown(self):
         for f in self._parquet_files.values():
@@ -125,7 +140,8 @@ class RowGroupWorker(WorkerBase):
         with span('io'):
             table = pf.read_row_group(piece.row_group, columns=read_columns)
         num_rows = table.num_rows
-        row_indices = self._apply_row_drop(np.arange(num_rows), drop_partition)
+        overlap = self._ngram.length - 1 if self._ngram is not None else 0
+        row_indices = self._apply_row_drop(np.arange(num_rows), drop_partition, overlap)
         if row_indices.size == 0:
             return None
         select_all = row_indices.size == num_rows
@@ -149,13 +165,20 @@ class RowGroupWorker(WorkerBase):
         return batch
 
     @staticmethod
-    def _apply_row_drop(row_indices, drop_partition):
+    def _apply_row_drop(row_indices, drop_partition, overlap=0):
         """Keep contiguous split ``j`` of ``k`` of the rows (shuffle
-        decorrelation)."""
+        decorrelation). With an NGram, each split borrows the first
+        ``overlap`` (= ngram length - 1) rows of the next, so windows that
+        span a split boundary are not lost."""
         j, k = drop_partition
         if k <= 1:
             return row_indices
-        return np.array_split(row_indices, k)[j]
+        parts = np.array_split(row_indices, k)
+        selected = parts[j]
+        if overlap and j + 1 < k:
+            borrow = np.concatenate(parts[j + 1:])[:overlap]
+            selected = np.concatenate([selected, borrow])
+        return selected
 
     def _decode_column(self, name, arrow_col):
         """Arrow column → decoded numpy values: scalars to typed arrays,

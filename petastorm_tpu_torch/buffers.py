@@ -1,16 +1,137 @@
-"""Batched shuffling buffers between row-group reads and batches
-(counterpart of the column-major half of ``petastorm_tpu/buffers.py``).
+"""Shuffling buffers between row-group reads and batches (counterpart
+of ``petastorm_tpu/buffers.py``).
 
-Items are ``{name: ndarray}`` dicts of equal leading dimension; retrieval
-returns fixed-size batches. Randoms come from numpy's ``RandomState``, as
-in the reference, so a seed gives the same rows in the same order.
-Contract: ``can_add`` → ``add_many``, ``can_retrieve`` → ``retrieve``,
-``finish()`` when upstream is exhausted, then drain.
+The row buffers hold single items (the row ``DataLoader``'s row dicts);
+the batched buffers hold ``{name: ndarray}`` dicts of equal leading
+dimension and return fixed-size batches. Randoms come from numpy's
+``RandomState``, as in the reference, so a seed gives the same rows in
+the same order. Contract: ``can_add`` → ``add_many``, ``can_retrieve`` →
+``retrieve``, ``finish()`` when upstream is exhausted, then drain until
+``size == 0``.
 """
 
+from abc import ABCMeta, abstractmethod
 from collections import deque
 
 import numpy as np
+
+
+class ShufflingBufferBase(metaclass=ABCMeta):
+    """Row-level buffer contract."""
+
+    @abstractmethod
+    def add_many(self, items):
+        """Store items; only legal while ``can_add``."""
+
+    @abstractmethod
+    def retrieve(self):
+        """Return one item; only legal while ``can_retrieve``."""
+
+    @abstractmethod
+    def finish(self):
+        """Upstream exhausted: everything buffered becomes retrievable."""
+
+    @property
+    @abstractmethod
+    def can_add(self):
+        """True when the buffer will accept more items."""
+
+    @property
+    @abstractmethod
+    def can_retrieve(self):
+        """True when retrieve() would return an item."""
+
+    @property
+    @abstractmethod
+    def size(self):
+        """Number of buffered items."""
+
+
+class NoopShufflingBuffer(ShufflingBufferBase):
+    """FIFO pass-through."""
+
+    def __init__(self):
+        self._items = deque()
+        self._done = False
+
+    def add_many(self, items):
+        if not self.can_add:
+            raise RuntimeError('add_many called on a finished buffer')
+        self._items.extend(items)
+
+    def retrieve(self):
+        return self._items.popleft()
+
+    def finish(self):
+        self._done = True
+
+    @property
+    def can_add(self):
+        return not self._done
+
+    @property
+    def can_retrieve(self):
+        return len(self._items) > 0
+
+    @property
+    def size(self):
+        return len(self._items)
+
+
+class RandomShufflingBuffer(ShufflingBufferBase):
+    """Uniform-random retrieval with swap-remove.
+
+    :param shuffling_buffer_capacity: soft fill target; ``can_add`` turns
+        False at this size, but one ``add_many`` may overshoot up to
+        ``extra_capacity`` (callers add whole row-groups at once).
+    :param min_after_retrieve: retrieval blocks until this many items are
+        buffered (decorrelation floor), except after :meth:`finish`.
+    """
+
+    def __init__(self, shuffling_buffer_capacity, min_after_retrieve=0,
+                 extra_capacity=0, seed=None):
+        if min_after_retrieve > shuffling_buffer_capacity:
+            raise ValueError('min_after_retrieve (%d) must not exceed the '
+                             'buffer capacity (%d)'
+                             % (min_after_retrieve, shuffling_buffer_capacity))
+        self._capacity = shuffling_buffer_capacity
+        self._min_after_retrieve = min_after_retrieve
+        self._extra_capacity = extra_capacity
+        self._items = []
+        self._done = False
+        self._rng = np.random.RandomState(seed)
+
+    def add_many(self, items):
+        if not self.can_add:
+            raise RuntimeError('add_many called on a full or finished buffer')
+        self._items.extend(items)
+
+    def retrieve(self):
+        if not self.can_retrieve:
+            raise RuntimeError('retrieve called but can_retrieve is False')
+        idx = self._rng.randint(len(self._items))
+        # swap-remove: O(1), order irrelevant in a shuffling buffer
+        self._items[idx], self._items[-1] = self._items[-1], self._items[idx]
+        return self._items.pop()
+
+    def finish(self):
+        self._done = True
+
+    @property
+    def can_add(self):
+        return not self._done and len(self._items) < self._capacity
+
+    @property
+    def can_retrieve(self):
+        if self._done:
+            return len(self._items) > 0
+        # >= (not >): capacity == min_after_retrieve must not deadlock the
+        # add-while-can_add / retrieve-while-can_retrieve loop
+        return len(self._items) >= max(1, self._min_after_retrieve)
+
+    @property
+    def size(self):
+        return len(self._items)
 
 
 class BatchedNoopShufflingBuffer:

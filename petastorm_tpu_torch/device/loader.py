@@ -167,7 +167,7 @@ def resolve_device(device):
     device = torch.device('cuda' if device is None else device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(
-            'make_torch_loader runs on the CUDA device by default, but CUDA '
+            'petastorm_tpu_torch runs on the CUDA device by default, but CUDA '
             'is not available; pass device="cpu" to run on the host')
     if device.type not in ('cuda', 'cpu'):
         raise ValueError('device must be a cuda device or "cpu", got %s' % device)

@@ -1,21 +1,25 @@
-"""Reader: the read-path front end, ``make_batch_reader``.
+"""Reader: the read-path front end, ``make_reader`` and
+``make_batch_reader``.
 
 Counterpart of ``petastorm_tpu/reader.py`` on the dummy and thread pools.
 It opens a (materialized or plain) Parquet dataset, enumerates and shards
-its row-groups, ventilates them to a decode pool and iterates whole
-row-groups as namedtuples of column arrays. Its ``state_dict`` has the
-reference's shape, so a checkpoint saved by either package resumes in the
-other. Kwargs that reach unported code raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item.
+its row-groups, ventilates them to a decode pool and iterates them: whole
+row-groups as namedtuples of column arrays (``make_batch_reader``), or one
+namedtuple per row, or one ``{timestep: namedtuple}`` per NGram window
+(``make_reader``). Its ``state_dict`` has the reference's shape, so a
+checkpoint saved by either package resumes in the other. Kwargs that
+reach unported code raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item.
 """
 
 import os
 import time
+import warnings
 
 from petastorm_tpu_torch.arrow_worker import RowGroupWorker, defer_config_ok
-from petastorm_tpu_torch.errors import NoDataAvailableError, unported
+from petastorm_tpu_torch.errors import MetadataError, NoDataAvailableError, unported
 from petastorm_tpu_torch.etl.dataset_metadata import (
-    ParquetDatasetInfo, infer_or_load_unischema, load_row_groups,
+    ParquetDatasetInfo, get_schema, infer_or_load_unischema, load_row_groups,
 )
 from petastorm_tpu_torch.telemetry import note_consumer_wait, span
 from petastorm_tpu_torch.transform import transform_schema
@@ -30,6 +34,71 @@ _VENTILATE_EXTRA_ROWGROUPS = 2
 
 # pulls shorter than this are per-result work, not starvation
 _PULL_NOTE_FLOOR_S = 0.01
+
+
+def _refuse_unported(entry, predicate, rowgroup_selector, cache_type, cache_location,
+                     cache_size_limit, cache_row_size_estimate, filters, poison_policy):
+    """Raise the ``unported`` error of the first reference kwarg that is
+    set and reaches code the port lacks."""
+    if predicate is not None:
+        raise unported('%s(predicate=)' % entry, 3)
+    if rowgroup_selector is not None:
+        raise unported('%s(rowgroup_selector=)' % entry, 10)
+    if cache_type not in (None, 'null', 'none'):
+        raise unported('cache_type=%r' % (cache_type,), 3)
+    for name, value in (('cache_location', cache_location),
+                        ('cache_size_limit', cache_size_limit),
+                        ('cache_row_size_estimate', cache_row_size_estimate)):
+        if value is not None:
+            raise unported('%s(%s=)' % (entry, name), 3)
+    if filters:
+        raise unported('%s(filters=)' % entry, 3)
+    if poison_policy is not None:
+        raise unported('poison_policy=', 9)
+
+
+def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
+                workers_count=None, results_queue_size=50, shuffle_row_groups=True,
+                shuffle_row_drop_partitions=1, predicate=None,
+                rowgroup_selector=None, num_epochs=1, cur_shard=None,
+                shard_count=None, seed=0, cache_type='null', cache_location=None,
+                cache_size_limit=None, cache_row_size_estimate=None,
+                transform_spec=None, ngram=None, filters=None,
+                storage_options=None, filesystem=None, poison_policy=None):
+    """Reader over a petastorm materialized dataset, iterating rows as
+    namedtuples with every codec decoded, or NGram windows as
+    ``{timestep: namedtuple}`` dicts.
+
+    :param ngram: an :class:`~petastorm_tpu_torch.ngram.NGram`: the reader
+        yields its windows, formed within each row-group (and, with
+        ``shuffle_row_drop_partitions``, each partition borrows the next
+        one's first ``ngram.length - 1`` rows); ``schema_fields`` is then
+        ignored.
+
+    The other kwargs are :func:`make_batch_reader`'s, under the
+    reference's names and at its positions; those that reach unported
+    code raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+    Use :func:`make_batch_reader` for plain Parquet stores or column-batch
+    output.
+    """
+    _refuse_unported('make_reader', predicate, rowgroup_selector, cache_type,
+                     cache_location, cache_size_limit, cache_row_size_estimate,
+                     filters, poison_policy)
+    info = ParquetDatasetInfo(dataset_url, storage_options, filesystem=filesystem)
+    try:
+        get_schema(info)
+    except MetadataError:
+        warnings.warn('Dataset at %s is missing petastorm metadata; the schema '
+                      'will be inferred. Consider make_batch_reader for plain '
+                      'Parquet stores' % dataset_url)
+    return Reader(info, schema_fields=schema_fields,
+                  reader_pool_type=reader_pool_type, workers_count=workers_count,
+                  results_queue_size=results_queue_size,
+                  shuffle_row_groups=shuffle_row_groups,
+                  shuffle_row_drop_partitions=shuffle_row_drop_partitions,
+                  num_epochs=num_epochs, cur_shard=cur_shard,
+                  shard_count=shard_count, seed=seed,
+                  transform_spec=transform_spec, ngram=ngram, batched_output=False)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None,
@@ -74,21 +143,9 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
     positions; each one set raises ``NotImplementedError`` naming the
     ``ROADMAP.md`` item that ports it.
     """
-    if predicate is not None:
-        raise unported('make_batch_reader(predicate=)', 3)
-    if rowgroup_selector is not None:
-        raise unported('make_batch_reader(rowgroup_selector=)', 10)
-    if cache_type not in (None, 'null', 'none'):
-        raise unported('cache_type=%r' % (cache_type,), 3)
-    for name, value in (('cache_location', cache_location),
-                        ('cache_size_limit', cache_size_limit),
-                        ('cache_row_size_estimate', cache_row_size_estimate)):
-        if value is not None:
-            raise unported('make_batch_reader(%s=)' % name, 3)
-    if filters:
-        raise unported('make_batch_reader(filters=)', 3)
-    if poison_policy is not None:
-        raise unported('poison_policy=', 9)
+    _refuse_unported('make_batch_reader', predicate, rowgroup_selector, cache_type,
+                     cache_location, cache_size_limit, cache_row_size_estimate,
+                     filters, poison_policy)
     if mixture_interleave is not None:
         share = float(mixture_interleave.get('share', 1.0))
         if not 0.0 < share <= 1.0:
@@ -137,7 +194,8 @@ def _resolve_shards(cur_shard, shard_count):
 
 
 class Reader:
-    """Iterator over a dataset's row-groups as column batches.
+    """Iterator over a dataset's row-groups as column batches
+    (``batched_output``), or over its rows or NGram windows.
 
     Construction: resolve the schema, take the requested view, enumerate
     and shard row-groups, build the ventilator, start the worker pool.
@@ -145,19 +203,26 @@ class Reader:
     reposition the cursor first.
     """
 
-    batched_output = True
-    #: NGram windows come with the row reader (ROADMAP item 7)
-    ngram = None
-
     def __init__(self, dataset_info, schema_fields=None, reader_pool_type='thread',
                  workers_count=None, results_queue_size=50, shuffle_row_groups=True,
                  shuffle_row_drop_partitions=1, num_epochs=1, cur_shard=None,
                  shard_count=None, seed=0, transform_spec=None, defer_image_decode=False,
-                 mixture_interleave=None):
+                 mixture_interleave=None, ngram=None, batched_output=True):
         self.dataset_info = dataset_info
         self.mixture_interleave = mixture_interleave
+        self.batched_output = batched_output and ngram is None
+        self.ngram = ngram
+        if ngram is not None and not ngram.timestamp_overlap and \
+                shuffle_row_drop_partitions > 1:
+            raise NotImplementedError('Using timestamp deduplication with '
+                                      'shuffle_row_drop_partitions is not supported')
         self.stored_schema = infer_or_load_unischema(dataset_info)
-        if schema_fields is not None:
+        if ngram is not None:
+            ngram.resolve_regex_field_names(self.stored_schema)
+            fields = ngram.get_field_names_at_all_timesteps()
+            self.loaded_schema = (self.stored_schema.create_schema_view(fields)
+                                  if fields else self.stored_schema)
+        elif schema_fields is not None:
             self.loaded_schema = self.stored_schema.create_schema_view(schema_fields)
             if schema_fields and not len(self.loaded_schema):
                 raise ValueError(
@@ -209,7 +274,9 @@ class Reader:
                 self._pool.workers_count + _VENTILATE_EXTRA_ROWGROUPS),
             randomize_item_order=shuffle_row_groups, random_seed=seed,
             pass_epoch=True)
-        if defer_image_decode and not defer_config_ok(transform_spec):
+        # only batched consumers can take encoded image stubs
+        defer = defer_image_decode and self.batched_output
+        if defer and not defer_config_ok(transform_spec, ngram):
             # counted here, once per Reader, not by each worker
             from petastorm_tpu_torch.fused import count_fallback
             count_fallback('worker-config')
@@ -220,13 +287,17 @@ class Reader:
                              'loaded_schema': self.loaded_schema,
                              'stored_schema': self.stored_schema,
                              'transform_spec': transform_spec,
+                             'ngram': ngram,
                              'row_groups': all_pieces,
-                             'defer_image_decode': defer_image_decode,
+                             'defer_image_decode': defer,
                          },
                          ventilator=self._ventilator, start_ventilator=False)
         self.last_row_consumed = False
         self._started = False
         self._stopped = False
+        # the row reader's current row-group and its next row
+        self._current_batch = None
+        self._batch_cursor = 0
         # per-epoch sets of consumed item indices (exact resume)
         self._consumed_by_epoch = {}
 
@@ -247,25 +318,69 @@ class Reader:
                 if waited > _PULL_NOTE_FLOOR_S:
                     note_consumer_wait(waited)
 
+    def _ensure_started(self):
+        if not self._started:
+            self._ventilator.start()
+            self._started = True
+
     def __next__(self):
-        columns, _, _ = self.next_batch_info()
-        return self.schema.make_namedtuple(**columns)
+        if self._stopped:
+            raise RuntimeError('Trying to read a sample from a stopped reader')
+        self._ensure_started()
+        if self.batched_output:
+            columns, _, _ = self.next_batch_info()
+            return self.schema.make_namedtuple(**columns)
+        if self.ngram is not None:
+            # workers publish {timestep: dict} windows; they become
+            # namedtuples here, on the consumer
+            try:
+                wrapped = self._pull_result()
+            except EmptyResultError:
+                self.last_row_consumed = True
+                raise StopIteration from None
+            if wrapped['last'] and wrapped['epoch'] is not None:
+                self._consumed_by_epoch.setdefault(
+                    wrapped['epoch'], set()).add(wrapped['item_index'])
+            return self.ngram.make_namedtuple(self.schema, wrapped['window'])
+        # one row at a time over the column batches; a row-group counts as
+        # consumed when the read after its last row moves past it
+        while self._current_batch is None or self._batch_cursor >= self._current_batch.length:
+            if self._current_batch is not None:
+                self._mark_consumed(self._current_batch)
+            try:
+                self._current_batch = self._pull_result()
+                self._batch_cursor = 0
+            except EmptyResultError:
+                self.last_row_consumed = True
+                self._current_batch = None
+                raise StopIteration from None
+        row = self._current_batch.row(self._batch_cursor)
+        self._batch_cursor += 1
+        return self.schema.make_namedtuple(**row)
+
+    def next(self):
+        return self.__next__()
+
+    def _mark_consumed(self, batch):
+        if batch.item_index is not None and batch.epoch is not None:
+            self._consumed_by_epoch.setdefault(batch.epoch, set()).add(batch.item_index)
 
     def next_batch_info(self):
         """``(columns_dict, item_index, epoch)`` for one row-group batch:
         the provenance-carrying flavor of ``__next__`` for consumers that
-        buffer rows downstream. Raises StopIteration at the end."""
+        buffer rows downstream (batched readers only). Raises
+        StopIteration at the end."""
+        if not self.batched_output:
+            raise TypeError('next_batch_info requires a batched reader')
         if self._stopped:
             raise RuntimeError('Trying to read a sample from a stopped reader')
-        if not self._started:
-            self._ventilator.start()
-            self._started = True
+        self._ensure_started()
         try:
             batch = self._pull_result()
         except EmptyResultError:
             self.last_row_consumed = True
             raise StopIteration from None
-        self._consumed_by_epoch.setdefault(batch.epoch, set()).add(batch.item_index)
+        self._mark_consumed(batch)
         columns = {name: batch.columns[name] for name in self.schema.fields
                    if name in batch.columns}
         return columns, batch.item_index, batch.epoch
@@ -280,6 +395,8 @@ class Reader:
                 'supported; consume all samples first')
         self._ventilator.reset()
         self.last_row_consumed = False
+        self._current_batch = None
+        self._batch_cursor = 0
         self._consumed_by_epoch = {}
         self._resume_excluded = {}
 

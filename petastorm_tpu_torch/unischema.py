@@ -98,6 +98,12 @@ class UnischemaField:
     def __setattr__(self, key, value):
         raise AttributeError('UnischemaField is immutable')
 
+    def __reduce__(self):
+        # immutability breaks pickle's default slot restore, which uses
+        # setattr: rebuild through __init__ instead
+        return (UnischemaField,
+                (self.name, self.numpy_dtype, self.shape, self.codec, self.nullable))
+
     def _key(self):
         return (self.name, self.numpy_dtype, self.shape, self.nullable)
 

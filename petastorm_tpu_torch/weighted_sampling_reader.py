@@ -4,8 +4,8 @@
 Each ``next()`` draws one underlying reader with the given probability
 and returns its next item. Readers must agree on output schema and mode;
 exhaustion of ANY reader ends the mix (so relative mixing ratios hold
-throughout). The port mixes its batched readers: the row reader is ROADMAP
-item 7.
+throughout). It mixes batch readers, row readers and NGram readers alike,
+as long as every source is of one kind.
 
 ``deterministic=True`` swaps the RNG draw for the mixture engine's
 arithmetic interleave (:class:`petastorm_tpu_torch.mixture.InterleaveSchedule`):

@@ -46,7 +46,8 @@ def test_port_has_modules_to_scan():
                    ('mixture', 'spec.py'), ('mixture', 'interleave.py'),
                    ('mixture', 'packing.py'), ('mixture', 'engine.py'),
                    ('mixture', 'adapter.py'), ('checkpoint.py',),
-                   ('weighted_sampling_reader.py',)):
+                   ('weighted_sampling_reader.py',), ('ngram.py',), ('pytorch.py',),
+                   ('examples', 'mnist_pytorch.py'), ('examples', 'hello_world.py')):
         assert os.path.join('petastorm_tpu_torch', *module) in rel
     assert len(rel) > 20
 

@@ -192,3 +192,106 @@ def test_passes_the_readers_surface_through(id_datasets):
         assert next(mix).id.shape == (5,) and mix.next().id.shape == (5,)
         with pytest.raises(ValueError, match='reader states'):
             mix.load_state_dict({'readers': [{}], 'draws': 0})
+
+
+# -- row and NGram readers -----------------------------------------------------
+
+def _row_readers(package, urls, ngram=False, **kw):
+    """Row readers (``make_reader``) of ``package`` over the two id
+    datasets, optionally NGram readers of consecutive ids."""
+    if package == 'jax':
+        from petastorm_tpu.ngram import NGram
+        from petastorm_tpu.reader import make_reader
+    else:
+        from petastorm_tpu_torch.ngram import NGram
+        from petastorm_tpu_torch.reader import make_reader
+    kw.setdefault('num_epochs', None)
+    readers = []
+    for url in urls:
+        if ngram:
+            kw['ngram'] = NGram({0: ['^id$'], 1: ['^id$', '^x$']}, delta_threshold=1,
+                                timestamp_field='^id$')
+        with pytest.warns(UserWarning, match='missing petastorm metadata'):
+            readers.append(make_reader(url, reader_pool_type='dummy',
+                                       shuffle_row_groups=False, **kw))
+    return readers
+
+
+def _item_key(item):
+    """A drawn row's id, or a window's ids and the next row's ``x``."""
+    if isinstance(item, dict):
+        return [int(item[0].id), int(item[1].id), float(item[1].x)]
+    return [int(item.id), float(item.x)]
+
+
+MIXERS = {'jax': JaxMix, 'torch': TorchMix}
+
+
+@pytest.mark.parametrize('ngram', [False, True], ids=['rows', 'ngram'])
+@pytest.mark.parametrize('deterministic', [False, True], ids=['random', 'deterministic'])
+def test_row_and_ngram_mixes_match_jax(id_datasets, ngram, deterministic):
+    draws, states = {}, {}
+    for package in ('jax', 'torch'):
+        mix = MIXERS[package](_row_readers(package, id_datasets, ngram=ngram), [3, 1],
+                              seed=4, deterministic=deterministic)
+        try:
+            assert mix.batched_output is False and (mix.ngram is not None) == ngram
+            draws[package] = [_item_key(next(mix)) for _ in range(90)]
+            states[package] = json.loads(json.dumps(mix.state_dict()))
+        finally:
+            _close(mix)
+    assert draws['torch'] == draws['jax']
+    assert states['torch'] == states['jax']
+    ids = [d[0] for d in draws['torch']]
+    assert any(i < 100 for i in ids) and any(i >= 100 for i in ids)
+    if ngram:
+        assert all(d[1] == d[0] + 1 for d in draws['torch'])
+
+
+@pytest.mark.parametrize('saver,loader', [('torch', 'jax'), ('jax', 'torch')])
+def test_row_mix_state_crosses_packages(id_datasets, saver, loader):
+    """A mix of row readers saved after 23 draws resumes in either
+    package; both packages continue it alike (the sources resume at
+    row-group granularity, at least once)."""
+    mix = MIXERS[saver](_row_readers(saver, id_datasets), [0.6, 0.4], seed=2)
+    try:
+        [next(mix) for _ in range(23)]
+        state = json.loads(json.dumps(mix.state_dict()))
+    finally:
+        _close(mix)
+    tails = {}
+    for package in ('jax', 'torch'):
+        resumed = MIXERS[package](_row_readers(package, id_datasets), [0.6, 0.4], seed=2)
+        try:
+            resumed.load_state_dict(state)
+            tails[package] = [_item_key(next(resumed)) for _ in range(30)]
+        finally:
+            _close(resumed)
+    assert tails[loader] == tails[saver]
+
+
+@pytest.mark.parametrize('case', ['batched-and-rows', 'ngram-and-rows', 'other-ngram'])
+def test_mode_checks_equal(id_datasets, case):
+    def build(package):
+        if case == 'batched-and-rows':
+            make = jax_reader if package == 'jax' else torch_reader
+            readers = [make(id_datasets[0], reader_pool_type='dummy')] + \
+                _row_readers(package, id_datasets[1:])
+        elif case == 'ngram-and-rows':
+            readers = _row_readers(package, id_datasets[:1], ngram=True) + \
+                _row_readers(package, id_datasets[1:])
+        else:
+            # a second source whose windows carry other fields
+            readers = _row_readers(package, id_datasets, ngram=True)
+            readers[1].ngram = type(readers[1].ngram)({0: ['^id$'], 1: ['^id$']},
+                                                      delta_threshold=1, timestamp_field='^id$')
+        try:
+            with pytest.raises(ValueError) as e:
+                MIXERS[package](readers, [0.5, 0.5])
+            return str(e.value)
+        finally:
+            for reader in readers:
+                reader.stop()
+                reader.join()
+
+    assert build('torch') == build('jax')
