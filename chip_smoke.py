@@ -95,8 +95,8 @@ final ``{"ok": true, ...}`` line is printed only when every phase passed:
     token batches after the restore equal run A's bit for bit, and the
     losses agree within 1e-3 relative; the checkpoint's bytes and its save
     and restore seconds are printed.
-Phases 17 to 21 run right after ``main_path``, on its dataset; 22 after
-``lm_profile``, on its.
+Phases 17 to 21 run right after ``main_path``, on its dataset; 22 and 24
+after ``lm_profile``, on its; 23 after ``vit_path``.
 
 17. ``row_reference``: ``ROW_REFERENCE_STEPS`` steps of the PyTorch
     example (``examples/mnist_pytorch.py``: ``make_reader``, the row
@@ -133,17 +133,39 @@ Phases 17 to 21 run right after ``main_path``, on its dataset; 22 after
     full flagship for ``BRIDGE_LM_STEPS`` bf16 steps, each flash kernel
     10 times a step, tokens/s beside ``lm_path``'s; a profiled window
     (``bridge_lm_profile``) whose flash kernels are all ``_wgmma`` ones.
+23. ``selective_vit_path`` (configuration vit-selective-quarter): the
+    image path's ``VIT_ROWS`` rows written again in label order, with an
+    ``id``, read through ``make_torch_loader(filters=[('label', 'in',
+    <every 4th label>)])``: the ids equal a CPU full read filtered in
+    numpy, the row-groups pruned equal what the footers' label statistics
+    predict, images decoded and late-materialized rows equal the
+    survivors, the card's batches equal the CPU loader's (dummy pool), and
+    ``predicate=in_set(...)`` and the full-scan oracle
+    (``PETASTORM_TPU_PUSHDOWN=0``) read the same rows; read seconds of
+    the subset, of the subset priced as a full scan and of the full read;
+    then ``SELECTIVE_STEPS`` ViT-Base steps on the subset with one
+    normalize launch a step and 12 of each flash kernel.
+24. ``dp_lm_path``: two spawned ranks in a gloo group on the one card,
+    each with ``make_torch_loader(mesh=DeviceMesh over ('dp',))`` and no
+    shard given, training the full flagship for ``DP_STEPS`` AdamW steps
+    with gradients averaged through the host: the ranks' row-groups are
+    disjoint and cover the epoch, ``loader.sharding`` rebuilds the global
+    batch, the first averaged gradient matches one process's step on it,
+    the replicas' weights stay equal, every flash kernel is ``_wgmma``;
+    tokens/s and peak memory per rank.
 
 Then the ``kernels`` summary (each kernel's launches on every path), the
 ``nvidia-smi`` name and power limit, and the ``ok`` line. The script
 needs CUDA and the repository beside it.
 """
 
+import contextlib
 import json
 import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -282,6 +304,16 @@ NGRAM_FIELDS = {-1: ['ts', 'sensor'], 0: ['ts', 'sensor', 'steering'], 1: ['ts',
 ROW_RESUME_STOP = 25_000
 MNIST_ROWGROUP = 256         # generate_synthetic_mnist's row-group size
 WEIGHTED_ROWS = 64 * 200
+# vit-selective: the image path's rows in label order, read through
+# filters= on every 4th of the distinct labels
+SELECTIVE_LABEL_STRIDE = 4
+SELECTIVE_STEPS = 8
+# dp-lm: two gloo ranks on the one card feed the flagship
+DP_RANKS = 2
+DP_STEPS = 5                 # the first is held against one process; the rest timed
+DP_TIMEOUT_S = 600
+DP_GRAD_TOL = 3e-2           # max|avg - one process| / max|one process|, bf16
+DP_LOSS_RTOL = 1e-3
 
 
 def emit(obj):
@@ -1082,7 +1114,7 @@ def phase_vit_path(url, image_codec):
     assert decoded.get(key, 0) >= VIT_STEPS * VIT_BATCH, decoded
     if image_codec != 'npy':
         assert diag['fused_decode_mode'] == 'fused-into-slot', diag
-    return launches
+    return launches, result['images_per_s']
 
 
 def phase_vit_profile():
@@ -1881,6 +1913,401 @@ def write_lm_dataset(url, num_docs=LM_DOCS):
           'tokens': tokens, 'seconds': seconds})
 
 
+def write_selective_dataset(url, image_codec):
+    """vit-selective: ``VIT_ROWS`` rows of the image path's content and
+    codec, sorted by label (stable), with an int64 ``id`` in written
+    order, in 64-row groups: each row-group then covers one or two labels,
+    and its footer's label statistics say which. Returns the labels in
+    written order."""
+    import numpy as np
+    import pyarrow as pa
+    from petastorm_tpu_torch.codecs import ScalarCodec
+    from petastorm_tpu_torch.etl.dataset_metadata import write_dataset
+    from petastorm_tpu_torch.examples.imagenet import imagenet_like_rows, imagenet_like_schema
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+    t0 = time.perf_counter()
+    rows = sorted(imagenet_like_rows(VIT_ROWS, 384), key=lambda row: int(row[1]))
+    schema = Unischema('SelectiveImagenetLike', list(imagenet_like_schema(384, image_codec)) + [
+        UnischemaField('id', np.int64, (), ScalarCodec(pa.int64()), False)])
+    write_dataset(url, schema, [{'image': image, 'label': label, 'id': np.int64(i)}
+                                for i, (image, label) in enumerate(rows)],
+                  rowgroup_size_rows=64)
+    labels = [int(label) for _, label in rows]
+    emit({'phase': 'write', 'dataset': 'vit_selective_384', 'rows': VIT_ROWS,
+          'image_codec': image_codec, 'rowgroup_rows': 64, 'order': 'label',
+          'labels': sorted(set(labels)), 'seconds': time.perf_counter() - t0})
+    return labels
+
+
+def footer_prediction(url, selected):
+    """Row-groups (and their rows) whose ``label`` min/max in the Parquet
+    footers holds none of ``selected``: what a statistics prune must drop,
+    worked out here with pyarrow alone."""
+    import pyarrow.parquet as pq
+    root = url[len('file://'):]
+    files = sorted(os.path.join(d, f) for d, _, names in os.walk(root) for f in names
+                   if f.endswith('.parquet') and not f.startswith(('_', '.')))
+    out = {'rowgroups': 0, 'rowgroups_pruned': 0, 'rows_pruned': 0}
+    for path in files:
+        meta = pq.ParquetFile(path).metadata
+        column = meta.schema.to_arrow_schema().get_field_index('label')
+        for rg in range(meta.num_row_groups):
+            st = meta.row_group(rg).column(column).statistics
+            out['rowgroups'] += 1
+            if not any(st.min <= label <= st.max for label in selected):
+                out['rowgroups_pruned'] += 1
+                out['rows_pruned'] += meta.row_group(rg).num_rows
+    return out
+
+
+def _read_epoch(url, device, keep=False, **kwargs):
+    """One epoch through ``make_torch_loader`` (every tail row kept) from
+    a fresh registry and planner: ids, rows/s, counters, diagnostics, and
+    with ``keep`` host copies of the batches."""
+    from petastorm_tpu_torch import pushdown
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    from petastorm_tpu_torch.telemetry import get_registry, reset_registry
+    reset_registry()
+    pushdown.reset_for_tests()
+    ids, batches = [], []
+    with make_torch_loader(url, VIT_BATCH, fields=['^id$', '^image$', '^label$'],
+                           num_epochs=1, last_batch='short', device=device,
+                           **kwargs) as loader:
+        start = time.perf_counter()
+        for batch in loader:
+            ids.append(batch['id'].cpu())
+            if keep:
+                batches.append({k: v.cpu() for k, v in batch.items()})
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        diag = loader.diagnostics
+        plan = loader.reader._pushdown_plan
+    ids = torch.cat(ids).tolist()
+    return {'ids': sorted(ids), 'rows': len(ids), 'seconds': elapsed,
+            'images_per_s': len(ids) / elapsed,
+            'counters': get_registry().snapshot()['counters'], 'diagnostics': diag,
+            'summary': pushdown.planner_summary(), 'batches': batches,
+            'plan_pruned': None if plan is None else len(plan.pruned),
+            'consumer_wait_s': consumer_wait_s()}
+
+
+def phase_selective_vit_path(url, image_codec, labels, vit_images_per_s):
+    """A selective read on the image path: ``make_torch_loader(filters=
+    [('label', 'in', <every 4th label>)])`` over the label-ordered dataset.
+    The footer-statistics prune drops the row-groups the footers exclude,
+    the workers read and test ``label`` first and hand on only the
+    survivors' encoded cells, and the staging fill decodes just those into
+    the pinned slots. Held: the ids equal a CPU full read filtered in
+    numpy; the row-groups pruned equal ``footer_prediction``; images
+    decoded and late-materialized rows equal the survivors; the card's
+    batches equal the CPU loader's byte for byte (dummy pool); a read with
+    ``predicate=in_set(...)`` (the planner, not the filters prune) gives
+    the same rows. Then ``SELECTIVE_STEPS`` ViT-Base steps on the subset:
+    one normalize launch a step and 12 of each flash kernel."""
+    import numpy as np
+    from petastorm_tpu_torch import native, pushdown
+    from petastorm_tpu_torch.examples.imagenet import VIT_BASE_KW, train_vit_fused
+    from petastorm_tpu_torch.predicates import in_set
+    from petastorm_tpu_torch.reader import make_batch_reader
+    from petastorm_tpu_torch.telemetry import FUSED_ROWS, reset_registry
+    distinct = sorted(set(labels))
+    selected = tuple(distinct[::SELECTIVE_LABEL_STRIDE])
+    filters = [('label', 'in', selected)]
+    predicted = footer_prediction(url, selected)
+    with make_batch_reader(url, schema_fields=['^id$', '^label$'],
+                           reader_pool_type='dummy') as reader:
+        columns = [(b.id, b.label) for b in reader]
+    all_ids = np.concatenate([c[0] for c in columns])
+    all_labels = np.concatenate([c[1] for c in columns])
+    want_ids = sorted(all_ids[np.isin(all_labels, selected)].tolist())
+    library = {'jpeg': 'jpeg_batch', 'png': 'png_batch', 'npy': 'npy_batch'}[image_codec]
+    decoded_key = '%s{library="%s"}' % (native.DECODED_CELLS, library)
+
+    full = _read_epoch(url, 'cuda')
+    selective = _read_epoch(url, 'cuda', filters=filters)
+    # the same subset priced as a full scan: PETASTORM_TPU_PUSHDOWN=0 reads
+    # and decodes every row, then filters
+    os.environ['PETASTORM_TPU_PUSHDOWN'] = '0'
+    try:
+        full_scan = _read_epoch(url, 'cuda', filters=filters)
+    finally:
+        del os.environ['PETASTORM_TPU_PUSHDOWN']
+    by_predicate = _read_epoch(url, 'cuda', predicate=in_set(set(selected), 'label'))
+    card = _read_epoch(url, 'cuda', keep=True, filters=filters, reader_pool_type='dummy',
+                       shuffle_row_groups=False)
+    host = _read_epoch(url, 'cpu', keep=True, filters=filters, reader_pool_type='dummy',
+                       shuffle_row_groups=False)
+    counters = selective['counters']
+    reset_registry()
+    reset_launch_counts()
+    result = train_vit_fused(url, steps=SELECTIVE_STEPS, batch_size=VIT_BATCH, device='cuda',
+                             filters=filters)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    losses = result['losses']
+    emit({'phase': 'selective_vit_path', 'config': 'vit-selective-quarter',
+          'entry': "make_torch_loader(filters=[('label', 'in', ...)]) -> normalize -> ViT-Base",
+          'image_codec': image_codec, 'labels_selected': list(selected),
+          'labels_total': len(distinct), 'rows_total': len(all_ids),
+          'survivors': len(want_ids), 'footer_prediction': predicted,
+          'rowgroups_pruned': counters.get(pushdown.ROWGROUPS_PRUNED, 0),
+          'rows_pruned': counters.get(pushdown.ROWS_PRUNED, 0),
+          'late_materialized_rows': counters.get(pushdown.LATE_MATERIALIZED_ROWS, 0),
+          'images_decoded': counters.get(decoded_key, 0),
+          'fused_decode_rows': counters.get(FUSED_ROWS, 0),
+          'read_seconds': selective['seconds'], 'read_images_per_s': selective['images_per_s'],
+          'full_scan_read_seconds': full_scan['seconds'],
+          'full_scan_images_decoded': full_scan['counters'].get(decoded_key, 0),
+          'full_read_seconds': full['seconds'], 'full_read_images_per_s': full['images_per_s'],
+          'full_read_images_decoded': full['counters'].get(decoded_key, 0),
+          'read_consumer_wait_s': selective['consumer_wait_s'],
+          'full_read_consumer_wait_s': full['consumer_wait_s'],
+          'fused_decode_mode': selective['diagnostics']['fused_decode_mode'],
+          'predicate_read': {'rowgroups_pruned': by_predicate['summary']['rowgroups_pruned'],
+                             'planner_runs': by_predicate['summary']['planner_runs'],
+                             'images_per_s': by_predicate['images_per_s']},
+          'card_vs_cpu_batches': len(card['batches']),
+          'train': {'steps': len(losses), 'batch_size': VIT_BATCH, 'losses': losses,
+                    'images_per_s': result['images_per_s'],
+                    'vit_path_images_per_s': vit_images_per_s,
+                    'consumer_wait_s': result['diagnostics']['consumer_wait_s'],
+                    'launches': launches}})
+    assert selective['ids'] == want_ids, 'the selective read lost or added rows'
+    assert by_predicate['ids'] == want_ids == card['ids'] == host['ids'] == full_scan['ids']
+    assert full_scan['counters'].get(decoded_key, 0) == VIT_ROWS
+    assert full['ids'] == sorted(all_ids.tolist())
+    assert 0 < predicted['rowgroups_pruned'] < predicted['rowgroups'], predicted
+    assert counters.get(pushdown.ROWGROUPS_PRUNED, 0) == predicted['rowgroups_pruned']
+    assert counters.get(pushdown.ROWS_PRUNED, 0) == predicted['rows_pruned']
+    assert by_predicate['summary']['rowgroups_pruned'] == predicted['rowgroups_pruned']
+    assert by_predicate['plan_pruned'] == predicted['rowgroups_pruned']
+    assert counters.get(pushdown.LATE_MATERIALIZED_ROWS, 0) == len(want_ids)
+    # images decoded equal survivors, against every row of the full read
+    assert counters.get(decoded_key, 0) == len(want_ids), counters
+    assert full['counters'].get(decoded_key, 0) == VIT_ROWS
+    if image_codec != 'npy':
+        assert selective['diagnostics']['fused_decode_mode'] == 'fused-into-slot'
+        assert counters.get(FUSED_ROWS, 0) == len(want_ids)
+    assert len(card['batches']) == len(host['batches']) > 0
+    for a, b in zip(card['batches'], host['batches']):
+        assert sorted(a) == sorted(b)
+        for name in a:
+            assert torch.equal(a[name], b[name]), name
+    assert len(losses) == SELECTIVE_STEPS and all(math.isfinite(v) for v in losses), losses
+    assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
+    assert launches['normalize_images'] == SELECTIVE_STEPS, launches
+    want = VIT_BASE_KW['n_layers'] * SELECTIVE_STEPS
+    for name in FLASH_KERNELS:
+        assert launches[name] == want, (name, launches[name], want)
+    return launches
+
+
+def _flat_grads(params):
+    return torch.cat([p.grad.reshape(-1).float() for p in params]).cpu()
+
+
+def _dp_train(rank, url):
+    """One rank's part of ``dp_lm_path``: the loader shards by the live
+    group through the mesh, and each step all-reduces the gradients
+    (through the host: gloo) before AdamW. On the first step rank 0 also
+    runs the one-process step on the global batch that
+    ``loader.sharding`` rebuilds, and holds the averaged gradient to it."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from torch.profiler import ProfilerActivity, profile
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, packing_transform
+    from petastorm_tpu_torch.models.transformer import (
+        TransformerConfig, adamw, init_transformer, transformer_loss,
+    )
+    mesh = init_device_mesh('cpu', (DP_RANKS,), mesh_dim_names=('dp',))
+    config = TransformerConfig(max_seq_len=LM_SEQ, loss_chunk=256, attn_impl='flash',
+                               **FLAGSHIP_LM_KW)
+    model = init_transformer(0, config, 'cuda')
+    params = list(model.parameters())
+    optimizer = adamw(model)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = {'rank': rank, 'losses': []}
+    reference_launches = {name: 0 for name in FLASH_KERNELS}
+    with make_torch_loader(url, LM_BATCH, mesh, ('dp',), fields=['^tokens$'],
+                           transform_spec=packing_transform(LM_SEQ + 1), num_epochs=None,
+                           shuffle_row_groups=True, device='cuda') as loader:
+        out['shard'] = [loader.reader.cur_shard, loader.reader.shard_count]
+        out['pieces'] = sorted({item[0] for item in loader.reader.state_dict()['items_global']})
+        out['placements'] = [repr(p) for p in loader.sharding[1]]
+        batches = iter(loader)
+        for i in range(DP_STEPS):
+            tokens = next(batches)['tokens']
+            if i == 1:
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+            with (profile(activities=[ProfilerActivity.CUDA]) if i == 1
+                  else contextlib.nullcontext()) as prof:
+                optimizer.zero_grad(set_to_none=True)
+                loss = transformer_loss(model, tokens)
+                loss.backward()
+                torch.cuda.synchronize()
+            if i == 1:
+                out['flash_kernel_names'] = sorted(
+                    {e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and _kernel_kind(e.name) in FLASH_KERNELS})
+            grads = _flat_grads(params)
+            dist.all_reduce(grads)
+            grads /= DP_RANKS
+            if i == 0:
+                local = tokens.cpu()
+                full = DTensor.from_local(local, *loader.sharding).full_tensor()
+                gathered = [None] * DP_RANKS
+                dist.all_gather_object(gathered, local)
+                out['global_batch_equal'] = bool(torch.equal(full, torch.cat(gathered)))
+                out['global_batch_shape'] = list(full.shape)
+                mean_loss = loss.detach().float().reshape(1).cpu().clone()
+                dist.all_reduce(mean_loss)
+                out['mean_loss'] = float(mean_loss) / DP_RANKS
+                if rank == 0:
+                    before = launch_counts()
+                    optimizer.zero_grad(set_to_none=True)
+                    one = transformer_loss(model, full.to('cuda'))
+                    one.backward()
+                    reference = _flat_grads(params)
+                    after = launch_counts()
+                    reference_launches = {k: after[k] - before[k] for k in FLASH_KERNELS}
+                    out['one_process_loss'] = float(one.detach())
+                    out['grad_err_over_max_abs'] = float(
+                        (grads - reference).abs().max() / reference.abs().max())
+            offset = 0
+            for p in params:
+                n = p.numel()
+                p.grad = grads[offset:offset + n].view_as(p).to(p.device, p.dtype)
+                offset += n
+            optimizer.step()
+            out['losses'].append(float(loss.detach()))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+    launches = launch_counts()
+    out['launches'] = {k: launches[k] - reference_launches.get(k, 0) for k in launches}
+    # the replicas stay equal: same initial weights, same averaged updates
+    out['param_checksum'] = float(sum(p.detach().double().sum() for p in params))
+    out['tokens_per_s'] = (DP_STEPS - 1) * LM_BATCH * LM_SEQ / elapsed
+    out['peak_memory_bytes'] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _dp_rank(rank, port, url, out_dir):
+    """A spawned rank of ``dp_lm_path``: joins the gloo group, trains, and
+    leaves its result in ``out_dir``."""
+    import datetime
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    dist.init_process_group('gloo', init_method='tcp://127.0.0.1:%d' % port, rank=rank,
+                            world_size=DP_RANKS,
+                            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        torch.cuda.set_device(0)
+        result = _dp_train(rank, url)
+        with open(os.path.join(out_dir, 'rank%d.json' % rank), 'w') as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dp_lm_path(url, lm_tokens_per_s):
+    """Two data-parallel ranks on the one card: spawned processes in a gloo
+    group (NCCL refuses two ranks on one GPU), each building
+    ``make_torch_loader(url, 8, mesh=DeviceMesh over ('dp',))`` with no
+    shard given, so the shard comes from the group, and training the full
+    flagship for ``DP_STEPS`` AdamW steps with gradients averaged over the
+    ranks. Held: the ranks' row-groups are disjoint and cover the epoch;
+    ``loader.sharding`` rebuilds the global batch (``DTensor.from_local``)
+    as the concatenation of the local ones; the first step's averaged
+    gradient matches one process's step on that global batch within
+    ``DP_GRAD_TOL`` of its max-abs (bf16, as the LM references hold); every
+    flash kernel is a ``_wgmma`` one, launched layers x steps times on each
+    rank. A rank that dies or outlives ``DP_TIMEOUT_S`` fails the phase."""
+    from petastorm_tpu_torch.etl.dataset_metadata import ParquetDatasetInfo, load_row_groups
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    out_dir = tempfile.mkdtemp()
+    ctx = torch.multiprocessing.get_context('spawn')
+    procs = [ctx.Process(target=_dp_rank, args=(rank, port, url, out_dir))
+             for rank in range(DP_RANKS)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        assert codes == [0] * DP_RANKS, 'a dp rank failed or timed out: exit codes %s' % codes
+        results = []
+        for rank in range(DP_RANKS):
+            with open(os.path.join(out_dir, 'rank%d.json' % rank)) as f:
+                results.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    n_pieces = len(load_row_groups(ParquetDatasetInfo(url)))
+    first = results[0]
+    loss_gap = abs(first['mean_loss'] - first['one_process_loss']) / abs(first['one_process_loss'])
+    emit({'phase': 'dp_lm_path', 'config': 'lm-c4like-flagship, 2 ranks',
+          'entry': "make_torch_loader(url, 8, mesh=DeviceMesh('cpu', ('dp',)), "
+                   "data_axes=('dp',)) on a gloo group; gradients all-reduced through the host",
+          'model': FLAGSHIP_LM_KW, 'ranks': DP_RANKS, 'steps': DP_STEPS,
+          'batch_size_per_rank': LM_BATCH, 'attention_positions': LM_SEQ,
+          'shards': [r['shard'] for r in results], 'placements': first['placements'],
+          'rowgroups_per_rank': [len(r['pieces']) for r in results], 'rowgroups': n_pieces,
+          'global_batch_shape': first['global_batch_shape'],
+          'grad_err_over_max_abs': first['grad_err_over_max_abs'],
+          'grad_tolerance': 'max|avg - one process| / max|one process| <= %g' % DP_GRAD_TOL,
+          'loss_rel_gap': loss_gap, 'loss_tolerance': 'rel <= %g' % DP_LOSS_RTOL,
+          'losses': [r['losses'] for r in results],
+          'tokens_per_s_per_rank': [r['tokens_per_s'] for r in results],
+          'tokens_per_s_timing': 'steps 2-%d, gloo all-reduce of f32 gradients included'
+                                 % DP_STEPS,
+          'lm_path_tokens_per_s': lm_tokens_per_s,
+          'peak_memory_bytes_per_rank': [r['peak_memory_bytes'] for r in results],
+          'launches_per_rank': [r['launches'] for r in results],
+          'flash_kernel_names': sorted({n for r in results for n in r['flash_kernel_names']}),
+          'param_checksums': [r['param_checksum'] for r in results], 'seconds': seconds})
+    assert [r['shard'] for r in results] == [[rank, DP_RANKS] for rank in range(DP_RANKS)]
+    pieces = [set(r['pieces']) for r in results]
+    assert not pieces[0] & pieces[1], 'the ranks share row-groups'
+    assert pieces[0] | pieces[1] == set(range(n_pieces)), 'the ranks miss row-groups'
+    assert all(r['placements'] == ['Shard(dim=0)'] for r in results)
+    assert all(r['global_batch_equal'] for r in results)
+    assert len({r['param_checksum'] for r in results}) == 1, 'the replicas diverged'
+
+    assert first['global_batch_shape'] == [DP_RANKS * LM_BATCH, LM_SEQ + 1]
+    assert first['grad_err_over_max_abs'] <= DP_GRAD_TOL, first['grad_err_over_max_abs']
+    assert loss_gap <= DP_LOSS_RTOL, loss_gap
+    for r in results:
+        assert len(r['losses']) == DP_STEPS and all(math.isfinite(v) for v in r['losses'])
+        want = FLAGSHIP_LM_KW['n_layers'] * DP_STEPS
+        for name in FLASH_KERNELS:
+            assert r['launches'][name] == want, (r['rank'], name, r['launches'][name], want)
+        assert r['flash_kernel_names'] and all('_wgmma' in n for n in r['flash_kernel_names'])
+        for kernel in FLASH_KERNELS:
+            assert any(_kernel_kind(n) == kernel for n in r['flash_kernel_names']), kernel
+    return {name: sum(r['launches'][name] for r in results) for name in FLASH_KERNELS}
+
+
 def _launches_by_path(name, paths):
     return {path: counts[name] for path, counts in paths.items() if name in counts}
 
@@ -1924,6 +2351,7 @@ def main():
         phase_lm_profile()
         bridge = phase_bridge_lm(lm_url, lm_tokens_per_s)
         paths['bridge_lm'] = {name: bridge[name] for name in FLASH_KERNELS}
+        paths['dp_lm_path'] = phase_dp_lm_path(lm_url, lm_tokens_per_s)
         phase_varlen_reference(lm_url)
         paths['varlen_path'] = phase_varlen_path(lm_url)
         phase_varlen_profile()
@@ -1937,7 +2365,11 @@ def main():
         vit_url = 'file://' + os.path.join(tmp, 'imagenet_like')
         write_vit_dataset(vit_url, image_codec)
         phase_image_reference(vit_url, image_codec)
-        paths['vit_path'] = phase_vit_path(vit_url, image_codec)
+        paths['vit_path'], vit_images_per_s = phase_vit_path(vit_url, image_codec)
+        selective_url = 'file://' + os.path.join(tmp, 'vit_selective')
+        labels = write_selective_dataset(selective_url, image_codec)
+        paths['selective_vit_path'] = phase_selective_vit_path(selective_url, image_codec,
+                                                               labels, vit_images_per_s)
     phase_vit_profile()
     # the headline numbers are this slice's path's: the flash kernels' at
     # the mixture path's shape (the flagship's) and their launches there;

@@ -13,6 +13,9 @@ with :class:`petastorm_tpu_torch.pytorch.BatchedDataLoader`,
 :func:`petastorm_tpu_torch.ops.normalize.normalize_images`.
 """
 
+from petastorm_tpu_torch.errors import NoDataAvailableError  # noqa: F401
+from petastorm_tpu_torch.transform import TransformSpec  # noqa: F401
+
 
 def make_reader(*args, **kwargs):
     from petastorm_tpu_torch.reader import make_reader as _make_reader
@@ -22,3 +25,8 @@ def make_reader(*args, **kwargs):
 def make_batch_reader(*args, **kwargs):
     from petastorm_tpu_torch.reader import make_batch_reader as _make_batch_reader
     return _make_batch_reader(*args, **kwargs)
+
+
+def make_torch_loader(*args, **kwargs):
+    from petastorm_tpu_torch.device.loader import make_torch_loader as _make_torch_loader
+    return _make_torch_loader(*args, **kwargs)

@@ -35,7 +35,6 @@ import torch
 
 from petastorm_tpu_torch import fused
 from petastorm_tpu_torch.device import staging
-from petastorm_tpu_torch.errors import unported
 from petastorm_tpu_torch.mixture import MixtureBatchReader, MixtureStream
 from petastorm_tpu_torch.telemetry import (
     STALL_NOTE_FLOOR_S, note_consumer_wait, note_producer_wait, span,
@@ -176,17 +175,31 @@ def resolve_device(device):
     return device
 
 
-def make_torch_loader(dataset_url_or_urls, batch_size, fields=None,
-                      shuffle_rows=False, shuffling_queue_capacity=None,
+def make_torch_loader(dataset_url_or_urls, batch_size, mesh=None, data_axes=None,
+                      fields=None, shuffle_rows=False, shuffling_queue_capacity=None,
                       min_after_retrieve=None, extra_capacity=None, seed=0,
                       last_batch='drop', dtypes=None, prefetch=2, num_epochs=1,
-                      device=None, mesh=None, data_axes=None,
                       inmemory_cache_all=False, pad_ragged=None,
                       bucket_boundaries=None, reader_factory=None, mixture=None,
-                      **reader_kwargs):
-    """A :class:`TorchLoader` over a Parquet dataset.
+                      device=None, **reader_kwargs):
+    """A :class:`TorchLoader` over a Parquet dataset. The parameters take
+    ``make_jax_loader``'s names and positions, with ``device`` last.
 
-    :param batch_size: rows per emitted batch.
+    :param batch_size: rows per emitted batch, on this rank.
+    :param mesh: a ``torch.distributed.device_mesh.DeviceMesh`` with
+        ``mesh_dim_names``, the counterpart of a ``jax.sharding.Mesh``:
+        the global batch splits over ``data_axes`` and is replicated over
+        the mesh's other dims. The loader only reads the mesh (its names,
+        sizes and this rank's coordinate) and runs no collective. Batches
+        stay local ``batch_size``-row tensors on this rank; unless the
+        reader kwargs give ``cur_shard``/``shard_count``, the rank reads
+        the shard of its coordinate over the data dims (ranks that differ
+        only on the other dims read the same rows), and :attr:`TorchLoader.sharding`
+        gives ``DTensor.from_local`` what it needs to build the global
+        batch.
+    :param data_axes: mesh dim name(s) the batch splits over (default: all
+        of them); ``batch_size`` times the mesh's ranks must divide evenly
+        over their shards, which a ``DeviceMesh`` always satisfies.
     :param fields: field name/regex list forwarded to the reader.
     :param shuffle_rows: decorrelate rows across row-groups with a
         :class:`~petastorm_tpu_torch.buffers.BatchedRandomShufflingBuffer`
@@ -197,8 +210,6 @@ def make_torch_loader(dataset_url_or_urls, batch_size, fields=None,
         :mod:`~petastorm_tpu_torch.device.staging` for where each applies.
     :param prefetch: device batches staged ahead of the consumer.
     :param num_epochs: reader epochs; None = infinite.
-    :param device: ``None``/``'cuda'``/``'cuda:N'`` (raises without CUDA)
-        or ``'cpu'``.
     :param inmemory_cache_all: keep the first pass's batches on the device
         and replay them (see :class:`InMemoryCachedLoader`); needs
         ``num_epochs`` 1 or None: re-iterate for more epochs.
@@ -231,13 +242,16 @@ def make_torch_loader(dataset_url_or_urls, batch_size, fields=None,
         pull of ``batch_size`` rows from the mixture, and the loader's
         ``state_dict`` is the mixture's position, the same JSON as the JAX
         loader's.
+    :param device: ``None``/``'cuda'``/``'cuda:N'`` (raises without CUDA)
+        or ``'cpu'``.
     :param reader_kwargs: forwarded to the reader factory (pool type,
-        ``cur_shard``/``shard_count``, ``shuffle_row_groups``, ...).
+        ``cur_shard``/``shard_count``, ``shuffle_row_groups``,
+        ``filters``, ``predicate``, ...).
     """
-    if mesh is not None:
-        raise unported('make_torch_loader(mesh=)', 5)
-    if data_axes is not None:
-        raise unported('make_torch_loader(data_axes=)', 5)
+    sharding = resolve_mesh(mesh, data_axes, batch_size)
+    if sharding is not None and 'cur_shard' not in reader_kwargs \
+            and 'shard_count' not in reader_kwargs:
+        reader_kwargs['cur_shard'], reader_kwargs['shard_count'] = mesh_shard(*sharding)
     if mixture is not None:
         if dataset_url_or_urls is not None:
             raise ValueError('mixture= and dataset_url_or_urls are mutually '
@@ -283,7 +297,7 @@ def make_torch_loader(dataset_url_or_urls, batch_size, fields=None,
                              extra_capacity=extra_capacity, seed=seed,
                              last_batch=last_batch, dtypes=dtypes,
                              prefetch=prefetch, pad_ragged=pad_ragged,
-                             bucket_boundaries=bucket_boundaries)
+                             bucket_boundaries=bucket_boundaries, sharding=sharding)
     except Exception:
         reader.stop()
         reader.join()
@@ -291,6 +305,54 @@ def make_torch_loader(dataset_url_or_urls, batch_size, fields=None,
     if inmemory_cache_all:
         return InMemoryCachedLoader(loader, seed=seed)
     return loader
+
+
+def resolve_mesh(mesh, data_axes, batch_size):
+    """``(mesh, placements)`` for a loader over ``mesh``, or None without
+    one: ``Shard(0)`` on the data dims, ``Replicate()`` on the others.
+    Raises as ``make_jax_loader`` does: ``KeyError`` for a data axis the
+    mesh lacks, ``ValueError`` when the global batch does not divide over
+    the data shards. The global batch counts the mesh's own ranks, each
+    with ``batch_size`` rows of its shard, so for a ``DeviceMesh`` it always
+    divides (a JAX host may drive several devices; a rank drives one)."""
+    if mesh is None:
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names or ())
+    if not names:
+        raise ValueError('make_torch_loader(mesh=) needs a DeviceMesh with '
+                         'mesh_dim_names')
+    axes = tuple(data_axes) if data_axes is not None else names
+    n_shards = 1
+    for a in axes:
+        if a not in names:
+            raise KeyError(a)
+        n_shards *= mesh.size(names.index(a))
+    world = int(np.prod([mesh.size(d) for d in range(len(names))]))
+    if batch_size * world % max(1, n_shards):
+        raise ValueError(
+            'global batch (%d per host x %d hosts) must divide evenly '
+            'over the %d data shards of mesh axes %s'
+            % (batch_size, world, n_shards, axes))
+    return mesh, tuple(Shard(0) if name in axes else Replicate() for name in names)
+
+
+def mesh_shard(mesh, placements):
+    """``(cur_shard, shard_count)`` of this rank: its coordinate over the
+    mesh's ``Shard`` dims, row-major in mesh dim order (the order
+    ``DTensor`` concatenates local batches in). When the data dims hold
+    one shard it is ``(0, 1)``, so a live group's rank and world size never
+    override the mesh: ranks that differ only on the other dims read the
+    same rows."""
+    coordinate = mesh.get_coordinate()
+    if coordinate is None:
+        raise ValueError('this rank is not in the mesh given to make_torch_loader')
+    cur, count = 0, 1
+    for dim, placement in enumerate(placements):
+        if placement.is_shard():
+            size = mesh.size(dim)
+            cur, count = cur * size + coordinate[dim], count * size
+    return cur, count
 
 
 def _mixture_reader(spec, batch_size, num_epochs, reader_kwargs):
@@ -315,7 +377,7 @@ class TorchLoader:
     def __init__(self, reader, batch_size, device, shuffle_rows=False,
                  shuffling_queue_capacity=None, min_after_retrieve=None,
                  extra_capacity=None, seed=0, last_batch='drop', dtypes=None,
-                 prefetch=2, pad_ragged=None, bucket_boundaries=None):
+                 prefetch=2, pad_ragged=None, bucket_boundaries=None, sharding=None):
         if last_batch not in ('drop', 'pad', 'short'):
             raise ValueError("last_batch must be 'drop', 'pad' or 'short'; "
                              'got %r' % (last_batch,))
@@ -348,6 +410,7 @@ class TorchLoader:
                              '(make_batch_reader), which decodes codec fields too')
         self._reader = reader
         self._batch_size = batch_size
+        self._sharding = sharding
         self._device = resolve_device(device)
         self._last_batch = last_batch
         self._dtypes = dict(dtypes or {})
@@ -740,6 +803,13 @@ class TorchLoader:
     def bucket_field(self):
         """The ``bucket_boundaries`` field, or None."""
         return self._bucket_field
+
+    @property
+    def sharding(self):
+        """``(mesh, placements)`` for ``DTensor.from_local(batch[name],
+        mesh, placements)``, which builds the global batch from the ranks'
+        local ones; None without a mesh."""
+        return self._sharding
 
     @property
     def epoch(self):

@@ -18,8 +18,7 @@ class MetadataError(PetastormTpuError):
 
 #: ``ROADMAP.md`` Queue 1 items the port has not reached yet, by number
 ROADMAP_ITEMS = {
-    3: 'caches, readahead, pushdown, filters and predicates, faults, sanitizer',
-    5: 'mesh via torch.distributed',
+    3: 'caches, readahead, faults, sanitizer',
     8: 'LM consumer layer: MoE, ring/Ulysses attention, pipeline, generate',
     9: 'process and service pools, HDFS and object stores',
     10: 'write plane and ETL tools',

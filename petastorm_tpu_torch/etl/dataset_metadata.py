@@ -146,6 +146,16 @@ class ParquetDatasetInfo:
     def partition_values_for(self, path):
         return _parse_hive_partitions(self.relpath(path))
 
+    @property
+    def partition_keys(self):
+        """Hive partition keys over every file, in first-seen order."""
+        keys = []
+        for path in self.file_paths:
+            for k in self.partition_values_for(path):
+                if k not in keys:
+                    keys.append(k)
+        return keys
+
     def open(self, path):
         return self.fs.open(path, 'rb')
 

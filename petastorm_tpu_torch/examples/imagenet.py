@@ -190,14 +190,15 @@ def generate_imagenet_like(url, num_rows=1024, size=384, image_codec='jpeg', see
 
 
 def train_vit_fused(dataset_url, steps=20, batch_size=16, model_kw=None, attn_impl='flash',
-                    augment=True, learning_rate=1e-3, seed=0, device=None):
+                    augment=True, learning_rate=1e-3, seed=0, device=None, **reader_kwargs):
     """``steps`` AdamW steps of the bf16 ViT (``VIT_BASE_KW`` unless
     ``model_kw``) on the fixed-shape dataset: cells decoded straight into
     the loader's pinned slots, flips and cutout of 1/8 the side on the
-    card, the normalize kernel, then the step. Returns ``{'losses',
-    'images_per_s', 'steps_per_s', 'batch_devices', 'diagnostics'}``; the
-    rates are timed on the host from the first step's start to the last
-    loss."""
+    card, the normalize kernel, then the step. ``reader_kwargs`` go to the
+    reader (e.g. ``filters=[('label', 'in', (...))]`` trains on a subset,
+    decoding only its images). Returns ``{'losses', 'images_per_s',
+    'steps_per_s', 'batch_devices', 'diagnostics'}``; the rates are timed
+    on the host from the first step's start to the last loss."""
     from petastorm_tpu_torch.device.loader import make_torch_loader, resolve_device
     from petastorm_tpu_torch.models.transformer import adamw
     from petastorm_tpu_torch.models.vit import ViTConfig, init_vit, vit_train_step
@@ -209,7 +210,8 @@ def train_vit_fused(dataset_url, steps=20, batch_size=16, model_kw=None, attn_im
     losses, devices = [], set()
     with make_torch_loader(dataset_url, batch_size=batch_size,
                            fields=['^image$', '^label$'], num_epochs=None,
-                           shuffle_row_groups=True, seed=seed, device=device) as loader:
+                           shuffle_row_groups=True, seed=seed, device=device,
+                           **reader_kwargs) as loader:
         start = time.perf_counter()
         for batch in loader.iter_steps(steps):
             devices.update(str(t.device) for t in batch.values())

@@ -89,6 +89,17 @@ class PackedCells:
         for i in range(len(self)):
             yield self[i]
 
+    def take(self, indices):
+        """The cells at ``indices``, in that order, packed into a new
+        buffer (a copy of their encoded bytes)."""
+        indices = np.asarray(indices, np.int64)
+        starts, ends = self.offsets[indices], self.offsets[indices + 1]
+        offsets = np.zeros(len(indices) + 1, np.int64)
+        np.cumsum(ends - starts, out=offsets[1:])
+        data = (np.concatenate([self.data[a:b] for a, b in zip(starts, ends)])
+                if len(indices) else np.empty(0, np.uint8))
+        return PackedCells(data, offsets)
+
     @property
     def nbytes(self):
         """Encoded bytes of these cells."""

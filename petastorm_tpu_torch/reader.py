@@ -2,8 +2,12 @@
 ``make_batch_reader``.
 
 Counterpart of ``petastorm_tpu/reader.py`` on the dummy and thread pools.
-It opens a (materialized or plain) Parquet dataset, enumerates and shards
-its row-groups, ventilates them to a decode pool and iterates them: whole
+It opens a (materialized or plain) Parquet dataset, enumerates its
+row-groups, prunes them against ``filters=``/``predicate=`` (partition
+values before sharding, footer statistics after, see
+:mod:`petastorm_tpu_torch.pushdown`), shards them (by the live
+``torch.distributed`` rank unless ``cur_shard``/``shard_count`` say
+otherwise), ventilates them to a decode pool and iterates them: whole
 row-groups as namedtuples of column arrays (``make_batch_reader``), or one
 namedtuple per row, or one ``{timestep: namedtuple}`` per NGram window
 (``make_reader``). Its ``state_dict`` has the reference's shape, so a
@@ -16,11 +20,19 @@ import os
 import time
 import warnings
 
-from petastorm_tpu_torch.arrow_worker import RowGroupWorker, defer_config_ok
+from petastorm_tpu_torch import pushdown
+from petastorm_tpu_torch.arrow_worker import (
+    RowGroupWorker, defer_config_ok, typed_partition_value,
+)
 from petastorm_tpu_torch.errors import MetadataError, NoDataAvailableError, unported
 from petastorm_tpu_torch.etl.dataset_metadata import (
     ParquetDatasetInfo, get_schema, infer_or_load_unischema, load_row_groups,
 )
+from petastorm_tpu_torch.filters import (
+    FiltersPredicate, describe_clauses, prune_row_group_indices,
+)
+from petastorm_tpu_torch.parallel.sharding import default_shard_info
+from petastorm_tpu_torch.predicates import in_reduce
 from petastorm_tpu_torch.telemetry import note_consumer_wait, span
 from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.workers import EmptyResultError
@@ -36,12 +48,10 @@ _VENTILATE_EXTRA_ROWGROUPS = 2
 _PULL_NOTE_FLOOR_S = 0.01
 
 
-def _refuse_unported(entry, predicate, rowgroup_selector, cache_type, cache_location,
-                     cache_size_limit, cache_row_size_estimate, filters, poison_policy):
+def _refuse_unported(entry, rowgroup_selector, cache_type, cache_location, cache_size_limit,
+                     cache_row_size_estimate, poison_policy):
     """Raise the ``unported`` error of the first reference kwarg that is
     set and reaches code the port lacks."""
-    if predicate is not None:
-        raise unported('%s(predicate=)' % entry, 3)
     if rowgroup_selector is not None:
         raise unported('%s(rowgroup_selector=)' % entry, 10)
     if cache_type not in (None, 'null', 'none'):
@@ -51,8 +61,6 @@ def _refuse_unported(entry, predicate, rowgroup_selector, cache_type, cache_loca
                         ('cache_row_size_estimate', cache_row_size_estimate)):
         if value is not None:
             raise unported('%s(%s=)' % (entry, name), 3)
-    if filters:
-        raise unported('%s(filters=)' % entry, 3)
     if poison_policy is not None:
         raise unported('poison_policy=', 9)
 
@@ -81,9 +89,8 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
     Use :func:`make_batch_reader` for plain Parquet stores or column-batch
     output.
     """
-    _refuse_unported('make_reader', predicate, rowgroup_selector, cache_type,
-                     cache_location, cache_size_limit, cache_row_size_estimate,
-                     filters, poison_policy)
+    _refuse_unported('make_reader', rowgroup_selector, cache_type, cache_location,
+                     cache_size_limit, cache_row_size_estimate, poison_policy)
     info = ParquetDatasetInfo(dataset_url, storage_options, filesystem=filesystem)
     try:
         get_schema(info)
@@ -96,9 +103,10 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
                   results_queue_size=results_queue_size,
                   shuffle_row_groups=shuffle_row_groups,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
-                  num_epochs=num_epochs, cur_shard=cur_shard,
+                  predicate=predicate, num_epochs=num_epochs, cur_shard=cur_shard,
                   shard_count=shard_count, seed=seed,
-                  transform_spec=transform_spec, ngram=ngram, batched_output=False)
+                  transform_spec=transform_spec, ngram=ngram, filters=filters,
+                  batched_output=False)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None,
@@ -122,11 +130,21 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
         from ``seed``.
     :param shuffle_row_drop_partitions: split each row-group into this
         many contiguous parts, ventilated as separate items.
+    :param predicate: a :class:`~petastorm_tpu_torch.predicates.PredicateBase`
+        the workers evaluate on its own columns first; the other columns of
+        a row-group decode for its surviving rows only. Row-groups the
+        footer statistics prove empty are never read.
     :param num_epochs: epochs to read; None = infinite.
     :param cur_shard: this reader's shard (with ``shard_count``): row-group
-        ``n`` of the list goes to shard ``n % shard_count``.
+        ``n`` of the list goes to shard ``n % shard_count``. With neither
+        set, a live ``torch.distributed`` default group of more than one
+        rank shards by rank and world size.
     :param transform_spec: a :class:`~petastorm_tpu_torch.transform.TransformSpec`
         run on the workers.
+    :param filters: pyarrow-style DNF filters
+        (:mod:`petastorm_tpu_torch.filters`), exact at row level and ANDed
+        with ``predicate``; row-groups their partition values or footer
+        statistics exclude are dropped before sharding.
     :param defer_image_decode: workers hand fixed-shape image columns on
         still encoded, as :class:`~petastorm_tpu_torch.fused.EncodedImageColumn`
         (the torch loader asks for this and decodes them straight into its
@@ -143,9 +161,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
     positions; each one set raises ``NotImplementedError`` naming the
     ``ROADMAP.md`` item that ports it.
     """
-    _refuse_unported('make_batch_reader', predicate, rowgroup_selector, cache_type,
-                     cache_location, cache_size_limit, cache_row_size_estimate,
-                     filters, poison_policy)
+    _refuse_unported('make_batch_reader', rowgroup_selector, cache_type, cache_location,
+                     cache_size_limit, cache_row_size_estimate, poison_policy)
     if mixture_interleave is not None:
         share = float(mixture_interleave.get('share', 1.0))
         if not 0.0 < share <= 1.0:
@@ -159,9 +176,10 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
                   results_queue_size=results_queue_size,
                   shuffle_row_groups=shuffle_row_groups,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
-                  num_epochs=num_epochs, cur_shard=cur_shard,
+                  predicate=predicate, num_epochs=num_epochs, cur_shard=cur_shard,
                   shard_count=shard_count, seed=seed,
-                  transform_spec=transform_spec, defer_image_decode=defer_image_decode,
+                  transform_spec=transform_spec, filters=filters,
+                  defer_image_decode=defer_image_decode,
                   mixture_interleave=mixture_interleave)
 
 
@@ -179,20 +197,6 @@ def _make_pool(reader_pool_type, workers_count, results_queue_size):
     return ThreadPool(workers_count, results_queue_size)
 
 
-def _resolve_shards(cur_shard, shard_count):
-    """Both None: no sharding. Both set: validated. One set: ambiguous."""
-    if cur_shard is None and shard_count is None:
-        return None, None
-    if cur_shard is None or shard_count is None:
-        raise ValueError('cur_shard and shard_count must be specified together '
-                         '(got cur_shard=%r, shard_count=%r)'
-                         % (cur_shard, shard_count))
-    if not 0 <= cur_shard < shard_count:
-        raise ValueError('cur_shard %r must be in [0, shard_count=%r)'
-                         % (cur_shard, shard_count))
-    return cur_shard, shard_count
-
-
 class Reader:
     """Iterator over a dataset's row-groups as column batches
     (``batched_output``), or over its rows or NGram windows.
@@ -205,9 +209,10 @@ class Reader:
 
     def __init__(self, dataset_info, schema_fields=None, reader_pool_type='thread',
                  workers_count=None, results_queue_size=50, shuffle_row_groups=True,
-                 shuffle_row_drop_partitions=1, num_epochs=1, cur_shard=None,
-                 shard_count=None, seed=0, transform_spec=None, defer_image_decode=False,
-                 mixture_interleave=None, ngram=None, batched_output=True):
+                 shuffle_row_drop_partitions=1, predicate=None, num_epochs=1,
+                 cur_shard=None, shard_count=None, seed=0, transform_spec=None,
+                 ngram=None, filters=None, defer_image_decode=False,
+                 mixture_interleave=None, batched_output=True):
         self.dataset_info = dataset_info
         self.mixture_interleave = mixture_interleave
         self.batched_output = batched_output and ngram is None
@@ -216,6 +221,17 @@ class Reader:
                 shuffle_row_drop_partitions > 1:
             raise NotImplementedError('Using timestamp deduplication with '
                                       'shuffle_row_drop_partitions is not supported')
+        self._filter_clauses = None
+        # the predicate filters= alone made: the pre-shard prune already
+        # proved what statistics can prove for it, so the planner skips it
+        filters_born = None
+        if filters:
+            filters_predicate = FiltersPredicate(filters)
+            self._filter_clauses = filters_predicate.clauses
+            if predicate is not None:
+                predicate = in_reduce([predicate, filters_predicate], all)
+            else:
+                predicate = filters_born = filters_predicate
         self.stored_schema = infer_or_load_unischema(dataset_info)
         if ngram is not None:
             ngram.resolve_regex_field_names(self.stored_schema)
@@ -233,25 +249,35 @@ class Reader:
         self.schema = (transform_schema(self.loaded_schema, transform_spec)
                        if transform_spec is not None else self.loaded_schema)
 
+        # row-groups: filters' partition and statistics prune, partition-key
+        # predicates, then shards
         all_pieces = load_row_groups(dataset_info)
-        self.cur_shard, self.shard_count = _resolve_shards(cur_shard, shard_count)
+        self._row_groups = all_pieces
         piece_indices = list(range(len(all_pieces)))
-        if self.shard_count is not None:
-            if self.shard_count > len(piece_indices):
-                raise NoDataAvailableError(
-                    'Number of row-groups in the dataset (%d) must be greater or '
-                    'equal to the number of requested shards (%d)'
-                    % (len(piece_indices), self.shard_count))
-            piece_indices = [i for n, i in enumerate(piece_indices)
-                             if n % self.shard_count == self.cur_shard]
+        filters_emptied = False
+        if self._filter_clauses is not None:
+            piece_indices = prune_row_group_indices(
+                dataset_info, all_pieces, piece_indices, self._filter_clauses,
+                stored_schema=self.stored_schema)
+            filters_emptied = not piece_indices
+        piece_indices, worker_predicate = self._apply_predicate_pushdown(piece_indices,
+                                                                         predicate)
+        piece_indices = self._apply_sharding(piece_indices, cur_shard, shard_count)
         if not piece_indices:
-            raise NoDataAvailableError('No row-groups left to read for this '
-                                       'reader (dataset %s)' % dataset_info.url)
+            detail = 'check shard/predicate/selector configuration'
+            if filters_emptied:
+                detail = 'filters %s matched no row-groups' % describe_clauses(
+                    self._filter_clauses)
+            raise NoDataAvailableError(
+                'No row-groups left to read for this reader (dataset %s): %s'
+                % (dataset_info.url, detail))
+        self._piece_indices = piece_indices
 
         items = []
         for idx in piece_indices:
             for drop in range(shuffle_row_drop_partitions):
                 items.append({'piece_index': idx,
+                              'worker_predicate': worker_predicate,
                               'shuffle_row_drop_partition':
                                   (drop, shuffle_row_drop_partitions),
                               'item_index': len(items)})
@@ -261,6 +287,22 @@ class Reader:
         self._items_identity = [
             (it['piece_index'],) + tuple(it['shuffle_row_drop_partition'])
             for it in items]
+
+        # statistics pruning runs AFTER sharding and keeps every item in
+        # the list: pruned items are never ventilated and count as
+        # completed with zero rows, so shards, item indices and states
+        # are those of an unpruned reader
+        self._pruned_items = frozenset()
+        self._pushdown_plan = None
+        if worker_predicate is not None and worker_predicate is not filters_born \
+                and pushdown.pushdown_enabled():
+            with span('rowgroup_prune'):
+                self._pushdown_plan = pushdown.plan_rowgroup_pruning(
+                    dataset_info, all_pieces, piece_indices, predicate=worker_predicate,
+                    stored_schema=self.stored_schema)
+            pruned_pieces = set(self._pushdown_plan.pruned)
+            self._pruned_items = frozenset(it['item_index'] for it in items
+                                           if it['piece_index'] in pruned_pieces)
 
         self._pool = _make_pool(reader_pool_type, workers_count, results_queue_size)
         self._num_epochs = num_epochs
@@ -273,7 +315,7 @@ class Reader:
             max_ventilation_queue_size=lambda: (
                 self._pool.workers_count + _VENTILATE_EXTRA_ROWGROUPS),
             randomize_item_order=shuffle_row_groups, random_seed=seed,
-            pass_epoch=True)
+            pass_epoch=True, always_exclude=self._pruned_items)
         # only batched consumers can take encoded image stubs
         defer = defer_image_decode and self.batched_output
         if defer and not defer_config_ok(transform_spec, ngram):
@@ -300,6 +342,39 @@ class Reader:
         self._batch_cursor = 0
         # per-epoch sets of consumed item indices (exact resume)
         self._consumed_by_epoch = {}
+
+    # -- construction helpers ------------------------------------------------
+
+    def _apply_predicate_pushdown(self, piece_indices, predicate):
+        """A predicate over partition keys only keeps or drops whole
+        row-groups here; any other goes to the workers."""
+        if predicate is None:
+            return piece_indices, None
+        pred_fields = predicate.get_fields()
+        if pred_fields and pred_fields <= set(self.dataset_info.partition_keys):
+            kept = [i for i in piece_indices
+                    if predicate.do_include(
+                        {k: typed_partition_value(
+                            self.stored_schema.fields.get(k),
+                            self._row_groups[i].partition_values.get(k))
+                         for k in pred_fields})]
+            return kept, None
+        return piece_indices, predicate
+
+    def _apply_sharding(self, piece_indices, cur_shard, shard_count):
+        """Row-group ``n`` of the list goes to shard ``n % shard_count``;
+        with neither given, a live ``torch.distributed`` group shards by
+        rank. ``cur_shard``/``shard_count`` expose the resolved values."""
+        self.cur_shard, self.shard_count = default_shard_info(cur_shard, shard_count)
+        if self.shard_count is None:
+            return piece_indices
+        if self.shard_count > len(piece_indices):
+            raise NoDataAvailableError(
+                'Number of row-groups in the dataset (%d) must be greater or '
+                'equal to the number of requested shards (%d)'
+                % (len(piece_indices), self.shard_count))
+        return [i for n, i in enumerate(piece_indices)
+                if n % self.shard_count == self.cur_shard]
 
     # -- iteration -----------------------------------------------------------
 
@@ -408,7 +483,8 @@ class Reader:
         deliveries back into this order."""
         order = epoch_order(self._num_items, self._ventilator.state_dict()['seed'],
                             epoch, self._shuffle_row_groups)
-        skip = self._resume_excluded.get(epoch, ())
+        skip = set(self._pruned_items)
+        skip.update(self._resume_excluded.get(epoch, ()))
         return [int(i) for i in order if i not in skip]
 
     @property
@@ -422,6 +498,13 @@ class Reader:
 
     def join(self):
         self._pool.join()
+
+    def cleanup(self):
+        pass
+
+    def exit(self):
+        self.stop()
+        self.join()
 
     def __enter__(self):
         return self
@@ -446,6 +529,14 @@ class Reader:
         """A ``state_dict``-shaped resume point from an external
         ``{epoch: {item_index, ...}}`` consumption record (the loader's
         delivery-accurate one)."""
+        # statistics-pruned items are completed with zero rows: no
+        # delivery ever marks them, and without them every epoch would
+        # read as incomplete
+        pruned = self._pruned_items
+
+        def consumed_in(epoch):
+            return set(consumed_by_epoch.get(epoch, ())) | pruned
+
         epochs_seen = sorted(consumed_by_epoch)
         if not epochs_seen:
             resume_epoch, consumed = 0, []
@@ -453,13 +544,13 @@ class Reader:
             # walk epochs from 0: an absent epoch is maximally incomplete
             resume_epoch = None
             for e in range(epochs_seen[-1] + 1):
-                if len(consumed_by_epoch.get(e, ())) < self._num_items:
+                if len(consumed_in(e)) < self._num_items:
                     resume_epoch = e
                     break
             if resume_epoch is None:
                 resume_epoch, consumed = epochs_seen[-1] + 1, []
             else:
-                consumed = sorted(consumed_by_epoch.get(resume_epoch, ()))
+                consumed = sorted(consumed_in(resume_epoch))
         if self._num_epochs is None:
             iterations_remaining = None
         else:

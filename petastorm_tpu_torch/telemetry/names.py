@@ -8,7 +8,10 @@ package), so its spans read the same as the reference's.
 
 #: pipeline stages the port records, ventilator → device:
 #: ``ventilate`` hand item to pool · ``io`` parquet row-group read ·
-#: ``decode`` codec decode · ``transform`` TransformSpec · ``queue_wait``
+#: ``decode`` codec decode · ``filter`` predicate mask over a row-group ·
+#: ``late_materialize`` decode of the predicate's survivors only ·
+#: ``rowgroup_prune`` footer-statistics planner at Reader construction ·
+#: ``transform`` TransformSpec · ``queue_wait``
 #: consumer blocked pulling · ``collate`` re-batch/shuffle buffer ·
 #: ``h2d_ready`` staging ring blocked until a slot's previous transfer
 #: completed · ``stage_fill`` cast/pad/mask copy into the slot ·
@@ -16,9 +19,9 @@ package), so its spans read the same as the reference's.
 #: rows · ``h2d_dispatch`` async transfer dispatch · ``pack`` mixture
 #: documents packed into fixed rows · ``encode`` write-path codec encode ·
 #: ``write_flush`` one row-group flushed into a part file
-STAGES = ('ventilate', 'io', 'decode', 'transform', 'queue_wait', 'collate',
-          'h2d_ready', 'stage_fill', 'decode_fused', 'h2d_dispatch', 'pack', 'encode',
-          'write_flush')
+STAGES = ('ventilate', 'io', 'decode', 'filter', 'late_materialize', 'rowgroup_prune',
+          'transform', 'queue_wait', 'collate', 'h2d_ready', 'stage_fill', 'decode_fused',
+          'h2d_dispatch', 'pack', 'encode', 'write_flush')
 
 #: environment knobs the port reads (the native decoders read the two
 #: ``JPEG`` ones in C)
@@ -30,6 +33,9 @@ KNOWN_KNOBS = frozenset([
     'PETASTORM_TPU_MIXTURE_OPEN_BINS',
     'PETASTORM_TPU_MIXTURE_RESEQ_MAX',
     'PETASTORM_TPU_NATIVE',
+    'PETASTORM_TPU_PUSHDOWN',
+    'PETASTORM_TPU_PUSHDOWN_PRUNE',
+    'PETASTORM_TPU_PUSHDOWN_WORKERS',
     'PETASTORM_TPU_STAGING',
     'PETASTORM_TPU_STAGING_SLOTS',
 ])

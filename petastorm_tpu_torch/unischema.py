@@ -119,6 +119,10 @@ class UnischemaField:
         return ('UnischemaField(name=%r, numpy_dtype=%r, shape=%r, codec=%r, nullable=%r)'
                 % (self.name, self.numpy_dtype, self.shape, self.codec, self.nullable))
 
+    @property
+    def is_scalar(self):
+        return len(self.shape) == 0
+
     def is_shape_compliant(self, value_shape):
         """True when ``value_shape`` matches ``self.shape`` with None wildcards."""
         if len(value_shape) != len(self.shape):
@@ -231,6 +235,11 @@ class Unischema:
         return Unischema('%s_view' % self._name,
                          [f for f in self if f.name in keep])
 
+    def as_arrow_schema(self):
+        """Arrow schema of the materialized (encoded) representation."""
+        return pa.schema([pa.field(f.name, f.arrow_storage_type(), nullable=f.nullable)
+                          for f in self])
+
     def make_namedtuple(self, **kwargs):
         """One row (or batch) of this schema's namedtuple, None-filled."""
         return self.namedtuple(**{k: kwargs.get(k) for k in self._fields})
@@ -312,6 +321,19 @@ def dict_to_encoded_row(schema, row_dict):
         else:
             encoded[field.name] = _encode_plain(field, value)
     return encoded
+
+
+def insert_explicit_nulls(schema, row_dict):
+    """Add an explicit ``None`` for each nullable field missing from
+    ``row_dict`` (in place; returned); a missing non-nullable field raises."""
+    for field in schema:
+        if field.name in row_dict:
+            continue
+        if field.nullable:
+            row_dict[field.name] = None
+        else:
+            raise ValueError('Field %r is not found in row and is not nullable' % field.name)
+    return row_dict
 
 
 def _encode_plain(field, value):

@@ -40,11 +40,15 @@ class ConcurrentVentilator:
     :param randomize_item_order: reshuffle the item order each epoch.
     :param random_seed: epoch ``e`` uses ``seed + e``; None draws one.
     :param pass_epoch: also pass ``epoch=`` to ``ventilate_fn``.
+    :param always_exclude: item indices never ventilated, in any epoch or
+        sweep: the Reader's statistics-pruned row-groups, which stay in the
+        item list (indices, shards and checkpoints are unchanged) but
+        deliver no row.
     """
 
     def __init__(self, ventilate_fn, items_to_ventilate, iterations=1,
                  max_ventilation_queue_size=None, randomize_item_order=False,
-                 random_seed=0, pass_epoch=False):
+                 random_seed=0, pass_epoch=False, always_exclude=None):
         if iterations is not None and iterations <= 0:
             raise ValueError('iterations must be positive or None, got %r' % iterations)
         self._ventilate_fn = ventilate_fn
@@ -61,6 +65,7 @@ class ConcurrentVentilator:
         self._epoch = 0
         self._cursor = 0
         self._exclude_once = frozenset()
+        self._exclude_always = frozenset(always_exclude or ())
         self._in_flight = 0
         self._cv = threading.Condition()
         self._stop_requested = False
@@ -71,7 +76,9 @@ class ConcurrentVentilator:
         with self._cv:
             if self._thread is not None:
                 raise RuntimeError('Ventilator already started')
-            if not self._items:
+            if not self._items or self._exclude_always.issuperset(range(len(self._items))):
+                # nothing will ever ventilate: complete now, even for
+                # infinite epochs, which would otherwise spin on empty ones
                 self._completed = True
                 return
             if self._stop_requested:
@@ -164,6 +171,8 @@ class ConcurrentVentilator:
                     break
             order = epoch_order(len(self._items), self._seed, self._epoch,
                                 self._randomize)
+            if self._exclude_always:
+                order = [i for i in order if i not in self._exclude_always]
             if self._exclude_once:
                 order = [i for i in order if i not in self._exclude_once]
                 self._exclude_once = frozenset()

@@ -47,7 +47,9 @@ def test_port_has_modules_to_scan():
                    ('mixture', 'packing.py'), ('mixture', 'engine.py'),
                    ('mixture', 'adapter.py'), ('checkpoint.py',),
                    ('weighted_sampling_reader.py',), ('ngram.py',), ('pytorch.py',),
-                   ('examples', 'mnist_pytorch.py'), ('examples', 'hello_world.py')):
+                   ('examples', 'mnist_pytorch.py'), ('examples', 'hello_world.py'),
+                   ('predicates.py',), ('filters.py',), ('pushdown.py',),
+                   ('parallel', 'sharding.py')):
         assert os.path.join('petastorm_tpu_torch', *module) in rel
     assert len(rel) > 20
 

@@ -132,14 +132,31 @@ def test_iter_steps_crosses_epochs_and_replays(scalar_dataset):
 
 
 @pytest.mark.parametrize('kwargs,item', [
-    (dict(mesh=object()), 5),
-    (dict(data_axes=('data',)), 5),
+    # mesh= and data_axes= are ported (None): they fail or pass as
+    # make_jax_loader does
+    (dict(mesh=object()), None),
+    (dict(data_axes=('data',)), None),
     # mixture= is ported; its sources on a decode daemon are not
     (dict(mixture=True, reader_pool_type='service'), 9),
     (dict(reader_pool_type='process'), 9),
 ], ids=['mesh', 'data-axes', 'mixture', 'process'])
 def test_unported_kwargs_raise(scalar_dataset, kwargs, item):
     url = scalar_dataset.url
+    if item is None:
+        if 'mesh' in kwargs:
+            # not a mesh: both loaders fail reading its dim names
+            for make in (make_jax_loader, make_torch_loader):
+                with pytest.raises(AttributeError):
+                    make(url, batch_size=4, reader_pool_type='dummy', **kwargs)
+            return
+        # data_axes without a mesh: ignored by both, no sharding
+        with make_torch_loader(url, batch_size=4, device='cpu', reader_pool_type='dummy',
+                               fields=['^id$'], **kwargs) as loader:
+            assert loader.sharding is None
+            got = sorted(int(i) for b in loader for i in b['id'])
+        assert got == sorted(int(i) for b in _jax_batches(url, batch_size=4, fields=['^id$'],
+                                                          **kwargs) for i in b['id'])
+        return
     if kwargs.pop('mixture', False):
         from petastorm_tpu_torch.mixture import MixtureSource, MixtureSpec
         kwargs['mixture'] = MixtureSpec([MixtureSource('ids', 1, url=url)], seq_len=8,

@@ -184,9 +184,25 @@ def test_state_dict_resumes_across_packages(synthetic_dataset, saver, loader):
     dict(cache_type='decoded'),
     dict(filters=[('id', '<', 5)]),
     dict(rowgroup_selector=object()),
-    dict(predicate=object()),
+    dict(predicate='in_set'),
 ], ids=['process', 'service', 'decoded-cache', 'filters', 'rowgroup-selector', 'predicate'])
 def test_unported_kwargs_raise(synthetic_dataset, kwargs):
+    """Each kwarg still unported raises its ROADMAP item; ``filters`` and
+    ``predicate`` are ported and read the JAX reader's batches."""
+    if 'filters' in kwargs or 'predicate' in kwargs:
+        from petastorm_tpu import predicates as jax_predicates
+        from petastorm_tpu_torch import predicates as torch_predicates
+        out = {}
+        for package, predicates in (('jax', jax_predicates), ('torch', torch_predicates)):
+            kw = dict(kwargs)
+            if 'predicate' in kw:
+                kw['predicate'] = predicates.in_set({3, 31, 47}, 'id')
+            out[package] = _read(package, synthetic_dataset.url, reader_pool_type='dummy',
+                                 shuffle_row_groups=False, schema_fields=['^id$'], **kw)
+        assert [b['id'].tolist() for b in out['torch']] == \
+            [b['id'].tolist() for b in out['jax']]
+        assert out['torch']
+        return
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         torch_make_batch_reader(synthetic_dataset.url, **kwargs)
 

@@ -179,10 +179,11 @@ def test_plain_parquet_store_warns(scalar_dataset, package):
     assert sorted(int(r['id']) for r in rows) == list(range(100))
 
 
-# the reference's kwargs that reach unported code, and the ROADMAP item each raises
+# the reference's kwargs that reach unported code, and the ROADMAP item each
+# raises; None: ported (the rows are the JAX reader's)
 UNPORTED_KWARGS = {
-    'predicate': (object(), 3),
-    'filters': ([('id', '<', 5)], 3),
+    'predicate': ('in_set', None),
+    'filters': ([('id', '<', 5)], None),
     'cache_type': ('decoded', 3),
     'cache_location': ('/tmp/cache', 3),
     'cache_size_limit': (1 << 20, 3),
@@ -202,8 +203,20 @@ def test_unported_kwargs_raise_their_item(synthetic_dataset, name):
         name, (value, item) = 'reader_pool_type', ('service', 9)
     else:
         value, item = UNPORTED_KWARGS[name]
-    with pytest.raises(NotImplementedError, match=r'ROADMAP.md: Queue 1 item %d,' % item):
-        torch_make_reader(synthetic_dataset.url, **{name: value})
+    if item is None:
+        from petastorm_tpu import predicates as jax_predicates
+        from petastorm_tpu_torch import predicates as torch_predicates
+        ids = {}
+        for package, predicates in (('jax', jax_predicates), ('torch', torch_predicates)):
+            kw = {name: predicates.in_set({3, 31, 47}, 'id') if value == 'in_set' else value}
+            ids[package] = [int(r['id']) for r in _rows(package, synthetic_dataset.url,
+                                                        reader_pool_type='dummy',
+                                                        shuffle_row_groups=False, **kw)]
+        assert ids['torch'] == ids['jax'] and ids['torch']
+    else:
+        with pytest.raises(NotImplementedError,
+                           match=r'ROADMAP.md: Queue 1 item %d,' % item):
+            torch_make_reader(synthetic_dataset.url, **{name: value})
     want = list(inspect.signature(jax_make_reader).parameters)
     got = list(inspect.signature(torch_make_reader).parameters)
     assert got.index(name) == want.index(name)
