@@ -153,12 +153,31 @@ after ``lm_profile``, on its; 23 after ``vit_path``.
     batch, the first averaged gradient matches one process's step on it,
     the replicas' weights stay equal, every flash kernel is ``_wgmma``;
     tokens/s and peak memory per rank.
+25. ``traced_lm_path`` (after ``lm_path``): the flagship as ``lm_path``
+    runs it, untraced and then traced (``PETASTORM_TPU_TRACE=1``, one
+    row-group in ``TRACE_LM_SAMPLE`` sampled, a dump path armed), both on
+    one pool worker so row-groups arrive in ventilation order: the traced
+    run trains on the untraced run's batches (checksums in order), each
+    flash kernel launches layers x steps times on bf16 inputs in each
+    run, the traced row-groups are exactly the sampled ones of the
+    ventilated prefix, the dumped trace loads as Chrome trace-event JSON
+    with events on the ventilator, worker and stager tracks, and every
+    traced stage is in ``pipeline_report()``; both reports, their stall
+    verdicts, the critical path and the two runs' tokens/s are printed.
+26. ``traced_vit_path`` (after ``vit_path``): ``VIT_STEPS`` traced
+    ViT-Base steps: the stall verdict, ``h2d_overlap_share``, the
+    critical path and the trace's tracks; launches exact.
+27. ``pytorch_path_report`` (after ``pytorch_path``): that path's
+    ``pipeline_report()``: the stall verdict, the wait clocks and the
+    stage seconds against the epoch's wall time.
+``--trace-dir DIR`` keeps the two Chrome traces in ``DIR``.
 
 Then the ``kernels`` summary (each kernel's launches on every path), the
 ``nvidia-smi`` name and power limit, and the ``ok`` line. The script
 needs CUDA and the repository beside it.
 """
 
+import collections
 import contextlib
 import json
 import math
@@ -314,6 +333,12 @@ DP_STEPS = 5                 # the first is held against one process; the rest t
 DP_TIMEOUT_S = 600
 DP_GRAD_TOL = 3e-2           # max|avg - one process| / max|one process|, bf16
 DP_LOSS_RTOL = 1e-3
+# the traced paths: PETASTORM_TPU_TRACE=1; the LM run traces every other
+# row-group (PETASTORM_TPU_TRACE_SAMPLE), the ViT run every one
+TRACE_LM_SAMPLE = 2
+TRACE_VIT_SAMPLE = 1
+# tracks every traced path's trace must hold events on (pool workers by kind)
+TRACE_TRACKS = ('ventilator', 'thread', 'stager')
 
 
 def emit(obj):
@@ -755,6 +780,193 @@ def stage_seconds():
             get_registry().snapshot()['counters'].items() if k.startswith(prefix)}
 
 
+def fresh_telemetry():
+    """A fresh registry, stall attributor and flight recorder: a path's
+    report and trace hold that path only."""
+    from petastorm_tpu_torch import telemetry
+    telemetry.reset_registry()
+    telemetry.reset_attributor()
+    telemetry.reset_recorder()
+
+
+@contextlib.contextmanager
+def tracing_on(dump_path, sample):
+    """``PETASTORM_TPU_TRACE=1``, one item in ``sample`` traced and a dump
+    path for the block, with fresh telemetry; the knobs restored after."""
+    from petastorm_tpu_torch import telemetry
+    knobs = {'PETASTORM_TPU_TRACE': '1', 'PETASTORM_TPU_TRACE_SAMPLE': '1/%d' % sample,
+             'PETASTORM_TPU_TRACE_DUMP': dump_path}
+    saved = {name: os.environ.get(name) for name in knobs}
+    for name, value in knobs.items():
+        telemetry.knobs.set_env(name, value)
+    telemetry.refresh()
+    fresh_telemetry()
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+        telemetry.refresh()
+
+
+def report_summary(report):
+    """The parts of ``pipeline_report()`` a phase prints: stage seconds,
+    calls and shares, the stall verdict with its windows counted by
+    verdict, the H2D overlap share and the critical path."""
+    stall = report['stall']
+    out = {'stages': {k: {'seconds': round(v['seconds'], 6), 'calls': v['calls'],
+                          'share': round(v['share'], 4)} for k, v in report['stages'].items()},
+           'wall_time_s': report['wall_time_s'],
+           'attributed_fraction': report['attributed_fraction'],
+           'stall_verdict': stall['verdict'],
+           'producer_wait_s': stall['producer_wait_s'],
+           'consumer_wait_s': stall['consumer_wait_s'],
+           'windows_by_verdict': dict(collections.Counter(w['verdict'] for w in stall['windows'])),
+           'h2d_overlap_share': report.get('h2d_overlap_share')}
+    critical = report.get('critical_path')
+    if critical is not None:
+        out['critical_path'] = {k: critical[k] for k in (
+            'items', 'events', 'span_s', 'bottleneck', 'stages', 'recommendation')}
+        out['critical_path']['what_if'] = [
+            '%s => epoch %+.1f%%' % (w['scenario'], w['epoch_delta_pct'])
+            for w in critical['what_if']]
+    return out
+
+
+def check_trace_file(path, events):
+    """The dumped file loads as Chrome trace-event JSON, holds every
+    recorded event, and has events on the ventilator, worker and stager
+    tracks. Returns the events per track kind."""
+    with open(path) as f:
+        doc = json.load(f)
+    names = {m['tid']: m['args']['name'] for m in doc['traceEvents'] if m['ph'] == 'M'}
+    data = [e for e in doc['traceEvents'] if e['ph'] != 'M']
+    assert len(data) == len(events), (len(data), len(events))
+    for e in data:
+        assert {'name', 'ph', 'ts', 'pid', 'tid', 'args'} <= set(e), e
+        assert e['ph'] != 'X' or e['dur'] >= 0, e
+    by_track = collections.Counter(re.sub(r'-\d+$', '', names[e['tid']]) for e in data)
+    for track in TRACE_TRACKS:
+        assert by_track[track], (track, dict(by_track))
+    return dict(by_track)
+
+
+def check_report_stages(report, events):
+    """Every stage the traced events name is in the report, and every
+    critical-path stage is one of the report's."""
+    from petastorm_tpu_torch.telemetry import STAGES
+    traced = {e['name'] for e in events if e['name'] in STAGES}
+    assert traced <= set(report['stages']), (traced, sorted(report['stages']))
+    critical = report['critical_path']
+    assert set(critical['stages']) <= set(report['stages'])
+    assert critical['bottleneck'] in critical['stages'] and critical['what_if']
+    assert report['stall']['verdict'] in ('producer-bound', 'consumer-bound', 'balanced')
+    return sorted(traced)
+
+
+def phase_traced_lm_path(url, lm_tokens_per_s, trace_dir):
+    """The flagship as ``lm_path`` runs it (``FLAGSHIP_LM_KW``, batch 8,
+    1024 positions, bf16, ``LM_STEPS`` steps), untraced and then traced
+    (one row-group in ``TRACE_LM_SAMPLE``, a dump path armed), both on
+    one pool worker so the row-groups arrive in ventilation order: the
+    traced run trains on the untraced run's batches (checksums in order),
+    launches each flash kernel layers x steps times on bf16 inputs, and
+    its trace holds every sampled row-group and no other."""
+    from petastorm_tpu_torch import telemetry
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, pretrain
+    from petastorm_tpu_torch.ops import flash_attention
+    from petastorm_tpu_torch.reader import make_batch_reader
+    weights = None
+    launch = flash_attention._launch
+    runs = {}
+    for mode in ('untraced', 'traced'):
+        sums, dtypes = [], collections.Counter()
+
+        def on_step(step, batch, loss, sums=sums):
+            nonlocal weights
+            tokens = batch['tokens'].to(torch.int64)
+            if weights is None:
+                weights = torch.arange(1, tokens.numel() + 1, device=tokens.device,
+                                       dtype=torch.int64).view(tokens.shape)
+            sums.append((tokens * weights).sum())      # read after the run: no sync
+
+        def recording_launch(fn, name, pointers, tensors, q, *args, dtypes=dtypes):
+            dtypes[str(q.dtype)] += 1
+            return launch(fn, name, pointers, tensors, q, *args)
+
+        dump = os.path.join(trace_dir, 'lm_trace_autodump.json')
+        scope = tracing_on(dump, TRACE_LM_SAMPLE) if mode == 'traced' else contextlib.nullcontext()
+        fresh_telemetry()
+        reset_launch_counts()
+        flash_attention._launch = recording_launch
+        try:
+            with scope:
+                result = pretrain(url, batch_size=LM_BATCH, steps=LM_STEPS, seq_len=LM_SEQ,
+                                  model_kw=FLAGSHIP_LM_KW, attn_impl='flash', device='cuda',
+                                  on_step=on_step, workers_count=1)
+                torch.cuda.synchronize()
+                report = telemetry.pipeline_report(wall_time_s=LM_STEPS / result['steps_per_s'])
+                events = telemetry.get_recorder().snapshot()
+                trace = None
+                if mode == 'traced':
+                    trace = os.path.join(trace_dir, 'lm_trace.json')
+                    assert telemetry.dump_trace(trace) == len(events)
+        finally:
+            flash_attention._launch = launch
+        runs[mode] = {'result': result, 'sums': [int(v) for v in sums], 'report': report,
+                      'events': events, 'trace': trace, 'launches': launch_counts(),
+                      'dtypes': dict(dtypes)}
+    plain, traced = runs['untraced'], runs['traced']
+    events = traced['events']
+    tracks = check_trace_file(traced['trace'], events)
+    stages = check_report_stages(traced['report'], events)
+    # sampling: the traced row-groups are exactly the ventilated ones whose
+    # index the stride divides, in ventilation order, up to the last traced
+    with make_batch_reader(url, schema_fields=['^tokens$'], num_epochs=None) as reader:
+        order = reader.ventilation_order(0)
+    ventilated = [e['args']['item'] for e in sorted(events, key=lambda e: e['ts'])
+                  if e['name'] == 'ventilate']
+    assert ventilated and all(i % TRACE_LM_SAMPLE == 0 for i in ventilated), ventilated
+    last = order.index(ventilated[-1])
+    assert ventilated == [i for i in order[:last + 1] if i % TRACE_LM_SAMPLE == 0], \
+        (ventilated, order[:last + 1])
+    pulled = sorted(e['args']['item'] for e in events if e['name'] == 'queue_wait')
+    assert set(pulled) <= set(ventilated) and pulled, pulled
+    emit({'phase': 'traced_lm_path', 'model': FLAGSHIP_LM_KW, 'steps': LM_STEPS,
+          'batch_size': LM_BATCH, 'attention_positions': LM_SEQ, 'workers_count': 1,
+          'trace_sample': '1/%d' % TRACE_LM_SAMPLE,
+          'tokens_per_s': {'lm_path': lm_tokens_per_s,
+                           'untraced': plain['result']['tokens_per_s'],
+                           'traced': traced['result']['tokens_per_s']},
+          'traced_over_untraced': traced['result']['tokens_per_s']
+          / plain['result']['tokens_per_s'],
+          'batches_equal': plain['sums'] == traced['sums'], 'batches': len(traced['sums']),
+          'launches': traced['launches'], 'launch_dtypes': traced['dtypes'],
+          'trace_events': len(events), 'trace_tracks': tracks, 'traced_stages': stages,
+          'ventilated_traced': len(ventilated), 'ventilation_prefix': last + 1,
+          'losses_equal': plain['result']['losses'] == traced['result']['losses'],
+          'report_untraced': report_summary(plain['report']),
+          'report': report_summary(traced['report'])})
+    print(telemetry.format_pipeline_report(traced['report']), flush=True)
+    assert len(traced['sums']) == LM_STEPS
+    assert plain['sums'] == traced['sums'], (plain['sums'], traced['sums'])
+    assert all(math.isfinite(v) for v in traced['result']['losses'])
+    want = FLAGSHIP_LM_KW['n_layers'] * LM_STEPS
+    for run in (plain, traced):
+        for name in FLASH_KERNELS:
+            assert run['launches'][name] == want, (name, run['launches'][name], want)
+        # bf16 inputs: the tensor-core (_wgmma) instances, whose names
+        # lm_profile reads off the profiler in this call
+        assert run['dtypes'] == {'torch.bfloat16': 3 * want}, run['dtypes']
+    assert set(traced['report']['stages']) == set(plain['report']['stages']), \
+        (sorted(traced['report']['stages']), sorted(plain['report']['stages']))
+    assert 'critical_path' not in plain['report'] and not plain['events']
+    return traced['launches']
+
+
 def phase_lm_path(url):
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, pretrain
     from petastorm_tpu_torch.telemetry import reset_registry
@@ -1117,6 +1329,43 @@ def phase_vit_path(url, image_codec):
     return launches, result['images_per_s']
 
 
+def phase_traced_vit_path(url, image_codec, vit_images_per_s, trace_dir):
+    """``vit_path`` again, traced (every row-group, a dump path armed):
+    the stall verdict, the staging engine's H2D overlap share, the
+    critical path, the trace's tracks, and the launches exact."""
+    from petastorm_tpu_torch import telemetry
+    from petastorm_tpu_torch.examples.imagenet import VIT_BASE_KW, train_vit_fused
+    reset_launch_counts()
+    with tracing_on(os.path.join(trace_dir, 'vit_trace_autodump.json'), TRACE_VIT_SAMPLE):
+        result = train_vit_fused(url, steps=VIT_STEPS, batch_size=VIT_BATCH, device='cuda')
+        torch.cuda.synchronize()
+        report = telemetry.pipeline_report(wall_time_s=VIT_STEPS / result['steps_per_s'])
+        events = telemetry.get_recorder().snapshot()
+        trace = os.path.join(trace_dir, 'vit_trace.json')
+        assert telemetry.dump_trace(trace) == len(events)
+    launches = launch_counts()
+    tracks = check_trace_file(trace, events)
+    stages = check_report_stages(report, events)
+    emit({'phase': 'traced_vit_path', 'model': VIT_BASE_KW, 'steps': VIT_STEPS,
+          'batch_size': VIT_BATCH, 'trace_sample': '1/%d' % TRACE_VIT_SAMPLE,
+          'images_per_s': {'vit_path': vit_images_per_s, 'traced': result['images_per_s']},
+          'traced_over_vit_path': result['images_per_s'] / vit_images_per_s,
+          'launches': launches, 'trace_events': len(events), 'trace_tracks': tracks,
+          'traced_stages': stages, 'fused_decode_mode': result['diagnostics']['fused_decode_mode'],
+          'report': report_summary(report)})
+    print(telemetry.format_pipeline_report(report), flush=True)
+    assert all(math.isfinite(v) for v in result['losses']), result['losses']
+    assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
+    assert launches['normalize_images'] == VIT_STEPS, launches
+    want = VIT_BASE_KW['n_layers'] * VIT_STEPS
+    for name in FLASH_KERNELS:
+        assert launches[name] == want, (name, launches[name], want)
+    assert report.get('h2d_overlap_share') is not None, sorted(report)
+    staged = {'stage_fill', 'h2d_dispatch'} | ({'decode_fused'} if image_codec != 'npy' else set())
+    assert staged <= set(report['stages']), sorted(report['stages'])
+    return launches
+
+
 def phase_vit_profile():
     """Where a ViT-Base step's device time goes (``profile_steps``): flips,
     cutout and the normalize kernel on one uint8 batch on the card, then
@@ -1341,10 +1590,15 @@ def phase_inmemory_replay(url):
                                            for k in ('io', 'decode')},
                            'tensor_ids': sorted(id(b['tokens']) for b in batches),
                            'widths': sorted(b['tokens'].shape[1] for b in batches)})
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            checksum = sum(int(b['tokens'].sum()) for b in loader)
-            torch.cuda.synchronize()
-    device_events = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        # the profiler on the card has dropped every device event of a
+        # window now and then: profile another replay pass, as time_ms does
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                checksum = sum(int(b['tokens'].sum()) for b in loader)
+                torch.cuda.synchronize()
+            device_events = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+            if device_events:
+                break
     htod = [name for name in device_events if 'HtoD' in name]
     first, replay = epochs
     emit({'phase': 'inmemory_replay', 'documents': REPLAY_DOCS, 'model': FLAGSHIP_LM_KW,
@@ -1358,7 +1612,7 @@ def phase_inmemory_replay(url):
                           'replay_epoch': replay['io_decode_s']},
           'losses': {'first_epoch': first['losses'], 'replay_epoch': replay['losses']},
           'profiled_replay_pass': {'device_events': len(device_events), 'htod_copies': htod,
-                                   'tokens_checksum': checksum}})
+                                   'tokens_checksum': checksum, 'attempts': attempt}})
     assert first['steps'] > 0 and replay['steps'] == first['steps']
     # the same multiset of batches: the cached tensors themselves
     assert replay['tensor_ids'] == first['tensor_ids']
@@ -1554,9 +1808,9 @@ def phase_pytorch_path(url):
     mnist-synthetic-60k (``make_reader`` on the thread pool, the row
     ``DataLoader`` onto the card, the normalize kernel, SGD), then
     ``evaluate``."""
+    from petastorm_tpu_torch import telemetry
     from petastorm_tpu_torch.examples import mnist_pytorch
-    from petastorm_tpu_torch.telemetry import reset_registry
-    reset_registry()
+    fresh_telemetry()
     torch.cuda.reset_peak_memory_stats()
     torch.manual_seed(0)
     reset_launch_counts()
@@ -1565,6 +1819,8 @@ def phase_pytorch_path(url):
     launches = launch_counts()
     wait = consumer_wait_s()
     stages = stage_seconds()
+    # the row path's stall verdict and where its wall time goes
+    report = telemetry.pipeline_report(wall_time_s=len(result['losses']) / result['steps_per_s'])
     t0 = time.perf_counter()
     accuracy = mnist_pytorch.evaluate(url, result['model'], device='cuda')
     evaluate_s = time.perf_counter() - t0
@@ -1579,6 +1835,10 @@ def phase_pytorch_path(url):
           'loss_first10_mean': first, 'loss_last10_mean': last, 'accuracy': accuracy,
           'accuracy_gate': '> %g (chance 0.1)' % PYTORCH_MIN_ACCURACY,
           'evaluate_s': evaluate_s, 'batch_devices': result['batch_devices']})
+    emit({'phase': 'pytorch_path_report', 'report': report_summary(report)})
+    print(telemetry.format_pipeline_report(report), flush=True)
+    assert report['stall']['verdict'] in ('producer-bound', 'consumer-bound', 'balanced')
+    assert report['stall']['consumer_wait_s'] == round(wait, 6), (report['stall'], wait)
     assert len(losses) == PYTORCH_STEPS, len(losses)
     assert all(math.isfinite(v) for v in losses)
     assert last < first, (first, last)
@@ -2312,7 +2572,13 @@ def _launches_by_path(name, paths):
     return {path: counts[name] for path, counts in paths.items() if name in counts}
 
 
-def main():
+def main(argv=None):
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    parser.add_argument('--trace-dir', default=None,
+                        help='keep the traced paths\' Chrome traces here (default: a '
+                             'temporary directory, removed at the end)')
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False',
               file=sys.stderr)
@@ -2327,6 +2593,8 @@ def main():
     from petastorm_tpu_torch.examples.mnist import generate_synthetic_mnist
     paths = {}
     with tempfile.TemporaryDirectory() as tmp:
+        trace_dir = args.trace_dir or os.path.join(tmp, 'traces')
+        os.makedirs(trace_dir, exist_ok=True)
         url = 'file://' + os.path.join(tmp, 'mnist')
         t0 = time.perf_counter()
         generate_synthetic_mnist(url, num_rows=MNIST_ROWS)
@@ -2348,6 +2616,7 @@ def main():
         lm_url = 'file://' + os.path.join(tmp, 'c4_like')
         write_lm_dataset(lm_url)
         paths['lm_path'], lm_tokens_per_s = phase_lm_path(lm_url)
+        paths['traced_lm_path'] = phase_traced_lm_path(lm_url, lm_tokens_per_s, trace_dir)
         phase_lm_profile()
         bridge = phase_bridge_lm(lm_url, lm_tokens_per_s)
         paths['bridge_lm'] = {name: bridge[name] for name in FLASH_KERNELS}
@@ -2366,6 +2635,8 @@ def main():
         write_vit_dataset(vit_url, image_codec)
         phase_image_reference(vit_url, image_codec)
         paths['vit_path'], vit_images_per_s = phase_vit_path(vit_url, image_codec)
+        paths['traced_vit_path'] = phase_traced_vit_path(vit_url, image_codec, vit_images_per_s,
+                                                         trace_dir)
         selective_url = 'file://' + os.path.join(tmp, 'vit_selective')
         labels = write_selective_dataset(selective_url, image_codec)
         paths['selective_vit_path'] = phase_selective_vit_path(selective_url, image_codec,

@@ -37,7 +37,7 @@ from petastorm_tpu_torch import fused
 from petastorm_tpu_torch.device import staging
 from petastorm_tpu_torch.mixture import MixtureBatchReader, MixtureStream
 from petastorm_tpu_torch.telemetry import (
-    STALL_NOTE_FLOOR_S, note_consumer_wait, note_producer_wait, span,
+    STALL_NOTE_FLOOR_S, note_consumer_wait, note_producer_wait, span, tracing,
 )
 
 logger = logging.getLogger(__name__)
@@ -440,6 +440,10 @@ class TorchLoader:
         self._pull_delivered = {}   # pull_id -> rows delivered so far
         self._delivered_by_epoch = {}
         self._next_pull_id = 0
+        # trace context of the latest reader pull (staging thread only): a
+        # batch mixes rows of several pulls, so the staging-side events
+        # (collate, stage_fill, h2d_*) go to the pull being folded in
+        self._last_pull_ctx = None
         self._consumer_wait_s = 0.0
         self._stage_blocked_s = 0.0
         self._batches_delivered = 0
@@ -513,7 +517,8 @@ class TorchLoader:
             self._target if self._staging_on else None,
             num_slots=staging.staging_slots(), device=self._device)
         self._out_queue = queue.Queue(maxsize=self._prefetch)
-        self._stage_thread = threading.Thread(target=self._stage_loop, daemon=True)
+        self._stage_thread = threading.Thread(target=self._stage_loop, daemon=True,
+                                              name='petastorm-tpu-torch-stager')
         self._stage_thread.start()
         return self
 
@@ -632,6 +637,9 @@ class TorchLoader:
                 columns, item_index, epoch = self._reader.next_batch_info()
             except StopIteration:
                 return
+            if tracing.trace_enabled():
+                self._last_pull_ctx = tracing.ctx_for(
+                    item_index, epoch, getattr(self._reader, 'cur_shard', None))
             n = len(next(iter(columns.values()))) if columns else 0
             with self._prov_lock:
                 pull_id = self._next_pull_id
@@ -663,28 +671,32 @@ class TorchLoader:
         buffer flushes under the tail policy."""
         buffers = {}
         for columns in self._pull_batches():
-            columns = self._materialize_encoded(columns)
-            with span('collate'):
-                # densify before the buffers: a variable field comes as an
-                # object array from a ragged row-group and as a dense array
-                # from a uniform one, and a buffer holds one static shape
-                if self._pad_ragged:
-                    columns = _densify_ragged(columns, self._pad_ragged)
-                if self._bucket_field is None:
-                    split = [(None, columns)]
-                else:
-                    split = list(_split_by_bucket(columns, self._bucket_field,
-                                                  self._bucket_bounds))
-            for key, part in split:
-                buf = buffers.get(key)
-                if buf is None:
-                    buf = buffers[key] = self._make_buffer()
+            # the staging spans land on the pull just folded in (no-op
+            # untraced)
+            with tracing.activate(self._last_pull_ctx, track='stager'):
+                columns = self._materialize_encoded(columns)
                 with span('collate'):
-                    buf.add_many(part)
-                while buf.can_retrieve:
-                    self._retrieve_and_emit(buf)
-                    if self._stop_event.is_set():
-                        return
+                    # densify before the buffers: a variable field comes as
+                    # an object array from a ragged row-group and as a dense
+                    # array from a uniform one, and a buffer holds one
+                    # static shape
+                    if self._pad_ragged:
+                        columns = _densify_ragged(columns, self._pad_ragged)
+                    if self._bucket_field is None:
+                        split = [(None, columns)]
+                    else:
+                        split = list(_split_by_bucket(columns, self._bucket_field,
+                                                      self._bucket_bounds))
+                for key, part in split:
+                    buf = buffers.get(key)
+                    if buf is None:
+                        buf = buffers[key] = self._make_buffer()
+                    with span('collate'):
+                        buf.add_many(part)
+                    while buf.can_retrieve:
+                        self._retrieve_and_emit(buf)
+                        if self._stop_event.is_set():
+                            return
             if self._stop_event.is_set():
                 return
         for buf in buffers.values():
@@ -837,6 +849,21 @@ class TorchLoader:
         if self._fused_fallback is not None:
             diag['fused_decode_fallback'] = self._fused_fallback
         return diag
+
+    def pipeline_report(self, wall_time_s=None):
+        """Process-wide per-stage breakdown and stall attribution
+        (:func:`petastorm_tpu_torch.telemetry.pipeline_report`): the
+        reader's worker stages and this loader's staging stages."""
+        from petastorm_tpu_torch.telemetry import pipeline_report
+        return pipeline_report(wall_time_s=wall_time_s)
+
+    def dump_trace(self, path):
+        """Write the per-item trace (ventilate, the worker's stages,
+        queue_wait, then collate and staging on the ``stager`` track) as
+        Chrome trace-event JSON; needs ``PETASTORM_TPU_TRACE=1`` during
+        the run. Returns the number of events written."""
+        from petastorm_tpu_torch.telemetry import dump_trace
+        return dump_trace(path)
 
     def state_dict(self):
         """Row-group-granular, at-least-once checkpoint of the position AS
@@ -1028,6 +1055,15 @@ class InMemoryCachedLoader:
     @property
     def diagnostics(self):
         return self._loader.diagnostics
+
+    def pipeline_report(self, wall_time_s=None):
+        """See :meth:`TorchLoader.pipeline_report`."""
+        return self._loader.pipeline_report(wall_time_s)
+
+    def dump_trace(self, path):
+        """See :meth:`TorchLoader.dump_trace` (replay epochs add no events:
+        they never touch the reader)."""
+        return self._loader.dump_trace(path)
 
     def state_dict(self):
         raise RuntimeError(

@@ -158,7 +158,7 @@ def _train(make_loader, steps, batch_size, seq_len, model_kw, attn_impl, device,
 
 def pretrain(dataset_url, batch_size=8, steps=20, seq_len=1024, model_kw=None,
              attn_impl='flash', device=None, checkpoint_dir=None, checkpoint_every=10,
-             on_step=None):
+             on_step=None, **reader_kwargs):
     """``steps`` AdamW steps of the bf16 transformer (seed 0) on packed
     rows of ``seq_len + 1`` tokens, so attention runs at ``seq_len``
     positions; the loss is chunked by 256 positions, as the flagship
@@ -180,13 +180,15 @@ def pretrain(dataset_url, batch_size=8, steps=20, seq_len=1024, model_kw=None,
     included), and count ``batch_size * seq_len`` trained positions a
     step. ``restore_s`` is the host seconds of the restore (None without
     a checkpoint directory) and ``saves`` lists each save's step, host
-    seconds and bytes on disk."""
+    seconds and bytes on disk. ``reader_kwargs`` go to the reader (e.g.
+    ``workers_count=1`` delivers the row-groups in ventilation order)."""
     from petastorm_tpu_torch.device.loader import make_torch_loader
 
     def make_loader(device):
         return make_torch_loader(dataset_url, batch_size=batch_size, fields=['^tokens$'],
                                  transform_spec=packing_transform(seq_len + 1),
-                                 num_epochs=None, shuffle_row_groups=True, device=device)
+                                 num_epochs=None, shuffle_row_groups=True, device=device,
+                                 **reader_kwargs)
 
     return _train(make_loader, steps, batch_size, seq_len, model_kw, attn_impl, device,
                   checkpoint_dir, checkpoint_every, on_step)

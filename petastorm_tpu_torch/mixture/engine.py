@@ -28,12 +28,12 @@ mid-step checkpoint degrades to the package-wide at-least-once
 contract (rows re-delivered, never lost).
 
 The states are the JAX package's, key for key, so a mixture saved by
-either package resumes in the other. Not ported yet: the per-pull
-``mixture_pull`` trace events (ROADMAP item 2), the sources' readahead
-plan (item 3) and sources on a standing decode daemon (item 9).
+either package resumes in the other. Not ported yet: the sources'
+readahead plan (item 3) and sources on a standing decode daemon (item 9).
 """
 
 import logging
+import time
 from collections import deque
 
 import numpy as np
@@ -42,7 +42,7 @@ from petastorm_tpu_torch.errors import unported
 from petastorm_tpu_torch.mixture.interleave import InterleaveSchedule
 from petastorm_tpu_torch.mixture.packing import SequencePacker
 from petastorm_tpu_torch.mixture.spec import MixtureSpec
-from petastorm_tpu_torch.telemetry import get_registry, knobs, metrics_disabled
+from petastorm_tpu_torch.telemetry import get_registry, knobs, metrics_disabled, tracing
 
 logger = logging.getLogger(__name__)
 
@@ -87,9 +87,13 @@ class _OrderedDocSource:
     partially-consumed batch checkpoints as ``(item, row_offset)`` so
     resume re-delivers the batch and skips the first ``row_offset``
     rows — exact delivery-granular resume.
+
+    ``source`` is the source's index in the mixture: traced, each pull
+    records a ``mixture_pull`` event on the ``mixture-src-<source>`` track
+    of the pulled row-group's trace.
     """
 
-    def __init__(self, reader, token_field, reseq_max=None):
+    def __init__(self, reader, token_field, reseq_max=None, source=None):
         if not getattr(reader, 'batched_output', False):
             raise ValueError('Mixture sources need batched readers '
                              '(make_batch_reader)')
@@ -98,6 +102,7 @@ class _OrderedDocSource:
                                       DEFAULT_RESEQ_MAX, floor=1)
         self._reader = reader
         self._token_field = token_field
+        self._source = source
         self._reseq_max = int(reseq_max)
         self._epoch = 0
         self._order = deque(reader.ventilation_order(0))
@@ -160,11 +165,19 @@ class _OrderedDocSource:
             self._pull()
 
     def _pull(self):
+        t0 = time.time()
         try:
             columns, item, epoch = self._reader.next_batch_info()
         except StopIteration:
             self._drained = True
             return
+        if self._source is not None:
+            # the pull joins the row-group's lifeline: same trace id as
+            # the source reader's worker stages, the source as the shard
+            ctx = tracing.ctx_for(item, epoch, shard=self._source)
+            if ctx is not None:
+                tracing.record_complete('mixture_pull', t0, time.time() - t0, ctx,
+                                        track='mixture-src-%d' % self._source)
         column = columns.get(self._token_field)
         if column is None:
             raise KeyError(
@@ -320,7 +333,8 @@ class MixtureStream:
         elif len(readers) != len(spec.sources):
             raise ValueError('readers has %d entries for %d sources'
                              % (len(readers), len(spec.sources)))
-        self._sources = [_OrderedDocSource(r, spec.token_field) for r in readers]
+        self._sources = [_OrderedDocSource(r, spec.token_field, source=idx)
+                         for idx, r in enumerate(readers)]
         self._packer = None
         if spec.seq_len is not None:
             self._packer = SequencePacker(spec.seq_len,

@@ -33,8 +33,9 @@ Knobs: ``PETASTORM_TPU_PUSHDOWN=0`` turns the planner and the worker's
 late materialization off (the decode-everything-then-filter oracle);
 ``PETASTORM_TPU_PUSHDOWN_PRUNE=0`` turns only the planner off;
 ``PETASTORM_TPU_PUSHDOWN_WORKERS`` sets the footer-read threads (8).
-The plan's summary is :func:`planner_summary` and the Reader's
-``_pushdown_plan``; the counters below are in the registry. The JAX
+The public read of the plans and counters is
+``pipeline_report()['pushdown']``, built from :func:`planner_summary`
+and the counters below. The JAX
 package's fault-injection site in the footer read waits for the port of
 ``faults.py`` (ROADMAP item 3, caches).
 """

@@ -33,7 +33,7 @@ from petastorm_tpu_torch.filters import (
 )
 from petastorm_tpu_torch.parallel.sharding import default_shard_info
 from petastorm_tpu_torch.predicates import in_reduce
-from petastorm_tpu_torch.telemetry import note_consumer_wait, span
+from petastorm_tpu_torch.telemetry import note_consumer_wait, span, tracing
 from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.workers import EmptyResultError
 from petastorm_tpu_torch.workers.dummy_pool import DummyPool
@@ -315,7 +315,7 @@ class Reader:
             max_ventilation_queue_size=lambda: (
                 self._pool.workers_count + _VENTILATE_EXTRA_ROWGROUPS),
             randomize_item_order=shuffle_row_groups, random_seed=seed,
-            pass_epoch=True, always_exclude=self._pruned_items)
+            pass_epoch=True, always_exclude=self._pruned_items, trace_shard=self.cur_shard)
         # only batched consumers can take encoded image stubs
         defer = defer_image_decode and self.batched_output
         if defer and not defer_config_ok(transform_spec, ngram):
@@ -383,15 +383,35 @@ class Reader:
 
     def _pull_result(self):
         """One pool result under the ``queue_wait`` span; a long block is
-        consumer wait."""
+        consumer wait. Traced, the wait also lands on the arrived item's
+        trace and the producer-bound auto-dump is polled."""
         with span('queue_wait'):
             t0 = time.monotonic()
+            result = None
             try:
-                return self._pool.get_results()
+                result = self._pool.get_results()
+                return result
             finally:
                 waited = time.monotonic() - t0
                 if waited > _PULL_NOTE_FLOOR_S:
                     note_consumer_wait(waited)
+                if tracing.trace_enabled():
+                    self._note_trace_pull(result, waited)
+                    tracing.maybe_autodump()
+
+    def _note_trace_pull(self, result, waited):
+        """A ``queue_wait`` event on the consumer track of the pulled
+        item's trace: the context is re-derived from the result's item
+        index and epoch, so the result path carries nothing extra."""
+        item_index = getattr(result, 'item_index', None)
+        epoch = getattr(result, 'epoch', None)
+        if item_index is None and isinstance(result, dict):
+            item_index = result.get('item_index')
+            epoch = result.get('epoch')
+        ctx = tracing.ctx_for(item_index, epoch, self.cur_shard)
+        if ctx is not None:
+            tracing.record_complete('queue_wait', time.time() - waited, waited, ctx,
+                                    track='consumer')
 
     def _ensure_started(self):
         if not self._started:
@@ -516,6 +536,21 @@ class Reader:
     @property
     def diagnostics(self):
         return self._pool.diagnostics
+
+    def pipeline_report(self, wall_time_s=None):
+        """Per-stage time breakdown and stall attribution of this
+        process's pipeline
+        (:func:`petastorm_tpu_torch.telemetry.pipeline_report`); the
+        thread pool's worker stages record into the same registry."""
+        from petastorm_tpu_torch.telemetry import pipeline_report
+        return pipeline_report(wall_time_s=wall_time_s)
+
+    def dump_trace(self, path):
+        """Write the flight recorder's per-item trace as Chrome trace-event
+        JSON (Perfetto); needs ``PETASTORM_TPU_TRACE=1`` during the read.
+        Returns the number of events written."""
+        from petastorm_tpu_torch.telemetry import dump_trace
+        return dump_trace(path)
 
     # -- checkpointable iteration state --------------------------------------
 

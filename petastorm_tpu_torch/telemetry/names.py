@@ -1,5 +1,5 @@
-"""The naming contracts the port records under: canonical stage names
-and environment knobs.
+"""The naming contracts the port records under: canonical stage names,
+trace-event names and environment knobs.
 
 The port keeps its own copy of the names it uses from
 ``petastorm_tpu/analysis/contracts.py`` (it imports nothing of the JAX
@@ -23,6 +23,13 @@ STAGES = ('ventilate', 'io', 'decode', 'filter', 'late_materialize', 'rowgroup_p
           'transform', 'queue_wait', 'collate', 'h2d_ready', 'stage_fill', 'decode_fused',
           'h2d_dispatch', 'pack', 'encode', 'write_flush')
 
+#: trace-event names the port records outside the stage spans (the
+#: reference's set, limited to what the port records): ``attempt`` one
+#: worker-side processing of one item · ``ventilate`` the ventilator's
+#: stage span · ``mixture_pull`` one source-reader pull of the mixture
+#: engine, on that source's ``mixture-src-<i>`` track
+EVENT_NAMES = frozenset(['attempt', 'ventilate', 'mixture_pull'])
+
 #: environment knobs the port reads (the native decoders read the two
 #: ``JPEG`` ones in C)
 KNOWN_KNOBS = frozenset([
@@ -30,6 +37,7 @@ KNOWN_KNOBS = frozenset([
     'PETASTORM_TPU_JPEG_DCT',
     'PETASTORM_TPU_JPEG_FANCY',
     'PETASTORM_TPU_METRICS',
+    'PETASTORM_TPU_METRICS_WINDOW_S',
     'PETASTORM_TPU_MIXTURE_OPEN_BINS',
     'PETASTORM_TPU_MIXTURE_RESEQ_MAX',
     'PETASTORM_TPU_NATIVE',
@@ -38,7 +46,14 @@ KNOWN_KNOBS = frozenset([
     'PETASTORM_TPU_PUSHDOWN_WORKERS',
     'PETASTORM_TPU_STAGING',
     'PETASTORM_TPU_STAGING_SLOTS',
+    'PETASTORM_TPU_TRACE',
+    'PETASTORM_TPU_TRACE_AUTODUMP_WINDOWS',
+    'PETASTORM_TPU_TRACE_DUMP',
+    'PETASTORM_TPU_TRACE_SAMPLE',
 ])
 
-#: knob-truthiness spellings shared by every switch
+#: knob-truthiness spellings: every on-by-default kill switch (metrics,
+#: staging, native) reads the first, every off-by-default opt-in
+#: (tracing) the second
 DISABLED_VALUES = ('0', 'false', 'off', 'no')
+ENABLED_VALUES = ('1', 'true', 'on', 'yes')

@@ -1,7 +1,7 @@
-"""Process-wide metrics registry: counters and fixed-bucket histograms
-(counterpart of ``petastorm_tpu/telemetry/registry.py`` without gauges
-and the cross-process delta channel, which wait for the process pool).
-Stdlib only; one lock per metric instance."""
+"""Process-wide metrics registry: counters, gauges and fixed-bucket
+histograms (counterpart of ``petastorm_tpu/telemetry/registry.py``
+without the cross-process delta channel, which waits for the process
+pool). Stdlib only; one lock per metric instance."""
 
 import bisect
 import threading
@@ -41,6 +41,31 @@ class Counter:
         return self._value
 
 
+class Gauge:
+    """Settable instantaneous value."""
+
+    __slots__ = ('_value', '_lock')
+
+    def __init__(self):
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def set(self, value):
+        with self._lock:
+            self._value = float(value)
+
+    def inc(self, amount=1.0):
+        with self._lock:
+            self._value += amount
+
+    def dec(self, amount=1.0):
+        self.inc(-amount)
+
+    @property
+    def value(self):
+        return self._value
+
+
 class Histogram:
     """Fixed-bucket histogram; the +Inf bucket is the trailing slot."""
 
@@ -71,7 +96,7 @@ class MetricsRegistry:
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._metrics = {Counter: {}, Histogram: {}}
+        self._metrics = {Counter: {}, Gauge: {}, Histogram: {}}
 
     def _get(self, kind, name, labels):
         key = metric_key(name, labels)
@@ -85,13 +110,39 @@ class MetricsRegistry:
     def counter(self, name, **labels):
         return self._get(Counter, name, labels)
 
+    def gauge(self, name, **labels):
+        return self._get(Gauge, name, labels)
+
     def histogram(self, name, **labels):
         return self._get(Histogram, name, labels)
+
+    def _value(self, kind, name, labels):
+        metric = self._metrics[kind].get(metric_key(name, labels))
+        return metric.value if metric is not None else 0.0
+
+    def counter_value(self, name, **labels):
+        return self._value(Counter, name, labels)
+
+    def gauge_value(self, name, **labels):
+        return self._value(Gauge, name, labels)
+
+    def _with_prefix(self, kind, prefix):
+        return {k: m.value for k, m in list(self._metrics[kind].items())
+                if k.startswith(prefix)}
+
+    def counters_with_prefix(self, prefix):
+        """``{key: value}`` of every counter whose key starts with
+        ``prefix`` (the labelled series of one name share its prefix)."""
+        return self._with_prefix(Counter, prefix)
+
+    def gauges_with_prefix(self, prefix):
+        return self._with_prefix(Gauge, prefix)
 
     def snapshot(self):
         """Full state as a JSON-serializable dict."""
         return {
             'counters': {k: c.value for k, c in list(self._metrics[Counter].items())},
+            'gauges': {k: g.value for k, g in list(self._metrics[Gauge].items())},
             'histograms': {k: h.state()
                            for k, h in list(self._metrics[Histogram].items())},
         }

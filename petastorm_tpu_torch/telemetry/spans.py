@@ -1,11 +1,13 @@
 """Per-stage timing spans (counterpart of
-``petastorm_tpu/telemetry/spans.py`` without the trace hook).
+``petastorm_tpu/telemetry/spans.py``).
 
 ``with span('decode'): ...`` accumulates into the process-wide registry:
 ``petastorm_tpu_stage_seconds_total{stage=...}``,
 ``petastorm_tpu_stage_calls_total{stage=...}`` and
 ``petastorm_tpu_stage_duration_seconds{stage=...}``.
-``PETASTORM_TPU_METRICS=0`` makes every span a shared no-op.
+``PETASTORM_TPU_METRICS=0`` makes every span a shared no-op. While a
+trace context is active in the process, each span's exit is also offered
+to the trace hook (:mod:`~petastorm_tpu_torch.telemetry.tracing`).
 """
 
 import time
@@ -48,6 +50,17 @@ class _NoopSpan:
 
 _NOOP_SPAN = _NoopSpan()
 
+# None until tracing activates a context in this process; then every span
+# exit also hands ``(stage, elapsed)`` to it. Off, the span pays one
+# module-global None check.
+_trace_hook = None
+
+
+def set_trace_hook(hook):
+    global _trace_hook
+    _trace_hook = hook
+
+
 # stage -> (seconds counter, calls counter, duration histogram)
 _stage_cache = {}
 on_registry_reset(_stage_cache.clear)
@@ -65,9 +78,10 @@ def _stage_metrics(stage):
 
 
 class _Span:
-    __slots__ = ('_metrics', '_t0')
+    __slots__ = ('_stage', '_metrics', '_t0')
 
-    def __init__(self, metrics):
+    def __init__(self, stage, metrics):
+        self._stage = stage
         self._metrics = metrics
 
     def __enter__(self):
@@ -80,6 +94,8 @@ class _Span:
         seconds.inc(elapsed)
         calls.inc()
         duration.observe(elapsed)
+        if _trace_hook is not None:
+            _trace_hook(self._stage, elapsed)
         return False
 
 
@@ -87,4 +103,4 @@ def span(stage):
     """Context manager timing one ``stage`` occurrence."""
     if metrics_disabled():
         return _NOOP_SPAN
-    return _Span(_stage_metrics(stage))
+    return _Span(stage, _stage_metrics(stage))

@@ -5,6 +5,7 @@ lazily on the caller's thread inside ``get_results``."""
 import time
 from collections import deque
 
+from petastorm_tpu_torch.telemetry import tracing
 from petastorm_tpu_torch.workers import EmptyResultError
 
 
@@ -46,8 +47,10 @@ class DummyPool:
                 time.sleep(0.001)
                 continue
             args, kwargs = self._work_items.popleft()
+            ctx = kwargs.pop(tracing.TRACE_CTX_KEY, None)
             try:
-                self._worker.process(*args, **kwargs)
+                with tracing.attempt(ctx, 'dummy-0'):
+                    self._worker.process(*args, **kwargs)
             finally:
                 self._processed_items += 1
                 if self._ventilator is not None:

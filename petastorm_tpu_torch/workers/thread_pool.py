@@ -7,7 +7,7 @@ import queue
 import threading
 import time
 
-from petastorm_tpu_torch.telemetry import STALL_NOTE_FLOOR_S, note_producer_wait
+from petastorm_tpu_torch.telemetry import STALL_NOTE_FLOOR_S, note_producer_wait, tracing
 from petastorm_tpu_torch.workers import (
     EmptyResultError, TimeoutWaitingForResultError, VentilatedItemProcessedMessage,
 )
@@ -50,8 +50,8 @@ class ThreadPool:
         for worker_id in range(self._workers_count):
             worker = worker_class(worker_id, self._publish, worker_args)
             self._workers.append(worker)
-            thread = threading.Thread(target=self._worker_loop, args=(worker,),
-                                      daemon=True)
+            thread = threading.Thread(target=self._worker_loop, args=(worker,), daemon=True,
+                                      name='petastorm-tpu-torch-worker-%d' % worker_id)
             thread.start()
             self._threads.append(thread)
         self._ventilator = ventilator
@@ -150,8 +150,12 @@ class ThreadPool:
                     args, kwargs = self._work_queue.get(timeout=_POLL_INTERVAL_S)
                 except queue.Empty:
                     continue
+                # a traced item carries its context as a reserved kwarg:
+                # the worker's stage spans land on the item's timeline
+                ctx = kwargs.pop(tracing.TRACE_CTX_KEY, None)
                 try:
-                    worker.process(*args, **kwargs)
+                    with tracing.attempt(ctx, 'thread-%d' % worker.worker_id):
+                        worker.process(*args, **kwargs)
                     self._publish(VentilatedItemProcessedMessage())
                 except _WorkerExit:
                     return

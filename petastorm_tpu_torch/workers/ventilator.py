@@ -4,14 +4,28 @@
 the per-epoch order is the reference's, so a reader resumes in either
 package."""
 
+import inspect
 import logging
 import threading
 
 import numpy as np
 
-from petastorm_tpu_torch.telemetry import span
+from petastorm_tpu_torch.telemetry import span, tracing
 
 logger = logging.getLogger(__name__)
+
+
+def _accepts_trace_ctx(fn):
+    """True when ``fn(**item)`` takes the injected ``_trace_ctx`` kwarg
+    (a ``**kwargs`` or a parameter of that name): the pools' ``ventilate``
+    does; a bare user callable may not, and then the context is not
+    carried rather than failing the ventilation thread."""
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):
+        return False
+    return any(p.kind is inspect.Parameter.VAR_KEYWORD or p.name == tracing.TRACE_CTX_KEY
+               for p in sig.parameters.values())
 
 _VENTILATION_INTERVAL_S = 0.01
 
@@ -44,11 +58,17 @@ class ConcurrentVentilator:
         sweep: the Reader's statistics-pruned row-groups, which stay in the
         item list (indices, shards and checkpoints are unchanged) but
         deliver no row.
+    :param trace_shard: shard recorded in the trace contexts minted here.
+        With ``PETASTORM_TPU_TRACE`` on, each sampled item gets a context
+        (:func:`~petastorm_tpu_torch.telemetry.tracing.mint`), passed to
+        ``ventilate_fn`` as the reserved ``_trace_ctx`` kwarg, which the
+        pools strip before ``worker.process``.
     """
 
     def __init__(self, ventilate_fn, items_to_ventilate, iterations=1,
                  max_ventilation_queue_size=None, randomize_item_order=False,
-                 random_seed=0, pass_epoch=False, always_exclude=None):
+                 random_seed=0, pass_epoch=False, always_exclude=None,
+                 trace_shard=None):
         if iterations is not None and iterations <= 0:
             raise ValueError('iterations must be positive or None, got %r' % iterations)
         self._ventilate_fn = ventilate_fn
@@ -66,6 +86,8 @@ class ConcurrentVentilator:
         self._cursor = 0
         self._exclude_once = frozenset()
         self._exclude_always = frozenset(always_exclude or ())
+        self._trace_shard = trace_shard
+        self._carries_trace_ctx = _accepts_trace_ctx(ventilate_fn)
         self._in_flight = 0
         self._cv = threading.Condition()
         self._stop_requested = False
@@ -83,7 +105,8 @@ class ConcurrentVentilator:
                 return
             if self._stop_requested:
                 return
-            self._thread = threading.Thread(target=self._run, daemon=True)
+            self._thread = threading.Thread(target=self._run, daemon=True,
+                                            name='petastorm-tpu-torch-ventilator')
             self._thread.start()
 
     def processed_item(self):
@@ -186,12 +209,19 @@ class ConcurrentVentilator:
                     # in_flight rises BEFORE the item reaches the pool, so a
                     # fast processed_item() decrement is never lost
                     self._in_flight += 1
-                    item = self._items[order[self._cursor]]
-                with span('ventilate'):
-                    if self._pass_epoch:
-                        self._ventilate_fn(epoch=self._epoch, **item)
-                    else:
-                        self._ventilate_fn(**item)
+                    item_index = order[self._cursor]
+                item = self._items[item_index]
+                ctx = tracing.mint(item.get('item_index', item_index), epoch=self._epoch,
+                                   shard=self._trace_shard)
+                if ctx is not None and self._carries_trace_ctx:
+                    item = dict(item)
+                    item[tracing.TRACE_CTX_KEY] = ctx
+                with tracing.activate(ctx, track='ventilator'):
+                    with span('ventilate'):
+                        if self._pass_epoch:
+                            self._ventilate_fn(epoch=self._epoch, **item)
+                        else:
+                            self._ventilate_fn(**item)
                 # the cursor advances only after the hand-off, so a
                 # state_dict() never skips an item (at-least-once resume)
                 with self._cv:

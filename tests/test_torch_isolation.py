@@ -49,7 +49,13 @@ def test_port_has_modules_to_scan():
                    ('weighted_sampling_reader.py',), ('ngram.py',), ('pytorch.py',),
                    ('examples', 'mnist_pytorch.py'), ('examples', 'hello_world.py'),
                    ('predicates.py',), ('filters.py',), ('pushdown.py',),
-                   ('parallel', 'sharding.py')):
+                   ('parallel', 'sharding.py'), ('telemetry', 'knobs.py'),
+                   ('telemetry', 'registry.py'), ('telemetry', 'spans.py'),
+                   ('telemetry', 'recorder.py'), ('telemetry', 'tracing.py'),
+                   ('telemetry', 'stall.py'), ('telemetry', 'critpath.py'),
+                   ('telemetry', 'export.py'), ('telemetry', '__init__.py'),
+                   ('workers', 'ventilator.py'), ('workers', 'thread_pool.py'),
+                   ('workers', 'dummy_pool.py')):
         assert os.path.join('petastorm_tpu_torch', *module) in rel
     assert len(rel) > 20
 
@@ -75,3 +81,23 @@ def test_port_stage_names_are_the_references():
                     and node.args and isinstance(node.args[0], ast.Constant)):
                 recorded.add(node.args[0].value)
     assert recorded == set(STAGES)
+
+
+def test_port_event_names_are_the_references():
+    """Every literal event the port records through ``record_complete`` /
+    ``record_instant`` is a stage or an event name of its copy, and that
+    copy is within the JAX package's event names."""
+    from petastorm_tpu.analysis.contracts import EVENT_NAMES as JAX_EVENT_NAMES
+    from petastorm_tpu_torch.telemetry.names import EVENT_NAMES, STAGES
+    assert set(EVENT_NAMES) <= set(JAX_EVENT_NAMES)
+    recorded = set()
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Call)
+                    and getattr(node.func, 'attr', None) in ('record_complete', 'record_instant')
+                    and node.args and isinstance(node.args[0], ast.Constant)):
+                recorded.add(node.args[0].value)
+    assert recorded == {'queue_wait', 'mixture_pull'}
+    assert recorded <= set(STAGES) | set(EVENT_NAMES)

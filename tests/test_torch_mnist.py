@@ -22,6 +22,7 @@ from petastorm_tpu.models.mnist import mnist_train_step as jax_train_step
 from petastorm_tpu_torch.models.mnist import (
     MnistCNN, init_mnist, mnist_loss, mnist_train_step, params_from_jax,
 )
+from tests.torch_cpu_threads import few_torch_threads  # noqa: F401 - autouse
 
 
 def _jax_model(dtype):

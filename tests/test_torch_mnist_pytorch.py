@@ -21,6 +21,7 @@ from petastorm_tpu.reader import make_reader as jax_make_reader
 from petastorm_tpu_torch.examples import mnist_pytorch
 from petastorm_tpu_torch.examples.mnist import generate_synthetic_mnist
 from petastorm_tpu_torch.ops.normalize import normalize_images
+from tests.torch_cpu_threads import few_torch_threads  # noqa: F401 - autouse
 
 STEPS = 20
 NORMALIZE_ATOL = 2e-6

@@ -27,6 +27,7 @@ import optax
 
 from petastorm_tpu.models import transformer as jt
 from petastorm_tpu_torch.models import transformer as tt
+from tests.torch_cpu_threads import few_torch_threads  # noqa: F401 - autouse
 
 SMALL = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64, max_seq_len=40)
 

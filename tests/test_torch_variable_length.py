@@ -28,6 +28,7 @@ from petastorm_tpu.models import transformer as jt
 from petastorm_tpu_torch.examples import variable_length
 from petastorm_tpu_torch.examples.lm_pretrain import generate_c4_like
 from petastorm_tpu_torch.models import transformer as tt
+from tests.torch_cpu_threads import few_torch_threads  # noqa: F401 - autouse
 
 D_MODEL, N_LAYERS, STEPS, BATCH = 32, 1, 8, 8
 

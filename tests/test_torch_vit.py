@@ -21,6 +21,7 @@ import optax
 
 from petastorm_tpu.models import vit as jv
 from petastorm_tpu_torch.models import vit as tv
+from tests.torch_cpu_threads import few_torch_threads  # noqa: F401 - autouse
 
 SMALL = dict(image_size=32, patch_size=8, n_classes=10, d_model=64, n_heads=2, n_layers=2,
              d_ff=128)
