@@ -96,7 +96,8 @@ final ``{"ok": true, ...}`` line is printed only when every phase passed:
     losses agree within 1e-3 relative; the checkpoint's bytes and its save
     and restore seconds are printed.
 Phases 17 to 21 run right after ``main_path``, on its dataset; 22 and 24
-after ``lm_profile``, on its; 23 after ``vit_path``.
+after ``lm_profile``, on its; 23 after ``vit_path``; 25 to 29 as each
+says.
 
 17. ``row_reference``: ``ROW_REFERENCE_STEPS`` steps of the PyTorch
     example (``examples/mnist_pytorch.py``: ``make_reader``, the row
@@ -170,6 +171,35 @@ after ``lm_profile``, on its; 23 after ``vit_path``.
 27. ``pytorch_path_report`` (after ``pytorch_path``): that path's
     ``pipeline_report()``: the stall verdict, the wait clocks and the
     stage seconds against the epoch's wall time.
+28. ``obs_lm_path`` (after ``traced_lm_path``): the same flagship run,
+    unarmed and then with the live plane armed (``OBS_LM_KNOBS``: an
+    endpoint on a free port, 0.25 s windows, ``h2d_overlap>=0.3`` and
+    ``rows_per_sec>=1``, a flight-log directory, tracing off) while a
+    scraper thread reads ``/metrics`` once a window and ``/health`` and
+    ``/report`` at steps 5 and 20 (the run waiting at 20 one window and
+    for the reads, left out of its tokens/s): the armed run trains on the
+    unarmed run's batches with each flash kernel launched layers x steps
+    times on bf16 inputs in each run; every ``/metrics`` body parses as
+    Prometheus text, counters never fall between scrapes, the
+    stage-seconds series equal the in-process ``prometheus_text()`` after
+    the loader stops, ``/health`` is ``ok`` with the reader and the
+    loader mounted,
+    ``/report`` has 4 or more windows and no objective breaching, and
+    ``python -m petastorm_tpu_torch.tools.obs_replay --json`` folds the
+    windows the sampler closed. Tokens/s of both runs, scrape times by
+    route, anomalies and the per-window H2D overlap are printed.
+29. ``obs_drill_path`` (after ``batched_bridge_path``): the slow-consumer
+    drill on mnist-synthetic-60k (``OBS_DRILL_KNOBS``): two thread
+    workers, a results queue of one, the normalize kernel on each of
+    ``OBS_DRILL_BATCHES`` batches and a 0.12 s sleep after each, under
+    ``queue_wait_p99<=0.05ms`` with every row-group traced: ``/health``
+    turns to ``slo-breach`` while the loader runs, ``OBS_DRILL_KINDS``
+    appear in the live ``/report`` and the final report, the budget is
+    spent, the flight log holds windows, verdicts and anomalies and its
+    replay folds the breach, ``/trace`` has ventilator and worker tracks,
+    ``/critpath`` names a bottleneck, and normalize launches once a batch.
+Both tear the plane down after them: no endpoint or sampler thread
+outlives its phase.
 ``--trace-dir DIR`` keeps the two Chrome traces in ``DIR``.
 
 Then the ``kernels`` summary (each kernel's launches on every path), the
@@ -182,6 +212,7 @@ import contextlib
 import json
 import math
 import os
+import queue
 import re
 import shutil
 import socket
@@ -189,6 +220,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -339,6 +371,20 @@ TRACE_LM_SAMPLE = 2
 TRACE_VIT_SAMPLE = 1
 # tracks every traced path's trace must hold events on (pool workers by kind)
 TRACE_TRACKS = ('ventilator', 'thread', 'stager')
+# the live plane on the flagship: a 0.25 s window, two objectives the run
+# should meet, tracing off; /health and /report are read at these steps
+OBS_LM_KNOBS = {'PETASTORM_TPU_OBS_PORT': '0', 'PETASTORM_TPU_OBS_WINDOW_SEC': '0.25',
+                'PETASTORM_TPU_SLO': 'h2d_overlap>=0.3;rows_per_sec>=1'}
+OBS_LM_MARK_STEPS = (5, LM_STEPS)
+# the slow-consumer drill: an objective below the first duration bucket,
+# so every window with a pull is bad, and every row-group traced
+OBS_DRILL_KNOBS = {'PETASTORM_TPU_OBS_PORT': '0', 'PETASTORM_TPU_OBS_WINDOW_SEC': '0.2',
+                   'PETASTORM_TPU_SLO': 'queue_wait_p99<=0.05ms', 'PETASTORM_TPU_TRACE': '1'}
+OBS_DRILL_BATCHES = 30
+OBS_DRILL_SLEEP_S = 0.12
+# the kinds the same drill fires through both packages' loaders on the CPU
+# (tests/test_torch_obs_endpoint.py)
+OBS_DRILL_KINDS = {'queue_saturated', 'slo_breach'}
 
 
 def emit(obj):
@@ -790,14 +836,12 @@ def fresh_telemetry():
 
 
 @contextlib.contextmanager
-def tracing_on(dump_path, sample):
-    """``PETASTORM_TPU_TRACE=1``, one item in ``sample`` traced and a dump
-    path for the block, with fresh telemetry; the knobs restored after."""
+def knobs_set(values):
+    """The ``PETASTORM_TPU_*`` knobs in ``values`` set for the block, with
+    fresh telemetry; the knobs restored and re-read after."""
     from petastorm_tpu_torch import telemetry
-    knobs = {'PETASTORM_TPU_TRACE': '1', 'PETASTORM_TPU_TRACE_SAMPLE': '1/%d' % sample,
-             'PETASTORM_TPU_TRACE_DUMP': dump_path}
-    saved = {name: os.environ.get(name) for name in knobs}
-    for name, value in knobs.items():
+    saved = {name: os.environ.get(name) for name in values}
+    for name, value in values.items():
         telemetry.knobs.set_env(name, value)
     telemetry.refresh()
     fresh_telemetry()
@@ -810,6 +854,14 @@ def tracing_on(dump_path, sample):
             else:
                 os.environ[name] = value
         telemetry.refresh()
+
+
+def tracing_on(dump_path, sample):
+    """``PETASTORM_TPU_TRACE=1``, one item in ``sample`` traced and a dump
+    path for the block (:func:`knobs_set`)."""
+    return knobs_set({'PETASTORM_TPU_TRACE': '1',
+                      'PETASTORM_TPU_TRACE_SAMPLE': '1/%d' % sample,
+                      'PETASTORM_TPU_TRACE_DUMP': dump_path})
 
 
 def report_summary(report):
@@ -867,6 +919,49 @@ def check_report_stages(report, events):
     return sorted(traced)
 
 
+def flagship_run(url, scope, inside=None, on_step=None):
+    """One ``lm_path`` run of the flagship (``FLAGSHIP_LM_KW``, batch 8,
+    1024 positions, bf16, ``LM_STEPS`` steps) on one pool worker, so the
+    row-groups arrive in ventilation order, inside the context ``scope``
+    with fresh telemetry and launch counts. Returns the result, each
+    batch's checksum, the launches and the flash kernels' launches by
+    input dtype (``flash_attention._launch`` wrapped for the run), and
+    whatever ``inside(result)``, called in the scope, adds."""
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, pretrain
+    from petastorm_tpu_torch.ops import flash_attention
+    launch = flash_attention._launch
+    sums, dtypes = [], collections.Counter()
+    weights = []
+
+    def on_step_sum(step, batch, loss):
+        tokens = batch['tokens'].to(torch.int64)
+        if not weights:
+            weights.append(torch.arange(1, tokens.numel() + 1, device=tokens.device,
+                                        dtype=torch.int64).view(tokens.shape))
+        sums.append((tokens * weights[0]).sum())      # read after the run: no sync
+        if on_step is not None:
+            on_step(step, batch, loss)
+
+    def recording_launch(fn, name, pointers, tensors, q, *args):
+        dtypes[str(q.dtype)] += 1
+        return launch(fn, name, pointers, tensors, q, *args)
+
+    fresh_telemetry()
+    reset_launch_counts()
+    flash_attention._launch = recording_launch
+    try:
+        with scope:
+            result = pretrain(url, batch_size=LM_BATCH, steps=LM_STEPS, seq_len=LM_SEQ,
+                              model_kw=FLAGSHIP_LM_KW, attn_impl='flash', device='cuda',
+                              on_step=on_step_sum, workers_count=1)
+            torch.cuda.synchronize()
+            extra = inside(result) if inside is not None else {}
+    finally:
+        flash_attention._launch = launch
+    return dict(extra, result=result, sums=[int(v) for v in sums], launches=launch_counts(),
+                dtypes=dict(dtypes))
+
+
 def phase_traced_lm_path(url, lm_tokens_per_s, trace_dir):
     """The flagship as ``lm_path`` runs it (``FLAGSHIP_LM_KW``, batch 8,
     1024 positions, bf16, ``LM_STEPS`` steps), untraced and then traced
@@ -876,49 +971,23 @@ def phase_traced_lm_path(url, lm_tokens_per_s, trace_dir):
     launches each flash kernel layers x steps times on bf16 inputs, and
     its trace holds every sampled row-group and no other."""
     from petastorm_tpu_torch import telemetry
-    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, pretrain
-    from petastorm_tpu_torch.ops import flash_attention
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
     from petastorm_tpu_torch.reader import make_batch_reader
-    weights = None
-    launch = flash_attention._launch
     runs = {}
     for mode in ('untraced', 'traced'):
-        sums, dtypes = [], collections.Counter()
-
-        def on_step(step, batch, loss, sums=sums):
-            nonlocal weights
-            tokens = batch['tokens'].to(torch.int64)
-            if weights is None:
-                weights = torch.arange(1, tokens.numel() + 1, device=tokens.device,
-                                       dtype=torch.int64).view(tokens.shape)
-            sums.append((tokens * weights).sum())      # read after the run: no sync
-
-        def recording_launch(fn, name, pointers, tensors, q, *args, dtypes=dtypes):
-            dtypes[str(q.dtype)] += 1
-            return launch(fn, name, pointers, tensors, q, *args)
-
         dump = os.path.join(trace_dir, 'lm_trace_autodump.json')
         scope = tracing_on(dump, TRACE_LM_SAMPLE) if mode == 'traced' else contextlib.nullcontext()
-        fresh_telemetry()
-        reset_launch_counts()
-        flash_attention._launch = recording_launch
-        try:
-            with scope:
-                result = pretrain(url, batch_size=LM_BATCH, steps=LM_STEPS, seq_len=LM_SEQ,
-                                  model_kw=FLAGSHIP_LM_KW, attn_impl='flash', device='cuda',
-                                  on_step=on_step, workers_count=1)
-                torch.cuda.synchronize()
-                report = telemetry.pipeline_report(wall_time_s=LM_STEPS / result['steps_per_s'])
-                events = telemetry.get_recorder().snapshot()
-                trace = None
-                if mode == 'traced':
-                    trace = os.path.join(trace_dir, 'lm_trace.json')
-                    assert telemetry.dump_trace(trace) == len(events)
-        finally:
-            flash_attention._launch = launch
-        runs[mode] = {'result': result, 'sums': [int(v) for v in sums], 'report': report,
-                      'events': events, 'trace': trace, 'launches': launch_counts(),
-                      'dtypes': dict(dtypes)}
+
+        def inside(result, mode=mode):
+            report = telemetry.pipeline_report(wall_time_s=LM_STEPS / result['steps_per_s'])
+            events = telemetry.get_recorder().snapshot()
+            trace = None
+            if mode == 'traced':
+                trace = os.path.join(trace_dir, 'lm_trace.json')
+                assert telemetry.dump_trace(trace) == len(events)
+            return {'report': report, 'events': events, 'trace': trace}
+
+        runs[mode] = flagship_run(url, scope, inside=inside)
     plain, traced = runs['untraced'], runs['traced']
     events = traced['events']
     tracks = check_trace_file(traced['trace'], events)
@@ -965,6 +1034,303 @@ def phase_traced_lm_path(url, lm_tokens_per_s, trace_dir):
         (sorted(traced['report']['stages']), sorted(plain['report']['stages']))
     assert 'critical_path' not in plain['report'] and not plain['events']
     return traced['launches']
+
+
+def http_get(route):
+    """``(body, ms)`` of one GET on this process's observability endpoint."""
+    import urllib.request
+    from petastorm_tpu_torch.telemetry import obs_server
+    t0 = time.perf_counter()
+    body = urllib.request.urlopen('http://127.0.0.1:%d%s' % (obs_server.server_port(), route),
+                                  timeout=10).read()
+    return body, (time.perf_counter() - t0) * 1e3
+
+
+def parse_prometheus(text):
+    """``({series_key: value}, {family: type})`` of one Prometheus text
+    exposition. Fails unless every family has a ``# TYPE`` line before its
+    series, every other line is ``key value``, and every histogram's
+    ``_bucket`` counts rise to a ``+Inf`` bucket equal to its ``_count``."""
+    types, series = {}, {}
+    for line in text.splitlines():
+        if line.startswith('# TYPE '):
+            _, _, family, kind = line.split(' ')
+            assert kind in ('counter', 'gauge', 'histogram'), line
+            types[family] = kind
+            continue
+        key, value = line.rsplit(' ', 1)
+        name = key.split('{', 1)[0]
+        family = next((name[:-len(s)] for s in ('_bucket', '_sum', '_count')
+                       if name.endswith(s) and types.get(name[:-len(s)]) == 'histogram'), name)
+        assert family in types, line
+        series[key] = float(value)
+    buckets = collections.defaultdict(list)
+    for key, value in series.items():
+        if '_bucket{' in key:
+            name, labels = key[:-1].split('_bucket{', 1)
+            rest = ','.join(p for p in labels.split(',') if not p.startswith('le='))
+            buckets[(name, rest)].append((key, value))
+    for (name, rest), rows in buckets.items():
+        values = [v for _, v in rows]
+        assert values == sorted(values), (name, rest)
+        assert rows[-1][0].endswith('le="+Inf"}'), rows[-1]
+        count = '%s_count{%s}' % (name, rest) if rest else name + '_count'
+        assert series[count] == values[-1], (count, series[count], values[-1])
+    return series, types
+
+
+class Scraper(threading.Thread):
+    """A client of the live endpoint beside a run: ``/metrics`` once a
+    window, and ``/health`` and ``/report`` each time :meth:`mark` is
+    called (the event it returns is set once both are read). Keeps every
+    body and every request's milliseconds by route."""
+
+    def __init__(self, window_s):
+        super().__init__(name='chip-smoke-scraper', daemon=True)
+        self.window_s = window_s
+        self.metrics, self.health, self.report = [], [], []
+        self.ms = collections.defaultdict(list)
+        self.error = None
+        self._marks = queue.Queue()
+        self._done = threading.Event()
+
+    def mark(self):
+        done = threading.Event()
+        self._marks.put(done)
+        return done
+
+    def stop(self):
+        self._done.set()
+        self.join(timeout=30)
+        assert not self.is_alive()
+        if self.error is not None:
+            raise self.error
+
+    def _get(self, route):
+        body, ms = http_get(route)
+        self.ms[route].append(ms)
+        return body
+
+    def run(self):
+        from petastorm_tpu_torch.telemetry import obs_server
+        try:
+            while obs_server.server_port() is None:
+                if self._done.wait(0.01):
+                    return
+            next_metrics = 0.0
+            while not self._done.is_set():
+                if time.monotonic() >= next_metrics:
+                    next_metrics = time.monotonic() + self.window_s
+                    self.metrics.append(self._get('/metrics').decode())
+                try:
+                    done = self._marks.get(timeout=max(0.0, next_metrics - time.monotonic()))
+                except queue.Empty:
+                    continue
+                self.health.append(json.loads(self._get('/health')))
+                self.report.append(json.loads(self._get('/report')))
+                done.set()
+        except Exception as e:  # noqa: BLE001 - raised again by stop()
+            self.error = e
+
+
+def plane_torn_down():
+    """Tear the live plane down (server, sampler, SLO policy, log writer)
+    and check that none of its threads outlives the phase."""
+    from petastorm_tpu_torch import telemetry
+    telemetry.reset_for_tests()
+    left = [t.name for t in threading.enumerate() if t.name.startswith('petastorm-tpu-torch-obs')]
+    assert not left, left
+
+
+def phase_obs_lm_path(url, tmp):
+    """The flagship as ``traced_lm_path`` runs it, unarmed and then armed
+    (``OBS_LM_KNOBS`` and a flight-log directory; tracing off) while a
+    scraper reads ``/metrics`` once a window and ``/health`` and
+    ``/report`` at ``OBS_LM_MARK_STEPS``: the armed run trains on the
+    unarmed run's batches, launches each flash kernel layers x steps
+    times on bf16 inputs in each run, and every route answers as the
+    plane promises. At the last step the run waits, the card idle, one
+    window (so the window holding the last steps closes) and then for
+    that step's reads, while the loader still runs; the armed tokens/s
+    leave that wait out."""
+    from petastorm_tpu_torch import telemetry
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
+    from petastorm_tpu_torch.telemetry import slo, timeseries
+    from petastorm_tpu_torch.telemetry.spans import STAGE_SECONDS
+    log_dir = os.path.join(tmp, 'obs_lm_log')
+    knobs = dict(OBS_LM_KNOBS, PETASTORM_TPU_OBS_LOG_DIR=log_dir)
+    unarmed = flagship_run(url, contextlib.nullcontext())
+    scraper = Scraper(float(knobs['PETASTORM_TPU_OBS_WINDOW_SEC']))
+    final_wait_s = []
+
+    def on_step(step, batch, loss):
+        if step == OBS_LM_MARK_STEPS[-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            time.sleep(scraper.window_s)
+            assert scraper.mark().wait(60), 'the scraper did not answer'
+            final_wait_s.append(time.perf_counter() - t0)
+        elif step in OBS_LM_MARK_STEPS:
+            scraper.mark()
+
+    def inside(result):
+        scraper.stop()
+        collector = timeseries._collector
+        return {'collector': collector, 'final_metrics': http_get('/metrics')[0].decode(),
+                'in_process': telemetry.prometheus_text(),
+                'report': telemetry.pipeline_report()}
+
+    with knobs_set(knobs):
+        scraper.start()
+        armed = flagship_run(url, contextlib.nullcontext(), inside=inside, on_step=on_step)
+        collector = armed['collector']
+        collector.stop()
+        windows = collector.rollup.windows()
+        closed = collector.rollup.closed_total
+        plane_torn_down()
+    replay = subprocess.run([sys.executable, '-m', 'petastorm_tpu_torch.tools.obs_replay',
+                             log_dir, '--json'], check=True, capture_output=True, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)), timeout=300)
+    folded = json.loads(replay.stdout.strip().splitlines()[-1])
+    parsed = [parse_prometheus(body) for body in scraper.metrics]
+    for (before, types), (after, _) in zip(parsed, parsed[1:]):
+        for key, value in before.items():
+            if types.get(key.split('{', 1)[0]) == 'counter' and key in after:
+                assert after[key] >= value, (key, value, after[key])
+    stage_key = STAGE_SECONDS + '{'
+    final, _ = parse_prometheus(armed['final_metrics'])
+    in_process, _ = parse_prometheus(armed['in_process'])
+    final_stages = {k: v for k, v in final.items() if k.startswith(stage_key)}
+    # each window's fill/transfer overlap share, as the SLO reads it
+    overlaps = [o for o in map(slo._resolve_h2d_overlap, windows) if o is not None]
+    rollups = [r['rollup']['headline']['windows_sampled'] for r in scraper.report]
+    slo_targets = [t for r in scraper.report for t in r['slo']['targets']]
+    tokens = LM_STEPS * LM_BATCH * LM_SEQ
+    armed_tokens_per_s = tokens / (LM_STEPS / armed['result']['steps_per_s'] - final_wait_s[0])
+    ratio = armed_tokens_per_s / unarmed['result']['tokens_per_s']
+    emit({'phase': 'obs_lm_path', 'model': FLAGSHIP_LM_KW, 'steps': LM_STEPS,
+          'batch_size': LM_BATCH, 'attention_positions': LM_SEQ, 'workers_count': 1,
+          'knobs': knobs,
+          'tokens_per_s': {'unarmed': unarmed['result']['tokens_per_s'],
+                           'armed': armed_tokens_per_s,
+                           'armed_with_final_wait': armed['result']['tokens_per_s']},
+          'final_wait_s': final_wait_s[0], 'armed_over_unarmed': ratio,
+          'batches_equal': unarmed['sums'] == armed['sums'], 'batches': len(armed['sums']),
+          'launches': armed['launches'], 'launch_dtypes': armed['dtypes'],
+          'windows': closed, 'windows_replayed': folded['windows'],
+          'scrapes': {route: len(ms) for route, ms in scraper.ms.items()},
+          'scrape_ms': {route: {'median': statistics.median(ms), 'max': max(ms)}
+                        for route, ms in scraper.ms.items()},
+          'metrics_series': len(final),
+          'anomalies_by_kind': armed['report'].get('anomalies', {}).get('by_kind'),
+          'h2d_overlap_per_window': {'median': statistics.median(overlaps) if overlaps else None,
+                                     'min': min(overlaps) if overlaps else None,
+                                     'windows': len(overlaps)},
+          'rollup_windows_sampled': rollups,
+          'slo': armed['report'].get('slo'),
+          'health_components': [sorted(h['components']) for h in scraper.health],
+          'health_status': [h['status'] for h in scraper.health]})
+    assert len(armed['sums']) == LM_STEPS and unarmed['sums'] == armed['sums'], \
+        (unarmed['sums'], armed['sums'])
+    assert all(math.isfinite(v) for v in armed['result']['losses'])
+    want = FLAGSHIP_LM_KW['n_layers'] * LM_STEPS
+    for run in (unarmed, armed):
+        for name in FLASH_KERNELS:
+            assert run['launches'][name] == want, (name, run['launches'][name], want)
+        assert run['dtypes'] == {'torch.bfloat16': 3 * want}, run['dtypes']
+    assert len(scraper.metrics) >= 2 and len(scraper.health) == len(OBS_LM_MARK_STEPS)
+    assert final_stages and final_stages == {
+        k: v for k, v in in_process.items() if k.startswith(stage_key)}, \
+        (final_stages, in_process)
+    for health in scraper.health:
+        assert health['status'] == 'ok', health
+        names = sorted(health['components'])
+        assert any(n.startswith('reader') for n in names), names
+        assert any(n.startswith('torch-loader') for n in names), names
+    assert max(rollups) >= 4, rollups
+    assert slo_targets and not any(t['breaching'] for t in slo_targets), slo_targets
+    assert abs(folded['windows'] - closed) <= 1, (folded['windows'], closed)
+    return armed['launches']
+
+
+def phase_obs_drill_path(url, tmp):
+    """The reference's slow-consumer drill on the card: mnist-synthetic-60k
+    through ``make_torch_loader`` (batch 64, two thread workers, a results
+    queue of one), the normalize kernel on every batch and a consumer that
+    sleeps ``OBS_DRILL_SLEEP_S`` a batch for ``OBS_DRILL_BATCHES``
+    batches, under ``OBS_DRILL_KNOBS``: ``/health`` turns to
+    ``slo-breach`` while the loader runs, the drill's anomaly kinds appear
+    live and in the final report, the budget is spent, the flight log
+    replays the breach, and ``/trace`` and ``/critpath`` answer."""
+    from petastorm_tpu_torch import telemetry
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    from petastorm_tpu_torch.examples.mnist import MNIST_MEAN, MNIST_STD
+    from petastorm_tpu_torch.ops.normalize import normalize_images
+    from petastorm_tpu_torch.telemetry import obslog
+    from petastorm_tpu_torch.tools import obs_replay
+    log_dir = os.path.join(tmp, 'obs_drill_log')
+    knobs = dict(OBS_DRILL_KNOBS, PETASTORM_TPU_OBS_LOG_DIR=log_dir)
+    breach_at = None
+    with knobs_set(knobs):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with make_torch_loader(url, batch_size=BATCH_SIZE, fields=['^digit$', '^image$'],
+                               num_epochs=None, workers_count=2, results_queue_size=1,
+                               device='cuda') as loader:
+            for i, batch in enumerate(loader.iter_steps(OBS_DRILL_BATCHES), 1):
+                images = normalize_images(batch['image'][..., None], mean=MNIST_MEAN,
+                                          std=MNIST_STD)
+                assert images.device.type == 'cuda' and images.shape[0] == BATCH_SIZE
+                time.sleep(OBS_DRILL_SLEEP_S)
+                if breach_at is None and json.loads(http_get('/health')[0])['status'] == \
+                        'slo-breach':
+                    breach_at = i
+            torch.cuda.synchronize()
+            deadline = time.monotonic() + 10
+            health = json.loads(http_get('/health')[0])
+            while health['status'] != 'slo-breach' and time.monotonic() < deadline:
+                time.sleep(0.05)
+                health = json.loads(http_get('/health')[0])
+            live = json.loads(http_get('/report')[0])
+            trace = json.loads(http_get('/trace')[0])
+            critpath = json.loads(http_get('/critpath')[0])
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        report = telemetry.pipeline_report()
+        plane_torn_down()
+    records = obslog.read_log(log_dir)
+    summary = obs_replay.fold_summary(records)
+    lines = []
+    obs_replay.render_burn_report(summary['slo'], out=lines.append)
+    tracks = collections.Counter(
+        re.sub(r'-\d+$', '', m['args']['name']) for m in trace['traceEvents'] if m['ph'] == 'M')
+    (target,) = report['slo']['targets']
+    live_kinds = set((live.get('anomalies') or {}).get('by_kind') or {})
+    final_kinds = set(report['anomalies']['by_kind'])
+    emit({'phase': 'obs_drill_path', 'config': 'mnist-synthetic-60k', 'knobs': knobs,
+          'batches': OBS_DRILL_BATCHES, 'sleep_s': OBS_DRILL_SLEEP_S,
+          'batch_size': BATCH_SIZE, 'workers_count': 2, 'results_queue_size': 1,
+          'seconds': seconds, 'launches': launches,
+          'health_status': health['status'], 'breach_seen_at_batch': breach_at,
+          'live_anomalies': sorted(live_kinds), 'final_anomalies': report['anomalies']['by_kind'],
+          'slo': target, 'log_records': dict(collections.Counter(r['kind'] for r in records)),
+          'replay': {k: summary[k] for k in ('windows', 'anomalies', 'anomaly_kinds')},
+          'replay_burn': lines, 'trace_tracks': dict(tracks),
+          'critpath_bottleneck': critpath.get('bottleneck'),
+          'stall_verdict': report['stall']['verdict']})
+    assert launches['normalize_images'] == OBS_DRILL_BATCHES, launches
+    assert health['status'] == 'slo-breach', health
+    assert OBS_DRILL_KINDS <= live_kinds and OBS_DRILL_KINDS <= final_kinds, \
+        (live_kinds, final_kinds)
+    assert target['target'] == 'queue_wait_p99' and target['breaching'], target
+    assert target['budget_remaining'] == 0, target
+    assert {'window', 'slo', 'anomaly'} <= {r['kind'] for r in records}
+    folded = next(t for t in summary['slo'] if t['target'] == 'queue_wait_p99')
+    assert folded['breaching_at_end'] and summary['anomaly_kinds'].get('slo_breach'), summary
+    assert any('BREACHING' in line for line in lines), lines
+    assert tracks['ventilator'] and tracks['thread'], dict(tracks)
+    assert critpath.get('bottleneck'), critpath
+    return launches
 
 
 def phase_lm_path(url):
@@ -2610,6 +2976,8 @@ def main(argv=None):
         paths['batched_bridge_path'] = {
             'normalize_images': phase_batched_bridge_path(url, main_rows_per_s)[
                 'normalize_images']}
+        paths['obs_drill_path'] = {
+            'normalize_images': phase_obs_drill_path(url, tmp)['normalize_images']}
         phase_row_resume(url)
         ngram_url = 'file://' + os.path.join(tmp, 'ngram_timeseries')
         phase_ngram_path(ngram_url, write_ngram_dataset(ngram_url))
@@ -2617,6 +2985,7 @@ def main(argv=None):
         write_lm_dataset(lm_url)
         paths['lm_path'], lm_tokens_per_s = phase_lm_path(lm_url)
         paths['traced_lm_path'] = phase_traced_lm_path(lm_url, lm_tokens_per_s, trace_dir)
+        paths['obs_lm_path'] = phase_obs_lm_path(lm_url, tmp)
         phase_lm_profile()
         bridge = phase_bridge_lm(lm_url, lm_tokens_per_s)
         paths['bridge_lm'] = {name: bridge[name] for name in FLASH_KERNELS}

@@ -37,8 +37,12 @@ from petastorm_tpu_torch import fused
 from petastorm_tpu_torch.device import staging
 from petastorm_tpu_torch.mixture import MixtureBatchReader, MixtureStream
 from petastorm_tpu_torch.telemetry import (
-    STALL_NOTE_FLOOR_S, note_consumer_wait, note_producer_wait, span, tracing,
+    STALL_NOTE_FLOOR_S, get_registry, note_consumer_wait, note_producer_wait, obs_server, span,
+    tracing,
 )
+from petastorm_tpu_torch.telemetry.export import _h2d_overlap_share
+from petastorm_tpu_torch.telemetry.registry import metric_key
+from petastorm_tpu_torch.telemetry.spans import STAGE_SECONDS
 
 logger = logging.getLogger(__name__)
 
@@ -450,6 +454,10 @@ class TorchLoader:
         # the reason this loader last decoded a deferred column itself
         # instead of letting the staging fill fuse it (None: never)
         self._fused_fallback = None
+        # the live plane's /health and /report entries; unarmed, a shared
+        # no-op handle and no thread or socket
+        self._obs_mount = obs_server.mount('torch-loader', health=self._obs_health,
+                                           report=self._obs_report)
 
     # -- iteration -----------------------------------------------------------
 
@@ -880,7 +888,48 @@ class TorchLoader:
             self._delivered_by_epoch = \
                 self._reader.consumption_record_for_resume(state)
 
+    def _obs_health(self):
+        """This loader's ``/health`` entry: who waits on whom right now
+        (the reader mounts its own entry with the pool's gauges). The
+        reference's ``staging_autotune_decisions`` reads 0 until the port
+        has the autotuner."""
+        slots = self._stager.num_slots if self._stager is not None else 0
+        return {
+            'epoch': self._epoch,
+            'exhausted': self._exhausted,
+            'batches_delivered': self._batches_delivered,
+            'stage_queue_depth': (self._out_queue.qsize()
+                                  if self._out_queue is not None else 0),
+            'prefetch': self._prefetch,
+            'consumer_wait_s': round(self._consumer_wait_s, 3),
+            'stage_backpressure_s': round(self._stage_blocked_s, 3),
+            'staging_enabled': self._stager is not None,
+            'fused_decode_mode': self._fused_decode_mode(),
+            'h2d_overlap_share': self._h2d_overlap_share(),
+            'staging_prefetch': self._prefetch,
+            'staging_slot_depth': slots,
+            'staging_autotune_decisions': 0,
+        }
+
+    @staticmethod
+    def _h2d_overlap_share():
+        """This process's live fill/transfer overlap share (None before
+        anything was staged), from the three stage counters directly:
+        ``/health`` is polled and must not build a whole report."""
+        counters = get_registry().counters_with_prefix(STAGE_SECONDS)
+        stages = {stage: {'seconds': counters.get(metric_key(STAGE_SECONDS, {'stage': stage}),
+                                                  0.0)}
+                  for stage in ('stage_fill', 'h2d_dispatch', 'h2d_ready')}
+        return _h2d_overlap_share(stages)
+
+    def _obs_report(self):
+        """This loader's ``/report`` entry: its diagnostics (pool and
+        staging gauges). The reference's ``autotune`` entry comes with
+        the autotuner."""
+        return {'torch_loader': self.diagnostics}
+
     def stop(self):
+        self._obs_mount.close()
         self._stop_event.set()
         # stop the reader first: a staging thread blocked in the reader is
         # waiting on it, and the stop event alone cannot wake it

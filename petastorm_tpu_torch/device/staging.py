@@ -202,6 +202,11 @@ class StagingEngine:
         self.fused_rows = 0
         self.fused_mode = None
 
+    @property
+    def num_slots(self):
+        """Ring depth (slots per batch signature)."""
+        return self._num_slots
+
     def _resolve_dtypes(self, parts):
         """Per-field host dtype: the cast policy wins; otherwise mixed-dtype
         parts promote like ``np.concatenate``."""

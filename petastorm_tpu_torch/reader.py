@@ -33,7 +33,7 @@ from petastorm_tpu_torch.filters import (
 )
 from petastorm_tpu_torch.parallel.sharding import default_shard_info
 from petastorm_tpu_torch.predicates import in_reduce
-from petastorm_tpu_torch.telemetry import note_consumer_wait, span, tracing
+from petastorm_tpu_torch.telemetry import note_consumer_wait, obs_server, span, tracing
 from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.workers import EmptyResultError
 from petastorm_tpu_torch.workers.dummy_pool import DummyPool
@@ -342,6 +342,9 @@ class Reader:
         self._batch_cursor = 0
         # per-epoch sets of consumed item indices (exact resume)
         self._consumed_by_epoch = {}
+        # the live plane's /health entry; unarmed, a shared no-op handle
+        # and no thread or socket
+        self._obs_mount = obs_server.mount('reader', health=self._obs_health)
 
     # -- construction helpers ------------------------------------------------
 
@@ -512,7 +515,24 @@ class Reader:
         """Requested epoch count (None = infinite)."""
         return self._num_epochs
 
+    def _obs_health(self):
+        """This reader's ``/health`` entry: iteration state and the pool's
+        diagnostics (JSON-ready scalars). The reference's ``readahead``
+        key comes with the readahead planner."""
+        return dict({
+            'started': self._started,
+            'stopped': self._stopped,
+            'last_row_consumed': self.last_row_consumed,
+            'num_epochs': self._num_epochs,
+            'row_groups': len(self._piece_indices),
+            'cur_shard': self.cur_shard,
+            'shard_count': self.shard_count,
+            'pruned_items': len(self._pruned_items),
+            'ventilate_extra': _VENTILATE_EXTRA_ROWGROUPS,
+        }, **self._pool.diagnostics)
+
     def stop(self):
+        self._obs_mount.close()
         self._pool.stop()
         self._stopped = True
 

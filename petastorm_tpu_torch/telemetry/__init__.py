@@ -14,10 +14,15 @@ the critical-path engine and the pipeline report.
   exports the recorder as Chrome trace-event JSON for Perfetto.
 * :func:`pipeline_report` / :func:`format_pipeline_report`: per-stage
   seconds, the stall verdict, the H2D overlap share and, when traced, the
-  critical path with its what-if lines.
-
-The live plane (JSONL and Prometheus exporters, time series, the
-observability server, SLOs) waits for its roadmap item.
+  critical path with its what-if lines; :func:`write_jsonl_snapshot` /
+  :func:`read_jsonl_snapshots` (JSONL) and :func:`prometheus_text`.
+* The live plane, armed by ``PETASTORM_TPU_OBS_PORT``: rollup windows
+  and the anomaly detector (:mod:`~petastorm_tpu_torch.telemetry
+  .timeseries`), SLO burn rates (:mod:`~petastorm_tpu_torch.telemetry
+  .slo`), the HTTP endpoint (:mod:`~petastorm_tpu_torch.telemetry
+  .obs_server`) and the on-disk flight log
+  (:mod:`~petastorm_tpu_torch.telemetry.obslog`). Unset, none of it
+  starts a thread or opens a socket.
 """
 
 from petastorm_tpu_torch.telemetry import knobs  # noqa: F401
@@ -41,8 +46,17 @@ from petastorm_tpu_torch.telemetry.tracing import (  # noqa: F401
 )
 from petastorm_tpu_torch.telemetry import critpath  # noqa: F401
 from petastorm_tpu_torch.telemetry.export import (  # noqa: F401
-    format_pipeline_report, pipeline_report,
+    format_pipeline_report, pipeline_report, prometheus_text, read_jsonl_snapshots,
+    write_jsonl_snapshot,
 )
+from petastorm_tpu_torch.telemetry import timeseries  # noqa: F401
+from petastorm_tpu_torch.telemetry.timeseries import (  # noqa: F401
+    AnomalyDetector, HeartbeatSummarizer, ObsCollector, WindowedRollup, recent_anomalies,
+    record_anomaly,
+)
+from petastorm_tpu_torch.telemetry import obs_server  # noqa: F401
+from petastorm_tpu_torch.telemetry import obslog  # noqa: F401
+from petastorm_tpu_torch.telemetry import slo  # noqa: F401
 
 #: registry counters the wait clocks accumulate into (seconds)
 STALL_PRODUCER_WAIT = 'petastorm_tpu_stall_producer_wait_seconds_total'
@@ -107,9 +121,20 @@ def refresh():
         fn()
 
 
+# the live plane's knobs (window, thresholds, SLO spec, log directory)
+# are re-read through the same one entry point
+register_refresh(timeseries.refresh_obs)
+
+
 def reset_for_tests():
-    """A fresh registry, attributor and flight recorder, tracing's state
-    and the planner summary cleared, knobs re-read (test isolation)."""
+    """The live plane torn down (server, sampler, SLO policy, log
+    writer), then a fresh registry, attributor and flight recorder,
+    tracing's state and the planner summary cleared, knobs re-read (test
+    isolation)."""
+    obs_server._reset_for_tests()
+    timeseries._reset_for_tests()
+    slo._reset_for_tests()
+    obslog._reset_for_tests()
     reset_registry()
     reset_attributor()
     reset_recorder()

@@ -1,16 +1,21 @@
-"""The pipeline report (counterpart of the report half of
-``petastorm_tpu/telemetry/export.py``): per-stage seconds and calls, the
-stall verdict and its windows, the staging engine's H2D overlap share,
-the selective-read (``pushdown``) section and, when tracing recorded
-stage events, the ``critical_path`` section. Reads the registry, the
-attributor and the flight recorder; never mutates them.
+"""Exporters (counterpart of ``petastorm_tpu/telemetry/export.py``): JSONL
+snapshots, the Prometheus text format and the pipeline report.
 
-The reference's other sections read subsystems the port does not have
-yet, whose counters therefore never appear here: ``cache``,
+The report holds per-stage seconds and calls, the stall verdict and its
+windows, the staging engine's H2D overlap share, the selective-read
+(``pushdown``) section, the ``anomalies`` the live plane recorded, the
+``critical_path`` section when tracing recorded stage events, and the
+``slo`` section when ``PETASTORM_TPU_SLO`` arms a policy. All three read
+the registry (the process-wide one by default) and never mutate it.
+
+The reference's other report sections read subsystems the port does not
+have yet, whose counters therefore never appear here: ``cache``,
 ``decoded_cache``, ``service``, ``readahead``, ``peer_cache``, ``write``,
-``pipesan``, ``anomalies``, ``staging_autotune`` and ``slo``. The JSONL
-and Prometheus exporters come with the live plane.
+``pipesan`` and ``staging_autotune``.
 """
+
+import json
+import time
 
 from petastorm_tpu_torch.telemetry.names import STAGES
 from petastorm_tpu_torch.telemetry.registry import get_registry
@@ -19,6 +24,104 @@ from petastorm_tpu_torch.telemetry.spans import STAGE_CALLS, STAGE_SECONDS
 #: stall-verdict horizon in sampling windows (~30 s at the 0.5 s default):
 #: recent enough that start-up and idle phases age out of the verdict
 _VERDICT_WINDOWS = 60
+
+
+# -- JSONL -------------------------------------------------------------------
+
+
+def write_jsonl_snapshot(path_or_file, registry=None, extra=None):
+    """Append one JSON line holding the registry's full state: the parsed
+    line's ``counters``, ``gauges`` and ``histograms`` equal
+    ``registry.snapshot()``. ``extra`` rides along under its own keys
+    without overwriting those; the recorded anomaly events ride under
+    ``anomalies`` when there are any."""
+    registry = registry or get_registry()
+    record = dict(extra or {})
+    record.update(registry.snapshot())
+    record.setdefault('ts', time.time())
+    from petastorm_tpu_torch.telemetry import timeseries
+    events = timeseries.recent_anomalies()
+    if events:
+        record.setdefault('anomalies', events)
+    line = json.dumps(record, sort_keys=True)
+    if hasattr(path_or_file, 'write'):
+        path_or_file.write(line + '\n')
+    else:
+        with open(path_or_file, 'a') as f:
+            f.write(line + '\n')
+
+
+def read_jsonl_snapshots(path):
+    """Every snapshot line of a JSONL metrics file, oldest first."""
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+# -- Prometheus text format --------------------------------------------------
+
+
+def _metric_families(keys):
+    """Snapshot keys (``name`` or ``name{labels}``) grouped by family name,
+    sorted."""
+    families = {}
+    for key in sorted(keys):
+        families.setdefault(key.split('{', 1)[0], []).append(key)
+    return families
+
+
+def prometheus_text(registry=None):
+    """The registry in the Prometheus text exposition format: one ``#
+    TYPE`` line a family, label values escaped (the registry escapes them
+    in the key), histograms as cumulative ``_bucket`` series with ``le``
+    ascending through ``+Inf``, then ``_sum`` and ``_count``."""
+    registry = registry or get_registry()
+    snap = registry.snapshot()
+    lines = []
+    for kind in ('counter', 'gauge'):
+        values = snap[kind + 's']
+        for name, keys in _metric_families(values).items():
+            lines.append('# TYPE %s %s' % (name, kind))
+            lines.extend('%s %s' % (key, _fmt(values[key])) for key in keys)
+    for name, keys in _metric_families(snap['histograms']).items():
+        lines.append('# TYPE %s histogram' % name)
+        for key in keys:
+            state = snap['histograms'][key]
+            cumulative = 0
+            for bound, count in zip(state['buckets'] + [float('inf')], state['counts']):
+                cumulative += count
+                lines.append('%s %d' % (_series(key, '_bucket', le=_le(bound)), cumulative))
+            lines.append('%s %s' % (_series(key, '_sum'), _fmt(state['sum'])))
+            lines.append('%s %d' % (_series(key, '_count'), state['count']))
+    return '\n'.join(lines) + '\n'
+
+
+def _le(bound):
+    if bound == float('inf'):
+        return '+Inf'
+    text = repr(bound)
+    return text[:-2] if text.endswith('.0') else text
+
+
+def _fmt(value):
+    if float(value).is_integer():
+        return str(int(value))
+    return repr(float(value))
+
+
+def _series(key, suffix, **extra_labels):
+    """``name{labels}`` → ``name<suffix>{labels + extra}``."""
+    if '{' in key:
+        name, labels = key.split('{', 1)
+        labels = labels[:-1]
+    else:
+        name, labels = key, ''
+    for k, v in sorted(extra_labels.items()):
+        pair = '%s="%s"' % (k, v)
+        labels = '%s,%s' % (labels, pair) if labels else pair
+    return '%s%s{%s}' % (name, suffix, labels) if labels else '%s%s' % (name, suffix)
+
+
+# -- pipeline report ---------------------------------------------------------
 
 
 def _label_of(key, label):
@@ -93,9 +196,16 @@ def pipeline_report(registry=None, wall_time_s=None, baseline=None, attributor=N
     pushdown = _pushdown_section(registry)
     if pushdown is not None:
         report['pushdown'] = pushdown
+    anomalies = _anomalies_section(registry)
+    if anomalies is not None:
+        report['anomalies'] = anomalies
     critical = _critical_path_section()
     if critical is not None:
         report['critical_path'] = critical
+    from petastorm_tpu_torch.telemetry import slo
+    slo_view = slo.slo_section()
+    if slo_view is not None:
+        report['slo'] = slo_view
     return report
 
 
@@ -149,6 +259,21 @@ def _pushdown_section(registry):
     }
 
 
+def _anomalies_section(registry):
+    """The live plane's anomaly events: totals by kind from the counter
+    and the last few events of the ring, each naming its runbook. Present
+    when an event was recorded or a sampler runs in this process."""
+    from petastorm_tpu_torch.telemetry import timeseries
+    by_kind = {}
+    for key, value in registry.counters_with_prefix(timeseries.ANOMALY_EVENTS).items():
+        kind = _label_of(key, 'kind') or 'unknown'
+        by_kind[kind] = by_kind.get(kind, 0) + int(value)
+    recent = timeseries.recent_anomalies(5)
+    if not by_kind and not recent and not timeseries.collector_running():
+        return None
+    return {'total': sum(by_kind.values()), 'by_kind': by_kind, 'recent': recent}
+
+
 def format_pipeline_report(report):
     """Human-readable rendering of :func:`pipeline_report`: one stage a
     line, canonical order first, then the stall verdict and whatever
@@ -182,6 +307,13 @@ def format_pipeline_report(report):
                         (' = %.1f%%' % (100 * share)) if share is not None else '',
                         p['rows_pruned'], p['late_materialized_rows'],
                         (' — declines: %s' % declines) if declines else ''))
+    if 'anomalies' in report:
+        a = report['anomalies']
+        kinds = ', '.join('%s: %d' % (k, v) for k, v in sorted(a['by_kind'].items()))
+        lines.append('anomalies: %d event(s)%s' % (a['total'], (' (%s)' % kinds) if kinds else ''))
+        for event in a['recent'][-3:]:
+            lines.append('  %s at %.0f — %s' % (event['kind'], event.get('ts') or 0.0,
+                                                event.get('runbook', '')))
     if 'critical_path' in report:
         c = report['critical_path']
         lines.append('critical path: bottleneck %s over %.3fs traced span (%d item(s), '
@@ -198,4 +330,13 @@ def format_pipeline_report(report):
             lines.append('  autotuner cross-check: %d agree / %d disagree over %d '
                          'decision(s)' % (check['agree'], check['disagree'],
                                           check['decisions']))
+    if 'slo' in report:
+        for target in report['slo']['targets']:
+            lines.append('slo %s %s %g: last %s, burn short %.2fx / long %.2fx, budget %.0f%%%s'
+                         % (target['target'], target['op'], target['threshold'],
+                            ('%.4g' % target['last_value'])
+                            if target['last_value'] is not None else '-',
+                            target['short_burn'], target['long_burn'],
+                            100 * target['budget_remaining'],
+                            ' — BREACHING' if target['breaching'] else ''))
     return '\n'.join(lines)

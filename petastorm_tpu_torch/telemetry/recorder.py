@@ -62,12 +62,12 @@ def reset_recorder():
         _global_recorder = FlightRecorder()
 
 
-def export_chrome_trace(path, events=None):
+def export_chrome_trace(path_or_file, events=None):
     """Write ``events`` (default: the process-wide recorder's snapshot) as
     Chrome trace-event JSON, viewable in Perfetto (ui.perfetto.dev) or
     ``chrome://tracing``: track labels interned to integer tids per
-    ``pid``, each announced by a ``thread_name`` metadata event. Returns
-    the number of data events written."""
+    ``pid``, each announced by a ``thread_name`` metadata event, to a path
+    or a writable text file. Returns the number of data events written."""
     if events is None:
         events = get_recorder().snapshot()
     tids = {}          # (pid, label) -> int tid
@@ -82,8 +82,12 @@ def export_chrome_trace(path, events=None):
     meta = [{'name': 'thread_name', 'ph': 'M', 'pid': pid, 'tid': tid,
              'args': {'name': label}}
             for (pid, label), tid in sorted(tids.items(), key=lambda kv: kv[1])]
-    with open(path, 'w') as f:
-        json.dump({'traceEvents': meta + out, 'displayTimeUnit': 'ms'}, f)
+    doc = {'traceEvents': meta + out, 'displayTimeUnit': 'ms'}
+    if hasattr(path_or_file, 'write'):
+        json.dump(doc, path_or_file)
+    else:
+        with open(path_or_file, 'w') as f:
+            json.dump(doc, f)
     return len(out)
 
 

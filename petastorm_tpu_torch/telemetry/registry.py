@@ -14,11 +14,19 @@ DEFAULT_DURATION_BUCKETS = (
 
 
 def metric_key(name, labels=None):
-    """``name`` or ``name{k="v",...}`` with label keys sorted."""
+    """``name`` or ``name{k="v",...}`` with label keys sorted and label
+    values escaped as Prometheus escapes them."""
     if not labels:
         return name
-    inner = ','.join('%s="%s"' % (k, v) for k, v in sorted(labels.items()))
+    inner = ','.join('%s="%s"' % (k, _escape_label(str(v)))
+                     for k, v in sorted(labels.items()))
     return '%s{%s}' % (name, inner)
+
+
+def _escape_label(value):
+    """Prometheus label-value escaping (backslash, quote, newline)."""
+    return (value.replace('\\', '\\\\').replace('"', '\\"')
+            .replace('\n', '\\n'))
 
 
 class Counter:
@@ -72,7 +80,11 @@ class Histogram:
     __slots__ = ('buckets', '_counts', '_sum', '_count', '_lock')
 
     def __init__(self, buckets=DEFAULT_DURATION_BUCKETS):
-        self.buckets = tuple(float(b) for b in buckets)
+        buckets = tuple(float(b) for b in buckets)
+        if not buckets or list(buckets) != sorted(set(buckets)):
+            raise ValueError('histogram buckets must be strictly ascending; '
+                             'got %r' % (buckets,))
+        self.buckets = buckets
         self._counts = [0] * (len(self.buckets) + 1)
         self._sum = 0.0
         self._count = 0
@@ -84,6 +96,14 @@ class Histogram:
             self._counts[idx] += 1
             self._sum += value
             self._count += 1
+
+    @property
+    def sum(self):
+        return self._sum
+
+    @property
+    def count(self):
+        return self._count
 
     def state(self):
         with self._lock:
@@ -98,13 +118,13 @@ class MetricsRegistry:
         self._lock = threading.Lock()
         self._metrics = {Counter: {}, Gauge: {}, Histogram: {}}
 
-    def _get(self, kind, name, labels):
+    def _get(self, kind, name, labels, *args):
         key = metric_key(name, labels)
         table = self._metrics[kind]
         metric = table.get(key)
         if metric is None:
             with self._lock:
-                metric = table.setdefault(key, kind())
+                metric = table.setdefault(key, kind(*args))
         return metric
 
     def counter(self, name, **labels):
@@ -113,8 +133,8 @@ class MetricsRegistry:
     def gauge(self, name, **labels):
         return self._get(Gauge, name, labels)
 
-    def histogram(self, name, **labels):
-        return self._get(Histogram, name, labels)
+    def histogram(self, name, buckets=DEFAULT_DURATION_BUCKETS, **labels):
+        return self._get(Histogram, name, labels, buckets)
 
     def _value(self, kind, name, labels):
         metric = self._metrics[kind].get(metric_key(name, labels))

@@ -54,6 +54,9 @@ def test_port_has_modules_to_scan():
                    ('telemetry', 'recorder.py'), ('telemetry', 'tracing.py'),
                    ('telemetry', 'stall.py'), ('telemetry', 'critpath.py'),
                    ('telemetry', 'export.py'), ('telemetry', '__init__.py'),
+                   ('telemetry', 'timeseries.py'), ('telemetry', 'slo.py'),
+                   ('telemetry', 'obs_server.py'), ('telemetry', 'obslog.py'),
+                   ('tools', '__init__.py'), ('tools', 'obs_replay.py'),
                    ('workers', 'ventilator.py'), ('workers', 'thread_pool.py'),
                    ('workers', 'dummy_pool.py')):
         assert os.path.join('petastorm_tpu_torch', *module) in rel
@@ -101,3 +104,38 @@ def test_port_event_names_are_the_references():
                 recorded.add(node.args[0].value)
     assert recorded == {'queue_wait', 'mixture_pull'}
     assert recorded <= set(STAGES) | set(EVENT_NAMES)
+
+
+def test_port_anomaly_kinds_are_the_references():
+    """Every literal kind the port records (``record_anomaly(...)`` and the
+    detector's ``_fire(...)``) is a key of its copy of ``ANOMALY_KINDS``,
+    and that copy equals the JAX package's, runbook headings included."""
+    from petastorm_tpu.analysis.contracts import ANOMALY_KINDS as JAX_ANOMALY_KINDS
+    from petastorm_tpu_torch.telemetry.names import ANOMALY_KINDS
+    assert ANOMALY_KINDS == JAX_ANOMALY_KINDS
+    recorded = set()
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Call)
+                    and getattr(node.func, 'attr', getattr(node.func, 'id', None))
+                    in ('record_anomaly', '_fire')
+                    and node.args and isinstance(node.args[0], ast.Constant)):
+                recorded.add(node.args[0].value)
+    assert recorded == {'queue_saturated', 'h2d_starvation', 'throughput_collapse',
+                        'stall_flap', 'heartbeat_gap', 'slo_breach'}
+    assert recorded <= set(ANOMALY_KINDS)
+
+
+def test_port_knobs_are_the_references():
+    """The live plane's knobs are registered in the port, and every knob
+    the port registers is one the JAX package registers."""
+    from petastorm_tpu.analysis.contracts import KNOWN_KNOBS as JAX_KNOBS
+    from petastorm_tpu_torch.telemetry.names import KNOWN_KNOBS
+    assert KNOWN_KNOBS <= set(JAX_KNOBS)
+    assert {'PETASTORM_TPU_OBS_PORT', 'PETASTORM_TPU_OBS_HOST', 'PETASTORM_TPU_OBS_WINDOW_SEC',
+            'PETASTORM_TPU_OBS_WINDOWS', 'PETASTORM_TPU_OBS_SATURATED_SHARE',
+            'PETASTORM_TPU_OBS_COLLAPSE_FRAC', 'PETASTORM_TPU_OBS_FLAP_FLIPS',
+            'PETASTORM_TPU_OBS_LOG_DIR', 'PETASTORM_TPU_OBS_LOG_MB',
+            'PETASTORM_TPU_SLO'} <= KNOWN_KNOBS

@@ -39,7 +39,7 @@ PACKAGES = {'jax': (jax_telemetry, jax_reader), 'torch': (torch_telemetry, torch
 
 #: report sections of subsystems the port does not have yet
 PORT_LACKS = {'cache', 'decoded_cache', 'service', 'readahead', 'peer_cache', 'write',
-              'pipesan', 'anomalies', 'staging_autotune', 'slo'}
+              'pipesan', 'staging_autotune'}
 
 
 @pytest.fixture(scope='module')

@@ -8,7 +8,14 @@ the environment, so the closing reset reads the restored knobs. It then
 fails the test, inside the file that caused it, if the JAX package's
 tracing or span caches, the SIGUSR1 handler, the ``PETASTORM_TPU_*``
 environment or the JAX recorder differ from what they were before, or if
-a port thread (``petastorm-tpu-torch-*``) is still running.
+a port thread (``petastorm-tpu-torch-*``) is still running. For the live
+plane it also fails the test when, after that reset, either package
+still has an observability thread (``petastorm-tpu-obs*`` or
+``petastorm-tpu-torch-obs*``), an HTTP server, a sampler, an SLO policy
+or a flight-log writer, or when a ``PETASTORM_TPU_OBS_*`` or
+``PETASTORM_TPU_SLO`` variable is still set: a reference server that
+outlived a parity test would break a later reference test in the same
+worker.
 
 ``armed_dump`` is for a test that sets ``PETASTORM_TPU_TRACE_DUMP``: it
 restores the SIGUSR1 handler it found and unregisters the ``atexit``
@@ -26,14 +33,26 @@ import numpy as np
 import pytest
 
 from petastorm_tpu import telemetry as jax_telemetry
+from petastorm_tpu.telemetry import obs_server as jax_obs_server
+from petastorm_tpu.telemetry import obslog as jax_obslog
 from petastorm_tpu.telemetry import recorder as jax_recorder
+from petastorm_tpu.telemetry import slo as jax_slo
 from petastorm_tpu.telemetry import spans as jax_spans
+from petastorm_tpu.telemetry import timeseries as jax_timeseries
 from petastorm_tpu.telemetry import tracing as jax_tracing
 from petastorm_tpu_torch import telemetry as torch_telemetry
+from petastorm_tpu_torch.telemetry import obs_server as torch_obs_server
+from petastorm_tpu_torch.telemetry import obslog as torch_obslog
+from petastorm_tpu_torch.telemetry import slo as torch_slo
 from petastorm_tpu_torch.telemetry import spans as torch_spans
+from petastorm_tpu_torch.telemetry import timeseries as torch_timeseries
 from petastorm_tpu_torch.telemetry import tracing as torch_tracing
 
 PORT_THREAD_PREFIX = 'petastorm-tpu-torch-'
+#: thread-name prefixes of both packages' observability planes
+OBS_THREAD_PREFIXES = ('petastorm-tpu-obs', 'petastorm-tpu-torch-obs')
+#: environment knobs that arm or shape the live plane
+OBS_ENV_PREFIXES = ('PETASTORM_TPU_OBS_', 'PETASTORM_TPU_SLO')
 #: JAX-only knobs that keep the reference's pipeline the port's shape
 #: (the port has no readahead plane yet)
 JAX_ONLY_OFF = ('PETASTORM_TPU_READAHEAD',)
@@ -47,6 +66,27 @@ def reset_both():
 
 def _port_threads():
     return [t for t in threading.enumerate() if t.name.startswith(PORT_THREAD_PREFIX)]
+
+
+def _obs_leftovers():
+    """What of either package's live plane is still there."""
+    found = {}
+    threads = [t.name for t in threading.enumerate() if t.name.startswith(OBS_THREAD_PREFIXES)]
+    if threads:
+        found['threads'] = threads
+    for pkg, server, timeseries, slo, obslog in (
+            ('jax', jax_obs_server, jax_timeseries, jax_slo, jax_obslog),
+            ('port', torch_obs_server, torch_timeseries, torch_slo, torch_obslog)):
+        for name, value in (('obs_server._state.server', server._state.server),
+                            ('timeseries._collector', timeseries._collector),
+                            ('slo._policy', slo._policy),
+                            ('obslog._writer', obslog._writer)):
+            if value is not None:
+                found['%s %s' % (pkg, name)] = value
+    env = {k: v for k, v in os.environ.items() if k.startswith(OBS_ENV_PREFIXES)}
+    if env:
+        found['environment'] = env
+    return found
 
 
 def _global_state():
@@ -76,6 +116,10 @@ def telemetry_guard():
     while _port_threads() and time.monotonic() < deadline:
         time.sleep(0.01)
     assert not _port_threads(), 'port threads left running: %s' % _port_threads()
+    while _obs_leftovers().get('threads') and time.monotonic() < deadline:
+        time.sleep(0.01)
+    leftovers = _obs_leftovers()
+    assert not leftovers, 'observability plane left behind: %s' % leftovers
     after = _global_state()
     leaked = {k: (before[k], after[k]) for k in before if before[k] != after[k]}
     assert not leaked, 'process-global telemetry state leaked: %s' % leaked
