@@ -300,6 +300,10 @@ class CompressedImageCodec(DataframeColumnCodec):
             code = (cv2.COLOR_BGR2RGB if image.shape[2] == 3
                     else cv2.COLOR_BGRA2RGBA)
             image = cv2.cvtColor(image, code)
+        # Every branch above leaves `image` a buffer cv2 freshly
+        # allocated for THIS call (imdecode or cvtColor); when no cast is
+        # needed astype(copy=False) returns that same owned array, so
+        # ownership transfers cleanly to the caller.  # pipesan: owns
         return image.astype(unischema_field.numpy_dtype, copy=False)
 
     def _decode_into(self, unischema_field, encoded, dst):

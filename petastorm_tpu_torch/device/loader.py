@@ -851,6 +851,10 @@ class TorchLoader:
             'pulls_in_flight': len(self._pull_info),
             'staging_slots_allocated': (self._stager.slabs_allocated
                                         if self._stager is not None else 0),
+            'staging_slot_refills': (self._stager.slot_refills
+                                     if self._stager is not None else 0),
+            'staging_slabs_quarantined': (self._stager.slabs_quarantined
+                                          if self._stager is not None else 0),
             'fused_decode_mode': self._fused_decode_mode(),
             'fused_decode_rows': self._stager.fused_rows if self._stager is not None else 0,
         })

@@ -25,6 +25,13 @@ Pinning and the completion event belong to the target
 (:class:`CudaTarget`), so the ring logic also runs on a CPU build of torch
 with unpinned slots and a fake event (the tests do).
 
+``PETASTORM_TPU_SANITIZE=1`` (:mod:`petastorm_tpu_torch.sanitizer`,
+resolved once per engine) guards the ring: each slot's field tensors are
+views into flat uint8 slabs with poisoned red zones, verified before every
+refill, and a weakref census of the host views handed to the transfer
+quarantines a slot whose views outlived it. Fresh assembly is never
+recycled, so it stays unguarded.
+
 ``dtypes=`` takes numpy or torch dtypes. A torch dtype with no numpy
 counterpart (``torch.bfloat16``) is staged in the source dtype and cast on
 the device after the copy; every other cast happens during the host copy.
@@ -35,6 +42,7 @@ import contextlib
 import numpy as np
 import torch
 
+from petastorm_tpu_torch import sanitizer
 from petastorm_tpu_torch.fused import EncodedImageColumn, count_fallback
 from petastorm_tpu_torch.ragged import STRING_MESSAGE, reject_object_column
 from petastorm_tpu_torch.telemetry import (
@@ -163,14 +171,22 @@ class Handoff:
 
 class _Slot:
     """One ring slot: host tensors, their numpy views, and the completion
-    event of the transfer last dispatched from it."""
+    event of the transfer last dispatched from it. Under the sanitizer it
+    also owns each field's guarded slab and the census of its last
+    dispatch's views."""
 
-    __slots__ = ('tensors', 'views', 'event')
+    __slots__ = ('tensors', 'views', 'event', 'slabs', 'census')
 
-    def __init__(self, tensors):
-        self.tensors = tensors
-        self.views = {name: t.numpy() for name, t in tensors.items()}
+    def __init__(self, tensors, slabs=None):
         self.event = None
+        self.census = None if slabs is None else sanitizer.ViewCensus()
+        self.back(tensors, slabs)
+
+    def back(self, tensors, slabs=None):
+        """(Re)point the slot at its host memory."""
+        self.tensors = tensors
+        self.slabs = slabs
+        self.views = {name: t.numpy() for name, t in tensors.items()}
 
     def await_retired(self):
         """Block until the transfer previously dispatched from this slot has
@@ -196,6 +212,14 @@ class StagingEngine:
         self._rings = {}            # signature -> (slots, [cursor])
         #: ring slots allocated (startup only in steady state)
         self.slabs_allocated = 0
+        # pipesan: resolved once here, so the unarmed path pays one
+        # attribute read per batch
+        self._sanitize = sanitizer.sanitize_enabled()
+        #: slots re-backed because a dispatched view outlived its slot
+        self.slabs_quarantined = 0
+        #: ring stages that refilled a slot used before (each waited on its
+        #: previous handoff's event; armed, each verified its red zones)
+        self.slot_refills = 0
         #: rows decoded straight into staging buffers, and where:
         #: ``'fused-into-slot'`` (the pinned ring) or ``'fused-into-slab'``
         #: (fresh assembly)
@@ -218,16 +242,22 @@ class StagingEngine:
             resolved[name] = want
         return resolved
 
-    def _new_tensors(self, columns, dtype_map, with_mask, pin):
-        tensors = {
-            name: torch.empty((self._batch_size,) + arr.shape[1:],
-                              dtype=torch_dtype_of(dtype_map[name], name),
-                              pin_memory=pin)
-            for name, arr in columns.items()}
+    def _new_tensors(self, columns, dtype_map, with_mask, pin, guarded=False):
+        """``(tensors, slabs)`` of one batch's host memory. ``guarded``
+        (sanitizer armed, ring slots only) makes each tensor a view into its
+        own slab with poisoned red zones; ``slabs`` is None otherwise."""
+        specs = {name: ((self._batch_size,) + arr.shape[1:],
+                        torch_dtype_of(dtype_map[name], name))
+                 for name, arr in columns.items()}
         if with_mask:
-            tensors[MASK_FIELD] = torch.empty((self._batch_size,), dtype=torch.bool,
-                                              pin_memory=pin)
-        return tensors
+            specs[MASK_FIELD] = ((self._batch_size,), torch.bool)
+        if not guarded:
+            return {name: torch.empty(shape, dtype=dtype, pin_memory=pin)
+                    for name, (shape, dtype) in specs.items()}, None
+        tensors, slabs = {}, {}
+        for name, (shape, dtype) in specs.items():
+            slabs[name], tensors[name] = sanitizer.allocate_guarded(shape, dtype, pin)
+        return tensors, slabs
 
     def _next_slot(self, columns, dtype_map, with_mask):
         sig = (with_mask,) + tuple(
@@ -235,8 +265,8 @@ class StagingEngine:
             for name, arr in sorted(columns.items()))
         ring = self._rings.get(sig)
         if ring is None:
-            slots = [_Slot(self._new_tensors(columns, dtype_map, with_mask,
-                                             self._target.pin_memory))
+            slots = [_Slot(*self._new_tensors(columns, dtype_map, with_mask,
+                                              self._target.pin_memory, self._sanitize))
                      for _ in range(self._num_slots)]
             self.slabs_allocated += len(slots)
             ring = self._rings[sig] = (slots, [0])
@@ -260,7 +290,7 @@ class StagingEngine:
         dtype_map = self._resolve_dtypes(parts)
         if self._target is None:
             with span('stage_fill'):
-                tensors = self._new_tensors(parts[0], dtype_map, with_mask, pin=False)
+                tensors, _ = self._new_tensors(parts[0], dtype_map, with_mask, pin=False)
                 views = {name: t.numpy() for name, t in tensors.items()}
                 n = self._fill(views, parts, n_valid, with_mask)
                 host = {name: t[:n] for name, t in tensors.items()}
@@ -272,18 +302,50 @@ class StagingEngine:
                 return Handoff({name: t.to(self._device) for name, t in host.items()})
             return Handoff(host)
         slot = self._next_slot(parts[0], dtype_map, with_mask)
+        if slot.event is not None:
+            self.slot_refills += 1
         with span('h2d_ready'):
             # gate the refill on the slot's PREVIOUS handoff; with ≥2 slots
             # that is never the batch just handed to the consumer
             slot.await_retired()
+        if self._sanitize:
+            self._sanitize_recycle(slot, parts[0], dtype_map, with_mask)
         with span('stage_fill'):
             n = self._fill(slot.views, parts, n_valid, with_mask)
         host = {name: t[:n] for name, t in slot.tensors.items()}
         with span('h2d_dispatch'):
             tensors, event = self._target.transfer(host, self._device_casts)
         slot.event = event
+        if self._sanitize:
+            # the views just handed to the transfer: any that still
+            # resolve when this slot comes up for refilling outlived it
+            slot.census.register(host.values())
         self._account(host)
         return Handoff(tensors, event, self._target)
+
+    def _sanitize_recycle(self, slot, columns, dtype_map, with_mask):
+        """pipesan refill gate (armed only, after the slot's event): abort
+        the refill when a view of the last dispatch is still alive (its
+        holder keeps the old slab — quarantine, no corruption), else verify
+        the red zones before the fill overwrites the slab."""
+        escaped = slot.census.escaped()
+        if escaped:
+            sanitizer.record_violation(
+                'staging-use-after-recycle',
+                '%d staged view(s) still alive when their slot came up for '
+                'recycling; recycle aborted — slot re-backed with fresh '
+                'buffers' % escaped)
+            slot.back(*self._new_tensors(columns, dtype_map, with_mask,
+                                         self._target.pin_memory, guarded=True))
+            slot.census = sanitizer.ViewCensus()
+            self.slabs_quarantined += 1
+            return
+        for name, slab in slot.slabs.items():
+            if not sanitizer.check_canaries(slab):
+                sanitizer.record_violation(
+                    'staging-canary-trampled',
+                    'red zone around staging slot field %r overwritten while '
+                    'the slot was out — a write ran past its bounds' % name)
 
     def _fill(self, buffers, parts, n, with_mask):
         """Cast/pad/mask-assemble ``parts`` into ``buffers``; returns the

@@ -18,6 +18,7 @@ import fcntl
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
 import threading
 import time
@@ -32,6 +33,12 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 CC_FLAGS = ('-O3', '-pthread', '-shared', '-fPIC')
 #: host library (``native/<name>.c``) -> the system libraries it links
 HOST_LIBRARIES = {'npy_batch': (), 'jpeg_batch': ('-ljpeg',), 'png_batch': ('-lz',)}
+
+#: seconds one compiler may run before it is killed and its build fails.
+#: A hung compiler would otherwise hold the checkout's build lock, and every
+#: process that loads a library for the first time would wait on it forever;
+#: ``flash_attention.cu``, the slowest source, takes about 20 s of ``nvcc``.
+BUILD_TIMEOUT_S = 300
 
 _lock = threading.Lock()
 _loaded = {}
@@ -72,7 +79,7 @@ def library_path(name):
 def build(names):
     """Compile every not-yet-built library of ``names``, one compiler per
     source, all started together, under the checkout's build lock;
-    raises if any fails."""
+    raises if any fails or outlives :data:`BUILD_TIMEOUT_S`."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, '.build.lock'), 'w') as lock:
         fcntl.flock(lock.fileno(), fcntl.LOCK_EX)
@@ -84,18 +91,46 @@ def build(names):
             source, flags, libraries, compiler = _recipe(name)
             tmp = '%s.%d.tmp' % (out, os.getpid())
             cmd = [compiler(), *flags, '-o', tmp, source, *libraries]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-            running.append((name, out, tmp, proc, time.monotonic()))
+            # The lock's winner builds; its waiters then find the library.
+            # Blocking inside the flock is the point (no waiter may load a
+            # half-written library), and each compiler is bounded by
+            # BUILD_TIMEOUT_S below, so the under-lock rule is waived here.
+            # Its own session, so a kill reaches the compiler's children
+            # (nvcc's cicc and ptxas), which hold its output pipe open.
+            proc = subprocess.Popen(  # pipecheck: disable=blocking-under-lock
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                start_new_session=True)
+            running.append((name, source, out, tmp, proc, time.monotonic()))
         failures = []
-        for name, out, tmp, proc, t0 in running:
-            log = proc.communicate()[0].decode('utf-8', 'replace')
-            build_log[name] = {'seconds': time.monotonic() - t0, 'log': log}
-            if proc.returncode != 0:
-                failures.append('%s (rc %d):\n%s' % (name, proc.returncode, log))
-                continue
-            os.replace(tmp, out)
+        try:
+            for name, source, out, tmp, proc, t0 in running:
+                try:
+                    log = proc.communicate(
+                        timeout=max(0.0, t0 + BUILD_TIMEOUT_S - time.monotonic()))[0]
+                except subprocess.TimeoutExpired:
+                    raise RuntimeError('build of %s: the compiler ran past %g s and was '
+                                       'killed' % (source, BUILD_TIMEOUT_S)) from None
+                log = log.decode('utf-8', 'replace')
+                build_log[name] = {'seconds': time.monotonic() - t0, 'log': log}
+                if proc.returncode != 0:
+                    failures.append('%s (rc %d):\n%s' % (name, proc.returncode, log))
+                    continue
+                os.replace(tmp, out)
+        finally:
+            _reap(running)
     if failures:
         raise RuntimeError('build failed for ' + '\n'.join(failures))
+
+
+def _reap(running):
+    """Kill the compilers still running (a build that raised), with their
+    children, and remove their partial outputs."""
+    for _, _, _, tmp, proc, _ in running:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def load(name):

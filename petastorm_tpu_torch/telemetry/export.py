@@ -3,15 +3,16 @@ snapshots, the Prometheus text format and the pipeline report.
 
 The report holds per-stage seconds and calls, the stall verdict and its
 windows, the staging engine's H2D overlap share, the selective-read
-(``pushdown``) section, the ``anomalies`` the live plane recorded, the
-``critical_path`` section when tracing recorded stage events, and the
-``slo`` section when ``PETASTORM_TPU_SLO`` arms a policy. All three read
-the registry (the process-wide one by default) and never mutate it.
+(``pushdown``) section, the ``pipesan`` sanitizer's findings, the
+``anomalies`` the live plane recorded, the ``critical_path`` section when
+tracing recorded stage events, and the ``slo`` section when
+``PETASTORM_TPU_SLO`` arms a policy. All three read the registry (the
+process-wide one by default) and never mutate it.
 
 The reference's other report sections read subsystems the port does not
 have yet, whose counters therefore never appear here: ``cache``,
-``decoded_cache``, ``service``, ``readahead``, ``peer_cache``, ``write``,
-``pipesan`` and ``staging_autotune``.
+``decoded_cache``, ``service``, ``readahead``, ``peer_cache``, ``write``
+and ``staging_autotune``.
 """
 
 import json
@@ -196,6 +197,9 @@ def pipeline_report(registry=None, wall_time_s=None, baseline=None, attributor=N
     pushdown = _pushdown_section(registry)
     if pushdown is not None:
         report['pushdown'] = pushdown
+    pipesan = _sanitizer_section(registry)
+    if pipesan is not None:
+        report['pipesan'] = pipesan
     anomalies = _anomalies_section(registry)
     if anomalies is not None:
         report['anomalies'] = anomalies
@@ -259,6 +263,30 @@ def _pushdown_section(registry):
     }
 
 
+def _sanitizer_section(registry):
+    """pipesan findings: present when the sanitizer is armed
+    (``PETASTORM_TPU_SANITIZE=1``) or violations were recorded, so unarmed
+    reports keep their shape. ``recent`` carries the last few violations
+    of the in-process ring (kind, detail, ts)."""
+    from petastorm_tpu_torch import sanitizer
+    by_kind = {}
+    for key, value in registry.counters_with_prefix(sanitizer.SANITIZER_VIOLATIONS).items():
+        kind = _label_of(key, 'kind') or 'unknown'
+        by_kind[kind] = by_kind.get(kind, 0) + int(value)
+    total = sum(by_kind.values())
+    enabled = sanitizer.sanitize_enabled()
+    if not enabled and not total:
+        return None
+    return {
+        'enabled': enabled,
+        'violations': total,
+        'by_kind': by_kind,
+        'views_guarded': int(registry.counter_value(sanitizer.SANITIZER_VIEWS_GUARDED)),
+        'canary_checks': int(registry.counter_value(sanitizer.SANITIZER_CANARY_CHECKS)),
+        'recent': sanitizer.violations()[-5:],
+    }
+
+
 def _anomalies_section(registry):
     """The live plane's anomaly events: totals by kind from the counter
     and the last few events of the ring, each naming its runbook. Present
@@ -307,6 +335,14 @@ def format_pipeline_report(report):
                         (' = %.1f%%' % (100 * share)) if share is not None else '',
                         p['rows_pruned'], p['late_materialized_rows'],
                         (' — declines: %s' % declines) if declines else ''))
+    if 'pipesan' in report:
+        p = report['pipesan']
+        kinds = ', '.join('%s: %d' % (k, v) for k, v in sorted(p['by_kind'].items()))
+        lines.append('pipesan: %s — %d violation(s)%s, %d view(s) forced read-only, '
+                     '%d canary check(s)'
+                     % ('armed' if p['enabled'] else 'off', p['violations'],
+                        (' (%s)' % kinds) if kinds else '', p['views_guarded'],
+                        p['canary_checks']))
     if 'anomalies' in report:
         a = report['anomalies']
         kinds = ', '.join('%s: %d' % (k, v) for k, v in sorted(a['by_kind'].items()))

@@ -58,7 +58,13 @@ def test_port_has_modules_to_scan():
                    ('telemetry', 'obs_server.py'), ('telemetry', 'obslog.py'),
                    ('tools', '__init__.py'), ('tools', 'obs_replay.py'),
                    ('workers', 'ventilator.py'), ('workers', 'thread_pool.py'),
-                   ('workers', 'dummy_pool.py')):
+                   ('workers', 'dummy_pool.py'), ('sanitizer.py',), ('ops', 'build.py'),
+                   ('analysis', '__init__.py'), ('analysis', '__main__.py'),
+                   ('analysis', 'contracts.py'), ('analysis', 'findings.py'),
+                   ('analysis', 'core.py'), ('analysis', 'callgraph.py'),
+                   ('analysis', 'pass_env_knobs.py'), ('analysis', 'pass_names.py'),
+                   ('analysis', 'pass_locks.py'), ('analysis', 'pass_threads.py'),
+                   ('analysis', 'pass_payloads.py'), ('analysis', 'pass_buffers.py')):
         assert os.path.join('petastorm_tpu_torch', *module) in rel
     assert len(rel) > 20
 
@@ -67,6 +73,22 @@ def test_port_has_modules_to_scan():
 def test_module_imports_nothing_of_jax(path):
     bad = sorted(set(_imported_roots(os.path.join(ROOT, path))) & set(FORBIDDEN))
     assert not bad, '%s imports %s' % (path, bad)
+
+
+@pytest.mark.parametrize('path', [os.path.relpath(p, ROOT) for p in _sources()
+                                  if os.sep + 'analysis' + os.sep in p])
+def test_analyzer_imports_only_the_stdlib_and_the_names(path):
+    """pipecheck stays stdlib-only, as the reference's is: of the port it
+    reads only its own modules and the one registry, and no torch."""
+    roots = set(_imported_roots(os.path.join(ROOT, path)))
+    assert not roots & {'torch', 'triton', 'numpy', 'pyarrow'}, (path, roots)
+    with open(os.path.join(ROOT, path)) as f:
+        tree = ast.parse(f.read(), path)
+    port = {node.module for node in ast.walk(tree)
+            if isinstance(node, ast.ImportFrom) and node.module
+            and node.module.split('.')[0] == 'petastorm_tpu_torch'}
+    assert all(m.startswith('petastorm_tpu_torch.analysis')
+               or m == 'petastorm_tpu_torch.telemetry.names' for m in port), (path, port)
 
 
 def test_port_stage_names_are_the_references():

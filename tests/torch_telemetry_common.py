@@ -15,7 +15,11 @@ still has an observability thread (``petastorm-tpu-obs*`` or
 or a flight-log writer, or when a ``PETASTORM_TPU_OBS_*`` or
 ``PETASTORM_TPU_SLO`` variable is still set: a reference server that
 outlived a parity test would break a later reference test in the same
-worker.
+worker. ``PETASTORM_TPU_SANITIZE`` arms both packages' sanitizers too, and
+each caches the knob: the guard resets both (after ``monkeypatch``'s
+restore) and fails a test that leaves either's cache or violation ring
+changed, or the knob set, so a parity test that armed a reference engine
+cannot make a later reference test run armed.
 
 ``armed_dump`` is for a test that sets ``PETASTORM_TPU_TRACE_DUMP``: it
 restores the SIGUSR1 handler it found and unregisters the ``atexit``
@@ -32,6 +36,7 @@ import time
 import numpy as np
 import pytest
 
+from petastorm_tpu import sanitizer as jax_sanitizer
 from petastorm_tpu import telemetry as jax_telemetry
 from petastorm_tpu.telemetry import obs_server as jax_obs_server
 from petastorm_tpu.telemetry import obslog as jax_obslog
@@ -40,6 +45,7 @@ from petastorm_tpu.telemetry import slo as jax_slo
 from petastorm_tpu.telemetry import spans as jax_spans
 from petastorm_tpu.telemetry import timeseries as jax_timeseries
 from petastorm_tpu.telemetry import tracing as jax_tracing
+from petastorm_tpu_torch import sanitizer as torch_sanitizer
 from petastorm_tpu_torch import telemetry as torch_telemetry
 from petastorm_tpu_torch.telemetry import obs_server as torch_obs_server
 from petastorm_tpu_torch.telemetry import obslog as torch_obslog
@@ -62,6 +68,8 @@ _DUMP_FLAGS = ('_atexit_installed', '_signal_installed')
 def reset_both():
     jax_telemetry.reset_for_tests()
     torch_telemetry.reset_for_tests()
+    jax_sanitizer.reset_for_tests()
+    torch_sanitizer.reset_for_tests()
 
 
 def _port_threads():
@@ -100,6 +108,10 @@ def _global_state():
         'port tracing._enabled': torch_tracing._enabled,
         'port spans._trace_hook': torch_spans._trace_hook,
         'port dump hooks': tuple(getattr(torch_tracing, f) for f in _DUMP_FLAGS),
+        'jax sanitizer._enabled': jax_sanitizer._enabled,
+        'jax sanitizer violations': jax_sanitizer.violations(),
+        'port sanitizer._enabled': torch_sanitizer._enabled,
+        'port sanitizer violations': torch_sanitizer.violations(),
         'SIGUSR1 handler': signal.getsignal(signal.SIGUSR1),
         'PETASTORM_TPU_* environment': {k: v for k, v in os.environ.items()
                                         if k.startswith('PETASTORM_TPU_')},
