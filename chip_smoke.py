@@ -220,6 +220,29 @@ outlives its phase.
     (counted, in the report's ``recent``), the zone is poisoned again and
     the refill after it is clean; and a non-blocking copy from a pinned
     slice keeps no Python reference to the slice.
+33. ``decoded_cache_vit_path`` (after ``selective_vit_path``):
+    vit-imagenetlike-384 through ``make_torch_loader(cache_type='decoded')``
+    on the thread pool in dataset order: an uncached fused epoch, then one
+    loader's cold epoch (the workers decode PNG and publish each row-group
+    as an Arrow IPC entry) and its replay (entries memory-mapped back,
+    the default 256 MB memory tier in play). Both epochs' batch and row
+    digests equal the uncached epoch's; the warm epoch is all hits and
+    ``cache-bound``; cold, warm and uncached images/s, memory hits, mmap
+    reads and bytes written are printed. Then ``VIT_STEPS`` ViT-Base
+    steps on batches the warm cache serves: 20 normalize and 240 launches
+    of each flash kernel. Last, with ``PETASTORM_TPU_SANITIZE=1`` and a
+    memory tier of ``CACHE_ARMED_MEM_MB``, a cold epoch in a fresh
+    directory and its replay from memory: the same digests, views
+    guarded, no violation.
+34. ``chaos_path``: faults armed one at a time through
+    ``PETASTORM_TPU_FAULTS``: ENOSPC on every decoded-cache store of a
+    cold epoch (the uncached rows, one ``cache_degraded``, one failure
+    counted, no entry), a poisoned row-group (``FaultInjected`` naming
+    it, threads joined), a failed dispatch after three batches (three
+    batches, then ``FaultInjected``; slots released; a fresh loader reads
+    the epoch), a faulted footer under the selective read (nothing
+    pruned, the 304 survivors); the injector's fires equal the injection
+    counter per site.
 ``--trace-dir DIR`` keeps the two Chrome traces in ``DIR``.
 
 Then the ``kernels`` summary (each kernel's launches on every path), the
@@ -384,6 +407,12 @@ WEIGHTED_ROWS = 64 * 200
 # filters= on every 4th of the distinct labels
 SELECTIVE_LABEL_STRIDE = 4
 SELECTIVE_STEPS = 8
+# decoded_cache_vit_path: the disk tier's bound, and a memory tier that
+# holds the whole decoded set (1,024 x 384 x 384 x 3 bytes = 453 MB)
+CACHE_DISK_LIMIT = 2 * 10 ** 9
+CACHE_ARMED_MEM_MB = 1024
+# chaos_path: a drill that has not ended by then has hung
+CHAOS_DEADLINE_S = 120
 # dp-lm: two gloo ranks on the one card feed the flagship
 DP_RANKS = 2
 DP_STEPS = 5                 # the first is held against one process; the rest timed
@@ -2945,6 +2974,301 @@ def phase_selective_vit_path(url, image_codec, labels, vit_images_per_s):
     return launches
 
 
+def _digest_pass(batches):
+    """Sorted sha256 digests of a pass's batches and sha1 digests of its
+    rows (image bytes, then label): each batch is a quarter of one 64-row
+    group, so both multisets are the same for any completion order."""
+    import hashlib
+    batch_digests, row_digests = [], []
+    for batch in batches:
+        images = batch['image'].cpu().numpy()
+        labels = batch['label'].cpu().numpy()
+        digest = hashlib.sha256(images.tobytes())
+        digest.update(labels.tobytes())
+        batch_digests.append(digest.hexdigest())
+        for image, label in zip(images, labels):
+            row = hashlib.sha1(image.tobytes())
+            row.update(label.tobytes())
+            row_digests.append(row.hexdigest())
+    return sorted(batch_digests), sorted(row_digests)
+
+
+def _loader_passes(url, passes, **kwargs):
+    """``passes`` epochs of the ViT rows through one ``make_torch_loader``
+    on the card (the pool's default workers, row-groups in dataset order,
+    every tail row kept); each pass after the first is a replay of the
+    same reader, so a cache's memory tier carries over. Per pass: images/s
+    with the card's batches held (no digest work in the timing), the
+    digests (``_digest_pass``), the pass's ``decoded_cache`` section and
+    stage seconds (``pipeline_report(baseline=)``) and the diagnostics."""
+    from petastorm_tpu_torch import telemetry
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    out = []
+    with make_torch_loader(url, VIT_BATCH, fields=['^image$', '^label$'], num_epochs=1,
+                           last_batch='short', device='cuda', shuffle_row_groups=False,
+                           **kwargs) as loader:
+        for _ in range(passes):
+            mid = telemetry.get_registry().snapshot()
+            held = []
+            start = time.perf_counter()
+            for batch in loader:
+                held.append(batch)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            report = telemetry.pipeline_report(baseline=mid)
+            batch_digests, row_digests = _digest_pass(held)
+            del held
+            out.append({'images_per_s': len(row_digests) / elapsed, 'seconds': elapsed,
+                        'batch_digests': batch_digests, 'row_digests': row_digests,
+                        'decoded_cache': report.get('decoded_cache'),
+                        'stage_seconds': {name: round(info['seconds'], 6)
+                                          for name, info in report['stages'].items()},
+                        'fused_decode_mode': loader.diagnostics['fused_decode_mode']})
+    return out
+
+
+def _entry_bytes(path):
+    """(count, bytes) of the decoded cache's published ``.arrow`` entries."""
+    sizes = [os.path.getsize(os.path.join(d, f)) for d, _, names in os.walk(path)
+             for f in names if f.endswith('.arrow')]
+    return len(sizes), sum(sizes)
+
+
+def phase_decoded_cache_vit_path(url, image_codec, vit_images_per_s, tmp):
+    """vit-imagenetlike-384 through the decoded cache
+    (``cache_type='decoded'``, ``CACHE_DISK_LIMIT``): an uncached fused
+    epoch, then one loader's cold epoch (workers decode and publish Arrow
+    IPC entries) and its replay (entries mapped back, the default 256 MB
+    memory tier in play); both hold the uncached epoch's batch and row
+    digests, the warm one all hits and ``cache-bound``. Then ``VIT_STEPS``
+    ViT-Base steps on batches the warm cache serves (no miss): 20
+    normalize and 240 launches of each flash kernel. Last, armed
+    (``PETASTORM_TPU_SANITIZE=1``, a memory tier of
+    ``CACHE_ARMED_MEM_MB`` that holds the set) in a fresh directory: the
+    fill guards what the memory tier shares, the replay is served from
+    memory, no violation."""
+    from petastorm_tpu_torch import sanitizer, telemetry
+    from petastorm_tpu_torch.examples.imagenet import VIT_BASE_KW, train_vit_fused
+    rowgroups = VIT_ROWS // 64
+    warm_dir = os.path.join(tmp, 'decoded_cache')
+    cache = dict(cache_type='decoded', cache_location=warm_dir,
+                 cache_size_limit=CACHE_DISK_LIMIT)
+    fresh_telemetry()
+    uncached, = _loader_passes(url, 1)
+    fresh_telemetry()
+    cold, warm = _loader_passes(url, 2, **cache)
+    entries, entry_bytes = _entry_bytes(warm_dir)
+    fresh_telemetry()
+    reset_launch_counts()
+    result = train_vit_fused(url, steps=VIT_STEPS, batch_size=VIT_BATCH, device='cuda',
+                             **cache)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    train_cache = telemetry.decoded_cache_section()
+    armed_dir = os.path.join(tmp, 'decoded_cache_armed')
+    sanitizer.reset_for_tests()
+    with knobs_set({'PETASTORM_TPU_SANITIZE': '1',
+                    'PETASTORM_TPU_DECODED_CACHE_MEM_MB': str(CACHE_ARMED_MEM_MB)}):
+        armed_fill, armed_memory = _loader_passes(
+            url, 2, cache_type='decoded', cache_location=armed_dir,
+            cache_size_limit=CACHE_DISK_LIMIT)
+        registry = telemetry.get_registry()
+        guarded = registry.counter_value(sanitizer.SANITIZER_VIEWS_GUARDED)
+        counted = registry.counters_with_prefix(sanitizer.SANITIZER_VIOLATIONS)
+        violations = sanitizer.violations()
+    sanitizer.reset_for_tests()
+    shutil.rmtree(armed_dir, ignore_errors=True)
+    losses = result['losses']
+
+    def summary(p):
+        return {k: p[k] for k in ('images_per_s', 'seconds', 'decoded_cache', 'stage_seconds',
+                                  'fused_decode_mode')}
+
+    emit({'phase': 'decoded_cache_vit_path', 'config': 'vit-imagenetlike-384',
+          'entry': "make_torch_loader(cache_type='decoded') -> normalize -> ViT-Base",
+          'image_codec': image_codec, 'rows': VIT_ROWS, 'rowgroups': rowgroups,
+          'uncached': summary(uncached), 'cold': summary(cold), 'warm': summary(warm),
+          'warm_over_cold': warm['images_per_s'] / cold['images_per_s'],
+          'warm_over_uncached': warm['images_per_s'] / uncached['images_per_s'],
+          'warm_hit_share': warm['decoded_cache']['hit_rate'],
+          'warm_verdict': warm['decoded_cache']['verdict'],
+          'warm_mem_hits': warm['decoded_cache']['mem_hits'],
+          'warm_mmap_reads': warm['decoded_cache']['mmap_reads'],
+          'cold_bytes_written': cold['decoded_cache']['bytes_written'],
+          'entries': entries, 'entry_bytes': entry_bytes,
+          'equal_to_uncached': {'cold': cold['batch_digests'] == uncached['batch_digests'],
+                                'warm': warm['batch_digests'] == uncached['batch_digests']},
+          'train': {'steps': len(losses), 'batch_size': VIT_BATCH, 'losses': losses,
+                    'images_per_s': result['images_per_s'],
+                    'vit_path_images_per_s': vit_images_per_s,
+                    'decoded_cache': train_cache, 'launches': launches,
+                    'consumer_wait_s': result['diagnostics']['consumer_wait_s']},
+          'armed': {'fill': summary(armed_fill), 'memory': summary(armed_memory),
+                    'views_guarded': guarded, 'violations': violations,
+                    'mem_limit_mb': CACHE_ARMED_MEM_MB}})
+    for p in (uncached, cold, warm, armed_fill, armed_memory):
+        assert len(p['row_digests']) == VIT_ROWS, len(p['row_digests'])
+    for p in (cold, warm, armed_fill, armed_memory):
+        assert p['batch_digests'] == uncached['batch_digests'], 'a cached epoch differs'
+        assert p['row_digests'] == uncached['row_digests'], 'a cached epoch differs'
+    assert cold['decoded_cache']['misses'] == rowgroups, cold['decoded_cache']
+    assert cold['decoded_cache']['bytes_written'] == entry_bytes > 0
+    assert entries == rowgroups, entries
+    section = warm['decoded_cache']
+    assert section['hits'] == rowgroups and section['hit_rate'] == 1.0, section
+    assert section['verdict'] == 'cache-bound', section
+    assert section['mem_hits'] + section['mmap_reads'] // 2 == rowgroups, section
+    assert cold['fused_decode_mode'] == warm['fused_decode_mode'] == 'batched'
+    assert train_cache is not None and train_cache['misses'] == 0 and train_cache['hits'] > 0
+    assert len(losses) == VIT_STEPS and all(math.isfinite(v) for v in losses), losses
+    assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
+    assert launches['normalize_images'] == VIT_STEPS, launches
+    want = VIT_BASE_KW['n_layers'] * VIT_STEPS
+    for name in FLASH_KERNELS:
+        assert launches[name] == want, (name, launches[name], want)
+    assert not violations and not any(counted.values()), (violations, counted)
+    assert guarded > 0, guarded
+    assert armed_memory['decoded_cache']['mem_hits'] == rowgroups, armed_memory['decoded_cache']
+    return {'launches': launches, 'uncached': uncached}
+
+
+def _port_threads():
+    return {t.name for t in threading.enumerate()
+            if t.name.startswith('petastorm-tpu-torch-')}
+
+
+def _threads_left(before, deadline_s=10.0):
+    """The port threads started since ``before`` still alive after up to
+    ``deadline_s``."""
+    end = time.monotonic() + deadline_s
+    while _port_threads() - before and time.monotonic() < end:
+        time.sleep(0.01)
+    return sorted(_port_threads() - before)
+
+
+def _injections():
+    """Per site: the armed plan's fires and the injection counter."""
+    from petastorm_tpu_torch import faults, telemetry
+    stats = faults.injection_stats()
+    return {site: {'fired': s['fired'], 'hits': s['hits'],
+                   'counted': telemetry.get_registry().counter_value(faults.FAULTS_INJECTED,
+                                                                     site=site)}
+            for site, s in stats.items()}
+
+
+def _consume(loader, deadline_s):
+    """Batches the consumer received and the exception that ended the
+    pass (None at a clean end), within ``deadline_s``."""
+    got, error = 0, None
+    start = time.monotonic()
+    try:
+        with loader:
+            for _ in loader:
+                got += 1
+                assert time.monotonic() - start < deadline_s, 'the drill hung'
+    except Exception as e:  # noqa: BLE001 - the drill's outcome, checked by the caller
+        error = e
+    return got, error, time.monotonic() - start
+
+
+def phase_chaos_path(url, selective_url, labels, uncached, tmp):
+    """Faults armed one at a time through ``PETASTORM_TPU_FAULTS`` (set
+    with ``knobs_set``, restored and disarmed after) on the card's paths:
+    a full cache disk under a cold cached epoch (decode-through, one
+    ``cache_degraded``, one failure counted, nothing published, the
+    uncached epoch's rows); a poisoned row-group (``FaultInjected`` naming
+    ``#rg3`` within ``CHAOS_DEADLINE_S``, the pool's and stager's threads
+    joined); a failed host-to-device dispatch after three batches (the
+    consumer gets exactly three, then ``FaultInjected``; the stager ends
+    and its pinned slots are released; a fresh loader reads the whole
+    epoch); a faulted footer read under the selective read (nothing
+    pruned, the same survivors). In each, the injector's fires equal the
+    injection counter per site."""
+    from petastorm_tpu_torch import faults, telemetry
+    from petastorm_tpu_torch import materialized_cache as mc
+    from petastorm_tpu_torch import pushdown
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    before = _port_threads()
+    drills = {}
+
+    def armed(spec):
+        return knobs_set({'PETASTORM_TPU_FAULTS': spec})
+
+    full_dir = os.path.join(tmp, 'decoded_cache_full')
+    with armed('cache.write:oserror:1:errno=28'):
+        assert faults.ARMED is not None
+        since = time.time()
+        full, = _loader_passes(url, 1, cache_type='decoded', cache_location=full_dir,
+                               cache_size_limit=CACHE_DISK_LIMIT)
+        events = [e for e in telemetry.recent_anomalies()
+                  if e['kind'] == 'cache_degraded' and e['ts'] >= since]
+        failures = telemetry.get_registry().counters_with_prefix(mc.DECODED_CACHE_DISK_FAILURES)
+        drills['disk_full'] = {'images_per_s': full['images_per_s'],
+                               'anomalies': len(events),
+                               'reason': events[0]['detail']['reason'] if events else None,
+                               'failures': failures, 'entries': _entry_bytes(full_dir)[0],
+                               'equal_to_uncached': full['row_digests'] == uncached['row_digests'],
+                               'injections': _injections()}
+    shutil.rmtree(full_dir, ignore_errors=True)
+
+    def loader(**kwargs):
+        return make_torch_loader(url, VIT_BATCH, fields=['^image$', '^label$'], num_epochs=1,
+                                 last_batch='short', device='cuda', shuffle_row_groups=False,
+                                 **kwargs)
+
+    with armed('decode.rowgroup:error:1:match=#rg3'):
+        got, error, seconds = _consume(loader(), CHAOS_DEADLINE_S)
+        drills['poisoned_rowgroup'] = {'batches_before': got, 'error': repr(error)[:300],
+                                       'seconds': seconds, 'threads_left': _threads_left(before),
+                                       'injections': _injections()}
+    with armed('staging.h2d:error:1:after=3:times=1'):
+        dispatch = loader()
+        got, error, seconds = _consume(dispatch, CHAOS_DEADLINE_S)
+        drills['failed_dispatch'] = {
+            'batches_before': got, 'error': repr(error)[:300], 'seconds': seconds,
+            'stager_alive': dispatch._stage_thread.is_alive(),
+            'slots_left': len(dispatch._stager._rings), 'threads_left': _threads_left(before),
+            'injections': _injections()}
+    fresh, = _loader_passes(url, 1)
+    drills['failed_dispatch']['fresh_loader_equal'] = fresh['row_digests'] == uncached['row_digests']
+
+    distinct = sorted(set(labels))
+    selected = tuple(distinct[::SELECTIVE_LABEL_STRIDE])
+    want_ids = sorted(i for i, label in enumerate(labels) if label in selected)
+    with armed('io.read:error:1:match=#footer'):
+        faulted = _read_epoch(selective_url, 'cuda', filters=[('label', 'in', selected)])
+        drills['faulted_footer'] = {
+            'survivors': faulted['rows'],
+            'rowgroups_pruned': faulted['counters'].get(pushdown.ROWGROUPS_PRUNED, 0),
+            'declines': faulted['summary']['declines'], 'injections': _injections()}
+    emit({'phase': 'chaos_path', 'config': 'vit-imagenetlike-384, vit-selective-quarter',
+          'deadline_s': CHAOS_DEADLINE_S, 'drills': drills,
+          'disarmed': faults.ARMED is None})
+    d = drills['disk_full']
+    assert d['equal_to_uncached'], 'the degraded epoch lost or changed rows'
+    assert d['anomalies'] == 1 and 'ENOSPC' in d['reason'], d
+    assert sum(d['failures'].values()) == 1, d['failures']
+    assert d['entries'] == 0, d
+    d = drills['poisoned_rowgroup']
+    assert 'FaultInjected' in d['error'] and '#rg3' in d['error'], d
+    assert d['seconds'] < CHAOS_DEADLINE_S and not d['threads_left'], d
+    assert d['injections']['decode.rowgroup']['fired'] == 1, d
+    d = drills['failed_dispatch']
+    assert d['batches_before'] == 3 and 'FaultInjected' in d['error'], d
+    assert 'staging.h2d' in d['error'], d
+    assert not d['stager_alive'] and d['slots_left'] == 0 and not d['threads_left'], d
+    assert d['injections']['staging.h2d'] == {'fired': 1, 'hits': 4, 'counted': 1}, d
+    assert d['fresh_loader_equal'], 'a fresh loader after the drill read other rows'
+    d = drills['faulted_footer']
+    assert faulted['ids'] == want_ids and d['survivors'] == len(want_ids), d
+    assert d['rowgroups_pruned'] == 0, d
+    assert d['injections']['io.read']['fired'] >= 1, d
+    for name, drill in drills.items():
+        for site, stats in drill['injections'].items():
+            assert stats['fired'] == stats['counted'], (name, site, stats)
+    assert faults.ARMED is None
+
+
 def _flat_grads(params):
     return torch.cat([p.grad.reshape(-1).float() for p in params]).cpu()
 
@@ -3230,6 +3554,9 @@ def main(argv=None):
         labels = write_selective_dataset(selective_url, image_codec)
         paths['selective_vit_path'] = phase_selective_vit_path(selective_url, image_codec,
                                                                labels, vit_images_per_s)
+        cached = phase_decoded_cache_vit_path(vit_url, image_codec, vit_images_per_s, tmp)
+        paths['decoded_cache_vit_path'] = cached['launches']
+        phase_chaos_path(vit_url, selective_url, labels, cached['uncached'], tmp)
     phase_vit_profile()
     # the headline numbers are this slice's path's: the flash kernels' at
     # the mixture path's shape (the flagship's) and their launches there;

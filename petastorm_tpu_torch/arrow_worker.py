@@ -15,20 +15,30 @@ columns decode in one native call per row-group; when the consumer
 deferred decode, eligible image columns travel still encoded
 (:mod:`petastorm_tpu_torch.fused`). With an NGram the worker publishes
 one ``{'window', 'item_index', 'epoch', 'last'}`` dict per admitted
-window instead of the batch. Caches, readahead and fault injection wait
-for their roadmap item (the Reader refuses them before a worker starts).
+window instead of the batch. With a cache (:mod:`petastorm_tpu_torch.cache`,
+:mod:`petastorm_tpu_torch.materialized_cache`) the whole item goes through
+``cache.get``: a hit skips the read and the decode; the decoded cache
+stores the post-transform batch. The row-group read and decode are the
+``io.read`` and ``decode.rowgroup`` faultpoints (:mod:`petastorm_tpu_torch.faults`).
 """
 
+import hashlib
 import logging
 from collections import OrderedDict
 
 import numpy as np
 import pyarrow.parquet as pq
 
+from petastorm_tpu_torch import faults
+from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.codecs import (
     CompressedImageCodec, NdarrayCodec, decode_batch_with_nulls,
 )
+from petastorm_tpu_torch.filters import FiltersPredicate
 from petastorm_tpu_torch.fused import EncodedImageColumn, alloc_column_slab, count_fallback
+from petastorm_tpu_torch.materialized_cache import (
+    MaterializedRowGroupCache, dataset_file_fingerprint, decode_fingerprint,
+)
 from petastorm_tpu_torch.native import PackedCells, binary_cells
 from petastorm_tpu_torch.pushdown import LATE_MATERIALIZED_ROWS, fullscan_oracle
 from petastorm_tpu_torch.telemetry import get_registry, metrics_disabled, span
@@ -40,11 +50,12 @@ logger = logging.getLogger(__name__)
 _PARQUET_FILE_CACHE_MAX = 64
 
 
-def defer_config_ok(transform_spec, ngram=None):
+def defer_config_ok(transform_spec, ngram, cache):
     """Whether workers may defer image decode: not when a TransformSpec or
-    an NGram needs the pixels on the worker (the Reader counts the decline
-    once)."""
-    return transform_spec is None and ngram is None
+    an NGram needs the pixels on the worker, nor when a cache must store
+    finished batches (the Reader counts the decline once)."""
+    return (transform_spec is None and ngram is None
+            and (cache is None or isinstance(cache, NullCache)))
 
 
 def typed_partition_value(field, value):
@@ -88,7 +99,8 @@ class ColumnBatch:
 class RowGroupWorker(WorkerBase):
     """Args (dict): dataset_info, loaded_schema (stored fields to read and
     decode), schema (output schema after the TransformSpec),
-    stored_schema, transform_spec, ngram, row_groups, defer_image_decode."""
+    stored_schema, transform_spec, cache, ngram, row_groups,
+    defer_image_decode."""
 
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
@@ -97,22 +109,32 @@ class RowGroupWorker(WorkerBase):
         self._loaded_schema = args['loaded_schema']
         self._stored_schema = args['stored_schema']
         self._transform_spec = args.get('transform_spec')
+        self._cache = args.get('cache')
         self._ngram = args.get('ngram')
         self._row_groups = args['row_groups']
         self._defer_decode = (bool(args.get('defer_image_decode'))
-                              and defer_config_ok(self._transform_spec, self._ngram))
+                              and defer_config_ok(self._transform_spec, self._ngram,
+                                                  self._cache))
         self._parquet_files = OrderedDict()
         # PETASTORM_TPU_PUSHDOWN=0: decode everything, then filter
         self._fullscan_oracle = fullscan_oracle()
+        # the decoded cache's key identity, resolved lazily: the decode
+        # fingerprint once per worker, the file's once per file
+        self._decode_fp = None
+        self._file_fps = {}
 
     def process(self, piece_index, worker_predicate=None, shuffle_row_drop_partition=(0, 1),
                 item_index=None, epoch=None):
         piece = self._row_groups[piece_index]
-        if self._fullscan_oracle and worker_predicate is not None:
-            batch = self._load_rowgroup_fullscan(piece, worker_predicate,
-                                                 shuffle_row_drop_partition)
-        else:
-            batch = self._load_rowgroup(piece, worker_predicate, shuffle_row_drop_partition)
+
+        def load():
+            if self._fullscan_oracle and worker_predicate is not None:
+                return self._load_rowgroup_fullscan(piece, worker_predicate,
+                                                    shuffle_row_drop_partition)
+            return self._load_rowgroup(piece, worker_predicate, shuffle_row_drop_partition)
+
+        key = self._item_cache_key(piece, worker_predicate, shuffle_row_drop_partition)
+        batch = load() if key is None else self._cache.get(key, load)
         if batch is None or batch.length == 0:
             return
         if self._ngram is None:
@@ -130,6 +152,64 @@ class RowGroupWorker(WorkerBase):
         for f in self._parquet_files.values():
             f.close()
         self._parquet_files = OrderedDict()
+
+    def _item_cache_key(self, piece, worker_predicate, drop_partition):
+        """The item's cache key, or None when it reads uncached: no cache,
+        an arbitrary predicate (no stable identity; DNF filters have one),
+        or a TransformSpec the cache may not store. The raw cache never
+        stores a transform's output; the decoded cache keys the transform
+        by its code and stores the post-transform batch."""
+        cache = self._cache
+        if cache is None or isinstance(cache, NullCache):
+            return None
+        if worker_predicate is not None and not isinstance(worker_predicate, FiltersPredicate):
+            return None
+        decoded = isinstance(cache, MaterializedRowGroupCache)
+        if self._transform_spec is not None and not (decoded and self._spec_cacheable()):
+            return None
+        key = self._cache_key(piece, worker_predicate, drop_partition)
+        if decoded:
+            key += ':d%s' % self._decoded_fingerprint(piece)
+        return key
+
+    def _cache_key(self, piece, worker_predicate, drop_partition):
+        """Dataset URL, file, row-group, drop partition, loaded column set
+        (readers with different ``schema_fields`` must not serve each
+        other truncated batches) and the filters' clause digest."""
+        filter_part = ''
+        if worker_predicate is not None:
+            filter_part = ':f%s' % hashlib.md5(
+                repr(worker_predicate.clauses).encode('utf-8')).hexdigest()
+        needed = [f.name for f in self._loaded_schema if f.name in self._stored_schema.fields]
+        columns_hash = hashlib.md5(','.join(sorted(needed)).encode('utf-8')).hexdigest()[:12]
+        url_hash = hashlib.md5(str(self._dataset_info.url).encode('utf-8')).hexdigest()
+        return '%s:%s:rg%d:%s:c%s%s' % (url_hash, self._dataset_info.relpath(piece.path),
+                                        piece.row_group, drop_partition, columns_hash,
+                                        filter_part)
+
+    def _spec_cacheable(self):
+        """May the decoded cache store this TransformSpec's output?
+        ``cacheable``: False → never; True → always; None (undeclared) →
+        only when the reader asked for the decoded cache, not when the
+        fleet knob upgraded it."""
+        cacheable = getattr(self._transform_spec, 'cacheable', None)
+        if cacheable is not None:
+            return cacheable
+        return not getattr(self._cache, 'implicit_upgrade', False)
+
+    def _decoded_fingerprint(self, piece):
+        """Decode-identity suffix of a decoded-cache key: the schema view
+        with its codecs, the TransformSpec and NGram, and the parquet
+        file's bytes identity. Any change must miss: a stale decoded batch
+        would be silent corruption."""
+        if self._decode_fp is None:
+            self._decode_fp = decode_fingerprint(self._loaded_schema, self._transform_spec,
+                                                 self._ngram)
+        file_fp = self._file_fps.get(piece.path)
+        if file_fp is None:
+            file_fp = self._file_fps[piece.path] = dataset_file_fingerprint(
+                self._dataset_info, piece.path)
+        return '%s:%s' % (self._decode_fp, file_fp)
 
     def _parquet_file(self, path):
         pf = self._parquet_files.get(path)
@@ -151,8 +231,17 @@ class RowGroupWorker(WorkerBase):
                 [n for n in needed if n not in piece.partition_values])
 
     def _read_columns(self, pf, piece, columns):
+        """One row-group read under the ``io`` span, behind the ``io.read``
+        faultpoint keyed ``<path>#rg<n>`` ('#', not ':', the spec
+        grammar's separator, so ``match=`` can select one row-group)."""
+        if faults.ARMED:
+            faults.fault_hit('io.read', key=self._rowgroup_key(piece))
         with span('io'):
             return pf.read_row_group(piece.row_group, columns=columns)
+
+    @staticmethod
+    def _rowgroup_key(piece):
+        return '%s#rg%d' % (piece.path, piece.row_group)
 
     def _load_rowgroup(self, piece, worker_predicate, drop_partition):
         partition_keys, file_columns = self._columns_of(piece)
@@ -183,6 +272,10 @@ class RowGroupWorker(WorkerBase):
         if late and read_columns:
             table = self._read_columns(pf, piece, read_columns)
         select_all = row_indices.size == num_rows
+        if faults.ARMED:
+            # inside a decode span, so an injected delay reads as decode time
+            with span('decode'):
+                faults.fault_hit('decode.rowgroup', key=self._rowgroup_key(piece))
         columns = {}
         if read_columns and late:
             with span('late_materialize'):
@@ -272,6 +365,9 @@ class RowGroupWorker(WorkerBase):
         read_columns = list(dict.fromkeys(file_columns + pred_file_fields))
         table = self._read_columns(self._parquet_file(piece.path), piece, read_columns)
         num_rows = table.num_rows
+        if faults.ARMED:
+            with span('decode'):
+                faults.fault_hit('decode.rowgroup', key=self._rowgroup_key(piece))
         with span('decode'):
             decoded = {name: self._decode_column(name, table.column(name), allow_defer=False)
                        for name in read_columns}

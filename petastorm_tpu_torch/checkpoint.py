@@ -223,13 +223,21 @@ class TrainCheckpointer:
     def _step_dir(self, step):
         return os.path.join(self._directory, str(int(step)))
 
-    def save(self, step, train_state, loader=None):
+    def save(self, step, train_state, loader=None, force=False):
         """Write one checkpoint: the train state (a dict of modules,
         optimizers and tensors; see :meth:`restore_state`) plus, optionally,
         the iteration state of ``loader`` (a TorchLoader, a reader, or any
-        object with ``state_dict()``). Every rank calls it. Returns the
-        step's directory."""
+        object with ``state_dict()``). Every rank calls it.
+
+        As orbax's ``CheckpointManager.save``: without ``force``, a step
+        not after the latest checkpointed one is skipped; with ``force``
+        it is written, and a step that already exists raises
+        ``ValueError``. Returns the step's directory, or None when the
+        step was skipped, where orbax returns True or False."""
         step = int(step)
+        latest = self.latest_step
+        if not force and latest is not None and step <= latest:
+            return None
         final = self._step_dir(step)
         payload = (_gather_per_process(loader.state_dict())
                    if loader is not None else None)

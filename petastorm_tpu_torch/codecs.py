@@ -22,7 +22,7 @@ from io import BytesIO
 import numpy as np
 import pyarrow as pa
 
-from petastorm_tpu_torch import native
+from petastorm_tpu_torch import faults, native
 from petastorm_tpu_torch.telemetry import knobs
 from petastorm_tpu_torch.unischema import numpy_to_arrow_type
 
@@ -206,6 +206,10 @@ def decode_batch_with_nulls(unischema_field, values, out=None):
     holding an earlier batch); returns ``out``. A
     :class:`~petastorm_tpu_torch.native.PackedCells` holds no nulls and
     goes to the codec whole."""
+    if faults.ARMED:
+        # the one decode seam every path shares (native batch, cv2, into
+        # a slot), so an injected poisoned cell reaches whichever runs
+        faults.fault_hit('decode.batch', key=getattr(unischema_field, 'name', None))
     codec = unischema_field.codec
     if isinstance(values, native.PackedCells):
         return codec.decode_batch(unischema_field, values, out=out)

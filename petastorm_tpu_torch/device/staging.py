@@ -21,6 +21,10 @@ Encoded image parts (:class:`~petastorm_tpu_torch.fused.EncodedImageColumn`)
 decode in the fill, straight into the slot's (or the fresh buffer's)
 rows, under the ``decode_fused`` span: the fused pass.
 
+Every mode dispatches through one seam, :meth:`StagingEngine._put`, which
+holds the ``staging.h2d`` faultpoint (:mod:`petastorm_tpu_torch.faults`):
+an injected fault raises before any copy or event exists.
+
 Pinning and the completion event belong to the target
 (:class:`CudaTarget`), so the ring logic also runs on a CPU build of torch
 with unpinned slots and a fake event (the tests do).
@@ -42,7 +46,7 @@ import contextlib
 import numpy as np
 import torch
 
-from petastorm_tpu_torch import sanitizer
+from petastorm_tpu_torch import faults, sanitizer
 from petastorm_tpu_torch.fused import EncodedImageColumn, count_fallback
 from petastorm_tpu_torch.ragged import STRING_MESSAGE, reject_object_column
 from petastorm_tpu_torch.telemetry import (
@@ -297,10 +301,9 @@ class StagingEngine:
                 host = {name: (t.to(self._device_casts[name])
                                if name in self._device_casts else t)
                         for name, t in host.items()}
+            tensors, _ = self._put(host)
             self._account(host)
-            if self._device is not None and self._device.type == 'cuda':
-                return Handoff({name: t.to(self._device) for name, t in host.items()})
-            return Handoff(host)
+            return Handoff(tensors)
         slot = self._next_slot(parts[0], dtype_map, with_mask)
         if slot.event is not None:
             self.slot_refills += 1
@@ -314,7 +317,7 @@ class StagingEngine:
             n = self._fill(slot.views, parts, n_valid, with_mask)
         host = {name: t[:n] for name, t in slot.tensors.items()}
         with span('h2d_dispatch'):
-            tensors, event = self._target.transfer(host, self._device_casts)
+            tensors, event = self._put(host)
         slot.event = event
         if self._sanitize:
             # the views just handed to the transfer: any that still
@@ -322,6 +325,21 @@ class StagingEngine:
             slot.census.register(host.values())
         self._account(host)
         return Handoff(tensors, event, self._target)
+
+    def _put(self, host):
+        """The one dispatch seam every staging mode passes: the
+        ``staging.h2d`` faultpoint, then the pinned ring's async transfer,
+        a fresh batch's copy to the card, or no copy on the CPU. Returns
+        ``(tensors, event)``; the event is None but for the ring's. A
+        fault raises before any copy is dispatched, so no handoff waits on
+        an event that is never recorded."""
+        if faults.ARMED:
+            faults.fault_hit('staging.h2d')
+        if self._target is not None:
+            return self._target.transfer(host, self._device_casts)
+        if self._device is not None and self._device.type == 'cuda':
+            return {name: t.to(self._device) for name, t in host.items()}, None
+        return host, None
 
     def _sanitize_recycle(self, slot, columns, dtype_map, with_mask):
         """pipesan refill gate (armed only, after the slot's event): abort

@@ -262,20 +262,28 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def flash_attention_fused(q, k, v, causal=True, sm_scale=None):
+def flash_attention_fused(q, k, v, causal=True, sm_scale=None, force_kernel=False):
     """Self-attention through the flash kernels.
 
     :param q, k, v: ``(B, S, H, D)`` activations (the framework layout),
         bfloat16 or float32; any strides with a unit stride on D.
     :param causal: lower-triangular mask (LM) or bidirectional (encoder).
     :param sm_scale: score scale; default ``1/sqrt(D)``.
+    :param force_kernel: insist on the kernels. A CUDA tensor runs them
+        either way; a CPU tensor then raises instead of taking the plain
+        versions.
     :return: ``(B, S, H, D)`` context, same dtype as ``q``.
     """
+    if force_kernel and q.device.type != 'cuda':
+        raise RuntimeError('flash_attention_fused(force_kernel=True) needs CUDA tensors; '
+                           'got a tensor on %s, where only the plain versions run'
+                           % q.device)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     return _FlashAttention.apply(q, k, v, bool(causal), float(sm_scale))
 
 
-def flash_causal_attention(q, k, v, sm_scale=None):
+def flash_causal_attention(q, k, v, sm_scale=None, force_kernel=False):
     """Causal flash attention: :func:`flash_attention_fused` with the LM mask."""
-    return flash_attention_fused(q, k, v, causal=True, sm_scale=sm_scale)
+    return flash_attention_fused(q, k, v, causal=True, sm_scale=sm_scale,
+                                 force_kernel=force_kernel)

@@ -35,9 +35,9 @@ late materialization off (the decode-everything-then-filter oracle);
 ``PETASTORM_TPU_PUSHDOWN_WORKERS`` sets the footer-read threads (8).
 The public read of the plans and counters is
 ``pipeline_report()['pushdown']``, built from :func:`planner_summary`
-and the counters below. The JAX
-package's fault-injection site in the footer read waits for the port of
-``faults.py`` (ROADMAP item 3, caches).
+and the counters below. The footer read is the ``io.read`` faultpoint
+with a key ending in ``#footer``: a faulted footer degrades to unpruned
+reads, logged, never to a wrong answer.
 """
 
 import logging
@@ -45,7 +45,9 @@ import threading
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 
+from petastorm_tpu_torch import faults
 from petastorm_tpu_torch import filters as _filters
+from petastorm_tpu_torch.materialized_cache import dataset_file_fingerprint
 from petastorm_tpu_torch.predicates import in_reduce, in_set
 from petastorm_tpu_torch.telemetry import get_registry, knobs, metrics_disabled
 
@@ -127,18 +129,6 @@ def _note_run(considered, pruned=0, rows=0, declines=None):
                 _summary['declines'][reason] = _summary['declines'].get(reason, 0) + count
 
 
-def dataset_file_fingerprint(dataset_info, path):
-    """Identity of one file's bytes: ``'<size>-<mtime>'`` when the
-    filesystem gives them, else ``'nostat'``."""
-    try:
-        info = dataset_info.fs.info(path)
-        size = info.get('size')
-        mtime = info.get('mtime') or info.get('LastModified')
-        return '%s-%s' % (size, mtime)
-    except Exception:  # noqa: BLE001 - an exotic filesystem: no identity
-        return 'nostat'
-
-
 # -- footer statistics index -------------------------------------------------
 
 
@@ -191,6 +181,8 @@ class StatsIndex:
     def _read_footer(self, path):
         import pyarrow.parquet as pq
         try:
+            if faults.ARMED:
+                faults.fault_hit('io.read', key='%s#footer' % path)
             with self._info.fs.open(path, 'rb') as f:
                 meta = pq.ParquetFile(f).metadata
         except Exception:  # noqa: BLE001 - degrade to unpruned, loudly

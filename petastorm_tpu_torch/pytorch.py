@@ -43,9 +43,19 @@ _TORCH_PROMOTIONS = {
 }
 
 
+def _writable(arr):
+    """``arr``, or a copy of it when it is a read-only array: a
+    decoded-cache hit maps its entry read-only, torch warns on such an
+    array, and an in-place op on the batch would write into the mapping.
+    Writable arrays stay zero-copy."""
+    if isinstance(arr, np.ndarray) and not arr.flags.writeable:
+        return arr.copy()
+    return arr
+
+
 def _sanitize_pytorch_types(row_as_dict):
-    """In-place dtype promotion for values torch rejects; None and strings
-    raise."""
+    """In-place dtype promotion for values torch rejects, and a copy of
+    a read-only array (:func:`_writable`); None and strings raise."""
     for name, value in row_as_dict.items():
         if value is None:
             raise TypeError('Field %r is None: nullable fields must be '
@@ -55,6 +65,8 @@ def _sanitize_pytorch_types(row_as_dict):
                 row_as_dict[name] = value.astype(_TORCH_PROMOTIONS[value.dtype])
             elif value.dtype.kind in 'US':
                 raise TypeError(_STRING_MESSAGE % name)
+            else:
+                row_as_dict[name] = _writable(value)
         elif isinstance(value, np.generic):
             dt = np.dtype(value.dtype)
             if dt in _TORCH_PROMOTIONS:
@@ -225,7 +237,8 @@ class BatchedDataLoader(LoaderBase):
     torch batches with no per-row Python work.
 
     :param transform_fn: ``{name: np.ndarray} → {name: tensor}`` applied per
-        emitted batch (default: zero-copy ``torch.as_tensor`` per column).
+        emitted batch (default: zero-copy ``torch.as_tensor`` per column,
+        a copy for a read-only column such as a decoded-cache hit's).
     :param inmemory_cache_all: keep the whole first epoch in host memory
         and replay it (reshuffled per epoch when shuffling is on) for later
         epochs: the reader is read exactly once, so it must have
@@ -260,7 +273,7 @@ class BatchedDataLoader(LoaderBase):
 
     @staticmethod
     def _default_transform(columns):
-        return {name: torch.as_tensor(arr) for name, arr in columns.items()}
+        return {name: torch.as_tensor(_writable(arr)) for name, arr in columns.items()}
 
     def _make_buffer(self, epoch):
         seed = None if self._seed is None else self._seed + epoch

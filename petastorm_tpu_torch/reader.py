@@ -14,8 +14,16 @@ namedtuple per row, or one ``{timestep: namedtuple}`` per NGram window
 checkpoint saved by either package resumes in the other. Kwargs that
 reach unported code raise ``NotImplementedError`` naming their
 ``ROADMAP.md`` item.
+
+``cache_type`` takes the reference's values: ``'null'`` (the default,
+upgraded to ``'decoded'`` by ``PETASTORM_TPU_DECODED_CACHE=1``),
+``'local-disk'`` (pickled pre-transform batches,
+:class:`~petastorm_tpu_torch.cache.LocalDiskCache`) and ``'decoded'`` (the
+finished post-transform batches as Arrow IPC files mapped back zero-copy,
+:class:`~petastorm_tpu_torch.materialized_cache.MaterializedRowGroupCache`).
 """
 
+import logging
 import os
 import time
 import warnings
@@ -24,6 +32,7 @@ from petastorm_tpu_torch import pushdown
 from petastorm_tpu_torch.arrow_worker import (
     RowGroupWorker, defer_config_ok, typed_partition_value,
 )
+from petastorm_tpu_torch.cache import LocalDiskCache, NullCache
 from petastorm_tpu_torch.errors import MetadataError, NoDataAvailableError, unported
 from petastorm_tpu_torch.etl.dataset_metadata import (
     ParquetDatasetInfo, get_schema, infer_or_load_unischema, load_row_groups,
@@ -31,14 +40,19 @@ from petastorm_tpu_torch.etl.dataset_metadata import (
 from petastorm_tpu_torch.filters import (
     FiltersPredicate, describe_clauses, prune_row_group_indices,
 )
+from petastorm_tpu_torch.materialized_cache import (
+    MaterializedRowGroupCache, count_cache_skip, default_cache_dir,
+)
 from petastorm_tpu_torch.parallel.sharding import default_shard_info
 from petastorm_tpu_torch.predicates import in_reduce
-from petastorm_tpu_torch.telemetry import note_consumer_wait, obs_server, span, tracing
+from petastorm_tpu_torch.telemetry import knobs, note_consumer_wait, obs_server, span, tracing
 from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.workers import EmptyResultError
 from petastorm_tpu_torch.workers.dummy_pool import DummyPool
 from petastorm_tpu_torch.workers.thread_pool import ThreadPool
 from petastorm_tpu_torch.workers.ventilator import ConcurrentVentilator, epoch_order
+
+logger = logging.getLogger(__name__)
 
 # row-groups ventilated beyond the worker count: bounds host memory while
 # keeping workers busy
@@ -48,21 +62,48 @@ _VENTILATE_EXTRA_ROWGROUPS = 2
 _PULL_NOTE_FLOOR_S = 0.01
 
 
-def _refuse_unported(entry, rowgroup_selector, cache_type, cache_location, cache_size_limit,
-                     cache_row_size_estimate, poison_policy):
+def _refuse_unported(entry, rowgroup_selector, poison_policy):
     """Raise the ``unported`` error of the first reference kwarg that is
     set and reaches code the port lacks."""
     if rowgroup_selector is not None:
         raise unported('%s(rowgroup_selector=)' % entry, 10)
-    if cache_type not in (None, 'null', 'none'):
-        raise unported('cache_type=%r' % (cache_type,), 3)
-    for name, value in (('cache_location', cache_location),
-                        ('cache_size_limit', cache_size_limit),
-                        ('cache_row_size_estimate', cache_row_size_estimate)):
-        if value is not None:
-            raise unported('%s(%s=)' % (entry, name), 3)
     if poison_policy is not None:
         raise unported('poison_policy=', 9)
+
+
+def _make_cache(cache_type, location, size_limit, row_size_estimate, predicate=None):
+    """The reader's cache. The default ``'null'`` becomes ``'decoded'``
+    when ``PETASTORM_TPU_DECODED_CACHE=1`` (an implicit upgrade): a
+    ``FiltersPredicate`` reader caches (its clause digest joins the key),
+    a reader with an arbitrary predicate stays uncached and the skip is
+    counted. The decoded cache's directory and bounds default from the
+    ``PETASTORM_TPU_DECODED_CACHE_*`` knobs."""
+    if cache_type in (None, 'null', 'none'):
+        if not knobs.is_enabled('PETASTORM_TPU_DECODED_CACHE'):
+            return NullCache()
+        if predicate is not None and not isinstance(predicate, FiltersPredicate):
+            count_cache_skip('predicate')
+            logger.info('PETASTORM_TPU_DECODED_CACHE=1: a reader with an arbitrary predicate '
+                        'stays uncached (no stable cache identity); use filters= for '
+                        'cacheable selective reads')
+            return NullCache()
+        cache_type, implicit = 'decoded', True
+    else:
+        implicit = False
+    if cache_type == 'local-disk':
+        if not location or not size_limit:
+            raise ValueError("cache_type='local-disk' requires cache_location "
+                             'and cache_size_limit')
+        return LocalDiskCache(location, size_limit, row_size_estimate)
+    if cache_type == 'decoded':
+        location = (location or knobs.get_str('PETASTORM_TPU_DECODED_CACHE_DIR')
+                    or default_cache_dir())
+        disk_limit = size_limit or knobs.get_int(
+            'PETASTORM_TPU_DECODED_CACHE_DISK_MB', 8192, floor=1) * 2 ** 20
+        mem_limit = knobs.get_int('PETASTORM_TPU_DECODED_CACHE_MEM_MB', 256, floor=0) * 2 ** 20
+        return MaterializedRowGroupCache(location, disk_limit, mem_limit,
+                                         implicit_upgrade=implicit)
+    raise ValueError('Unknown cache_type %r' % (cache_type,))
 
 
 def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
@@ -89,8 +130,7 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
     Use :func:`make_batch_reader` for plain Parquet stores or column-batch
     output.
     """
-    _refuse_unported('make_reader', rowgroup_selector, cache_type, cache_location,
-                     cache_size_limit, cache_row_size_estimate, poison_policy)
+    _refuse_unported('make_reader', rowgroup_selector, poison_policy)
     info = ParquetDatasetInfo(dataset_url, storage_options, filesystem=filesystem)
     try:
         get_schema(info)
@@ -105,6 +145,8 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
                   predicate=predicate, num_epochs=num_epochs, cur_shard=cur_shard,
                   shard_count=shard_count, seed=seed,
+                  cache=_make_cache(cache_type, cache_location, cache_size_limit,
+                                    cache_row_size_estimate, predicate=predicate),
                   transform_spec=transform_spec, ngram=ngram, filters=filters,
                   batched_output=False)
 
@@ -124,8 +166,10 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
     over any Parquet store, petastorm metadata or not.
 
     :param schema_fields: field names/regexes to read (None: all).
-    :param reader_pool_type: ``'thread'`` or ``'dummy'`` (synchronous,
-        deterministic order).
+    :param reader_pool_type: ``'thread'``, ``'dummy'`` (synchronous,
+        deterministic order) or a pool instance (any object with ``start``,
+        ``ventilate``, ``get_results``, ``stop``, ``join``,
+        ``workers_count`` and ``diagnostics``).
     :param shuffle_row_groups: permute the row-group order each epoch,
         from ``seed``.
     :param shuffle_row_drop_partitions: split each row-group into this
@@ -139,6 +183,15 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
         ``n`` of the list goes to shard ``n % shard_count``. With neither
         set, a live ``torch.distributed`` default group of more than one
         rank shards by rank and world size.
+    :param cache_type: ``'null'`` (default; ``'decoded'`` when
+        ``PETASTORM_TPU_DECODED_CACHE=1``), ``'local-disk'`` (pickled
+        pre-transform batches; needs ``cache_location`` and
+        ``cache_size_limit``) or ``'decoded'``: the finished
+        post-transform batches as Arrow IPC files under ``cache_location``
+        (default ``PETASTORM_TPU_DECODED_CACHE_DIR``), mapped back
+        zero-copy and read-only on a hit; ``cache_size_limit`` bounds the
+        disk tier (default ``PETASTORM_TPU_DECODED_CACHE_DISK_MB``). A
+        cache with a ``predicate`` that is not DNF ``filters`` raises.
     :param transform_spec: a :class:`~petastorm_tpu_torch.transform.TransformSpec`
         run on the workers.
     :param filters: pyarrow-style DNF filters
@@ -148,7 +201,7 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
     :param defer_image_decode: workers hand fixed-shape image columns on
         still encoded, as :class:`~petastorm_tpu_torch.fused.EncodedImageColumn`
         (the torch loader asks for this and decodes them straight into its
-        staging slots); declined with a TransformSpec.
+        staging slots); declined with a TransformSpec or a cache.
     :param mixture_interleave: set by the mixture engine
         (:mod:`petastorm_tpu_torch.mixture`) when this reader serves one
         source of a weighted mixture: a dict with the source's exact
@@ -161,8 +214,7 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
     positions; each one set raises ``NotImplementedError`` naming the
     ``ROADMAP.md`` item that ports it.
     """
-    _refuse_unported('make_batch_reader', rowgroup_selector, cache_type, cache_location,
-                     cache_size_limit, cache_row_size_estimate, poison_policy)
+    _refuse_unported('make_batch_reader', rowgroup_selector, poison_policy)
     if mixture_interleave is not None:
         share = float(mixture_interleave.get('share', 1.0))
         if not 0.0 < share <= 1.0:
@@ -178,12 +230,24 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
                   predicate=predicate, num_epochs=num_epochs, cur_shard=cur_shard,
                   shard_count=shard_count, seed=seed,
+                  cache=_make_cache(cache_type, cache_location, cache_size_limit,
+                                    cache_row_size_estimate, predicate=predicate),
                   transform_spec=transform_spec, filters=filters,
                   defer_image_decode=defer_image_decode,
                   mixture_interleave=mixture_interleave)
 
 
 def _make_pool(reader_pool_type, workers_count, results_queue_size):
+    if not isinstance(reader_pool_type, str):
+        # a pool instance: any object with the pool contract, e.g. one
+        # configured with what a string cannot carry
+        pool = reader_pool_type
+        missing = [m for m in ('start', 'ventilate', 'get_results', 'stop', 'join',
+                               'workers_count', 'diagnostics') if not hasattr(pool, m)]
+        if missing:
+            raise ValueError('reader_pool_type instance %r lacks pool contract member(s) %s'
+                             % (pool, missing))
+        return pool
     if reader_pool_type in ('process', 'service'):
         raise unported("reader_pool_type=%r" % reader_pool_type, 9)
     if reader_pool_type == 'dummy':
@@ -210,7 +274,7 @@ class Reader:
     def __init__(self, dataset_info, schema_fields=None, reader_pool_type='thread',
                  workers_count=None, results_queue_size=50, shuffle_row_groups=True,
                  shuffle_row_drop_partitions=1, predicate=None, num_epochs=1,
-                 cur_shard=None, shard_count=None, seed=0, transform_spec=None,
+                 cur_shard=None, shard_count=None, seed=0, cache=None, transform_spec=None,
                  ngram=None, filters=None, defer_image_decode=False,
                  mixture_interleave=None, batched_output=True):
         self.dataset_info = dataset_info
@@ -232,6 +296,18 @@ class Reader:
                 predicate = in_reduce([predicate, filters_predicate], all)
             else:
                 predicate = filters_born = filters_predicate
+        if predicate is not None and cache is not None and not isinstance(cache, NullCache) \
+                and not isinstance(predicate, FiltersPredicate):
+            # a cached row-group needs its predicate's identity in the key;
+            # only DNF filters have one. An explicit cache fails loud; the
+            # knob's implicit upgrade reads uncached, counted
+            if getattr(cache, 'implicit_upgrade', False):
+                count_cache_skip('predicate')
+                logger.info('PETASTORM_TPU_DECODED_CACHE=1: composed predicate has no '
+                            'stable cache identity; reading uncached')
+                cache = NullCache()
+            else:
+                raise RuntimeError('Local cache is not supported together with predicates')
         self.stored_schema = infer_or_load_unischema(dataset_info)
         if ngram is not None:
             ngram.resolve_regex_field_names(self.stored_schema)
@@ -318,7 +394,7 @@ class Reader:
             pass_epoch=True, always_exclude=self._pruned_items, trace_shard=self.cur_shard)
         # only batched consumers can take encoded image stubs
         defer = defer_image_decode and self.batched_output
-        if defer and not defer_config_ok(transform_spec, ngram):
+        if defer and not defer_config_ok(transform_spec, ngram, cache):
             # counted here, once per Reader, not by each worker
             from petastorm_tpu_torch.fused import count_fallback
             count_fallback('worker-config')
@@ -329,6 +405,7 @@ class Reader:
                              'loaded_schema': self.loaded_schema,
                              'stored_schema': self.stored_schema,
                              'transform_spec': transform_spec,
+                             'cache': cache,
                              'ngram': ngram,
                              'row_groups': all_pieces,
                              'defer_image_decode': defer,

@@ -25,8 +25,9 @@ does not lead back to a uint8 numpy slab through ``.base``: the
 reference's base walk would find nothing and check nothing.
 
 :func:`guard_readonly` and :func:`guard_payload` force shared numpy
-payloads read-only; the port's decoded cache and process pool (ROADMAP
-items 3 and 9) will call them.
+payloads read-only: the decoded cache's memory tier
+(:mod:`petastorm_tpu_torch.materialized_cache`) calls :func:`guard_payload`
+on what it shares, and the process pool (ROADMAP item 9) will too.
 
 Violations the guards detect are recorded in a bounded in-process ring,
 surfaced as the ``pipesan`` section of ``pipeline_report()`` and counted

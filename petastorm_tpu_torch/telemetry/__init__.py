@@ -46,8 +46,8 @@ from petastorm_tpu_torch.telemetry.tracing import (  # noqa: F401
 )
 from petastorm_tpu_torch.telemetry import critpath  # noqa: F401
 from petastorm_tpu_torch.telemetry.export import (  # noqa: F401
-    format_pipeline_report, pipeline_report, prometheus_text, read_jsonl_snapshots,
-    write_jsonl_snapshot,
+    classify_cache_phase, decoded_cache_section, format_pipeline_report, pipeline_report,
+    prometheus_text, read_jsonl_snapshots, write_jsonl_snapshot,
 )
 from petastorm_tpu_torch.telemetry import timeseries  # noqa: F401
 from petastorm_tpu_torch.telemetry.timeseries import (  # noqa: F401

@@ -46,8 +46,8 @@ AUTOTUNE_MODULE = 'petastorm_tpu_torch.device.autotune'
 #: limited to the port's stages.
 _PRIORITY = (
     'decode_fused', 'decode', 'late_materialize', 'transform', 'filter',
-    'collate', 'pack', 'encode', 'write_flush', 'io', 'rowgroup_prune',
-    'stage_fill', 'h2d_dispatch', 'h2d_ready', 'ventilate', 'queue_wait',
+    'collate', 'pack', 'encode', 'write_flush', 'cache_fill', 'cache_hit_read', 'io',
+    'rowgroup_prune', 'stage_fill', 'h2d_dispatch', 'h2d_ready', 'ventilate', 'queue_wait',
 )
 _RANK = {stage: i for i, stage in enumerate(_PRIORITY)}
 

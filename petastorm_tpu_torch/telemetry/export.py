@@ -2,17 +2,18 @@
 snapshots, the Prometheus text format and the pipeline report.
 
 The report holds per-stage seconds and calls, the stall verdict and its
-windows, the staging engine's H2D overlap share, the selective-read
-(``pushdown``) section, the ``pipesan`` sanitizer's findings, the
-``anomalies`` the live plane recorded, the ``critical_path`` section when
-tracing recorded stage events, and the ``slo`` section when
-``PETASTORM_TPU_SLO`` arms a policy. All three read the registry (the
-process-wide one by default) and never mutate it.
+windows, the staging engine's H2D overlap share, the raw ``cache`` and the
+``decoded_cache`` sections (the latter with its cache-bound/decode-bound
+verdict, :func:`classify_cache_phase`), the selective-read (``pushdown``)
+section, the ``pipesan`` sanitizer's findings, the ``anomalies`` the live
+plane recorded, the ``critical_path`` section when tracing recorded stage
+events, and the ``slo`` section when ``PETASTORM_TPU_SLO`` arms a policy.
+All three read the registry (the process-wide one by default) and never
+mutate it.
 
 The reference's other report sections read subsystems the port does not
-have yet, whose counters therefore never appear here: ``cache``,
-``decoded_cache``, ``service``, ``readahead``, ``peer_cache``, ``write``
-and ``staging_autotune``.
+have yet, whose counters therefore never appear here: ``service``,
+``readahead``, ``peer_cache``, ``write`` and ``staging_autotune``.
 """
 
 import json
@@ -194,6 +195,12 @@ def pipeline_report(registry=None, wall_time_s=None, baseline=None, attributor=N
     overlap = _h2d_overlap_share(stages)
     if overlap is not None:
         report['h2d_overlap_share'] = overlap
+    cache = _cache_section(registry)
+    if cache is not None:
+        report['cache'] = cache
+    decoded = decoded_cache_section(registry, baseline=baseline, stages=stages)
+    if decoded is not None:
+        report['decoded_cache'] = decoded
     pushdown = _pushdown_section(registry)
     if pushdown is not None:
         report['pushdown'] = pushdown
@@ -234,6 +241,93 @@ def _h2d_overlap_share(stages):
     if not total:
         return None
     return round(1.0 - ready / total, 4)
+
+
+def _cache_section(registry):
+    """The raw row-group cache (``cache_type='local-disk'``), present once
+    it served a hit or a miss."""
+    from petastorm_tpu_torch.cache import (
+        CACHE_BYTES_EVICTED, CACHE_BYTES_WRITTEN, CACHE_EVICTIONS, CACHE_HITS, CACHE_MISSES,
+        CACHE_SIZE_BYTES,
+    )
+    hits = registry.counter_value(CACHE_HITS)
+    misses = registry.counter_value(CACHE_MISSES)
+    if not hits and not misses:
+        return None
+    return {
+        'hits': int(hits),
+        'misses': int(misses),
+        'evictions': int(registry.counter_value(CACHE_EVICTIONS)),
+        'bytes_written': int(registry.counter_value(CACHE_BYTES_WRITTEN)),
+        'bytes_evicted': int(registry.counter_value(CACHE_BYTES_EVICTED)),
+        # one gauge per process (pid label), each the running total of the
+        # one shared directory: the freshest estimate is the max, never
+        # the sum
+        'size_bytes': int(max(registry.gauges_with_prefix(CACHE_SIZE_BYTES).values(),
+                              default=0)),
+        'hit_rate': round(hits / (hits + misses), 4),
+    }
+
+
+def classify_cache_phase(stages, hits, misses):
+    """``'cache-bound'``, ``'decode-bound'`` or ``'mixed'`` for a pass over
+    the decoded cache. Cache-bound: hits are at least 80% and the pass's
+    decode side (io + decode + transform) no longer outweighs its
+    hit-serving time (``cache_hit_read``), or is under 50 ms. ``stages``
+    is a :func:`pipeline_report`-shaped per-stage dict."""
+    total = hits + misses
+    if total <= 0:
+        return None
+    hit_rate = hits / total
+
+    def _sec(stage):
+        return stages.get(stage, {}).get('seconds', 0.0)
+
+    decode_side = _sec('io') + _sec('decode') + _sec('transform')
+    hit_side = _sec('cache_hit_read')
+    if hit_rate >= 0.8 and (decode_side <= hit_side or decode_side < 0.05):
+        return 'cache-bound'
+    if hit_rate <= 0.2:
+        return 'decode-bound'
+    return 'mixed'
+
+
+def decoded_cache_section(registry=None, baseline=None, stages=None):
+    """The decoded cache's activity (None when it never ran) with the
+    :func:`classify_cache_phase` verdict. ``baseline`` (an earlier
+    ``registry.snapshot()``) scopes the counters to one window: pass the
+    snapshot taken between epochs to ask whether THIS pass was
+    cache-bound."""
+    from petastorm_tpu_torch.materialized_cache import (
+        DECODED_CACHE_BYTES_READ, DECODED_CACHE_BYTES_WRITTEN, DECODED_CACHE_COPY_READS,
+        DECODED_CACHE_EVICTIONS, DECODED_CACHE_HITS, DECODED_CACHE_MEM_HITS,
+        DECODED_CACHE_MISSES, DECODED_CACHE_MMAP_READS, DECODED_CACHE_SIZE_BYTES,
+    )
+    registry = registry or get_registry()
+    base = (baseline or {}).get('counters', {})
+
+    def value(name):
+        return registry.counter_value(name) - base.get(name, 0)
+
+    hits = value(DECODED_CACHE_HITS)
+    misses = value(DECODED_CACHE_MISSES)
+    if not hits and not misses:
+        return None
+    return {
+        'hits': int(hits),
+        'misses': int(misses),
+        'mem_hits': int(value(DECODED_CACHE_MEM_HITS)),
+        'evictions': int(value(DECODED_CACHE_EVICTIONS)),
+        'bytes_written': int(value(DECODED_CACHE_BYTES_WRITTEN)),
+        'bytes_read': int(value(DECODED_CACHE_BYTES_READ)),
+        'mmap_reads': int(value(DECODED_CACHE_MMAP_READS)),
+        'copy_reads': int(value(DECODED_CACHE_COPY_READS)),
+        # per-process gauges over one shared directory: the max, never the sum
+        'size_bytes': int(max(registry.gauges_with_prefix(DECODED_CACHE_SIZE_BYTES).values(),
+                              default=0)),
+        'hit_rate': round(hits / (hits + misses), 4),
+        'verdict': classify_cache_phase(stages or {}, hits, misses),
+    }
 
 
 def _pushdown_section(registry):
@@ -325,6 +419,20 @@ def format_pipeline_report(report):
     lines.append('stall attribution: %s (producer_wait %.3fs, consumer_wait %.3fs over %d '
                  'window(s))' % (stall['verdict'], stall['producer_wait_s'],
                                  stall['consumer_wait_s'], len(stall['windows'])))
+    if 'cache' in report:
+        c = report['cache']
+        lines.append('cache: %d hit / %d miss (%.1f%%), %d eviction(s), %d B written, '
+                     '%d B evicted, %d B resident'
+                     % (c['hits'], c['misses'], 100 * c['hit_rate'], c['evictions'],
+                        c['bytes_written'], c['bytes_evicted'], c['size_bytes']))
+    if 'decoded_cache' in report:
+        d = report['decoded_cache']
+        lines.append('decoded cache: %s — %d hit / %d miss (%.1f%%, %d from memory tier), '
+                     '%d mmap / %d copy column read(s), %d B written, %d B read, '
+                     '%d eviction(s), %d B resident'
+                     % (d['verdict'] or 'idle', d['hits'], d['misses'], 100 * d['hit_rate'],
+                        d['mem_hits'], d['mmap_reads'], d['copy_reads'], d['bytes_written'],
+                        d['bytes_read'], d['evictions'], d['size_bytes']))
     if 'pushdown' in report:
         p = report['pushdown']
         share = p['prune_share']

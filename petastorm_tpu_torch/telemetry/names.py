@@ -16,7 +16,9 @@ enforced from both sides. It imports nothing.
 #: ``decode`` codec decode · ``filter`` predicate mask over a row-group ·
 #: ``late_materialize`` decode of the predicate's survivors only ·
 #: ``rowgroup_prune`` footer-statistics planner at Reader construction ·
-#: ``transform`` TransformSpec · ``queue_wait``
+#: ``transform`` TransformSpec · ``cache_hit_read`` a decoded-cache entry
+#: mapped back · ``cache_fill`` a decoded-cache entry published ·
+#: ``queue_wait``
 #: consumer blocked pulling · ``collate`` re-batch/shuffle buffer ·
 #: ``h2d_ready`` staging ring blocked until a slot's previous transfer
 #: completed · ``stage_fill`` cast/pad/mask copy into the slot ·
@@ -25,8 +27,8 @@ enforced from both sides. It imports nothing.
 #: documents packed into fixed rows · ``encode`` write-path codec encode ·
 #: ``write_flush`` one row-group flushed into a part file
 STAGES = ('ventilate', 'io', 'decode', 'filter', 'late_materialize', 'rowgroup_prune',
-          'transform', 'queue_wait', 'collate', 'h2d_ready', 'stage_fill', 'decode_fused',
-          'h2d_dispatch', 'pack', 'encode', 'write_flush')
+          'transform', 'cache_hit_read', 'cache_fill', 'queue_wait', 'collate', 'h2d_ready',
+          'stage_fill', 'decode_fused', 'h2d_dispatch', 'pack', 'encode', 'write_flush')
 
 #: trace-event names the port records outside the stage spans (the
 #: reference's set, limited to what the port records): ``attempt`` one
@@ -41,6 +43,11 @@ KNOB_PREFIX = 'PETASTORM_TPU_'
 #: environment knobs the port reads (the native decoders read the two
 #: ``JPEG`` ones in C)
 KNOWN_KNOBS = frozenset([
+    'PETASTORM_TPU_DECODED_CACHE',
+    'PETASTORM_TPU_DECODED_CACHE_DIR',
+    'PETASTORM_TPU_DECODED_CACHE_DISK_MB',
+    'PETASTORM_TPU_DECODED_CACHE_MEM_MB',
+    'PETASTORM_TPU_FAULTS',
     'PETASTORM_TPU_IMAGE_DECODER_THREADS',
     'PETASTORM_TPU_JPEG_DCT',
     'PETASTORM_TPU_JPEG_FANCY',
@@ -204,7 +211,7 @@ METRIC_NAMES = frozenset([
 
 #: every registered fault-injection site, mapped to a one-line
 #: description of the seam it sits on (the reference's table verbatim;
-#: the port's fault injector comes with ROADMAP item 3). The
+#: :mod:`petastorm_tpu_torch.faults` arms them). The
 #: ``faultpoint`` analysis pass holds every ``fault_hit()`` literal in
 #: the port to this set. ``drop`` is only meaningful at the message-send
 #: sites; the data-path sites take the error/oserror/delay modes.

@@ -3,7 +3,6 @@
 as a pandas DataFrame; device-side transforms belong in
 :mod:`petastorm_tpu_torch.ops`."""
 
-from petastorm_tpu_torch.errors import unported
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 
 
@@ -17,19 +16,24 @@ class TransformSpec:
     :param removed_fields: field names the transform deletes.
     :param selected_fields: if not None, exactly these fields remain, in
         this order (exclusive with ``removed_fields``).
-    :param cacheable: the decoded cache's opt-in; not ported yet.
+    :param cacheable: whether the decoded cache (``cache_type='decoded'``)
+        may store this transform's output. The cache keys a transform by
+        its code and cannot tell a random crop from a resize, so a
+        stochastic transform must say ``False`` (never cached). ``True``:
+        deterministic, cached everywhere. ``None`` (default): cached when
+        the reader asked for the decoded cache, not under the fleet-wide
+        ``PETASTORM_TPU_DECODED_CACHE=1`` upgrade.
     """
 
     def __init__(self, func=None, edit_fields=None, removed_fields=None,
                  selected_fields=None, cacheable=None):
-        if cacheable is not None:
-            raise unported('TransformSpec(cacheable=)', 3)
         if removed_fields and selected_fields:
             raise ValueError('removed_fields and selected_fields are mutually exclusive')
         self.func = func
         self.edit_fields = [self._as_field(f) for f in (edit_fields or [])]
         self.removed_fields = list(removed_fields or [])
         self.selected_fields = list(selected_fields) if selected_fields is not None else None
+        self.cacheable = cacheable
 
     @staticmethod
     def _as_field(f):

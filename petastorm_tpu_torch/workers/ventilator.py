@@ -54,21 +54,21 @@ class ConcurrentVentilator:
     :param randomize_item_order: reshuffle the item order each epoch.
     :param random_seed: epoch ``e`` uses ``seed + e``; None draws one.
     :param pass_epoch: also pass ``epoch=`` to ``ventilate_fn``.
-    :param always_exclude: item indices never ventilated, in any epoch or
-        sweep: the Reader's statistics-pruned row-groups, which stay in the
-        item list (indices, shards and checkpoints are unchanged) but
-        deliver no row.
     :param trace_shard: shard recorded in the trace contexts minted here.
         With ``PETASTORM_TPU_TRACE`` on, each sampled item gets a context
         (:func:`~petastorm_tpu_torch.telemetry.tracing.mint`), passed to
         ``ventilate_fn`` as the reserved ``_trace_ctx`` kwarg, which the
         pools strip before ``worker.process``.
+    :param always_exclude: item indices never ventilated, in any epoch or
+        sweep: the Reader's statistics-pruned row-groups, which stay in the
+        item list (indices, shards and checkpoints are unchanged) but
+        deliver no row.
     """
 
     def __init__(self, ventilate_fn, items_to_ventilate, iterations=1,
                  max_ventilation_queue_size=None, randomize_item_order=False,
-                 random_seed=0, pass_epoch=False, always_exclude=None,
-                 trace_shard=None):
+                 random_seed=0, pass_epoch=False, trace_shard=None,
+                 always_exclude=None):
         if iterations is not None and iterations <= 0:
             raise ValueError('iterations must be positive or None, got %r' % iterations)
         self._ventilate_fn = ventilate_fn
@@ -92,6 +92,7 @@ class ConcurrentVentilator:
         self._cv = threading.Condition()
         self._stop_requested = False
         self._completed = False
+        self._error = None
         self._thread = None
 
     def start(self):
@@ -117,6 +118,14 @@ class ConcurrentVentilator:
     def completed(self):
         return self._completed
 
+    @property
+    def error(self):
+        """The exception that killed ventilation, or None. A dead
+        ventilator reads as completed, so consumers drain and stop; a
+        caller that must tell a cut-short epoch from a finished one
+        checks here."""
+        return self._error
+
     def stop(self):
         with self._cv:
             self._stop_requested = True
@@ -136,6 +145,7 @@ class ConcurrentVentilator:
             raise RuntimeError('Cannot reset a ventilator before it completed')
         self._thread = None
         self._completed = False
+        self._error = None
         self._stop_requested = False
         self._cursor = 0
         self._epoch = 0
@@ -177,10 +187,11 @@ class ConcurrentVentilator:
         # consumer polling completed() would wait forever
         try:
             self._run_inner()
-        except Exception:  # noqa: BLE001 - logged; consumers drain and stop
+        except Exception as e:  # noqa: BLE001 - kept as .error; consumers drain and stop
             logger.exception('Ventilator thread died; marking ventilation '
                              'complete so consumers do not wait forever')
             with self._cv:
+                self._error = e
                 self._completed = True
                 self._cv.notify_all()
 

@@ -284,9 +284,12 @@ def test_restore_specific_step(tmp_path):
 
 def test_a_step_is_written_once_and_unfinished_saves_are_not_steps(tmp_path):
     with TrainCheckpointer(str(tmp_path / 'ckpt')) as ckpt:
-        ckpt.save(1, _state())
+        assert ckpt.save(1, _state()).endswith(os.sep + '1')
+        # orbax's rule: a step not after the latest is skipped unless
+        # forced, and a forced save of an existing step raises
+        assert ckpt.save(1, _state()) is None
         with pytest.raises(ValueError, match='already exists'):
-            ckpt.save(1, _state())
+            ckpt.save(1, _state(), force=True)
         os.makedirs(tmp_path / 'ckpt' / '.tmp-2-abc')
         assert ckpt.all_steps() == [1]
         with pytest.raises(ValueError, match='max_to_keep'):

@@ -64,7 +64,9 @@ def test_port_has_modules_to_scan():
                    ('analysis', 'core.py'), ('analysis', 'callgraph.py'),
                    ('analysis', 'pass_env_knobs.py'), ('analysis', 'pass_names.py'),
                    ('analysis', 'pass_locks.py'), ('analysis', 'pass_threads.py'),
-                   ('analysis', 'pass_payloads.py'), ('analysis', 'pass_buffers.py')):
+                   ('analysis', 'pass_payloads.py'), ('analysis', 'pass_buffers.py'),
+                   ('faults.py',), ('cache.py',), ('materialized_cache.py',),
+                   ('ops', '__init__.py'), ('models', '__init__.py')):
         assert os.path.join('petastorm_tpu_torch', *module) in rel
     assert len(rel) > 20
 
@@ -146,7 +148,7 @@ def test_port_anomaly_kinds_are_the_references():
                     and node.args and isinstance(node.args[0], ast.Constant)):
                 recorded.add(node.args[0].value)
     assert recorded == {'queue_saturated', 'h2d_starvation', 'throughput_collapse',
-                        'stall_flap', 'heartbeat_gap', 'slo_breach'}
+                        'stall_flap', 'heartbeat_gap', 'slo_breach', 'cache_degraded'}
     assert recorded <= set(ANOMALY_KINDS)
 
 

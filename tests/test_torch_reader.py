@@ -8,6 +8,7 @@ the dummy pool and the same per-shard split on the thread pool; a
 """
 
 import json
+import os
 
 import numpy as np
 import pyarrow.parquet as pq
@@ -186,10 +187,11 @@ def test_state_dict_resumes_across_packages(synthetic_dataset, saver, loader):
     dict(rowgroup_selector=object()),
     dict(predicate='in_set'),
 ], ids=['process', 'service', 'decoded-cache', 'filters', 'rowgroup-selector', 'predicate'])
-def test_unported_kwargs_raise(synthetic_dataset, kwargs):
-    """Each kwarg still unported raises its ROADMAP item; ``filters`` and
-    ``predicate`` are ported and read the JAX reader's batches."""
-    if 'filters' in kwargs or 'predicate' in kwargs:
+def test_unported_kwargs_raise(synthetic_dataset, kwargs, tmp_path):
+    """Each kwarg still unported raises its ROADMAP item; ``filters``,
+    ``predicate`` and the decoded cache are ported and read the JAX
+    reader's batches."""
+    if 'filters' in kwargs or 'predicate' in kwargs or 'cache_type' in kwargs:
         from petastorm_tpu import predicates as jax_predicates
         from petastorm_tpu_torch import predicates as torch_predicates
         out = {}
@@ -197,6 +199,8 @@ def test_unported_kwargs_raise(synthetic_dataset, kwargs):
             kw = dict(kwargs)
             if 'predicate' in kw:
                 kw['predicate'] = predicates.in_set({3, 31, 47}, 'id')
+            if 'cache_type' in kw:
+                kw['cache_location'] = str(tmp_path / package)
             out[package] = _read(package, synthetic_dataset.url, reader_pool_type='dummy',
                                  shuffle_row_groups=False, schema_fields=['^id$'], **kw)
         assert [b['id'].tolist() for b in out['torch']] == \
@@ -208,11 +212,12 @@ def test_unported_kwargs_raise(synthetic_dataset, kwargs):
 
 
 # the reference's kwargs the port takes at the reference's positions, each
-# raising its own ROADMAP item; None: ported, taken and kept on the reader
+# raising its own ROADMAP item; None: ported, taken and kept on the reader;
+# 'read': ported, and the reader reads the JAX reader's batches
 REFERENCE_KWARGS = {
-    'cache_location': ('/tmp/cache', 3),
-    'cache_size_limit': (1 << 20, 3),
-    'cache_row_size_estimate': (1024, 3),
+    'cache_location': ('cache', 'read'),
+    'cache_size_limit': (1 << 20, 'read'),
+    'cache_row_size_estimate': (1024, 'read'),
     'mixture_interleave': ({'share': 0.5}, None),
     'storage_options': ({'anon': True}, 9),
     'filesystem': (object(), 9),
@@ -221,10 +226,20 @@ REFERENCE_KWARGS = {
 
 
 @pytest.mark.parametrize('name', sorted(REFERENCE_KWARGS))
-def test_reference_kwargs_raise_their_item(synthetic_dataset, name):
+def test_reference_kwargs_raise_their_item(synthetic_dataset, name, tmp_path):
     import inspect
     value, item = REFERENCE_KWARGS[name]
-    if item is None:
+    if item == 'read':
+        # a cache kwarg without cache_type: the default null cache ignores it
+        if name == 'cache_location':
+            value = str(tmp_path / value)
+        out = {package: _read(package, synthetic_dataset.url, reader_pool_type='dummy',
+                              shuffle_row_groups=False, schema_fields=['^id$'], **{name: value})
+               for package in ('jax', 'torch')}
+        assert [b['id'].tolist() for b in out['torch']] == \
+            [b['id'].tolist() for b in out['jax']]
+        assert not os.path.exists(str(tmp_path / 'cache'))
+    elif item is None:
         with torch_make_batch_reader(synthetic_dataset.url, reader_pool_type='dummy',
                                      **{name: value}) as reader:
             assert getattr(reader, name) == value
@@ -263,7 +278,7 @@ def test_materialize_dataset_takes_row_group_size_mb(tmp_path):
     ('writer-workers-count', 10),
     ('writer-sort-by', 10),
     ('writer-filesystem', 10),
-    ('transform-cacheable', 3),
+    ('transform-cacheable', None),
 ])
 def test_write_and_transform_kwargs_raise_their_item(tmp_path, call, item):
     from petastorm_tpu_torch.etl.dataset_metadata import DatasetWriter, materialize_dataset
@@ -277,5 +292,9 @@ def test_write_and_transform_kwargs_raise_their_item(tmp_path, call, item):
         'writer-filesystem': lambda: DatasetWriter(url, schema, filesystem=object()),
         'transform-cacheable': lambda: TorchTransformSpec(lambda f: f, cacheable=True),
     }
+    if item is None:
+        # ported: the decoded cache's opt-in, kept as the reference keeps it
+        assert calls[call]().cacheable is True
+        return
     with pytest.raises(NotImplementedError, match=r'ROADMAP.md: Queue 1 item %d,' % item):
         calls[call]()

@@ -184,10 +184,10 @@ def test_plain_parquet_store_warns(scalar_dataset, package):
 UNPORTED_KWARGS = {
     'predicate': ('in_set', None),
     'filters': ([('id', '<', 5)], None),
-    'cache_type': ('decoded', 3),
-    'cache_location': ('/tmp/cache', 3),
-    'cache_size_limit': (1 << 20, 3),
-    'cache_row_size_estimate': (1024, 3),
+    'cache_type': ('decoded', None),
+    'cache_location': ('cache', None),
+    'cache_size_limit': (1 << 20, None),
+    'cache_row_size_estimate': (1024, None),
     'rowgroup_selector': (object(), 10),
     'reader_pool_type': ('process', 9),
     'poison_policy': ('skip', 9),
@@ -197,7 +197,7 @@ UNPORTED_KWARGS = {
 
 
 @pytest.mark.parametrize('name', sorted(UNPORTED_KWARGS) + ['service-pool'])
-def test_unported_kwargs_raise_their_item(synthetic_dataset, name):
+def test_unported_kwargs_raise_their_item(synthetic_dataset, name, tmp_path):
     import inspect
     if name == 'service-pool':
         name, (value, item) = 'reader_pool_type', ('service', 9)
@@ -209,6 +209,10 @@ def test_unported_kwargs_raise_their_item(synthetic_dataset, name):
         ids = {}
         for package, predicates in (('jax', jax_predicates), ('torch', torch_predicates)):
             kw = {name: predicates.in_set({3, 31, 47}, 'id') if value == 'in_set' else value}
+            if name == 'cache_location':
+                kw[name] = str(tmp_path / value)   # ignored by the default null cache
+            elif name == 'cache_type':
+                kw['cache_location'] = str(tmp_path / package)
             ids[package] = [int(r['id']) for r in _rows(package, synthetic_dataset.url,
                                                         reader_pool_type='dummy',
                                                         shuffle_row_groups=False, **kw)]

@@ -1,7 +1,11 @@
 """The port's public surface against the JAX package's: top-level exports,
-``Reader.cleanup``/``exit``, ``make_torch_loader``'s positional order and
+``Reader.cleanup``/``exit``, ``make_torch_loader``'s positional order,
 the schema helpers ``UnischemaField.is_scalar``,
-``Unischema.as_arrow_schema`` and ``insert_explicit_nulls``."""
+``Unischema.as_arrow_schema`` and ``insert_explicit_nulls``, a pool
+instance as ``reader_pool_type``, the ``ops``/``models`` exports, and the
+signatures of ``ConcurrentVentilator`` (with its ``error``),
+``TrainCheckpointer.save(force=)`` and the flash entry points'
+``force_kernel=``."""
 
 import inspect
 import subprocess
@@ -132,3 +136,147 @@ def test_insert_explicit_nulls_refuses_a_missing_required_field():
         schema = module.Unischema('S', [module.UnischemaField(*a) for a in f])
         with pytest.raises(ValueError, match="Field 'id' is not found in row and is not nullable"):
             module.insert_explicit_nulls(schema, {'x': 1})
+
+
+# -- a pool instance as reader_pool_type ---------------------------------------
+
+
+def _ten_rows(tmp_path):
+    from tests.torch_telemetry_common import write_small_dataset
+    return write_small_dataset('file://%s/ten' % tmp_path, rows=10, rowgroup_size_rows=4)
+
+
+def test_reader_takes_a_pool_instance(tmp_path):
+    from petastorm_tpu.workers.thread_pool import ThreadPool as JaxThreadPool
+    from petastorm_tpu_torch.workers.thread_pool import ThreadPool
+    url = _ten_rows(tmp_path)
+    rows = {}
+    for package, make, pool in (('jax', petastorm_tpu.make_batch_reader, JaxThreadPool(2)),
+                                ('torch', petastorm_tpu_torch.make_batch_reader, ThreadPool(2))):
+        with make(url, reader_pool_type=pool, shuffle_row_groups=False) as reader:
+            assert reader.diagnostics == pool.diagnostics
+            rows[package] = sorted((int(i), x.tobytes()) for b in reader
+                                   for i, x in zip(b.id, b.x))
+    assert rows['torch'] == rows['jax'] and len(rows['torch']) == 10
+
+
+def test_a_pool_instance_without_the_contract_is_refused(tmp_path):
+    url = _ten_rows(tmp_path)
+    for make in (petastorm_tpu.make_batch_reader, petastorm_tpu_torch.make_batch_reader):
+        with pytest.raises(ValueError, match="lacks pool contract member.*'get_results'"):
+            make(url, reader_pool_type=object())
+
+
+# -- the subpackages' exports ------------------------------------------------------
+
+#: reference exports the port leaves to ROADMAP item 8
+ITEM_8 = {'ring_attention', 'greedy_generate', 'sample_generate'}
+
+
+@pytest.mark.parametrize('package', ['ops', 'models'])
+def test_subpackage_exports_are_the_references(package):
+    import importlib
+    ref = importlib.import_module('petastorm_tpu.' + package)
+    port = importlib.import_module('petastorm_tpu_torch.' + package)
+    want = {name for name in vars(ref) if not name.startswith('_')
+            and callable(getattr(ref, name)) and not inspect.ismodule(getattr(ref, name))}
+    want -= ITEM_8
+    # the port initializes parameters through init_transformer/init_vit
+    want -= {'init_transformer_params', 'init_vit_params'}
+    assert set(port.__all__) == want
+    for name in port.__all__:
+        obj = getattr(port, name)
+        assert obj.__module__.startswith('petastorm_tpu_torch.%s.' % package), name
+    with pytest.raises(AttributeError, match='no attribute'):
+        getattr(port, 'not_an_export')
+
+
+def test_subpackage_import_stays_light():
+    """``import petastorm_tpu_torch.ops`` (or ``.models``) loads none of
+    their modules until a name is asked for."""
+    code = ('import sys, petastorm_tpu_torch.ops, petastorm_tpu_torch.models; '
+            'print(sorted(m for m in sys.modules if m.startswith(('
+            '"petastorm_tpu_torch.ops.", "petastorm_tpu_torch.models."))))')
+    out = subprocess.run([sys.executable, '-c', code], check=True, capture_output=True,
+                         text=True, timeout=120).stdout
+    assert out.strip() == '[]'
+
+
+# -- signatures -------------------------------------------------------------------
+
+
+def test_ventilator_signature_is_the_references():
+    from petastorm_tpu.workers.ventilator import ConcurrentVentilator as JaxVentilator
+    from petastorm_tpu_torch.workers.ventilator import ConcurrentVentilator
+    assert list(inspect.signature(ConcurrentVentilator).parameters) == \
+        list(inspect.signature(JaxVentilator).parameters)
+
+
+@pytest.mark.parametrize('package', ['jax', 'torch'])
+def test_ventilator_keeps_the_error_that_killed_it(package):
+    """A ``ventilate_fn`` dying on the 3rd item: ventilation reads as
+    completed (consumers drain and stop) and ``error`` is the exception,
+    so a cut-short epoch is told from a finished one."""
+    import time
+    if package == 'jax':
+        from petastorm_tpu.workers.ventilator import ConcurrentVentilator
+    else:
+        from petastorm_tpu_torch.workers.ventilator import ConcurrentVentilator
+    seen = []
+
+    def ventilate(item):
+        if len(seen) == 2:
+            raise RuntimeError('ventilation died on item %d' % item)
+        seen.append(item)
+
+    finished = ConcurrentVentilator(lambda item: None, [{'item': i} for i in range(3)])
+    vent = ConcurrentVentilator(ventilate, [{'item': i} for i in range(5)])
+    assert vent.error is None
+    for v in (finished, vent):
+        v.start()
+    deadline = time.monotonic() + 10
+    while not (vent.completed() and finished.completed()) and time.monotonic() < deadline:
+        for v in (finished, vent):
+            v.processed_item()
+        time.sleep(0.01)
+    assert vent.completed() and finished.completed()
+    assert finished.error is None
+    assert isinstance(vent.error, RuntimeError) and 'item 2' in str(vent.error)
+    assert seen == [0, 1]
+    for v in (finished, vent):
+        v.stop()
+
+
+def test_checkpoint_save_takes_force(tmp_path):
+    import os
+    from petastorm_tpu.jax.checkpoint import TrainCheckpointer as JaxCheckpointer
+    from petastorm_tpu_torch.checkpoint import TrainCheckpointer
+    want = inspect.signature(JaxCheckpointer.save).parameters
+    got = inspect.signature(TrainCheckpointer.save).parameters
+    assert list(got) == list(want) and got['force'].default is want['force'].default is False
+    import torch
+    with TrainCheckpointer(str(tmp_path / 'ckpt')) as ckpt:
+        state = {'w': torch.zeros(2)}
+        assert ckpt.save(3, state) == os.path.join(str(tmp_path / 'ckpt'), '3')
+        # not after the latest step: skipped, as orbax's save returns False
+        assert ckpt.save(2, state) is None and ckpt.all_steps() == [3]
+        assert ckpt.save(2, state, force=True) == os.path.join(str(tmp_path / 'ckpt'), '2')
+        assert ckpt.all_steps() == [2, 3]
+
+
+@pytest.mark.parametrize('name', ['flash_attention_fused', 'flash_causal_attention'])
+def test_flash_entry_points_take_force_kernel(name):
+    import torch
+    from petastorm_tpu.ops import flash_attention as jax_flash
+    from petastorm_tpu_torch.ops import flash_attention as torch_flash
+    fn = getattr(torch_flash, name)
+    want = inspect.signature(getattr(jax_flash, name)).parameters
+    got = inspect.signature(fn).parameters
+    assert list(got) == list(want) and got['force_kernel'].default is False
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 16, 2, 8, generator=gen) for _ in range(3))
+    plain = fn(q, k, v)
+    assert torch.equal(fn(q, k, v, force_kernel=False), plain)
+    # a CPU tensor has no kernel: forcing it raises, never a silent fallback
+    with pytest.raises(RuntimeError, match=r'force_kernel=True\) needs CUDA tensors'):
+        fn(q, k, v, force_kernel=True)

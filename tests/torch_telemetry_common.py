@@ -19,7 +19,12 @@ worker. ``PETASTORM_TPU_SANITIZE`` arms both packages' sanitizers too, and
 each caches the knob: the guard resets both (after ``monkeypatch``'s
 restore) and fails a test that leaves either's cache or violation ring
 changed, or the knob set, so a parity test that armed a reference engine
-cannot make a later reference test run armed.
+cannot make a later reference test run armed. ``PETASTORM_TPU_FAULTS``
+arms both packages' fault injectors: the guard re-reads it in both
+(``refresh_faults``, after ``monkeypatch``'s restore, so both disarm) and
+clears both decoded caches' publish listeners; it fails a test that left
+a listener registered, or whose injector stays armed or whose registry
+still shows a degraded decoded cache after that reset.
 
 ``armed_dump`` is for a test that sets ``PETASTORM_TPU_TRACE_DUMP``: it
 restores the SIGUSR1 handler it found and unregisters the ``atexit``
@@ -36,6 +41,8 @@ import time
 import numpy as np
 import pytest
 
+from petastorm_tpu import faults as jax_faults
+from petastorm_tpu import materialized_cache as jax_materialized_cache
 from petastorm_tpu import sanitizer as jax_sanitizer
 from petastorm_tpu import telemetry as jax_telemetry
 from petastorm_tpu.telemetry import obs_server as jax_obs_server
@@ -45,6 +52,8 @@ from petastorm_tpu.telemetry import slo as jax_slo
 from petastorm_tpu.telemetry import spans as jax_spans
 from petastorm_tpu.telemetry import timeseries as jax_timeseries
 from petastorm_tpu.telemetry import tracing as jax_tracing
+from petastorm_tpu_torch import faults as torch_faults
+from petastorm_tpu_torch import materialized_cache as torch_materialized_cache
 from petastorm_tpu_torch import sanitizer as torch_sanitizer
 from petastorm_tpu_torch import telemetry as torch_telemetry
 from petastorm_tpu_torch.telemetry import obs_server as torch_obs_server
@@ -65,11 +74,34 @@ JAX_ONLY_OFF = ('PETASTORM_TPU_READAHEAD',)
 _DUMP_FLAGS = ('_atexit_installed', '_signal_installed')
 
 
+#: the decoded caches' degraded gauge, in both packages' registries
+DEGRADED_GAUGE = 'petastorm_tpu_decoded_cache_degraded'
+
+
 def reset_both():
     jax_telemetry.reset_for_tests()
     torch_telemetry.reset_for_tests()
     jax_sanitizer.reset_for_tests()
     torch_sanitizer.reset_for_tests()
+    jax_faults.refresh_faults()
+    torch_faults.refresh_faults()
+    del jax_materialized_cache._PUBLISH_LISTENERS[:]
+    del torch_materialized_cache._PUBLISH_LISTENERS[:]
+
+
+def _cache_leftovers():
+    """What of either package's fault arming or decoded-cache state is
+    still set."""
+    found = {}
+    for pkg, faults, telemetry in (('jax', jax_faults, jax_telemetry),
+                                   ('port', torch_faults, torch_telemetry)):
+        if faults.ARMED is not None:
+            found['%s faults.ARMED' % pkg] = faults.ARMED.spec
+        degraded = {k: v for k, v in
+                    telemetry.get_registry().gauges_with_prefix(DEGRADED_GAUGE).items() if v}
+        if degraded:
+            found['%s degraded gauge' % pkg] = degraded
+    return found
 
 
 def _port_threads():
@@ -123,7 +155,14 @@ def telemetry_guard():
     reset_both()
     before = _global_state()
     yield
+    listeners = {pkg: list(module._PUBLISH_LISTENERS)
+                 for pkg, module in (('jax', jax_materialized_cache),
+                                     ('port', torch_materialized_cache))
+                 if module._PUBLISH_LISTENERS}
     reset_both()
+    assert not listeners, 'decoded-cache publish listeners left registered: %s' % listeners
+    leftovers = _cache_leftovers()
+    assert not leftovers, 'fault arming or decoded-cache state left behind: %s' % leftovers
     deadline = time.monotonic() + 5.0
     while _port_threads() and time.monotonic() < deadline:
         time.sleep(0.01)
