@@ -243,6 +243,26 @@ outlives its phase.
     the epoch), a faulted footer under the selective read (nothing
     pruned, the 304 survivors); the injector's fires equal the injection
     counter per site.
+35. ``readahead_vit_path``: the readahead plane and the staging autotuner
+    (both on by default in every path above) on vit-imagenetlike-384.
+    Cold uncached epochs on one pool worker in dataset order, the plane
+    off, on, on, off (``PETASTORM_TPU_READAHEAD``): batch digests equal in
+    order, hits, misses, coalesced reads, bytes, degrades by reason,
+    images/s and the read path per epoch; the on epochs hit every
+    row-group, with no miss and no degrade. A producer-bound drill: a
+    read-only loader for ``READAHEAD_DRILL_EPOCHS`` epochs (at least the
+    first, and on until a decision, at most the second) with the
+    autotuner's window at ``READAHEAD_TUNE_WINDOW_S`` and the live plane
+    armed: at least one decision, named by ``autotune_report()`` and by
+    ``/report``'s ``autotune`` entry, and no degrade. Then ``VIT_STEPS``
+    ViT-Base steps on a loader with both planes at their defaults: 20
+    normalize and 240 launches of each flash kernel, no miss, no degrade,
+    the decisions by action. After each loader closes: no readahead
+    manager, fetch thread, override or tuner holding one. The ViT phases
+    before it (``vit_path``, ``traced_vit_path``, the armed steps of
+    ``sanitized_vit_path``, the uncached epoch of
+    ``decoded_cache_vit_path``) print their readahead counts too and
+    hold no degrade.
 ``--trace-dir DIR`` keeps the two Chrome traces in ``DIR``.
 
 Then the ``kernels`` summary (each kernel's launches on every path), the
@@ -413,6 +433,11 @@ CACHE_DISK_LIMIT = 2 * 10 ** 9
 CACHE_ARMED_MEM_MB = 1024
 # chaos_path: a drill that has not ended by then has hung
 CHAOS_DEADLINE_S = 120
+# readahead_vit_path: the autotuner's window; the producer-bound drill reads
+# at least the first count of epochs and goes on, up to the second, until
+# the tuner has decided
+READAHEAD_TUNE_WINDOW_S = '0.25'
+READAHEAD_DRILL_EPOCHS = (3, 12)
 # dp-lm: two gloo ranks on the one card feed the flagship
 DP_RANKS = 2
 DP_STEPS = 5                 # the first is held against one process; the rest timed
@@ -1714,6 +1739,7 @@ def phase_vit_path(url, image_codec):
     result = train_vit_fused(url, steps=VIT_STEPS, batch_size=VIT_BATCH, device='cuda')
     torch.cuda.synchronize()
     launches = launch_counts()
+    readahead_counts = _readahead_section()
     losses = result['losses']
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
     diag = result['diagnostics']
@@ -1728,11 +1754,12 @@ def phase_vit_path(url, image_codec):
           'peak_memory_bytes': torch.cuda.max_memory_allocated(),
           'fused_decode_mode': diag['fused_decode_mode'],
           'fused_decode_rows': diag['fused_decode_rows'],
-          'native_decoded_cells': decoded,
+          'native_decoded_cells': decoded, 'readahead': readahead_counts,
           'consumer_wait_s': diag['consumer_wait_s'],
           'stage_backpressure_s': diag['stage_backpressure_s'],
           'stage_seconds': stage_seconds()})
     assert len(losses) == VIT_STEPS
+    assert not readahead_counts['degraded'], readahead_counts
     assert all(math.isfinite(v) for v in losses), losses
     assert last < first, (first, last)
     assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
@@ -1763,6 +1790,7 @@ def phase_traced_vit_path(url, image_codec, vit_images_per_s, trace_dir):
         events = telemetry.get_recorder().snapshot()
         trace = os.path.join(trace_dir, 'vit_trace.json')
         assert telemetry.dump_trace(trace) == len(events)
+        readahead_counts = _readahead_section()
     launches = launch_counts()
     tracks = check_trace_file(trace, events)
     stages = check_report_stages(report, events)
@@ -1772,7 +1800,7 @@ def phase_traced_vit_path(url, image_codec, vit_images_per_s, trace_dir):
           'traced_over_vit_path': result['images_per_s'] / vit_images_per_s,
           'launches': launches, 'trace_events': len(events), 'trace_tracks': tracks,
           'traced_stages': stages, 'fused_decode_mode': result['diagnostics']['fused_decode_mode'],
-          'report': report_summary(report)})
+          'readahead': readahead_counts, 'report': report_summary(report)})
     print(telemetry.format_pipeline_report(report), flush=True)
     assert all(math.isfinite(v) for v in result['losses']), result['losses']
     assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
@@ -1781,6 +1809,7 @@ def phase_traced_vit_path(url, image_codec, vit_images_per_s, trace_dir):
     for name in FLASH_KERNELS:
         assert launches[name] == want, (name, launches[name], want)
     assert report.get('h2d_overlap_share') is not None, sorted(report)
+    assert not readahead_counts['degraded'], readahead_counts
     staged = {'stage_fill', 'h2d_dispatch'} | ({'decode_fused'} if image_codec != 'npy' else set())
     assert staged <= set(report['stages']), sorted(report['stages'])
     return launches
@@ -1863,6 +1892,7 @@ def phase_sanitized_vit_path(url, image_codec, vit_images_per_s):
         checks = registry.counter_value(sanitizer.SANITIZER_CANARY_CHECKS)
         counted = registry.counters_with_prefix(sanitizer.SANITIZER_VIOLATIONS)
         violations = sanitizer.violations()
+        readahead_counts = _readahead_section()
     sanitizer.reset_for_tests()
     last, rate, _ = _epoch_digests(url)
     rates['unarmed'].append(rate)
@@ -1882,12 +1912,13 @@ def phase_sanitized_vit_path(url, image_codec, vit_images_per_s):
           'slot_refills': diag['staging_slot_refills'], 'canary_checks': checks,
           'slabs_quarantined': diag['staging_slabs_quarantined'],
           'violations': violations + read_violations, 'pipesan': report.get('pipesan'),
-          'losses': result['losses']})
+          'readahead': readahead_counts, 'losses': result['losses']})
     print(telemetry.format_pipeline_report(report), flush=True)
     assert armed == unarmed == again == last, 'the epochs differ'
     assert len(armed) == VIT_ROWS // VIT_BATCH, len(armed)
     assert not read_violations and not violations, (read_violations, violations)
     assert not any(counted.values()), counted
+    assert not readahead_counts['degraded'], readahead_counts
     assert armed_diag['staging_slabs_quarantined'] == 0, armed_diag
     assert read_checks >= armed_diag['staging_slot_refills'] > 0, (read_checks, armed_diag)
     assert all(math.isfinite(v) for v in result['losses']), result['losses']
@@ -3055,6 +3086,7 @@ def phase_decoded_cache_vit_path(url, image_codec, vit_images_per_s, tmp):
                  cache_size_limit=CACHE_DISK_LIMIT)
     fresh_telemetry()
     uncached, = _loader_passes(url, 1)
+    uncached_readahead = _readahead_section()
     fresh_telemetry()
     cold, warm = _loader_passes(url, 2, **cache)
     entries, entry_bytes = _entry_bytes(warm_dir)
@@ -3087,7 +3119,8 @@ def phase_decoded_cache_vit_path(url, image_codec, vit_images_per_s, tmp):
     emit({'phase': 'decoded_cache_vit_path', 'config': 'vit-imagenetlike-384',
           'entry': "make_torch_loader(cache_type='decoded') -> normalize -> ViT-Base",
           'image_codec': image_codec, 'rows': VIT_ROWS, 'rowgroups': rowgroups,
-          'uncached': summary(uncached), 'cold': summary(cold), 'warm': summary(warm),
+          'uncached': summary(uncached) | {'readahead': uncached_readahead},
+          'cold': summary(cold), 'warm': summary(warm),
           'warm_over_cold': warm['images_per_s'] / cold['images_per_s'],
           'warm_over_uncached': warm['images_per_s'] / uncached['images_per_s'],
           'warm_hit_share': warm['decoded_cache']['hit_rate'],
@@ -3108,6 +3141,7 @@ def phase_decoded_cache_vit_path(url, image_codec, vit_images_per_s, tmp):
                     'mem_limit_mb': CACHE_ARMED_MEM_MB}})
     for p in (uncached, cold, warm, armed_fill, armed_memory):
         assert len(p['row_digests']) == VIT_ROWS, len(p['row_digests'])
+    assert not uncached_readahead['degraded'], uncached_readahead
     for p in (cold, warm, armed_fill, armed_memory):
         assert p['batch_digests'] == uncached['batch_digests'], 'a cached epoch differs'
         assert p['row_digests'] == uncached['row_digests'], 'a cached epoch differs'
@@ -3267,6 +3301,132 @@ def phase_chaos_path(url, selective_url, labels, uncached, tmp):
         for site, stats in drill['injections'].items():
             assert stats['fired'] == stats['counted'], (name, site, stats)
     assert faults.ARMED is None
+
+
+def _plane_left():
+    """What of the readahead plane and the autotuner outlives a closed
+    loader: live managers, fetch threads, the two overrides and the tuners
+    holding them (all empty when torn down)."""
+    from petastorm_tpu_torch import codecs, readahead
+    from petastorm_tpu_torch.device import autotune
+    left = {'managers': readahead.live_manager_count(),
+            'fetch_threads': sorted(t.name for t in threading.enumerate()
+                                    if t.name.startswith(readahead.THREAD_PREFIX)),
+            'depth_override': readahead.depth_override(),
+            'decoder_threads_override': codecs._DECODER_THREADS_OVERRIDE,
+            'owners': sum(o is not None for o in autotune.override_owners())}
+    return {k: v for k, v in left.items() if v}
+
+
+def _readahead_section():
+    """The report's ``readahead`` section since the last fresh telemetry,
+    zeros when the plane never ran."""
+    from petastorm_tpu_torch import telemetry
+    section = telemetry.pipeline_report().get('readahead') or {}
+    return {k: section.get(k, 0) for k in ('hits', 'misses', 'coalesced_reads',
+                                           'bytes_fetched')} | {
+        'degraded': section.get('degraded', {})}
+
+
+def phase_readahead_vit_path(url, image_codec, vit_images_per_s, tmp):
+    """vit-imagenetlike-384 through the readahead plane and the staging
+    autotuner (module docstring, phase 35)."""
+    from petastorm_tpu_torch import readahead, telemetry
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    from petastorm_tpu_torch.examples.imagenet import VIT_BASE_KW, train_vit_fused
+    t_phase = time.perf_counter()
+    epochs = []
+    for mode in ('off', 'on', 'on', 'off'):
+        with knobs_set({'PETASTORM_TPU_READAHEAD': '1' if mode == 'on' else '0'}):
+            digests, rate, diag = _epoch_digests(url)
+            epochs.append({'readahead': mode, 'images_per_s': rate, 'digests': digests,
+                           'read_path': diag['fused_decode_mode'],
+                           'counts': _readahead_section()})
+        assert not _plane_left(), _plane_left()
+    on_rates = [e['images_per_s'] for e in epochs if e['readahead'] == 'on']
+    off_rates = [e['images_per_s'] for e in epochs if e['readahead'] == 'off']
+    # the producer-bound drill: a read-only loader, the tuner on a short window
+    drill_knobs = {'PETASTORM_TPU_STAGING_AUTOTUNE_WINDOW_SEC': READAHEAD_TUNE_WINDOW_S,
+                   'PETASTORM_TPU_OBS_PORT': '0'}
+    with knobs_set(drill_knobs):
+        rates = []
+        with make_torch_loader(url, VIT_BATCH, fields=['^image$', '^label$'], num_epochs=1,
+                               last_batch='short', device='cuda',
+                               shuffle_row_groups=False) as loader:
+            least, most = READAHEAD_DRILL_EPOCHS
+            while len(rates) < most and (len(rates) < least
+                                         or not loader._autotuner.decisions):
+                start, rows = time.perf_counter(), 0
+                for batch in loader:
+                    rows += int(batch['label'].shape[0])
+                torch.cuda.synchronize()
+                rates.append(rows / (time.perf_counter() - start))
+            own = loader.autotune_report()
+            served = json.loads(http_get('/report')[0])
+            drill_workers = loader.reader._pool.workers_count
+        drill_counts = _readahead_section()
+        drill_left = _plane_left()
+    plane_torn_down()
+    own_actions = [d['action'] for d in own['staging_autotune']['recent']]
+    served_actions = [d['action'] for d in served['autotune']['staging_autotune']['recent']]
+    # ViT-Base steps on a loader with both planes on, at their defaults
+    fresh_telemetry()
+    reset_launch_counts()
+    result = train_vit_fused(url, steps=VIT_STEPS, batch_size=VIT_BATCH, device='cuda')
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    train_counts = _readahead_section()
+    tuned = telemetry.pipeline_report().get('staging_autotune') or {}
+    train_left = _plane_left()
+    losses = result['losses']
+    emit({'phase': 'readahead_vit_path', 'config': 'vit-imagenetlike-384',
+          'entry': 'make_torch_loader (readahead + autotune on) -> normalize -> ViT-Base',
+          'image_codec': image_codec, 'rows': VIT_ROWS, 'rowgroups': VIT_ROWS // 64,
+          'cold_epochs': [{k: e[k] for k in ('readahead', 'images_per_s', 'read_path', 'counts')}
+                          for e in epochs],
+          'cold_equal_in_order': all(e['digests'] == epochs[0]['digests'] for e in epochs),
+          'cold_on_over_off': sum(on_rates) / sum(off_rates),
+          'drill': {'epochs': len(rates), 'window_s': float(READAHEAD_TUNE_WINDOW_S),
+                    'images_per_s': rates, 'workers': drill_workers,
+                    'bottleneck': own['bottleneck'],
+                    'decisions': own['staging_autotune']['decisions'],
+                    'actions': own_actions, 'report_actions': served_actions,
+                    'summary': {k: v for k, v in own['staging_autotune'].items()
+                                if k != 'recent'},
+                    'readahead': drill_counts, 'left_after_close': drill_left},
+          'train': {'steps': len(losses), 'batch_size': VIT_BATCH, 'losses': losses,
+                    'images_per_s': result['images_per_s'],
+                    'vit_path_images_per_s': vit_images_per_s, 'launches': launches,
+                    'pool_budget_mb': readahead.pool_budget_bytes() / 2 ** 20,
+                    'readahead': train_counts,
+                    'decisions_by_action': tuned.get('by_action', {}),
+                    'loader_decisions': result['diagnostics']['staging_autotune_decisions'],
+                    'fused_decode_mode': result['diagnostics']['fused_decode_mode'],
+                    'left_after_close': train_left},
+          'seconds': time.perf_counter() - t_phase})
+    for e in epochs:
+        assert len(e['digests']) == VIT_ROWS // VIT_BATCH, len(e['digests'])
+        assert e['digests'] == epochs[0]['digests'], 'a readahead epoch differs'
+        if e['readahead'] == 'on':
+            # the first observe fetches its own item: every row-group hits
+            assert e['counts']['hits'] == VIT_ROWS // 64, e['counts']
+            assert e['counts']['misses'] == 0 and not e['counts']['degraded'], e['counts']
+        else:
+            assert e['counts']['hits'] == e['counts']['misses'] == 0, e['counts']
+    assert own['staging_autotune']['decisions'] >= 1 and own_actions, own
+    assert own_actions == served_actions, (own_actions, served_actions)
+    assert not drill_left, drill_left
+    assert not drill_counts['degraded'], drill_counts
+    assert len(losses) == VIT_STEPS and all(math.isfinite(v) for v in losses), losses
+    assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
+    assert launches['normalize_images'] == VIT_STEPS, launches
+    want = VIT_BASE_KW['n_layers'] * VIT_STEPS
+    for name in FLASH_KERNELS:
+        assert launches[name] == want, (name, launches[name], want)
+    assert not train_counts['degraded'], train_counts
+    assert train_counts['hits'] > 0 and train_counts['misses'] == 0, train_counts
+    assert not train_left, train_left
+    return launches
 
 
 def _flat_grads(params):
@@ -3557,6 +3717,8 @@ def main(argv=None):
         cached = phase_decoded_cache_vit_path(vit_url, image_codec, vit_images_per_s, tmp)
         paths['decoded_cache_vit_path'] = cached['launches']
         phase_chaos_path(vit_url, selective_url, labels, cached['uncached'], tmp)
+        paths['readahead_vit_path'] = phase_readahead_vit_path(vit_url, image_codec,
+                                                               vit_images_per_s, tmp)
     phase_vit_profile()
     # the headline numbers are this slice's path's: the flash kernels' at
     # the mixture path's shape (the flagship's) and their launches there;

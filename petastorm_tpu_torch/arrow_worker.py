@@ -20,6 +20,9 @@ window instead of the batch. With a cache (:mod:`petastorm_tpu_torch.cache`,
 ``cache.get``: a hit skips the read and the decode; the decoded cache
 stores the post-transform batch. The row-group read and decode are the
 ``io.read`` and ``decode.rowgroup`` faultpoints (:mod:`petastorm_tpu_torch.faults`).
+With the readahead plane (:mod:`petastorm_tpu_torch.readahead`) each item
+first advances the reader's manager, and a column read is served from the
+prefetched bytes when they are there; a miss is the blocking read.
 """
 
 import hashlib
@@ -29,7 +32,7 @@ from collections import OrderedDict
 import numpy as np
 import pyarrow.parquet as pq
 
-from petastorm_tpu_torch import faults
+from petastorm_tpu_torch import faults, readahead
 from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.codecs import (
     CompressedImageCodec, NdarrayCodec, decode_batch_with_nulls,
@@ -100,7 +103,7 @@ class RowGroupWorker(WorkerBase):
     """Args (dict): dataset_info, loaded_schema (stored fields to read and
     decode), schema (output schema after the TransformSpec),
     stored_schema, transform_spec, cache, ngram, row_groups,
-    defer_image_decode."""
+    defer_image_decode, readahead_plan."""
 
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
@@ -116,6 +119,9 @@ class RowGroupWorker(WorkerBase):
                               and defer_config_ok(self._transform_spec, self._ngram,
                                                   self._cache))
         self._parquet_files = OrderedDict()
+        # the reader's readahead manager, shared by the pool's workers; None
+        # when the plane is off or the reader shipped no plan (a cache)
+        self._readahead = readahead.attach(args)
         # PETASTORM_TPU_PUSHDOWN=0: decode everything, then filter
         self._fullscan_oracle = fullscan_oracle()
         # the decoded cache's key identity, resolved lazily: the decode
@@ -130,8 +136,10 @@ class RowGroupWorker(WorkerBase):
         def load():
             if self._fullscan_oracle and worker_predicate is not None:
                 return self._load_rowgroup_fullscan(piece, worker_predicate,
-                                                    shuffle_row_drop_partition)
-            return self._load_rowgroup(piece, worker_predicate, shuffle_row_drop_partition)
+                                                    shuffle_row_drop_partition, item_index,
+                                                    epoch)
+            return self._load_rowgroup(piece, worker_predicate, shuffle_row_drop_partition,
+                                       item_index, epoch)
 
         key = self._item_cache_key(piece, worker_predicate, shuffle_row_drop_partition)
         batch = load() if key is None else self._cache.get(key, load)
@@ -149,6 +157,9 @@ class RowGroupWorker(WorkerBase):
                                'epoch': epoch, 'last': i == len(windows) - 1})
 
     def shutdown(self):
+        if self._readahead is not None:
+            self._readahead = None
+            readahead.release(self.args)
         for f in self._parquet_files.values():
             f.close()
         self._parquet_files = OrderedDict()
@@ -233,18 +244,32 @@ class RowGroupWorker(WorkerBase):
     def _read_columns(self, pf, piece, columns):
         """One row-group read under the ``io`` span, behind the ``io.read``
         faultpoint keyed ``<path>#rg<n>`` ('#', not ':', the spec
-        grammar's separator, so ``match=`` can select one row-group)."""
+        grammar's separator, so ``match=`` can select one row-group). A
+        readahead hit serves the columns zero-copy from the prefetched
+        ranges; a miss, or ``PETASTORM_TPU_READAHEAD=0``, reads blocking."""
         if faults.ARMED:
             faults.fault_hit('io.read', key=self._rowgroup_key(piece))
         with span('io'):
+            if self._readahead is not None:
+                table = self._readahead.serve(pf, piece.path, piece.row_group, columns)
+                if table is not None:
+                    return table
             return pf.read_row_group(piece.row_group, columns=columns)
 
     @staticmethod
     def _rowgroup_key(piece):
         return '%s#rg%d' % (piece.path, piece.row_group)
 
-    def _load_rowgroup(self, piece, worker_predicate, drop_partition):
+    def _load_rowgroup(self, piece, worker_predicate, drop_partition, item_index=None,
+                       epoch=None):
         partition_keys, file_columns = self._columns_of(piece)
+        if self._readahead is not None:
+            # the clock advances before any read of this item; under a
+            # predicate only its columns prefetch (the survivors' other
+            # columns stay on demand)
+            prefetch = (sorted(worker_predicate.get_fields())
+                        if worker_predicate is not None else file_columns)
+            self._readahead.observe(item_index, epoch, prefetch)
         pf = self._parquet_file(piece.path)
         keep, pred_columns = None, {}
         if worker_predicate is not None:
@@ -355,7 +380,8 @@ class RowGroupWorker(WorkerBase):
                 values[name] = self._partition_column(piece, name, n)
         return self._evaluate(predicate, values, pred_fields, n), decoded
 
-    def _load_rowgroup_fullscan(self, piece, worker_predicate, drop_partition):
+    def _load_rowgroup_fullscan(self, piece, worker_predicate, drop_partition, item_index=None,
+                                epoch=None):
         """The decode-everything-then-filter oracle
         (``PETASTORM_TPU_PUSHDOWN=0``): one read of every needed and
         predicate column, every row decoded, the predicate evaluated on
@@ -363,6 +389,9 @@ class RowGroupWorker(WorkerBase):
         partition_keys, file_columns = self._columns_of(piece)
         pred_fields, pred_file_fields = self._predicate_columns(piece, worker_predicate)
         read_columns = list(dict.fromkeys(file_columns + pred_file_fields))
+        if self._readahead is not None:
+            # the oracle's one read wants the whole union at once
+            self._readahead.observe(item_index, epoch, read_columns)
         table = self._read_columns(self._parquet_file(piece.path), piece, read_columns)
         num_rows = table.num_rows
         if faults.ARMED:

@@ -40,13 +40,36 @@ _JPEG_FANCY_ATTEMPTS = 0
 _JPEG_FANCY_MAX_ATTEMPTS = 5
 
 
+# the staging autotuner's in-process override of the decoder-thread knob
+# (None: the knob rules); never an os.environ write, which child processes
+# and later readers would inherit
+_DECODER_THREADS_OVERRIDE = None
+
+
+def set_image_decoder_threads_override(value):
+    """Set (int) or clear (None) the in-process override that
+    :func:`image_decoder_threads` returns. The staging autotuner owns it
+    and clears it when its loader stops."""
+    global _DECODER_THREADS_OVERRIDE
+    _DECODER_THREADS_OVERRIDE = None if value is None else max(0, int(value))
+
+
 def image_decoder_threads():
-    """Decode width from ``PETASTORM_TPU_IMAGE_DECODER_THREADS`` (0 or 1:
-    serial; default ``min(4, cpu_count)``). It sizes whichever pool runs a
+    """Decode width: the autotuner's override when set, else
+    :func:`image_decoder_threads_from_knob`. It sizes whichever pool runs a
     batch: the native decoders' pthreads (one call per column, GIL
     released) or, without them, the cv2 thread pool; never both on one
     batch. Concurrent reader workers each get this width, so a process
     decodes on up to workers × this threads."""
+    if _DECODER_THREADS_OVERRIDE is not None:
+        return _DECODER_THREADS_OVERRIDE
+    return image_decoder_threads_from_knob()
+
+
+def image_decoder_threads_from_knob():
+    """``PETASTORM_TPU_IMAGE_DECODER_THREADS`` alone, ignoring any override
+    (0 or 1: serial; default ``min(4, cpu_count)``): the autotuner's
+    restore ceiling."""
     text = knobs.get_str('PETASTORM_TPU_IMAGE_DECODER_THREADS')
     if not text:
         return min(4, os.cpu_count() or 1)

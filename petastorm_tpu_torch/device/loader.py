@@ -18,7 +18,11 @@ bucket, each bucket with its own pinned slots), with a ``<field>_len``
 column of true sizes; ``inmemory_cache_all=True`` keeps the first pass's
 batches on the device and replays them (:class:`InMemoryCachedLoader`).
 ``mixture=`` feeds the loader packed token rows from a weighted mixture
-of datasets (:mod:`petastorm_tpu_torch.mixture`).
+of datasets (:mod:`petastorm_tpu_torch.mixture`). With the slot ring on, a
+staging autotuner (:mod:`petastorm_tpu_torch.device.autotune`) rides the
+staging thread and moves the ring and prefetch depths, the decoder threads,
+the readahead depth and the reader's in-flight bound from the live
+windows; :meth:`TorchLoader.autotune_report` says who waits on whom.
 
 The loader runs on the card (``device='cuda'``, the default) unless the
 caller asks for the CPU; it never falls back to the CPU on its own.
@@ -37,8 +41,8 @@ from petastorm_tpu_torch import fused
 from petastorm_tpu_torch.device import staging
 from petastorm_tpu_torch.mixture import MixtureBatchReader, MixtureStream
 from petastorm_tpu_torch.telemetry import (
-    STALL_NOTE_FLOOR_S, get_registry, note_consumer_wait, note_producer_wait, obs_server, span,
-    tracing,
+    STALL_NOTE_FLOOR_S, StallAttributor, get_registry, note_consumer_wait, note_producer_wait,
+    obs_server, span, tracing,
 )
 from petastorm_tpu_torch.telemetry.export import _h2d_overlap_share
 from petastorm_tpu_torch.telemetry.registry import metric_key
@@ -428,6 +432,9 @@ class TorchLoader:
         self._target = (staging.CudaTarget(self._device)
                         if self._device.type == 'cuda' else None)
         self._stager = None
+        # the staging autotuner: made at the first pass with the slot ring
+        # on, kept across passes so what it learned survives replays
+        self._autotuner = None
         self._stage_thread = None
         self._out_queue = None
         self._stop_event = threading.Event()
@@ -450,6 +457,14 @@ class TorchLoader:
         self._last_pull_ctx = None
         self._consumer_wait_s = 0.0
         self._stage_blocked_s = 0.0
+        # this loader's own stall windows, which autotune_report reads;
+        # reset at each pass's first delivered batch, so spin-up is never
+        # read as contention
+        self._attributor = StallAttributor()
+        self._awaiting_first_delivery = True
+        # registry snapshot at the pass's first delivery: the report's
+        # decoded-cache verdict covers the current pass only
+        self._pass_baseline = None
         self._batches_delivered = 0
         # the reason this loader last decoded a deferred column itself
         # instead of letting the staging fill fuse it (None: never)
@@ -512,6 +527,7 @@ class TorchLoader:
             self._reader.reset()
             self._exhausted = False
             self._epoch += 1
+            self._awaiting_first_delivery = True
             with self._prov_lock:
                 self._pull_info.clear()
                 self._pull_delivered.clear()
@@ -524,6 +540,13 @@ class TorchLoader:
             self._batch_size, self._dtypes, self._last_batch,
             self._target if self._staging_on else None,
             num_slots=staging.staging_slots(), device=self._device)
+        if self._staging_on:
+            from petastorm_tpu_torch.device import autotune
+            if self._autotuner is None and autotune.autotune_enabled():
+                self._autotuner = autotune.StagingAutotuner(self)
+            if self._autotuner is not None:
+                # the new pass's engine starts at the learned ring depth
+                self._autotuner.apply_learned(self._stager)
         self._out_queue = queue.Queue(maxsize=self._prefetch)
         self._stage_thread = threading.Thread(target=self._stage_loop, daemon=True,
                                               name='petastorm-tpu-torch-stager')
@@ -547,6 +570,7 @@ class TorchLoader:
                         waited = time.monotonic() - t0
                         self._consumer_wait_s += waited
                         if waited > STALL_NOTE_FLOOR_S:
+                            self._attributor.note_consumer_wait(waited)
                             note_consumer_wait(waited)
                 except queue.Empty:
                     if self._stage_error is not None:
@@ -571,6 +595,11 @@ class TorchLoader:
             if pull_counts:
                 self._record_delivery(pull_counts)
             self._batches_delivered += 1
+            if self._awaiting_first_delivery:
+                # spin-up is over: the stall windows start at steady state
+                self._attributor.reset()
+                self._awaiting_first_delivery = False
+                self._pass_baseline = get_registry().snapshot()
             return handoff.deliver()
 
     def _record_delivery(self, pull_counts):
@@ -777,6 +806,19 @@ class TorchLoader:
         # provenance rides the queue: rows count as delivered only when the
         # consumer receives this item in __next__
         self._put_blocking((handoff, pull_counts))
+        if self._autotuner is not None:
+            # one monotonic compare until the next window is due
+            self._autotuner.maybe_tick()
+
+    def _set_prefetch(self, depth):
+        """The autotuner's seam: deepen the prefetch queue mid-pass. The
+        producer retries its bounded put every 0.1 s, so a raised
+        ``maxsize`` is seen on its next attempt."""
+        depth = max(1, int(depth))
+        self._prefetch = depth
+        if self._out_queue is not None:
+            self._out_queue.maxsize = depth
+        return depth
 
     def _put_blocking(self, item):
         start = time.monotonic()
@@ -791,6 +833,7 @@ class TorchLoader:
             blocked = time.monotonic() - start
             self._stage_blocked_s += blocked
             if blocked > STALL_NOTE_FLOOR_S:
+                self._attributor.note_producer_wait(blocked)
                 note_producer_wait(blocked)
 
     # -- lifecycle -----------------------------------------------------------
@@ -857,6 +900,10 @@ class TorchLoader:
                                           if self._stager is not None else 0),
             'fused_decode_mode': self._fused_decode_mode(),
             'fused_decode_rows': self._stager.fused_rows if self._stager is not None else 0,
+            'staging_prefetch': self._prefetch,
+            'staging_slot_depth': self._stager.num_slots if self._stager is not None else 0,
+            'staging_autotune': self._autotuner is not None,
+            'staging_autotune_decisions': self._autotune_decisions(),
         })
         if self._fused_fallback is not None:
             diag['fused_decode_fallback'] = self._fused_fallback
@@ -894,9 +941,7 @@ class TorchLoader:
 
     def _obs_health(self):
         """This loader's ``/health`` entry: who waits on whom right now
-        (the reader mounts its own entry with the pool's gauges). The
-        reference's ``staging_autotune_decisions`` reads 0 until the port
-        has the autotuner."""
+        (the reader mounts its own entry with the pool's gauges)."""
         slots = self._stager.num_slots if self._stager is not None else 0
         return {
             'epoch': self._epoch,
@@ -912,8 +957,11 @@ class TorchLoader:
             'h2d_overlap_share': self._h2d_overlap_share(),
             'staging_prefetch': self._prefetch,
             'staging_slot_depth': slots,
-            'staging_autotune_decisions': 0,
+            'staging_autotune_decisions': self._autotune_decisions(),
         }
+
+    def _autotune_decisions(self):
+        return self._autotuner.decisions if self._autotuner is not None else 0
 
     @staticmethod
     def _h2d_overlap_share():
@@ -927,10 +975,87 @@ class TorchLoader:
         return _h2d_overlap_share(stages)
 
     def _obs_report(self):
-        """This loader's ``/report`` entry: its diagnostics (pool and
-        staging gauges). The reference's ``autotune`` entry comes with
-        the autotuner."""
-        return {'torch_loader': self.diagnostics}
+        """This loader's ``/report`` entries: the live autotune verdict and
+        advice, and its diagnostics (pool and staging gauges)."""
+        return {'autotune': self.autotune_report(), 'torch_loader': self.diagnostics}
+
+    def autotune_report(self):
+        """Bottleneck attribution and tuning advice from this loader's stall
+        windows (the consumer blocked on the prefetch queue is input-bound
+        evidence, the staging thread blocked pushing into it is
+        compute-bound evidence), over the current pass's steady state.
+        Returns ``{'bottleneck': 'input'|'compute'|'balanced'|'undetermined',
+        'input_stall_fraction': float, 'window_verdicts': {verdict: n},
+        'advice': [str, ...], ...}``, with the autotuner's ``summary()`` as
+        ``staging_autotune`` when it runs. Advisory: it changes nothing."""
+        from petastorm_tpu_torch.telemetry import BALANCED, CONSUMER_BOUND, PRODUCER_BOUND
+        from petastorm_tpu_torch.telemetry.stall import classify_window
+        # one source for the fraction, the verdict and the advice
+        windows = self._attributor.windows()
+        stage = sum(w['producer_wait_s'] for w in windows)
+        consumer = sum(w['consumer_wait_s'] for w in windows)
+        total = consumer + stage
+        verdict_counts = {}
+        for w in windows:
+            verdict_counts[w['verdict']] = verdict_counts.get(w['verdict'], 0) + 1
+        report = {
+            'consumer_wait_s': round(consumer, 3),
+            'stage_backpressure_s': round(stage, 3),
+            'batches_delivered': self._batches_delivered,
+            'window_verdicts': verdict_counts,
+        }
+        if self._batches_delivered < 4 or total < 0.05:
+            report['bottleneck'] = 'undetermined'
+            report['input_stall_fraction'] = 0.0
+            report['advice'] = ['not enough iteration observed yet; consume more batches '
+                                'before tuning']
+        else:
+            frac = consumer / total
+            report['input_stall_fraction'] = round(frac, 3)
+            verdict = classify_window(stage, consumer, self._attributor.window_s * len(windows))
+            if verdict == PRODUCER_BOUND:
+                report['bottleneck'] = 'input'
+                report['advice'] = [
+                    'the consumer waits on data %.0f%% of contended time: add decode '
+                    'workers (workers_count), raise prefetch, or move heavy '
+                    'TransformSpec work off the row path' % (frac * 100)]
+            elif verdict == CONSUMER_BOUND:
+                report['bottleneck'] = 'compute'
+                report['advice'] = [
+                    'the training step is the bottleneck (staging blocked %.0f%% of '
+                    'contended time): the input pipeline is NOT the problem; keep '
+                    'prefetch small to save host RAM' % ((1 - frac) * 100)]
+            else:
+                assert verdict == BALANCED
+                report['bottleneck'] = 'balanced'
+                report['advice'] = ['producer and consumer are balanced; tune the model '
+                                    'step first']
+        self._add_decoded_cache_advice(report)
+        if self._autotuner is not None:
+            report['staging_autotune'] = self._autotuner.summary()
+        return report
+
+    def _add_decoded_cache_advice(self, report):
+        """With the decoded cache live, the advice changes: a cache-bound
+        pass makes decode tuning pointless, and a pass that is not
+        cache-bound at a low hit rate points at key churn or an undersized
+        tier. The section is baselined at this pass's first delivery."""
+        from petastorm_tpu_torch.telemetry import pipeline_report
+        section = pipeline_report(baseline=self._pass_baseline).get('decoded_cache')
+        if section is None:
+            return
+        report['decoded_cache'] = section
+        advice = report.setdefault('advice', [])
+        if section['verdict'] == 'cache-bound':
+            advice.append('the decoded row-group cache serves this pass (%.0f%% hits): the '
+                          'pass is cache-bound as designed, so decode workers/io tuning will '
+                          'not help; look at collate/H2D and the model step'
+                          % (100 * section['hit_rate']))
+        elif section['hit_rate'] < 0.5 and report.get('bottleneck') == 'input':
+            advice.append('a decoded cache is configured but only %.0f%% of reads hit: if '
+                          'this is epoch 2+, check for cache-key churn (unstable '
+                          'TransformSpec closure, rewritten dataset files) or an undersized '
+                          'tier evicting the working set' % (100 * section['hit_rate']))
 
     def stop(self):
         self._obs_mount.close()
@@ -940,6 +1065,10 @@ class TorchLoader:
         self._reader.stop()
         if self._stage_thread is not None:
             self._stage_thread.join(timeout=10)
+        if self._autotuner is not None:
+            # its overrides die with the loader (after the staging thread,
+            # the one that ticks it)
+            self._autotuner.close()
         self._reader.join()
 
     def __enter__(self):

@@ -235,6 +235,14 @@ class StagingEngine:
         """Ring depth (slots per batch signature)."""
         return self._num_slots
 
+    def set_num_slots(self, num_slots):
+        """Deepen, never shrink, the ring depth: the staging autotuner's
+        seam. A ring grows at its next use on the staging thread (a removed
+        slot's in-flight copy would lose its refill gate). Returns the
+        depth."""
+        self._num_slots = max(self._num_slots, max(_MIN_SLOTS, int(num_slots)))
+        return self._num_slots
+
     def _resolve_dtypes(self, parts):
         """Per-field host dtype: the cast policy wins; otherwise mixed-dtype
         parts promote like ``np.concatenate``."""
@@ -274,6 +282,14 @@ class StagingEngine:
                      for _ in range(self._num_slots)]
             self.slabs_allocated += len(slots)
             ring = self._rings[sig] = (slots, [0])
+        elif len(ring[0]) < self._num_slots:
+            # the autotuner deepened the ring (set_num_slots): it grows
+            # here, at its next use, on the staging thread that owns it
+            add = self._num_slots - len(ring[0])
+            ring[0].extend(_Slot(*self._new_tensors(columns, dtype_map, with_mask,
+                                                    self._target.pin_memory, self._sanitize))
+                           for _ in range(add))
+            self.slabs_allocated += add
         slots, cursor = ring
         slot = slots[cursor[0]]
         cursor[0] = (cursor[0] + 1) % len(slots)

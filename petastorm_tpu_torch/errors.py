@@ -18,7 +18,6 @@ class MetadataError(PetastormTpuError):
 
 #: ``ROADMAP.md`` Queue 1 items the port has not reached yet, by number
 ROADMAP_ITEMS = {
-    3: 'readahead',
     8: 'LM consumer layer: MoE, ring/Ulysses attention, pipeline, generate',
     9: 'process and service pools, HDFS and object stores',
     10: 'write plane and ETL tools',

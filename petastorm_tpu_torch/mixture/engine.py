@@ -28,8 +28,9 @@ mid-step checkpoint degrades to the package-wide at-least-once
 contract (rows re-delivered, never lost).
 
 The states are the JAX package's, key for key, so a mixture saved by
-either package resumes in the other. Not ported yet: the sources'
-readahead plan (item 3) and sources on a standing decode daemon (item 9).
+either package resumes in the other. Each source's readahead plan scales
+its prefetch depth to the source's share. Not ported yet: sources on a
+standing decode daemon (item 9).
 """
 
 import logging
@@ -257,9 +258,8 @@ def build_source_readers(spec, num_epochs=1, reader_pool_type='thread',
 
     Each reader gets a per-source seed derived from the spec seed (so
     two sources over the same files do not march in lock-step) and the
-    source's exact interleave share as ``mixture_interleave=`` (kept on
-    the reader; the readahead plan it feeds in the JAX package is ROADMAP
-    item 3). Sources on a standing decode daemon
+    source's exact interleave share as ``mixture_interleave=``, which
+    scales the source's readahead depth. Sources on a standing decode daemon
     (``reader_pool_type='service'``) are ROADMAP item 9.
     """
     from petastorm_tpu_torch.reader import make_batch_reader

@@ -136,7 +136,9 @@ class StatsIndex:
     """Per-file footer statistics, read lazily and in parallel
     (``PETASTORM_TPU_PUSHDOWN_WORKERS`` threads) and memoized process-wide
     by file identity; a file whose footer fails to read yields None, and
-    every one of its row-groups is kept."""
+    every one of its row-groups is kept. Each row-group's entry also holds
+    the byte ranges of its column chunks, which the readahead plane
+    (:mod:`petastorm_tpu_torch.readahead`) plans its reads from."""
 
     def __init__(self, dataset_info):
         self._info = dataset_info
@@ -157,7 +159,17 @@ class StatsIndex:
         stats = self._per_file.get(path)
         if stats is None or row_group >= len(stats):
             return None
-        return stats[row_group]
+        cols, num_rows, _ = stats[row_group]
+        return cols, num_rows
+
+    def get_ranges(self, path, row_group):
+        """``{root column: [(byte offset, length), ...]}`` of one
+        row-group's column chunks, or None when the footer was
+        unreadable."""
+        stats = self._per_file.get(path)
+        if stats is None or row_group >= len(stats):
+            return None
+        return stats[row_group][2]
 
     def _load(self, path):
         key = None
@@ -193,14 +205,24 @@ class StatsIndex:
         for rg in range(meta.num_row_groups):
             row_group = meta.row_group(rg)
             cols = {}
+            ranges = {}
             for ci in range(row_group.num_columns):
                 col = row_group.column(ci)
+                name = col.path_in_schema.split('.')[0]
+                # a chunk starts at its first page (the dictionary page when
+                # it has one) and spans its total compressed size
+                starts = [offset for offset in (col.dictionary_page_offset,
+                                                col.data_page_offset)
+                          if offset is not None]
+                if starts and col.total_compressed_size:
+                    ranges.setdefault(name, []).append(
+                        (int(min(starts)), int(col.total_compressed_size)))
                 st = col.statistics
                 if st is None or not st.has_min_max:
                     continue
                 null_count = int(st.null_count) if st.has_null_count else None
-                cols[col.path_in_schema.split('.')[0]] = (st.min, st.max, null_count)
-            out.append((cols, int(row_group.num_rows)))
+                cols[name] = (st.min, st.max, null_count)
+            out.append((cols, int(row_group.num_rows), ranges))
         return out
 
 

@@ -21,6 +21,11 @@ upgraded to ``'decoded'`` by ``PETASTORM_TPU_DECODED_CACHE=1``),
 :class:`~petastorm_tpu_torch.cache.LocalDiskCache`) and ``'decoded'`` (the
 finished post-transform batches as Arrow IPC files mapped back zero-copy,
 :class:`~petastorm_tpu_torch.materialized_cache.MaterializedRowGroupCache`).
+
+An uncached reader ships its workers a readahead plan, the ventilator's
+upcoming order (:mod:`petastorm_tpu_torch.readahead`); the bound on the
+row-groups in flight, ``ventilate_extra``, is the staging autotuner's to
+move (:meth:`Reader.set_ventilate_extra`).
 """
 
 import logging
@@ -28,7 +33,7 @@ import os
 import time
 import warnings
 
-from petastorm_tpu_torch import pushdown
+from petastorm_tpu_torch import pushdown, readahead
 from petastorm_tpu_torch.arrow_worker import (
     RowGroupWorker, defer_config_ok, typed_partition_value,
 )
@@ -205,10 +210,9 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
     :param mixture_interleave: set by the mixture engine
         (:mod:`petastorm_tpu_torch.mixture`) when this reader serves one
         source of a weighted mixture: a dict with the source's exact
-        interleave ``share`` in (0, 1]. It is validated and kept on the
-        reader as ``mixture_interleave`` and changes nothing in the stream:
-        in the JAX package it sizes the readahead plan, which is ROADMAP
-        item 3.
+        interleave ``share`` in (0, 1]. It scales this source's readahead
+        depth to its share of the mixture and changes nothing in the
+        stream.
 
     The reference's other kwargs are taken under its names and at its
     positions; each one set raises ``NotImplementedError`` naming the
@@ -386,12 +390,27 @@ class Reader:
         # the resume epoch's already-consumed items, which never ventilate
         # again: ventilation_order leaves them out too
         self._resume_excluded = {}
+        # the bound is a callable, re-read on every wait, so the autotuner
+        # can move the in-flight extra live (set_ventilate_extra)
+        self._ventilate_extra = _VENTILATE_EXTRA_ROWGROUPS
         self._ventilator = ConcurrentVentilator(
             self._pool.ventilate, items, iterations=num_epochs,
             max_ventilation_queue_size=lambda: (
-                self._pool.workers_count + _VENTILATE_EXTRA_ROWGROUPS),
+                self._pool.workers_count + self._ventilate_extra),
             randomize_item_order=shuffle_row_groups, random_seed=seed,
             pass_epoch=True, always_exclude=self._pruned_items, trace_shard=self.cur_shard)
+        # the readahead plan: the ventilator's upcoming order (shard-,
+        # shuffle- and prune-aware) that the workers' manager mirrors. A
+        # caching reader ships none: a warm epoch reads no storage
+        readahead_plan = None
+        if cache is None or isinstance(cache, NullCache):
+            readahead_plan = readahead.build_plan(
+                items, all_pieces, randomize=shuffle_row_groups,
+                seed=self._ventilator.state_dict()['seed'], iterations=num_epochs,
+                exclude=self._pruned_items, workers=self._pool.workers_count,
+                interleave=mixture_interleave)
+        elif readahead.readahead_enabled():
+            readahead.count_degrade('cache')
         # only batched consumers can take encoded image stubs
         defer = defer_image_decode and self.batched_output
         if defer and not defer_config_ok(transform_spec, ngram, cache):
@@ -409,6 +428,8 @@ class Reader:
                              'ngram': ngram,
                              'row_groups': all_pieces,
                              'defer_image_decode': defer,
+                             # the workers resolve PETASTORM_TPU_READAHEAD
+                             'readahead_plan': readahead_plan,
                          },
                          ventilator=self._ventilator, start_ventilator=False)
         self.last_row_consumed = False
@@ -592,10 +613,21 @@ class Reader:
         """Requested epoch count (None = infinite)."""
         return self._num_epochs
 
+    @property
+    def ventilate_extra(self):
+        """Row-groups kept in flight beyond the pool's worker count."""
+        return self._ventilate_extra
+
+    def set_ventilate_extra(self, extra):
+        """The autotuner's seam: move the ventilator's in-flight bound
+        mid-run (re-read on its next wait). Floor 1; returns the applied
+        value."""
+        self._ventilate_extra = max(1, int(extra))
+        return self._ventilate_extra
+
     def _obs_health(self):
-        """This reader's ``/health`` entry: iteration state and the pool's
-        diagnostics (JSON-ready scalars). The reference's ``readahead``
-        key comes with the readahead planner."""
+        """This reader's ``/health`` entry: iteration state, the readahead
+        plane's state and the pool's diagnostics (JSON-ready scalars)."""
         return dict({
             'started': self._started,
             'stopped': self._stopped,
@@ -605,7 +637,8 @@ class Reader:
             'cur_shard': self.cur_shard,
             'shard_count': self.shard_count,
             'pruned_items': len(self._pruned_items),
-            'ventilate_extra': _VENTILATE_EXTRA_ROWGROUPS,
+            'ventilate_extra': self._ventilate_extra,
+            'readahead': readahead.health_snapshot(),
         }, **self._pool.diagnostics)
 
     def stop(self):

@@ -129,8 +129,9 @@ register_refresh(timeseries.refresh_obs)
 def reset_for_tests():
     """The live plane torn down (server, sampler, SLO policy, log
     writer), then a fresh registry, attributor and flight recorder,
-    tracing's state and the planner summary cleared, knobs re-read (test
-    isolation)."""
+    tracing's state and the planner summary cleared, the readahead
+    managers closed and both planes' overrides dropped, knobs re-read
+    (test isolation)."""
     obs_server._reset_for_tests()
     timeseries._reset_for_tests()
     slo._reset_for_tests()
@@ -139,7 +140,13 @@ def reset_for_tests():
     reset_attributor()
     reset_recorder()
     tracing._reset_for_tests()
-    # lazy: pushdown imports telemetry at its module top
-    from petastorm_tpu_torch import pushdown
+    # lazy: pushdown and readahead import telemetry at their module tops
+    from petastorm_tpu_torch import pushdown, readahead
     pushdown.reset_for_tests()
+    readahead._reset_for_tests()
+    # the autotuner's ring and owners, only when its module is loaded
+    import sys
+    autotune = sys.modules.get('petastorm_tpu_torch.device.autotune')
+    if autotune is not None:
+        autotune._reset_for_tests()
     refresh_enabled()

@@ -14,9 +14,9 @@ the what-if scenarios follow the slack model::
 because only self-time is load-bearing. The port orders only the stages
 it records (:data:`~petastorm_tpu_torch.telemetry.names.STAGES`), in the
 reference's relative order. :func:`crosscheck_autotuner` compares the
-bottleneck with the staging autotuner's recent decisions and counts
-agreement into ``petastorm_tpu_critpath_agreement_total``; until the
-port has an autotuner it finds none and returns None.
+bottleneck with the staging autotuner's recent decisions
+(:mod:`petastorm_tpu_torch.device.autotune`, once imported) and counts
+agreement into ``petastorm_tpu_critpath_agreement_total``.
 
 Works only on what the recorder holds: ``PETASTORM_TPU_TRACE=1`` must
 have been on, and sampling scales the analysis as it scales recording.
@@ -34,8 +34,7 @@ logger = logging.getLogger(__name__)
 #: decision-quality cross-check outcomes vs the staging autotuner
 CRITPATH_AGREEMENT = 'petastorm_tpu_critpath_agreement_total'
 
-#: the port's staging autotuner, looked up only when already imported (it
-#: is still to be ported, so the lookup finds nothing)
+#: the port's staging autotuner, looked up only when already imported
 AUTOTUNE_MODULE = 'petastorm_tpu_torch.device.autotune'
 
 #: sweep-line attribution priority, highest first: when several stages
@@ -47,15 +46,14 @@ AUTOTUNE_MODULE = 'petastorm_tpu_torch.device.autotune'
 _PRIORITY = (
     'decode_fused', 'decode', 'late_materialize', 'transform', 'filter',
     'collate', 'pack', 'encode', 'write_flush', 'cache_fill', 'cache_hit_read', 'io',
-    'rowgroup_prune', 'stage_fill', 'h2d_dispatch', 'h2d_ready', 'ventilate', 'queue_wait',
+    'readahead_fetch', 'rowgroup_prune', 'stage_fill', 'h2d_dispatch', 'h2d_ready', 'autotune',
+    'ventilate', 'queue_wait',
 )
 _RANK = {stage: i for i, stage in enumerate(_PRIORITY)}
 
-#: compute stages deeper readahead could hide I/O behind (the bound of the
+#: compute stages deeper readahead can hide I/O behind (the bound of the
 #: "readahead depth +4" scenario: prefetch turns blocking io into
-#: overlapped time only while there is compute to hide it behind). The
-#: port has no readahead plane yet (ROADMAP item 3); the scenario stays,
-#: as the reference's, to price what one would buy
+#: overlapped time only while there is compute to hide it behind)
 _COMPUTE_STAGES = ('decode', 'decode_fused', 'late_materialize',
                    'transform', 'filter', 'collate')
 
@@ -230,7 +228,7 @@ def predict_speedup(stage, factor, events=None, report=None):
 #: (deepen/raise = the tuner believes that side is the wall) or as slack
 #: (shed/lower/restore = the tuner believes that side has headroom)
 _H2D_SIDE = frozenset(('h2d_ready', 'h2d_dispatch', 'stage_fill'))
-_IO_SIDE = frozenset(('io',))
+_IO_SIDE = frozenset(('io', 'readahead_fetch'))
 _ACTION_TERRITORY = {
     'deepen_slots': ('bottleneck', _H2D_SIDE),
     'deepen_prefetch': ('bottleneck', _H2D_SIDE),

@@ -5,15 +5,16 @@ The report holds per-stage seconds and calls, the stall verdict and its
 windows, the staging engine's H2D overlap share, the raw ``cache`` and the
 ``decoded_cache`` sections (the latter with its cache-bound/decode-bound
 verdict, :func:`classify_cache_phase`), the selective-read (``pushdown``)
-section, the ``pipesan`` sanitizer's findings, the ``anomalies`` the live
-plane recorded, the ``critical_path`` section when tracing recorded stage
-events, and the ``slo`` section when ``PETASTORM_TPU_SLO`` arms a policy.
-All three read the registry (the process-wide one by default) and never
-mutate it.
+section, the ``readahead`` plane's hits, reads and degrades, the
+``pipesan`` sanitizer's findings, the ``anomalies`` the live plane
+recorded, the ``staging_autotune`` decisions, the ``critical_path``
+section when tracing recorded stage events, and the ``slo`` section when
+``PETASTORM_TPU_SLO`` arms a policy. All three read the registry (the
+process-wide one by default) and never mutate it.
 
 The reference's other report sections read subsystems the port does not
 have yet, whose counters therefore never appear here: ``service``,
-``readahead``, ``peer_cache``, ``write`` and ``staging_autotune``.
+``peer_cache`` and ``write``.
 """
 
 import json
@@ -204,12 +205,18 @@ def pipeline_report(registry=None, wall_time_s=None, baseline=None, attributor=N
     pushdown = _pushdown_section(registry)
     if pushdown is not None:
         report['pushdown'] = pushdown
+    readahead = _readahead_section(registry)
+    if readahead is not None:
+        report['readahead'] = readahead
     pipesan = _sanitizer_section(registry)
     if pipesan is not None:
         report['pipesan'] = pipesan
     anomalies = _anomalies_section(registry)
     if anomalies is not None:
         report['anomalies'] = anomalies
+    autotune = _staging_autotune_section(registry)
+    if autotune is not None:
+        report['staging_autotune'] = autotune
     critical = _critical_path_section()
     if critical is not None:
         report['critical_path'] = critical
@@ -218,6 +225,58 @@ def pipeline_report(registry=None, wall_time_s=None, baseline=None, attributor=N
     if slo_view is not None:
         report['slo'] = slo_view
     return report
+
+
+def _readahead_section(registry):
+    """The readahead plane's activity, present only once it served, missed
+    or degraded. Occupancy and depth are this process's live managers'."""
+    from petastorm_tpu_torch import readahead
+    hits = registry.counter_value(readahead.READAHEAD_HITS)
+    misses = registry.counter_value(readahead.READAHEAD_MISSES)
+    degraded = {}
+    for key, value in registry.counters_with_prefix(readahead.READAHEAD_DEGRADED).items():
+        reason = _label_of(key, 'reason') or 'unknown'
+        degraded[reason] = degraded.get(reason, 0) + int(value)
+    if not hits and not misses and not degraded:
+        return None
+    bytes_fetched = registry.counter_value(readahead.READAHEAD_BYTES)
+    reads = registry.counter_value(readahead.READAHEAD_COALESCED_READS)
+    used, budget = readahead.pool_status()
+    return {
+        'hits': int(hits),
+        'misses': int(misses),
+        'hit_share': round(hits / (hits + misses), 4) if hits or misses else None,
+        'bytes_fetched': int(bytes_fetched),
+        'coalesced_reads': int(reads),
+        'mean_coalesced_bytes': int(bytes_fetched / reads) if reads else None,
+        'degraded': degraded,
+        'depth': readahead.current_depth(),
+        'pool_bytes': int(used),
+        'pool_budget_bytes': int(budget),
+    }
+
+
+def _staging_autotune_section(registry):
+    """The staging autotuner's decisions, present only once it adjusted
+    something: the counter's total by action and this process's recent
+    entries. Read only when the autotune module is already imported (a
+    process without a loader never imports it for a None section)."""
+    import sys
+    autotune = sys.modules.get('petastorm_tpu_torch.device.autotune')
+    if autotune is None:
+        return None
+    by_action = {}
+    for key, value in registry.counters_with_prefix(autotune.AUTOTUNE_DECISIONS).items():
+        action = _label_of(key, 'action') or 'unknown'
+        by_action[action] = by_action.get(action, 0) + int(value)
+    recent = autotune.recent_decisions(10)
+    if not by_action and not recent:
+        return None
+    return {
+        'total': sum(by_action.values()),
+        'by_action': by_action,
+        'recent': recent,
+    }
 
 
 def _critical_path_section():
@@ -443,6 +502,19 @@ def format_pipeline_report(report):
                         (' = %.1f%%' % (100 * share)) if share is not None else '',
                         p['rows_pruned'], p['late_materialized_rows'],
                         (' — declines: %s' % declines) if declines else ''))
+    if 'readahead' in report:
+        r = report['readahead']
+        reasons = ', '.join('%s: %d' % (k, v) for k, v in sorted(r['degraded'].items()))
+        lines.append('readahead: %d hit / %d miss%s, %d B over %d coalesced read(s)%s, '
+                     'depth %d, pool %d/%d B%s'
+                     % (r['hits'], r['misses'],
+                        (' (%.1f%%)' % (100 * r['hit_share'])
+                         if r['hit_share'] is not None else ''),
+                        r['bytes_fetched'], r['coalesced_reads'],
+                        (' (mean %d B)' % r['mean_coalesced_bytes']
+                         if r['mean_coalesced_bytes'] is not None else ''),
+                        r['depth'], r['pool_bytes'], r['pool_budget_bytes'],
+                        (' — degraded: %s' % reasons) if reasons else ''))
     if 'pipesan' in report:
         p = report['pipesan']
         kinds = ', '.join('%s: %d' % (k, v) for k, v in sorted(p['by_kind'].items()))
@@ -458,6 +530,14 @@ def format_pipeline_report(report):
         for event in a['recent'][-3:]:
             lines.append('  %s at %.0f — %s' % (event['kind'], event.get('ts') or 0.0,
                                                 event.get('runbook', '')))
+    if 'staging_autotune' in report:
+        t = report['staging_autotune']
+        actions = ', '.join('%s: %d' % (k, v) for k, v in sorted(t['by_action'].items()))
+        lines.append('staging autotune: %d decision(s)%s'
+                     % (t['total'], (' (%s)' % actions) if actions else ''))
+        for entry in t['recent'][-3:]:
+            detail = {k: v for k, v in entry.items() if k not in ('action', 'ts')}
+            lines.append('  %s — %s' % (entry['action'], detail))
     if 'critical_path' in report:
         c = report['critical_path']
         lines.append('critical path: bottleneck %s over %.3fs traced span (%d item(s), '

@@ -25,17 +25,23 @@ enforced from both sides. It imports nothing.
 #: ``decode_fused`` encoded image cells decoded straight into the slot's
 #: rows · ``h2d_dispatch`` async transfer dispatch · ``pack`` mixture
 #: documents packed into fixed rows · ``encode`` write-path codec encode ·
-#: ``write_flush`` one row-group flushed into a part file
+#: ``write_flush`` one row-group flushed into a part file · ``autotune`` one
+#: staging-autotuner tick (registry snapshot, window close, policy) ·
+#: ``readahead_fetch`` one coalesced prefetch of an upcoming row-group's
+#: column chunks on a readahead fetch thread
 STAGES = ('ventilate', 'io', 'decode', 'filter', 'late_materialize', 'rowgroup_prune',
           'transform', 'cache_hit_read', 'cache_fill', 'queue_wait', 'collate', 'h2d_ready',
-          'stage_fill', 'decode_fused', 'h2d_dispatch', 'pack', 'encode', 'write_flush')
+          'stage_fill', 'decode_fused', 'h2d_dispatch', 'pack', 'encode', 'write_flush',
+          'autotune', 'readahead_fetch')
 
 #: trace-event names the port records outside the stage spans (the
 #: reference's set, limited to what the port records): ``attempt`` one
 #: worker-side processing of one item · ``ventilate`` the ventilator's
 #: stage span · ``mixture_pull`` one source-reader pull of the mixture
-#: engine, on that source's ``mixture-src-<i>`` track
-EVENT_NAMES = frozenset(['attempt', 'ventilate', 'mixture_pull'])
+#: engine, on that source's ``mixture-src-<i>`` track ·
+#: ``autotune_decision`` one staging-autotuner adjustment, an instant on
+#: the ``autotuner`` track
+EVENT_NAMES = frozenset(['attempt', 'ventilate', 'mixture_pull', 'autotune_decision'])
 
 #: prefix of every operator-facing environment knob
 KNOB_PREFIX = 'PETASTORM_TPU_'
@@ -68,9 +74,20 @@ KNOWN_KNOBS = frozenset([
     'PETASTORM_TPU_PUSHDOWN',
     'PETASTORM_TPU_PUSHDOWN_PRUNE',
     'PETASTORM_TPU_PUSHDOWN_WORKERS',
+    'PETASTORM_TPU_READAHEAD',
+    'PETASTORM_TPU_READAHEAD_DEPTH',
+    'PETASTORM_TPU_READAHEAD_GAP_KB',
+    'PETASTORM_TPU_READAHEAD_MAX_DEPTH',
+    'PETASTORM_TPU_READAHEAD_MAX_RANGE_MB',
+    'PETASTORM_TPU_READAHEAD_POOL_MB',
+    'PETASTORM_TPU_READAHEAD_THREADS',
     'PETASTORM_TPU_SANITIZE',
     'PETASTORM_TPU_SLO',
     'PETASTORM_TPU_STAGING',
+    'PETASTORM_TPU_STAGING_AUTOTUNE',
+    'PETASTORM_TPU_STAGING_AUTOTUNE_MAX_PREFETCH',
+    'PETASTORM_TPU_STAGING_AUTOTUNE_MAX_SLOTS',
+    'PETASTORM_TPU_STAGING_AUTOTUNE_WINDOW_SEC',
     'PETASTORM_TPU_STAGING_SLOTS',
     'PETASTORM_TPU_TRACE',
     'PETASTORM_TPU_TRACE_AUTODUMP_WINDOWS',

@@ -29,6 +29,7 @@ from petastorm_tpu_torch.analysis.core import iter_python_files
 from petastorm_tpu_torch.analysis.findings import SourceModule
 from petastorm_tpu_torch.analysis.pass_env_knobs import check_docs_coverage
 from petastorm_tpu_torch.telemetry import names
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, 'petastorm_tpu_torch')

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from petastorm_tpu.ops import augment as jax_augment
 from petastorm_tpu_torch.ops import augment
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 
 def _images(dtype, seed=0, shape=(6, 12, 10, 3)):

@@ -11,6 +11,7 @@ import time
 import pytest
 
 from petastorm_tpu_torch.ops import build
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 
 def _fake_compiler(tmp_path, body):

@@ -2,7 +2,8 @@
 the CPU: the same event lists through both ``analyze`` give equal
 per-stage total, self and overlapped seconds (abs 1e-9), the same
 bottleneck, what-if lines and ``predict_speedup``; the autotuner
-cross-check agrees on explicit decisions and finds no port autotuner.
+cross-check agrees on explicit decisions, finds nothing in a process
+without the port's autotuner and reads its decisions where it runs.
 The event lists hold only stages the port records."""
 
 import random
@@ -141,14 +142,30 @@ def test_autotuner_crosscheck_is_the_references(name):
                            for v in ('agree', 'disagree')}
 
 
-def test_crosscheck_finds_no_port_autotuner():
-    assert torch_critpath.AUTOTUNE_MODULE not in sys.modules
+def test_crosscheck_finds_no_port_autotuner(monkeypatch):
+    # a process that never imported the autotuner: nothing to cross-check
+    monkeypatch.delitem(sys.modules, torch_critpath.AUTOTUNE_MODULE, raising=False)
     report = torch_critpath.analyze(EVENT_LISTS['one-lifeline'])
     assert torch_critpath.crosscheck_autotuner(report) is None
     assert torch_critpath.crosscheck_autotuner(report, decisions=[]) is None
     section = torch_critpath.critpath_section(EVENT_LISTS['one-lifeline'])
     assert 'autotune_crosscheck' not in section
     _assert_reports_equal(section, jax_critpath.analyze(EVENT_LISTS['one-lifeline']))
+
+
+def test_crosscheck_reads_the_port_autotuners_decisions():
+    """Decisions the port's autotuner recorded are what the cross-check
+    reads when none are given, with the reference's verdicts."""
+    from petastorm_tpu_torch.device import autotune
+    for decision in DECISIONS[:-1]:
+        autotune.record_decision(decision['action'])
+    report = torch_critpath.analyze(EVENT_LISTS['io-bound'])
+    got = torch_critpath.crosscheck_autotuner(report)
+    assert [v['action'] for v in got] == [d['action'] for d in DECISIONS[:-1]][-10:]
+    assert got == jax_critpath.crosscheck_autotuner(
+        jax_critpath.analyze(EVENT_LISTS['io-bound']), DECISIONS[:-1])
+    section = torch_critpath.critpath_section(EVENT_LISTS['io-bound'])
+    assert section['autotune_crosscheck']['decisions'] == len(got)
 
 
 @pytest.fixture(scope='module')

@@ -241,6 +241,7 @@ PORT_SITES = {
     'codecs.py': 1,                 # decode.batch
     'materialized_cache.py': 2,     # cache.read, cache.write
     'pushdown.py': 1,               # io.read #footer
+    'readahead.py': 1,              # io.read #readahead
     os.path.join('device', 'staging.py'): 1,  # staging.h2d
 }
 

@@ -23,6 +23,7 @@ from petastorm_tpu_torch.errors import NoDataAvailableError as TorchNoData
 from petastorm_tpu_torch.etl.dataset_metadata import ParquetDatasetInfo
 from petastorm_tpu_torch.reader import make_batch_reader as torch_make_batch_reader
 from petastorm_tpu_torch.reader import make_reader as torch_make_reader
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 READERS = {'jax': (jax_make_reader, jax_make_batch_reader),
            'torch': (torch_make_reader, torch_make_batch_reader)}

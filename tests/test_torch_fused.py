@@ -27,6 +27,7 @@ from petastorm_tpu_torch.telemetry import (
     FUSED_BYTES, FUSED_FALLBACKS, FUSED_ROWS, get_registry, reset_registry,
 )
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 IMG_SHAPE = (32, 24, 3)
 

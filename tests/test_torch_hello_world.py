@@ -18,6 +18,7 @@ from petastorm_tpu.pytorch import DataLoader as JaxDataLoader
 from petastorm_tpu.reader import make_batch_reader as jax_batch_reader
 from petastorm_tpu.reader import make_reader as jax_reader
 from petastorm_tpu_torch.examples import hello_world
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 
 @pytest.fixture(scope='module')

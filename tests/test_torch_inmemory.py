@@ -19,6 +19,7 @@ import torch
 
 try:
     from petastorm_tpu.jax import make_jax_loader
+    from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 except ImportError:  # the machine with the card: only the cuda test runs there
     make_jax_loader = None
 from petastorm_tpu_torch.device.loader import MASK_FIELD, make_torch_loader

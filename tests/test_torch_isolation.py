@@ -5,6 +5,7 @@ import ast
 import os
 
 import pytest
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'petastorm_tpu')
@@ -66,7 +67,8 @@ def test_port_has_modules_to_scan():
                    ('analysis', 'pass_locks.py'), ('analysis', 'pass_threads.py'),
                    ('analysis', 'pass_payloads.py'), ('analysis', 'pass_buffers.py'),
                    ('faults.py',), ('cache.py',), ('materialized_cache.py',),
-                   ('ops', '__init__.py'), ('models', '__init__.py')):
+                   ('ops', '__init__.py'), ('models', '__init__.py'),
+                   ('readahead.py',), ('device', 'autotune.py')):
         assert os.path.join('petastorm_tpu_torch', *module) in rel
     assert len(rel) > 20
 
@@ -126,7 +128,7 @@ def test_port_event_names_are_the_references():
                     and getattr(node.func, 'attr', None) in ('record_complete', 'record_instant')
                     and node.args and isinstance(node.args[0], ast.Constant)):
                 recorded.add(node.args[0].value)
-    assert recorded == {'queue_wait', 'mixture_pull'}
+    assert recorded == {'queue_wait', 'mixture_pull', 'autotune_decision'}
     assert recorded <= set(STAGES) | set(EVENT_NAMES)
 
 

@@ -31,6 +31,7 @@ from petastorm_tpu_torch.native import PackedCells
 from petastorm_tpu_torch.reader import make_batch_reader as torch_make_batch_reader
 from petastorm_tpu_torch.telemetry import FUSED_ROWS, get_registry, reset_registry
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 SHAPE = (24, 16, 3)
 LABELS = 8

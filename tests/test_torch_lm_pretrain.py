@@ -23,6 +23,7 @@ from petastorm_tpu.models import transformer as jt
 from petastorm_tpu_torch.examples import lm_pretrain
 from petastorm_tpu_torch.models import transformer as tt
 from tests.torch_cpu_threads import few_torch_threads  # noqa: F401 - autouse
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 SEQ = 17
 MODEL_KW = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64)

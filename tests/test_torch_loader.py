@@ -22,6 +22,7 @@ from petastorm_tpu.jax import make_jax_loader
 from petastorm_tpu.jax import staging as jax_staging
 from petastorm_tpu_torch.device import staging
 from petastorm_tpu_torch.device.loader import MASK_FIELD, make_torch_loader
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 
 @pytest.fixture

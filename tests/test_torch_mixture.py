@@ -22,6 +22,7 @@ import petastorm_tpu.mixture as jm
 import petastorm_tpu_torch.mixture as tm
 from petastorm_tpu.jax import make_jax_loader
 from petastorm_tpu_torch.device.loader import make_torch_loader
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 ROW_COLS = ('tokens', 'loss_mask', 'segment_ids')
 WEIGHT_SETS = [[3, 1], [1, 1, 1], [5, 2, 3], [0.7, 0.2, 0.1], [0.3, 0.3, 0.4]]

@@ -23,6 +23,7 @@ from petastorm_tpu_torch.models.mnist import (
     MnistCNN, init_mnist, mnist_loss, mnist_train_step, params_from_jax,
 )
 from tests.torch_cpu_threads import few_torch_threads  # noqa: F401 - autouse
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 
 def _jax_model(dtype):

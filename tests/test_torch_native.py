@@ -23,6 +23,7 @@ from petastorm_tpu import codecs as jax_codecs
 from petastorm_tpu.unischema import UnischemaField as JaxField
 from petastorm_tpu_torch import codecs, native
 from petastorm_tpu_torch.unischema import UnischemaField
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 SHAPE = (24, 40, 3)
 

@@ -28,6 +28,7 @@ from petastorm_tpu_torch.reader import make_reader as torch_make_reader
 from petastorm_tpu_torch.unischema import Unischema as TorchUnischema
 
 from tests.test_common import TestSchema
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 TsSchema = Unischema('TsSchema', [
     UnischemaField('ts', np.int64, (), ScalarCodec(pa.int64()), False),

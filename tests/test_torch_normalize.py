@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from petastorm_tpu.ops import normalize_images as jax_normalize
 from petastorm_tpu_torch.ops import normalize as torch_normalize
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 MEAN_STD = {
     1: ([0.1307], [0.3081]),

@@ -35,7 +35,7 @@ from petastorm_tpu_torch import telemetry as torch_telemetry
 from petastorm_tpu_torch.device.loader import make_torch_loader
 from petastorm_tpu_torch.telemetry import obs_server, slo, timeseries
 from tests.torch_telemetry_common import (  # noqa: F401 - fixtures
-    JAX_ONLY_OFF, OBS_THREAD_PREFIXES, reset_both, telemetry_guard, write_small_dataset,
+    OBS_THREAD_PREFIXES, reset_both, telemetry_guard, write_small_dataset,
 )
 
 #: the reference's /health keys of a reader and of a loader
@@ -63,8 +63,6 @@ def _obs_threads():
 def _arm(monkeypatch, window_sec='0.2', **extra):
     monkeypatch.setenv('PETASTORM_TPU_OBS_PORT', '0')
     monkeypatch.setenv('PETASTORM_TPU_OBS_WINDOW_SEC', window_sec)
-    for knob in JAX_ONLY_OFF:
-        monkeypatch.setenv(knob, '0')
     for name, value in extra.items():
         monkeypatch.setenv(name, value)
     jax_telemetry.refresh()

@@ -11,6 +11,7 @@ import pytest
 
 from petastorm_tpu import predicates as jp
 from petastorm_tpu_torch import predicates as tp
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 
 def _row_loop(pred, columns):

@@ -28,6 +28,7 @@ from petastorm_tpu_torch import predicates as torch_predicates
 from petastorm_tpu_torch import pushdown as torch_pushdown
 from petastorm_tpu_torch import reader as torch_reader
 from petastorm_tpu_torch.telemetry import get_registry, reset_registry
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 
 def _namespace(filters, predicates, pushdown, reader):

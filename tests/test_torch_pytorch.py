@@ -22,6 +22,7 @@ try:
     from petastorm_tpu.ngram import NGram as JaxNGram
     from petastorm_tpu.reader import make_batch_reader as jax_batch_reader
     from petastorm_tpu.reader import make_reader as jax_reader
+    from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 except ImportError:  # the machine with the card: only the cuda test runs there
     jax_bridge = None
 from petastorm_tpu_torch import pytorch as torch_bridge

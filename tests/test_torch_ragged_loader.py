@@ -24,6 +24,7 @@ from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
 from petastorm_tpu_torch.device.loader import MASK_FIELD, TorchLoader, make_torch_loader
 from petastorm_tpu_torch.etl.dataset_metadata import write_dataset
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 
 @pytest.fixture

@@ -24,6 +24,7 @@ from petastorm_tpu_torch.transform import TransformSpec as TorchTransformSpec
 from petastorm_tpu_torch.unischema import Unischema as TorchUnischema
 
 from tests.test_common import TestSchema, _row
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 READERS = {'jax': jax_make_batch_reader, 'torch': torch_make_batch_reader}
 

@@ -20,6 +20,7 @@ from petastorm_tpu.reader import make_reader as jax_make_reader
 from petastorm_tpu.transform import TransformSpec as JaxTransformSpec
 from petastorm_tpu_torch.reader import make_reader as torch_make_reader
 from petastorm_tpu_torch.transform import TransformSpec as TorchTransformSpec
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 READERS = {'jax': jax_make_reader, 'torch': torch_make_reader}
 

@@ -31,6 +31,7 @@ from petastorm_tpu_torch.device.loader import make_torch_loader, mesh_shard, res
 from petastorm_tpu_torch.parallel import sharding
 from petastorm_tpu_torch.parallel.sharding import default_shard_info
 from petastorm_tpu_torch.reader import make_batch_reader as torch_make_batch_reader
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

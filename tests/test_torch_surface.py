@@ -4,8 +4,11 @@ the schema helpers ``UnischemaField.is_scalar``,
 ``Unischema.as_arrow_schema`` and ``insert_explicit_nulls``, a pool
 instance as ``reader_pool_type``, the ``ops``/``models`` exports, and the
 signatures of ``ConcurrentVentilator`` (with its ``error``),
-``TrainCheckpointer.save(force=)`` and the flash entry points'
-``force_kernel=``."""
+``TrainCheckpointer.save(force=)``, the flash entry points'
+``force_kernel=``, and the readahead and autotune seams
+(``Reader.ventilate_extra``/``set_ventilate_extra``, the decoder-thread
+override, ``TorchLoader.autotune_report``, ``set_num_slots``, the public
+names of ``readahead`` and ``device.autotune``)."""
 
 import inspect
 import subprocess
@@ -280,3 +283,83 @@ def test_flash_entry_points_take_force_kernel(name):
     # a CPU tensor has no kernel: forcing it raises, never a silent fallback
     with pytest.raises(RuntimeError, match=r'force_kernel=True\) needs CUDA tensors'):
         fn(q, k, v, force_kernel=True)
+
+
+# -- the readahead and autotune seams -------------------------------------------
+
+
+def _members(path):
+    """``module:attr[.attr]`` of either package to the object."""
+    import importlib
+    module, _, attrs = path.partition(':')
+    obj = importlib.import_module(module)
+    for attr in attrs.split('.'):
+        obj = getattr(obj, attr)
+    return obj
+
+
+SEAMS = {
+    'Reader.set_ventilate_extra': ('petastorm_tpu.reader:Reader.set_ventilate_extra',
+                                   'petastorm_tpu_torch.reader:Reader.set_ventilate_extra'),
+    'set_image_decoder_threads_override': (
+        'petastorm_tpu.codecs:set_image_decoder_threads_override',
+        'petastorm_tpu_torch.codecs:set_image_decoder_threads_override'),
+    'image_decoder_threads_from_knob': (
+        'petastorm_tpu.codecs:image_decoder_threads_from_knob',
+        'petastorm_tpu_torch.codecs:image_decoder_threads_from_knob'),
+    'image_decoder_threads': ('petastorm_tpu.codecs:image_decoder_threads',
+                              'petastorm_tpu_torch.codecs:image_decoder_threads'),
+    'autotune_report': ('petastorm_tpu.jax.loader:JaxLoader.autotune_report',
+                        'petastorm_tpu_torch.device.loader:TorchLoader.autotune_report'),
+    'set_num_slots': ('petastorm_tpu.jax.staging:StagingEngine.set_num_slots',
+                      'petastorm_tpu_torch.device.staging:StagingEngine.set_num_slots'),
+}
+SEAMS.update({
+    'readahead.%s' % name: ('petastorm_tpu.readahead:%s' % name,
+                            'petastorm_tpu_torch.readahead:%s' % name)
+    for name in ('build_plan', 'attach', 'release', 'coalesce_ranges', 'count_degrade',
+                 'current_depth', 'health_snapshot', 'live_manager_count', 'pool_status',
+                 'readahead_enabled', 'set_depth_override', 'readahead_depth',
+                 'readahead_max_depth', 'readahead_threads', 'pool_budget_bytes', 'gap_bytes',
+                 'max_range_bytes', 'refresh_readahead', 'ReadaheadManager',
+                 'ReadaheadManager.observe', 'ReadaheadManager.serve',
+                 'ReadaheadManager.close', 'ReadaheadManager.acquire',
+                 'ReadaheadManager.release')})
+SEAMS.update({
+    'autotune.%s' % name: ('petastorm_tpu.jax.autotune:%s' % name,
+                           'petastorm_tpu_torch.device.autotune:%s' % name)
+    for name in ('autotune_enabled', 'autotune_window_sec', 'autotune_max_slots',
+                 'autotune_max_prefetch', 'refresh_autotune', 'record_decision',
+                 'recent_decisions', 'decision_counts', 'StagingAutotuner',
+                 'StagingAutotuner.apply_learned', 'StagingAutotuner.maybe_tick',
+                 'StagingAutotuner.tick', 'StagingAutotuner.observe', 'StagingAutotuner.close',
+                 'StagingAutotuner.summary')})
+
+
+@pytest.mark.parametrize('name', sorted(SEAMS))
+def test_readahead_and_autotune_seams_are_the_references(name):
+    want, got = (_members(path) for path in SEAMS[name])
+    assert inspect.signature(got) == inspect.signature(want)
+
+
+def test_ventilate_extra_is_a_property_on_both_readers():
+    from petastorm_tpu.reader import Reader as JaxReader
+    from petastorm_tpu_torch.reader import Reader
+    assert isinstance(JaxReader.ventilate_extra, property)
+    assert isinstance(Reader.ventilate_extra, property)
+
+
+def test_readahead_exports_the_references_names():
+    from petastorm_tpu import readahead as jax_readahead
+    from petastorm_tpu_torch import readahead
+    assert set(jax_readahead.__all__) <= set(readahead.__all__)
+    for name in readahead.__all__:
+        assert hasattr(readahead, name)
+    for name in ('READAHEAD_HITS', 'READAHEAD_MISSES', 'READAHEAD_BYTES',
+                 'READAHEAD_COALESCED_READS', 'READAHEAD_DEGRADED', 'READAHEAD_POOL_BYTES'):
+        assert getattr(readahead, name) == getattr(jax_readahead, name)
+    from petastorm_tpu.jax import autotune as jax_autotune
+    from petastorm_tpu_torch.device import autotune
+    assert autotune.AUTOTUNE_DECISIONS == jax_autotune.AUTOTUNE_DECISIONS
+    assert autotune._MAX_INFLIGHT_EXTRA == jax_autotune._MAX_INFLIGHT_EXTRA
+    assert autotune._READAHEAD_POOL_PRESSURE == jax_autotune._READAHEAD_POOL_PRESSURE

@@ -19,6 +19,7 @@ from petastorm_tpu.reader import make_batch_reader as jax_reader
 from petastorm_tpu.weighted_sampling_reader import WeightedSamplingReader as JaxMix
 from petastorm_tpu_torch.reader import make_batch_reader as torch_reader
 from petastorm_tpu_torch.weighted_sampling_reader import WeightedSamplingReader as TorchMix
+from tests.torch_telemetry_common import plane_guard  # noqa: F401 - autouse
 
 
 @pytest.fixture(scope='module')
@@ -165,6 +166,7 @@ def test_rejects_what_jax_rejects(id_datasets, case):
         readers = _readers(make, id_datasets)
         if case == 'schema':
             readers[1].stop()
+            readers[1].join()
             readers[1] = make(id_datasets[1], reader_pool_type='dummy', schema_fields=['^id$'])
         args = {'lengths': (readers, [1.0]), 'empty': ([], []),
                 'negative': (readers, [1.0, -1.0]), 'zero-sum': (readers, [0.0, 0.0]),

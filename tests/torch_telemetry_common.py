@@ -24,7 +24,16 @@ arms both packages' fault injectors: the guard re-reads it in both
 (``refresh_faults``, after ``monkeypatch``'s restore, so both disarm) and
 clears both decoded caches' publish listeners; it fails a test that left
 a listener registered, or whose injector stays armed or whose registry
-still shows a degraded decoded cache after that reset.
+still shows a degraded decoded cache after that reset. The readahead
+plane and the staging autotuner start threads and set process-wide
+overrides inside every reader and loader of both packages: before its
+reset the guard fails a test that left a live readahead manager (the
+port's live set, or a reference manager not closed), a
+``petastorm-tpu-torch-readahead-*`` thread, a readahead-depth or
+decoder-thread override, or an autotuner holding either override; the
+reset then closes both packages' managers and drops both packages'
+overrides and owners. Test files that import nothing else of this module
+take ``plane_guard``, the same check alone.
 
 ``armed_dump`` is for a test that sets ``PETASTORM_TPU_TRACE_DUMP``: it
 restores the SIGUSR1 handler it found and unregisters the ``atexit``
@@ -35,14 +44,17 @@ in both. ``write_small_dataset`` writes the rows every file reads.
 import atexit
 import os
 import signal
+import sys
 import threading
 import time
 
 import numpy as np
 import pytest
 
+from petastorm_tpu import codecs as jax_codecs
 from petastorm_tpu import faults as jax_faults
 from petastorm_tpu import materialized_cache as jax_materialized_cache
+from petastorm_tpu import readahead as jax_readahead
 from petastorm_tpu import sanitizer as jax_sanitizer
 from petastorm_tpu import telemetry as jax_telemetry
 from petastorm_tpu.telemetry import obs_server as jax_obs_server
@@ -52,8 +64,10 @@ from petastorm_tpu.telemetry import slo as jax_slo
 from petastorm_tpu.telemetry import spans as jax_spans
 from petastorm_tpu.telemetry import timeseries as jax_timeseries
 from petastorm_tpu.telemetry import tracing as jax_tracing
+from petastorm_tpu_torch import codecs as torch_codecs
 from petastorm_tpu_torch import faults as torch_faults
 from petastorm_tpu_torch import materialized_cache as torch_materialized_cache
+from petastorm_tpu_torch import readahead as torch_readahead
 from petastorm_tpu_torch import sanitizer as torch_sanitizer
 from petastorm_tpu_torch import telemetry as torch_telemetry
 from petastorm_tpu_torch.telemetry import obs_server as torch_obs_server
@@ -68,9 +82,6 @@ PORT_THREAD_PREFIX = 'petastorm-tpu-torch-'
 OBS_THREAD_PREFIXES = ('petastorm-tpu-obs', 'petastorm-tpu-torch-obs')
 #: environment knobs that arm or shape the live plane
 OBS_ENV_PREFIXES = ('PETASTORM_TPU_OBS_', 'PETASTORM_TPU_SLO')
-#: JAX-only knobs that keep the reference's pipeline the port's shape
-#: (the port has no readahead plane yet)
-JAX_ONLY_OFF = ('PETASTORM_TPU_READAHEAD',)
 _DUMP_FLAGS = ('_atexit_installed', '_signal_installed')
 
 
@@ -78,9 +89,30 @@ _DUMP_FLAGS = ('_atexit_installed', '_signal_installed')
 DEGRADED_GAUGE = 'petastorm_tpu_decoded_cache_degraded'
 
 
+def _autotune_modules():
+    """Both packages' autotune modules, where imported (a reset never
+    imports them)."""
+    return [(pkg, sys.modules.get(name)) for pkg, name in (
+        ('jax', 'petastorm_tpu.jax.autotune'), ('port', 'petastorm_tpu_torch.device.autotune'))
+        if sys.modules.get(name) is not None]
+
+
+def reset_planes():
+    """Both packages' readahead managers closed, their autotuners' rings
+    and owners cleared and both overrides dropped (the JAX tuner's reset
+    leaves the decoder-thread override set)."""
+    for readahead in (jax_readahead, torch_readahead):
+        readahead._reset_for_tests()
+    for _, autotune in _autotune_modules():
+        autotune._reset_for_tests()
+    jax_codecs.set_image_decoder_threads_override(None)
+    torch_codecs.set_image_decoder_threads_override(None)
+
+
 def reset_both():
     jax_telemetry.reset_for_tests()
     torch_telemetry.reset_for_tests()
+    reset_planes()
     jax_sanitizer.reset_for_tests()
     torch_sanitizer.reset_for_tests()
     jax_faults.refresh_faults()
@@ -101,6 +133,35 @@ def _cache_leftovers():
                     telemetry.get_registry().gauges_with_prefix(DEGRADED_GAUGE).items() if v}
         if degraded:
             found['%s degraded gauge' % pkg] = degraded
+    return found
+
+
+def plane_leftovers():
+    """What of either package's readahead plane or staging autotuner a test
+    left behind: live managers, the port's fetch threads, the depth and
+    decoder-thread overrides, and autotuners holding an override."""
+    found = {}
+    port_managers = torch_readahead.live_manager_count()
+    if port_managers:
+        found['port readahead managers'] = port_managers
+    jax_open = [m for m in list(jax_readahead._live_managers) if not m._closed]
+    if jax_open:
+        found['jax readahead managers not closed'] = len(jax_open)
+    threads = [t.name for t in threading.enumerate()
+               if t.name.startswith(torch_readahead.THREAD_PREFIX)]
+    if threads:
+        found['port readahead threads'] = threads
+    for pkg, readahead, codecs in (('jax', jax_readahead, jax_codecs),
+                                   ('port', torch_readahead, torch_codecs)):
+        if readahead._depth_override is not None:
+            found['%s readahead depth override' % pkg] = readahead._depth_override
+        if codecs._DECODER_THREADS_OVERRIDE is not None:
+            found['%s decoder-thread override' % pkg] = codecs._DECODER_THREADS_OVERRIDE
+    for pkg, autotune in _autotune_modules():
+        owners = [o for o in (autotune._override_owner, autotune._readahead_owner)
+                  if o is not None]
+        if owners:
+            found['%s autotune owners' % pkg] = owners
     return found
 
 
@@ -159,7 +220,9 @@ def telemetry_guard():
                  for pkg, module in (('jax', jax_materialized_cache),
                                      ('port', torch_materialized_cache))
                  if module._PUBLISH_LISTENERS}
+    planes = plane_leftovers()
     reset_both()
+    assert not planes, 'readahead or autotune state left behind: %s' % planes
     assert not listeners, 'decoded-cache publish listeners left registered: %s' % listeners
     leftovers = _cache_leftovers()
     assert not leftovers, 'fault arming or decoded-cache state left behind: %s' % leftovers
@@ -174,6 +237,18 @@ def telemetry_guard():
     after = _global_state()
     leaked = {k: (before[k], after[k]) for k in before if before[k] != after[k]}
     assert not leaked, 'process-global telemetry state leaked: %s' % leaked
+
+
+@pytest.fixture(autouse=True)
+def plane_guard():
+    """The guard's readahead and autotune check alone, for the port's test
+    files that need nothing else of this module: it fails a test that
+    leaves a manager, a fetch thread, an override or an owner behind, and
+    resets both planes either way."""
+    yield
+    planes = plane_leftovers()
+    reset_planes()
+    assert not planes, 'readahead or autotune state left behind: %s' % planes
 
 
 @pytest.fixture
@@ -199,8 +274,6 @@ def traced(monkeypatch):
     """``PETASTORM_TPU_TRACE=1`` in both packages (the guard's closing
     reset re-reads the restored environment)."""
     monkeypatch.setenv('PETASTORM_TPU_TRACE', '1')
-    for knob in JAX_ONLY_OFF:
-        monkeypatch.setenv(knob, '0')
     jax_telemetry.refresh()
     torch_telemetry.refresh()
 
