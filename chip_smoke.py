@@ -263,6 +263,38 @@ outlives its phase.
     ``sanitized_vit_path``, the uncached epoch of
     ``decoded_cache_vit_path``) print their readahead counts too and
     hold no degrade.
+36. ``generate_reference`` (after ``reference_bf16``): KV-cache decoding
+    and MoE on the card, f32 with TF32 off, against the CPU. Greedy
+    tokens of ``tests/test_generate.py``'s tiny config and of a rope +
+    GQA variant on the card equal the recompute oracle on the card and
+    the CPU's greedy tokens; a small MoE transformer (``n_experts=4``):
+    the loss within 1e-4 and the ``blocks.0.moe.w_in`` gradient within
+    1e-4 of its max-abs of the CPU's.
+37. ``generate_path`` (after ``resume``, on lm-c4like-flagship):
+    ``pretrain`` trains the flagship ``GEN_TRAIN_STEPS`` steps with a
+    checkpoint directory (each flash kernel 10 times a step); the
+    generate example (``examples/generate.py``) restores the checkpoint
+    and decodes ``GEN_NEW_TOKENS`` tokens from the EOS prompt, greedy
+    (equal to ``greedy_generate`` on the restored model; rows freeze at
+    EOS) and sampled (temperature 0.8, top-p 0.9). Then ``bench.py``'s
+    decode shape (batch 8, a 128-token prompt from seed 0, 64 and 256 new
+    tokens, median of ``DECODE_RUNS`` each): decode tokens/s from the two
+    lengths' difference, the prefill's ms, the KV cache's bytes and peak
+    memory, for full heads and for ``n_kv_heads = 4`` (the speedup); the
+    flash kernels launch 0 times in every decode. A teacher-forced check
+    of the bf16 decode: one dense ``transformer_forward`` over the 64-token
+    decode gives logits within ``DECODE_TOL`` of the decode's (max-abs
+    error over max-abs), and every emitted token is that forward's argmax
+    or within the tolerance of it.
+38. ``moe_path`` (configuration lm-c4like-moe-flagship): the flagship with
+    ``MOE_EXPERTS`` Switch-MoE experts a block (capacity factor 1.25, aux
+    weight 0.01, about 0.9B parameters) trained ``MOE_STEPS`` AdamW steps
+    on the C4-like rows: each flash kernel 10 times a step, losses finite
+    and falling; tokens/s, peak memory and the last step's aux loss.
+39. ``modern_path``: the modern example (``examples/modern.py``: rope,
+    GQA, swiglu, remat, two accumulated microbatches, f32) on the card on
+    512 C4-like documents, then its 8-token greedy decode: losses finite,
+    the decode equal to the recompute oracle on the card.
 ``--trace-dir DIR`` keeps the two Chrome traces in ``DIR``.
 
 Then the ``kernels`` summary (each kernel's launches on every path), the
@@ -439,6 +471,24 @@ CHAOS_DEADLINE_S = 120
 READAHEAD_TUNE_WINDOW_S = '0.25'
 READAHEAD_DRILL_EPOCHS = (3, 12)
 # dp-lm: two gloo ranks on the one card feed the flagship
+# KV-cache decoding and MoE
+GEN_REFERENCE_KW = dict(vocab_size=32, d_model=16, n_heads=2, n_layers=2, d_ff=32,
+                        max_seq_len=24)                    # tests/test_generate.py's
+GEN_REFERENCE_NEW_TOKENS = 8
+MOE_REFERENCE_KW = dict(vocab_size=256, d_model=64, n_heads=4, n_layers=2, d_ff=256,
+                        max_seq_len=128, n_experts=4)
+GEN_TRAIN_STEPS = 10
+GEN_NEW_TOKENS = 32
+GEN_TEMPERATURE, GEN_TOP_P = 0.8, 0.9
+DECODE_BATCH, DECODE_PROMPT = 8, 128  # bench.py's _measure_lm_decode shape
+DECODE_LENGTHS = (64, 256)
+DECODE_RUNS = 3
+DECODE_GQA_GROUP = 4
+DECODE_KV_BYTES = (503_316_480, 125_829_120)  # K and V, 10 layers, 8 x 1024, bf16: 16 and 4 heads
+DECODE_TOL = 3e-2                     # reference_bf16's
+MOE_EXPERTS = 4                       # __graft_entry__.py: two experts a shard of a 2-way axis
+MOE_STEPS = 20
+
 DP_RANKS = 2
 DP_STEPS = 5                 # the first is held against one process; the rest timed
 DP_TIMEOUT_S = 600
@@ -2384,6 +2434,302 @@ def phase_resume(spec):
     assert max(gaps) <= RESUME_LOSS_RTOL, gaps
 
 
+def phase_generate_reference():
+    """Decoding and MoE on the card (f32, TF32 off) against the CPU. The
+    tiny decode config of ``tests/test_generate.py`` and a rope + GQA
+    variant: the card's greedy tokens equal the port's recompute oracle on
+    the card and the CPU's greedy tokens. A small f32 MoE transformer
+    (``n_experts=4``): the loss and the ``blocks.0.moe.w_in`` gradient on
+    the card against the CPU, within ``reference``'s tolerances."""
+    import numpy as np
+    from petastorm_tpu_torch.models.generate import greedy_generate, reference_greedy_generate
+    from petastorm_tpu_torch.models.transformer import (
+        TransformerConfig, init_transformer, transformer_loss,
+    )
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    decode = {}
+    for label, kw in (('learned', {}), ('rope_gqa', dict(n_heads=4, n_kv_heads=2,
+                                                         pos_encoding='rope'))):
+        config = TransformerConfig(**dict(GEN_REFERENCE_KW, **kw), dtype=torch.float32)
+        prompt = torch.from_numpy(np.random.RandomState(0).randint(
+            0, config.vocab_size, (3, 5)).astype(np.int32))
+        out = {}
+        for device in ('cpu', 'cuda'):
+            model = init_transformer(0, config, device)
+            out[device] = greedy_generate(model, prompt, GEN_REFERENCE_NEW_TOKENS).cpu()
+        oracle = reference_greedy_generate(model, prompt, GEN_REFERENCE_NEW_TOKENS).cpu()
+        decode[label] = {'card': out['cuda'].tolist(), 'equals_oracle': torch.equal(
+            out['cuda'], oracle), 'equals_cpu': torch.equal(out['cuda'], out['cpu'])}
+    config = TransformerConfig(**MOE_REFERENCE_KW, dtype=torch.float32)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, config.vocab_size, (2, config.max_seq_len + 1)).astype(np.int32))
+    moe = {}
+    for device in ('cpu', 'cuda'):
+        model = init_transformer(0, config, device)
+        loss = transformer_loss(model, tokens.to(device))
+        loss.backward()
+        moe[device] = (loss.item(), model.blocks[0].moe.w_in.grad.cpu())
+    (want, want_grad), (got, got_grad) = moe['cpu'], moe['cuda']
+    grad_err = float((got_grad - want_grad).abs().max() / want_grad.abs().max())
+    emit({'phase': 'generate_reference', 'decode_config': GEN_REFERENCE_KW, 'decode': decode,
+          'moe_config': MOE_REFERENCE_KW, 'moe_loss': {'cpu': want, 'card': got},
+          'moe_loss_abs_err': abs(got - want), 'moe_grad': 'blocks.0.moe.w_in',
+          'moe_grad_err_over_max_abs': grad_err,
+          'tolerance': 'tokens equal; loss atol 1e-4; max-abs grad err / max|grad| <= 1e-4 '
+                       '(f32, TF32 off)'})
+    for label, r in decode.items():
+        assert r['equals_oracle'] and r['equals_cpu'], (label, r)
+    assert math.isfinite(got) and abs(got - want) <= 1e-4, (got, want)
+    assert grad_err <= 1e-4, grad_err
+
+
+def _timed_decode(model, prompt, new_tokens):
+    """Median host seconds of ``DECODE_RUNS`` greedy decodes of
+    ``new_tokens`` (one untimed decode first), each to its last token on
+    the card."""
+    from petastorm_tpu_torch.models.generate import greedy_generate
+    greedy_generate(model, prompt, new_tokens)
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(DECODE_RUNS):
+        t0 = time.perf_counter()
+        greedy_generate(model, prompt, new_tokens)
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    return statistics.median(samples), samples
+
+
+def _decode_rate(model, prompt):
+    """bench.py's decode rate: batch x (256 - 64) new tokens over the
+    difference of the two lengths' median seconds, which cancels the
+    prefill; the prefill's own median (a one-token decode) beside it."""
+    short, long_ = DECODE_LENGTHS
+    t_short, short_runs = _timed_decode(model, prompt, short)
+    t_long, long_runs = _timed_decode(model, prompt, long_)
+    t_prefill, _ = _timed_decode(model, prompt, 1)
+    c = model.config
+    kv_bytes = (2 * c.n_layers * prompt.shape[0] * c.max_seq_len * c.kv_heads
+                * (c.d_model // c.n_heads) * torch.finfo(c.dtype).bits // 8)
+    return {'tokens_per_s': prompt.shape[0] * (long_ - short) / (t_long - t_short),
+            'seconds': {short: short_runs, long_: long_runs}, 'prefill_ms': t_prefill * 1e3,
+            'kv_cache_bytes': kv_bytes}
+
+
+def phase_generate_path(url, tmp):
+    """The flagship trained ``GEN_TRAIN_STEPS`` steps with a checkpoint
+    directory (each flash kernel 10 times a step), then the generate
+    example: the checkpoint restored, 32 tokens decoded from the EOS
+    prompt, greedy and sampled. Then bench.py's decode shape on the
+    restored model (batch 8, a 128-token prompt, 64 and 256 new tokens)
+    and on a GQA-4 flagship, the flash kernels launched 0 times in the
+    decodes; and a teacher-forced check of the bf16 decode: one dense
+    ``transformer_forward`` over the decoded sequence gives logits within
+    ``DECODE_TOL`` of the decode's at every generated position, and each
+    emitted token is its argmax or within the tolerance of it."""
+    import dataclasses
+
+    import numpy as np
+    from petastorm_tpu_torch.checkpoint import TrainCheckpointer
+    from petastorm_tpu_torch.examples.generate import generate_from_checkpoint
+    from petastorm_tpu_torch.examples.lm_pretrain import (
+        EOS, FLAGSHIP_LM_KW, lm_config, pretrain,
+    )
+    from petastorm_tpu_torch.models import generate
+    from petastorm_tpu_torch.models.transformer import (
+        Transformer, init_transformer, transformer_forward,
+    )
+    ckpt_dir = os.path.join(tmp, 'generate_ckpt')
+    reset_launch_counts()
+    result = pretrain(url, batch_size=LM_BATCH, steps=GEN_TRAIN_STEPS, seq_len=LM_SEQ,
+                      model_kw=FLAGSHIP_LM_KW, attn_impl='flash', device='cuda',
+                      checkpoint_dir=ckpt_dir, checkpoint_every=GEN_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    train_launches = launch_counts()
+    losses = result['losses']
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    greedy = generate_from_checkpoint(ckpt_dir, max_new_tokens=GEN_NEW_TOKENS, seq_len=LM_SEQ,
+                                      device='cuda')
+    greedy_s = time.perf_counter() - t0
+    sampled = generate_from_checkpoint(ckpt_dir, max_new_tokens=GEN_NEW_TOKENS, seq_len=LM_SEQ,
+                                       temperature=GEN_TEMPERATURE, top_p=GEN_TOP_P,
+                                       device='cuda')
+    torch.cuda.synchronize()
+    example_launches = launch_counts()
+
+    model = Transformer(lm_config(LM_SEQ)).to('cuda')
+    TrainCheckpointer(ckpt_dir).restore_state({'model': model})
+    shutil.rmtree(ckpt_dir)
+    eos_prompt = torch.full((2, 1), EOS, dtype=torch.int32)
+    same_greedy = np.array_equal(generate.greedy_generate(
+        model, eos_prompt, GEN_NEW_TOKENS, eos_token=EOS).cpu().numpy(), greedy)
+    prompt = torch.from_numpy(np.random.RandomState(0).randint(
+        0, FLAGSHIP_LM_KW['vocab_size'], (DECODE_BATCH, DECODE_PROMPT)).astype(np.int32))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    full = _decode_rate(model, prompt)
+    decode_launches = launch_counts()
+    full['peak_memory_bytes'] = torch.cuda.max_memory_allocated()
+
+    # teacher-forced: the decode's logits against one dense forward
+    short = DECODE_LENGTHS[0]
+    logits = []
+    decoded = generate._generate(model, prompt, short, None, on_logits=logits.append)
+    model.config = dataclasses.replace(model.config, attn_impl='dense')
+    with torch.no_grad():
+        decode_logits = torch.stack(logits, dim=1)                      # (B, N, V)
+        forward = transformer_forward(model, decoded[:, :-1])[:, DECODE_PROMPT - 1:]
+        scale = forward.abs().max()
+        logits_err = float((decode_logits - forward).abs().max() / scale)
+        emitted = decoded[:, DECODE_PROMPT:].long()
+        gap = forward.max(dim=-1).values - forward.gather(-1, emitted[..., None])[..., 0]
+        argmax_equal = int((forward.argmax(dim=-1) == emitted).sum())
+        near_ties = int(((gap > 0) & (gap <= DECODE_TOL * scale)).sum())
+        outside = int((gap > DECODE_TOL * scale).sum())
+    del model, forward, decode_logits, logits
+    torch.cuda.empty_cache()
+
+    gqa_config = dataclasses.replace(lm_config(LM_SEQ),
+                                     n_kv_heads=FLAGSHIP_LM_KW['n_heads'] // DECODE_GQA_GROUP)
+    gqa_model = init_transformer(0, gqa_config, 'cuda')
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    gqa = _decode_rate(gqa_model, prompt)
+    gqa_launches = launch_counts()
+    gqa['peak_memory_bytes'] = torch.cuda.max_memory_allocated()
+    del gqa_model
+    torch.cuda.empty_cache()
+    emit({'phase': 'generate_path', 'config': 'lm-c4like-flagship', 'model': FLAGSHIP_LM_KW,
+          'train_steps': len(losses), 'losses': losses, 'train_launches': train_launches,
+          'checkpoint_save': result['saves'],
+          'example': {'greedy': greedy.tolist(), 'sampled': sampled.tolist(),
+                      'sampling': {'temperature': GEN_TEMPERATURE, 'top_p': GEN_TOP_P},
+                      'greedy_s_with_restore': greedy_s, 'launches': example_launches,
+                      'greedy_equals_restored_decode': same_greedy},
+          'decode_shape': {'batch': DECODE_BATCH, 'prompt': DECODE_PROMPT,
+                           'new_tokens': DECODE_LENGTHS, 'runs': DECODE_RUNS,
+                           'rate': 'batch x (256 - 64) / (median t256 - median t64)'},
+          'decode': full, 'decode_launches': decode_launches,
+          'gqa': dict(gqa, kv_group=DECODE_GQA_GROUP, n_kv_heads=gqa_config.n_kv_heads,
+                      launches=gqa_launches),
+          'gqa_speedup': gqa['tokens_per_s'] / full['tokens_per_s'],
+          'teacher_forced': {'new_tokens': short, 'logits_err_over_max_abs': logits_err,
+                             'tolerance': 'max|a - b| / max|b| <= %g; a token off the '
+                                          'argmax only within it' % DECODE_TOL,
+                             'argmax_equal': argmax_equal, 'near_ties': near_ties,
+                             'outside_tolerance': outside, 'tokens': emitted.numel()}})
+    assert len(losses) == GEN_TRAIN_STEPS and all(math.isfinite(v) for v in losses), losses
+    want = FLAGSHIP_LM_KW['n_layers'] * GEN_TRAIN_STEPS
+    for name in FLASH_KERNELS:
+        assert train_launches[name] == want, (name, train_launches[name], want)
+        for launches in (example_launches, decode_launches, gqa_launches):
+            assert launches[name] == 0, (name, launches)
+    for out in (greedy, sampled):
+        assert out.shape == (2, 1 + GEN_NEW_TOKENS), out.shape
+        assert ((out >= 0) & (out < FLAGSHIP_LM_KW['vocab_size'])).all()
+    for row in greedy[:, 1:]:
+        if (row == EOS).any():
+            assert (row[int(np.argmax(row == EOS)):] == EOS).all(), row
+    assert same_greedy
+    assert full['kv_cache_bytes'] == DECODE_KV_BYTES[0], full['kv_cache_bytes']
+    assert gqa['kv_cache_bytes'] == DECODE_KV_BYTES[1], gqa['kv_cache_bytes']
+    for rate in (full, gqa):
+        assert rate['tokens_per_s'] > 0 and math.isfinite(rate['tokens_per_s']), rate
+    assert logits_err <= DECODE_TOL, logits_err
+    assert outside == 0, outside
+    return train_launches, decode_launches
+
+
+def phase_moe_path(url):
+    """lm-c4like-moe-flagship: the flagship with ``n_experts=4`` Switch-MoE
+    blocks (capacity factor 1.25, aux weight 0.01) trained ``MOE_STEPS``
+    AdamW steps on the C4-like rows through ``pretrain``: each flash
+    kernel 10 times a step, losses finite and falling; tokens/s, peak
+    memory and the last step's summed aux loss (read from the loss's
+    forward)."""
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, lm_config, pretrain
+    from petastorm_tpu_torch.models import transformer
+    from petastorm_tpu_torch.models.moe import expert_capacity
+    model_kw = dict(FLAGSHIP_LM_KW, n_experts=MOE_EXPERTS)
+    config = lm_config(LM_SEQ, model_kw)
+    features = transformer._features_with_aux
+    aux = []
+
+    def recording_features(model, tokens):
+        x, total = features(model, tokens)
+        aux[:] = [total.detach()]
+        return x, total
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    transformer._features_with_aux = recording_features
+    try:
+        result = pretrain(url, batch_size=LM_BATCH, steps=MOE_STEPS, seq_len=LM_SEQ,
+                          model_kw=model_kw, attn_impl='flash', device='cuda')
+        torch.cuda.synchronize()
+    finally:
+        transformer._features_with_aux = features
+    launches = launch_counts()
+    losses = result['losses']
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    with torch.device('meta'):
+        params = sum(p.numel() for p in transformer.Transformer(config).parameters())
+    emit({'phase': 'moe_path', 'config': 'lm-c4like-moe-flagship', 'model': model_kw,
+          'capacity_factor': config.capacity_factor, 'moe_aux_weight': config.moe_aux_weight,
+          'expert_capacity': expert_capacity(LM_BATCH * LM_SEQ, MOE_EXPERTS,
+                                             config.capacity_factor),
+          'parameters': params, 'steps': len(losses), 'batch_size': LM_BATCH,
+          'attention_positions': LM_SEQ, 'launches': launches, 'losses': losses,
+          'loss_first5_mean': first, 'loss_last5_mean': last, 'last_step_aux': float(aux[0]),
+          'tokens_per_s': result['tokens_per_s'], 'steps_per_s': result['steps_per_s'],
+          'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+          'batch_devices': result['batch_devices']})
+    assert len(losses) == MOE_STEPS
+    assert all(math.isfinite(v) for v in losses), losses
+    assert last < first, (first, last)
+    assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
+    want = FLAGSHIP_LM_KW['n_layers'] * MOE_STEPS
+    for name in FLASH_KERNELS:
+        assert launches[name] == want, (name, launches[name], want)
+    return launches
+
+
+def phase_modern_path(tmp):
+    """The modern example (rope, GQA 4/2, swiglu, remat, two accumulated
+    microbatches, f32) on the card at its own config over a small C4-like
+    dataset, then its greedy decode of 8 tokens: losses finite, and the
+    decode equals the port's recompute oracle on the card exactly (f32,
+    TF32 off)."""
+    import numpy as np
+    from petastorm_tpu_torch.examples.lm_pretrain import generate_c4_like
+    from petastorm_tpu_torch.examples.modern import modern_pretrain
+    from petastorm_tpu_torch.models.generate import reference_greedy_generate
+    url = generate_c4_like('file://' + os.path.join(tmp, 'c4_modern'))
+    losses = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, decoded, model = modern_pretrain(
+        url, device='cuda', return_model=True,
+        on_step=lambda step, batch, loss: losses.append(loss))
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    losses = [float(v) for v in losses]
+    prompt = torch.from_numpy(np.asarray(decoded[:, :8]))
+    oracle = reference_greedy_generate(model, prompt, decoded.shape[1] - 8).cpu().numpy()
+    emit({'phase': 'modern_path', 'config': {k: str(v) for k, v in
+                                             vars(model.config).items()},
+          'steps': len(losses), 'losses': losses, 'final_loss': loss,
+          'decoded': decoded.tolist(), 'equals_oracle': bool(np.array_equal(decoded, oracle)),
+          'seconds': seconds, 'launches': launches,
+          'device': str(model.embed.device)})
+    assert losses and all(math.isfinite(v) for v in losses), losses
+    assert model.embed.device.type == 'cuda'
+    assert np.array_equal(decoded, oracle), (decoded, oracle)
+    return launches
+
+
 def consumer_wait_s():
     """Seconds the consumer blocked on the reader (pulls over 10 ms)."""
     from petastorm_tpu_torch.telemetry import STALL_CONSUMER_WAIT, get_registry
@@ -3669,6 +4015,7 @@ def main(argv=None):
         phase_reference(url)
         phase_lm_reference()
         phase_lm_reference_bf16()
+        phase_generate_reference()
         main_launches, main_rows_per_s = phase_main_path(url)
         paths['main_path'] = {'normalize_images': main_launches}
         phase_row_reference(url)
@@ -3701,6 +4048,9 @@ def main(argv=None):
         paths['mixture_path'] = phase_mixture_path(mixture)
         phase_mixture_profile(mixture)
         phase_resume(mixture)
+        paths['generate_path'], paths['generate_decode'] = phase_generate_path(lm_url, tmp)
+        paths['moe_path'] = phase_moe_path(lm_url)
+        paths['modern_path'] = phase_modern_path(tmp)
         vit_url = 'file://' + os.path.join(tmp, 'imagenet_like')
         write_vit_dataset(vit_url, image_codec)
         phase_image_reference(vit_url, image_codec)

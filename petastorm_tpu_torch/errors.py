@@ -18,7 +18,8 @@ class MetadataError(PetastormTpuError):
 
 #: ``ROADMAP.md`` Queue 1 items the port has not reached yet, by number
 ROADMAP_ITEMS = {
-    8: 'LM consumer layer: MoE, ring/Ulysses attention, pipeline, generate',
+    8: 'LM consumer layer across ranks: ring/Ulysses attention, the pipeline, '
+       'expert and sequence parallelism',
     9: 'process and service pools, HDFS and object stores',
     10: 'write plane and ETL tools',
     11: 'bridges, benchmark, examples and test utilities',

@@ -92,6 +92,15 @@ def packing_transform(seq_len):
                          selected_fields=['tokens'])
 
 
+def lm_config(seq_len, model_kw=None, attn_impl='flash'):
+    """The transformer config the recipes train (and the generate example
+    restores): ``model_kw`` (default ``FLAGSHIP_LM_KW``) at ``seq_len``
+    positions, bf16, the loss chunked by 256 positions."""
+    from petastorm_tpu_torch.models.transformer import TransformerConfig
+    return TransformerConfig(max_seq_len=seq_len, loss_chunk=256, attn_impl=attn_impl,
+                             **(FLAGSHIP_LM_KW if model_kw is None else model_kw))
+
+
 def _tree_bytes(path):
     return sum(os.path.getsize(os.path.join(root, name))
                for root, _, names in os.walk(path) for name in names)
@@ -104,13 +113,11 @@ def _train(make_loader, steps, batch_size, seq_len, model_kw, attn_impl, device,
     from petastorm_tpu_torch.checkpoint import TrainCheckpointer
     from petastorm_tpu_torch.device.loader import resolve_device
     from petastorm_tpu_torch.models.transformer import (
-        TransformerConfig, adamw, init_transformer, transformer_train_step,
+        adamw, init_transformer, transformer_train_step,
     )
 
     device = resolve_device(device)
-    config = TransformerConfig(max_seq_len=seq_len, loss_chunk=256, attn_impl=attn_impl,
-                               **(FLAGSHIP_LM_KW if model_kw is None else model_kw))
-    model = init_transformer(0, config, device)
+    model = init_transformer(0, lm_config(seq_len, model_kw, attn_impl), device)
     optimizer = adamw(model)
     step = transformer_train_step(model, optimizer)
     state = {'model': model, 'optimizer': optimizer}

@@ -14,8 +14,11 @@ run in f32.
 
 Weights carry across from the JAX package with :func:`params_from_jax`.
 :func:`transformer_masked_loss` trains on the loader's padded or bucketed
-batches. MoE blocks, sequence parallelism, the pipelined forward and
-decoding are not ported yet (``ROADMAP.md`` Queue 1 item 8).
+batches. ``n_experts > 0`` swaps every block's dense FFN for a Switch-MoE
+layer (:mod:`petastorm_tpu_torch.models.moe`) whose aux loss joins the
+train loss; decoding is :mod:`petastorm_tpu_torch.models.generate`.
+Sequence parallelism and the pipelined forward are not ported yet
+(``ROADMAP.md`` Queue 1 item 8).
 """
 
 import dataclasses
@@ -40,8 +43,10 @@ class TransformerConfig:
     d_ff: int = 256
     max_seq_len: int = 128
     dtype: object = torch.bfloat16
-    # MoE (n_experts > 0) and sequence parallelism (seq_axis) are not
-    # ported yet; the fields stay so configs carry across
+    # n_experts > 0 swaps every block's dense FFN for a Switch-MoE layer;
+    # its aux loss joins the train loss weighted by moe_aux_weight. The
+    # experts live on the one device: expert_axis stays a field only.
+    # Sequence parallelism (seq_axis) is not ported yet.
     n_experts: int = 0
     capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
@@ -92,8 +97,6 @@ class TransformerConfig:
         if self.ffn != 'gelu' and self.n_experts > 0:
             raise ValueError('ffn=%r applies to dense blocks only; MoE configs '
                              '(n_experts > 0) own their expert FFN' % (self.ffn,))
-        if self.n_experts > 0:
-            raise unported('TransformerConfig(n_experts > 0) (MoE blocks)', 8)
         if self.seq_axis is not None:
             raise unported('TransformerConfig(seq_axis=) (ring/Ulysses attention)', 8)
 
@@ -101,6 +104,11 @@ class TransformerConfig:
     def kv_heads(self):
         """Effective K/V head count (n_kv_heads, defaulting to n_heads)."""
         return self.n_kv_heads if self.n_kv_heads is not None else self.n_heads
+
+    def moe_config(self):
+        from petastorm_tpu_torch.models.moe import MoEConfig
+        return MoEConfig(d_model=self.d_model, d_ff=self.d_ff, n_experts=self.n_experts,
+                         capacity_factor=self.capacity_factor, dtype=self.dtype)
 
 
 def _param(*shape):
@@ -115,6 +123,10 @@ class _Block(nn.Module):
         self.attn_out = _param(c.d_model, c.d_model)
         self.ln1 = _param(c.d_model)
         self.ln2 = _param(c.d_model)
+        if c.n_experts > 0:
+            from petastorm_tpu_torch.models.moe import MoE
+            self.moe = MoE(c.moe_config())
+            return
         self.mlp_in = _param(c.d_model, c.d_ff)
         if c.ffn == 'swiglu':
             self.mlp_gate = _param(c.d_model, c.d_ff)
@@ -132,6 +144,9 @@ def reset_block(block, c, generator):
     normal(block.attn_out, c.d_model ** -0.5)
     block.ln1.fill_(1.0)
     block.ln2.fill_(1.0)
+    if c.n_experts > 0:
+        block.moe.reset_parameters(generator)
+        return
     normal(block.mlp_in, c.d_model ** -0.5)
     if c.ffn == 'swiglu':
         normal(block.mlp_gate, c.d_model ** -0.5)
@@ -141,7 +156,9 @@ def reset_block(block, c, generator):
 class Transformer(nn.Module):
     """The JAX model's parameter tree as an ``nn.Module``: ``embed``,
     ``pos_embed`` (learned positions only), ``lm_head``, ``ln_f`` and
-    ``blocks.<i>.{qkv, attn_out, ln1, ln2, mlp_in, mlp_gate, mlp_out}``."""
+    ``blocks.<i>.{qkv, attn_out, ln1, ln2, mlp_in, mlp_gate, mlp_out}``,
+    with ``blocks.<i>.moe.{router, w_in, w_out}`` in place of the dense
+    FFN's matrices when ``n_experts > 0``."""
 
     def __init__(self, config):
         super().__init__()
@@ -188,14 +205,22 @@ def init_transformer(seed, config, device=None):
 
 def params_from_jax(params):
     """A :class:`Transformer` ``state_dict`` from the JAX model's parameter
-    pytree (numpy arrays): the same names and layouts, as f32 tensors."""
+    pytree (numpy arrays): the same names and layouts, as f32 tensors; a
+    nested dict (an MoE block's ``moe``) joins its names with dots."""
     state = {}
     for name in ('embed', 'pos_embed', 'lm_head', 'ln_f'):
         if name in params:
             state[name] = torch.tensor(np.asarray(params[name], np.float32))
+
+    def add(prefix, tree):
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                add('%s%s.' % (prefix, name), value)
+            else:
+                state[prefix + name] = torch.tensor(np.asarray(value, np.float32))
+
     for i, block in enumerate(params['blocks']):
-        for name, value in block.items():
-            state['blocks.%d.%s' % (i, name)] = torch.tensor(np.asarray(value, np.float32))
+        add('blocks.%d.' % i, block)
     return state
 
 
@@ -271,16 +296,21 @@ def _attention(x, qkv_w, out_w, n_heads, dtype, attn_impl='dense', causal=True,
     return _matmul(ctx, out_w, dtype)
 
 
-def _block_forward(block, x, config, causal=True):
-    """One pre-norm block: attention then the dense FFN, each residual."""
+def _block_attention_half(block, x, config, causal=True):
+    """Pre-norm attention sublayer with its residual."""
     c = config
-    dtype = c.dtype
-    x = x + _attention(_rmsnorm(x, block.ln1), block.qkv, block.attn_out, c.n_heads,
-                       dtype, attn_impl=c.attn_impl, causal=causal, kv_heads=c.kv_heads,
-                       rope_theta=c.rope_theta if c.pos_encoding == 'rope' else None)
+    return x + _attention(_rmsnorm(x, block.ln1), block.qkv, block.attn_out, c.n_heads,
+                          c.dtype, attn_impl=c.attn_impl, causal=causal, kv_heads=c.kv_heads,
+                          rope_theta=c.rope_theta if c.pos_encoding == 'rope' else None)
+
+
+def _block_dense_ffn_half(block, x, config):
+    """Pre-norm dense-FFN sublayer with its residual: the gelu MLP, or the
+    gated silu one when ``config.ffn == 'swiglu'``."""
+    dtype = config.dtype
     h = _rmsnorm(x, block.ln2)
     up = _matmul(h, block.mlp_in, dtype).float()
-    if c.ffn == 'swiglu':
+    if config.ffn == 'swiglu':
         gate = _matmul(h, block.mlp_gate, dtype).float()
         h = (F.silu(gate) * up).to(dtype)
     else:
@@ -288,19 +318,54 @@ def _block_forward(block, x, config, causal=True):
     return x + _matmul(h, block.mlp_out, dtype).to(dtype)
 
 
+def _block_forward(block, x, config, causal=True):
+    """One dense pre-norm block: attention then the dense FFN, each
+    residual (the layered forward's and, with ``causal=False``, the
+    ViT's)."""
+    x = _block_attention_half(block, x, config, causal=causal)
+    return _block_dense_ffn_half(block, x, config)
+
+
+def _block_moe_half(block, x, config):
+    """MoE FFN sublayer (RMSNorm, Switch MoE, residual). Returns ``(x,
+    aux)``."""
+    from petastorm_tpu_torch.models.moe import moe_forward
+    ffn_out, aux = moe_forward(block.moe, _rmsnorm(x, block.ln2), config.moe_config())
+    return x + ffn_out.to(config.dtype), aux
+
+
+def _moe_block_forward(block, x, config):
+    return _block_moe_half(block, _block_attention_half(block, x, config), config)
+
+
+def _dense_block_forward(block, x, config):
+    return _block_forward(block, x, config), None
+
+
+def _run_block(block, x, config):
+    """``(x, aux or None)`` after one block: the one place the MoE/dense
+    branch and ``config.remat`` (the whole block, MoE half included,
+    recomputed in the backward) meet."""
+    forward = _moe_block_forward if config.n_experts > 0 else _dense_block_forward
+    if config.remat:
+        return checkpoint(forward, block, x, config, use_reentrant=False)
+    return forward(block, x, config)
+
+
 def _features_with_aux(model, tokens):
-    """Post-``ln_f`` hidden states ``(B, S, D)`` and the aux loss (0.0 for
-    the dense model): the forward without the head."""
+    """Post-``ln_f`` hidden states ``(B, S, D)`` and the aux loss: the
+    Switch loss summed over the MoE blocks (0.0 for a dense model), the
+    forward without the head."""
     c = model.config
     x = F.embedding(tokens.long(), model.embed).to(c.dtype)
     if c.pos_encoding == 'learned':
         x = x + model.pos_embed[:tokens.shape[1]].to(c.dtype)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in model.blocks:
-        if c.remat:
-            x = checkpoint(_block_forward, block, x, c, use_reentrant=False)
-        else:
-            x = _block_forward(block, x, c)
-    return _rmsnorm(x, model.ln_f), torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = _run_block(block, x, c)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return _rmsnorm(x, model.ln_f), aux_total
 
 
 def transformer_forward_with_aux(model, tokens):
@@ -368,9 +433,17 @@ def transformer_masked_loss(model, tokens, lengths):
     real targets, so the gradient's scale does not depend on padding; a
     batch without one gives 0. Causal attention over right-padded rows
     needs no key mask: a real position attends only to positions before
-    it, all real. ``config.loss_chunk > 0`` computes it chunked. Dense
-    configs only, as the JAX version (the port has no MoE blocks)."""
+    it, all real. ``config.loss_chunk > 0`` computes it chunked.
+
+    Dense configs only, as the JAX version: the Switch router's
+    load-balancing statistics run over every position, padding
+    included, so an MoE config raises ``NotImplementedError``."""
     c = model.config
+    if c.n_experts > 0:
+        raise NotImplementedError(
+            'transformer_masked_loss supports dense configs only: the Switch aux '
+            'statistics would include padding positions. Use packed batches '
+            '(examples.lm_pretrain) for MoE.')
     targets = tokens[:, 1:].long()
     positions = torch.arange(targets.shape[1], device=tokens.device)
     limit = torch.clamp(lengths.to(device=tokens.device, dtype=torch.long),
@@ -408,7 +481,9 @@ def transformer_train_step(model, optimizer, accum_steps=1):
     ``accum_steps=k`` splits the ``(B, S)`` batch into k microbatches of
     B/k rows and averages their gradients before the one update: the
     arithmetic of a B-row step at the activation memory of a B/k-row step
-    (exact for the dense model, where every position carries a target)."""
+    (exact for the dense model, where every position carries a target; for
+    an MoE model the aux loss becomes the mean of the microbatches' Switch
+    losses, as in the JAX step)."""
     if accum_steps < 1:
         raise ValueError('accum_steps must be >= 1; got %r' % (accum_steps,))
 

@@ -38,6 +38,8 @@ def test_port_has_modules_to_scan():
     assert 'chip_smoke.py' in rel
     for module in (('ops', 'normalize.py'), ('ops', 'flash_attention.py'),
                    ('ops', 'ring_attention.py'), ('models', 'transformer.py'),
+                   ('models', 'moe.py'), ('models', 'generate.py'),
+                   ('examples', 'generate.py'), ('examples', 'modern.py'),
                    ('examples', 'lm_pretrain.py'), ('native', '__init__.py'),
                    ('codecs.py',), ('fused.py',), ('arrow_worker.py',), ('reader.py',),
                    ('device', 'staging.py'), ('device', 'loader.py'),

@@ -173,7 +173,7 @@ def test_a_pool_instance_without_the_contract_is_refused(tmp_path):
 # -- the subpackages' exports ------------------------------------------------------
 
 #: reference exports the port leaves to ROADMAP item 8
-ITEM_8 = {'ring_attention', 'greedy_generate', 'sample_generate'}
+ITEM_8 = {'ring_attention'}
 
 
 @pytest.mark.parametrize('package', ['ops', 'models'])
