@@ -15,7 +15,9 @@ final ``{"ok": true, ...}`` line is printed only when every phase passed:
 2. ``kernel``: the normalize kernel against its plain PyTorch version on
    the card, at the main path's shape and the others listed in
    ``KERNEL_CASES``, with the kernel's and the plain version's times (see
-   ``time_ms``) and the least time the card could take (its bound).
+   ``time_ms``) and the least time the card could take (its bound); and
+   an empty launch (``torch.cuda._sleep(0)``) timed the same way, the
+   floor below which no launch of the small MNIST shapes can go.
 3. ``flash_kernel``: each of the three flash-attention kernels (forward,
    backward dK/dV, backward dQ) against its plain version run in f32 on
    the same inputs, at the shapes in ``FLASH_CASES``, with its time, the
@@ -295,6 +297,27 @@ outlives its phase.
     GQA, swiglu, remat, two accumulated microbatches, f32) on the card on
     512 C4-like documents, then its 8-token greedy decode: losses finite,
     the decode equal to the recompute oracle on the card.
+40. ``write_plane_vit_path`` (after ``readahead_vit_path``): the
+    vit-imagenetlike-384 rows, in label order with an ``id``, through the
+    port's write plane (``petastorm_tpu_torch.write``). Generation 1 (the
+    first ``WRITE_GEN1_ROWS`` rows) by ``write_dataset_distributed`` on a
+    ``ThreadPool(WRITE_WORKERS)`` in ``WRITE_SHARD_ROWS``-row shards,
+    ``sort_by='label'``; an ``AppendFollower`` (``max_staleness_s=
+    APPEND_MAX_STALENESS_S``, on its own thread) delivers it, then the rest
+    is appended as generation 2 (four parts) and the follower delivers
+    exactly those rows, the first within the bound of the commit. A
+    ``make_batch_reader(max_staleness_s=)`` epoch opened before
+    ``compact_dataset`` reads every row once; the generation rises,
+    ``self_check`` is clean, and after ``gc_superseded`` no superseded part
+    and no ``.tmp`` file is left. An ``io.write`` fault at ``#manifest``
+    fails one more append: the generation stays and the dataset reads every
+    row. ``WRITE_PARITY_ROWS`` rows written inline and on the pool give
+    the same part and manifest bytes. Then ``VIT_STEPS`` ViT-Base steps on
+    the compacted dataset (fused decode, normalize, flash): 20 normalize
+    and 240 launches of each flash kernel, finite losses; one epoch's row
+    digests equal the written rows'. Rows, generations, parts before and
+    after, write/append/compaction seconds, write rows/s and MB/s, the
+    follower's lag and images/s are printed.
 ``--trace-dir DIR`` keeps the two Chrome traces in ``DIR``.
 
 Then the ``kernels`` summary (each kernel's launches on every path), the
@@ -406,6 +429,15 @@ VIT_STEPS = 20
 VIT_BATCH = 16
 VIT_PROFILE_STEPS = 3
 NATIVE_DECODE_IMAGES = 64
+
+# write_plane_vit_path: the ViT rows in label order written as generation
+# 1 (its first rows) and appended as generation 2 (the rest) through the
+# write plane on a thread pool, in 64-row shards
+WRITE_GEN1_ROWS = 768
+WRITE_SHARD_ROWS = 64
+WRITE_WORKERS = 4
+WRITE_PARITY_ROWS = 128
+APPEND_MAX_STALENESS_S = 2.0
 
 # the variable-length LM path: one document a row, bucketed by length
 VARLEN_STEPS = 40
@@ -725,10 +757,18 @@ def phase_kernel():
             'bound_ms': max(bytes_ms, ops_ms),
             'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
         }
+    # the floor any launch pays: a kernel with no work (torch.cuda._sleep's
+    # spin kernel for 0 cycles), timed as the kernel is; the MNIST shapes'
+    # bytes bounds sit far below it
+    empty_t = time_ms(lambda: torch.cuda._sleep(0))
+    empty = {'kernel': 'torch.cuda._sleep(0)', 'ms': empty_t[0], 'wall_ms': empty_t[1],
+             'timer': empty_t[2]}
+    for r in results.values():
+        r['empty_launch_ms'] = empty['ms']
     emit({'phase': 'kernel', 'kernel': 'normalize_images',
           'library_yardstick': 'none: no single PyTorch call computes a fused '
                                'uint8 -> affine -> bf16/f32 normalize',
-          'cases': results})
+          'empty_launch': empty, 'cases': results})
     bad = [label for label, r in results.items() if not r['ok']]
     if bad:
         raise AssertionError('normalize kernel disagrees with its plain version: %s' % bad)
@@ -3674,6 +3714,225 @@ def _readahead_section():
         'degraded': section.get('degraded', {})}
 
 
+def _row_digest(image, label):
+    """A row's digest as ``_digest_pass`` takes it."""
+    import hashlib
+    row = hashlib.sha1(image.tobytes())
+    row.update(label.tobytes())
+    return row.hexdigest()
+
+
+def _file_hashes(root):
+    """sha1 of every part file and of the manifest under ``root``."""
+    import glob
+    import hashlib
+    paths = sorted(glob.glob(os.path.join(root, 'part-*'))) + [
+        os.path.join(root, '_manifest.json')]
+    return [(os.path.basename(p), hashlib.sha1(open(p, 'rb').read()).hexdigest())
+            for p in paths]
+
+
+def phase_write_plane_vit_path(image_codec, tmp):
+    """vit-imagenetlike-384 written, appended, compacted and trained on
+    through the port's write plane (module docstring, phase 40)."""
+    import glob
+    import numpy as np
+    import pyarrow as pa
+    from petastorm_tpu_torch import telemetry
+    from petastorm_tpu_torch.codecs import ScalarCodec
+    from petastorm_tpu_torch.examples.imagenet import (
+        VIT_BASE_KW, imagenet_like_rows, imagenet_like_schema, train_vit_fused,
+    )
+    from petastorm_tpu_torch.faults import FaultInjected
+    from petastorm_tpu_torch.fs import get_filesystem_and_path_or_paths
+    from petastorm_tpu_torch.reader import make_batch_reader
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+    from petastorm_tpu_torch.workers.thread_pool import ThreadPool
+    from petastorm_tpu_torch.write import (
+        AppendFollower, compact_dataset, gc_superseded, load_manifest, self_check,
+        write_dataset_distributed,
+    )
+    from petastorm_tpu_torch.write.append import APPEND_STALENESS
+    t_phase = time.perf_counter()
+    threads_before = _port_threads()
+    fresh_telemetry()
+    rows = sorted(imagenet_like_rows(VIT_ROWS, 384), key=lambda row: int(row[1]))
+    schema = Unischema('WritePlaneImagenetLike', list(imagenet_like_schema(384, image_codec)) + [
+        UnischemaField('id', np.int64, (), ScalarCodec(pa.int64()), False)])
+    dicts = [{'image': image, 'label': label, 'id': np.int64(i)}
+             for i, (image, label) in enumerate(rows)]
+    root = os.path.join(tmp, 'vit_write_plane')
+    url = 'file://' + root
+    fs, root_path = get_filesystem_and_path_or_paths(url)
+    kw = dict(shard_rows=WRITE_SHARD_ROWS, rowgroup_size_rows=64, sort_by='label')
+
+    def on_disk():
+        return sorted(os.path.basename(p) for p in glob.glob(os.path.join(root, 'part-*')))
+
+    def read_ids(**kwargs):
+        with make_batch_reader(url, schema_fields=['^id$'], reader_pool_type='dummy',
+                               shuffle_row_groups=False, **kwargs) as reader:
+            return sorted(int(i) for b in reader for i in b.id)
+
+    # 1. generation 1 on a thread pool
+    t0 = time.perf_counter()
+    gen1 = write_dataset_distributed(url, schema, dicts[:WRITE_GEN1_ROWS],
+                                     pool=ThreadPool(WRITE_WORKERS), **kw)
+    write_s = time.perf_counter() - t0
+    gen1_bytes = sum(e['bytes'] for e in gen1.manifest['files'])
+
+    # 2. generation 2 appended while a follower tails the dataset
+    delivered, stamps = [], []
+    pickup = {}
+
+    def on_batch(batch):
+        delivered.extend(int(i) for i in batch.id)
+        stamps.append((time.time(), len(delivered)))
+        if len(delivered) > WRITE_GEN1_ROWS and 'gauge_s' not in pickup:
+            pickup['gauge_s'] = telemetry.get_registry().gauge_value(APPEND_STALENESS)
+
+    def id_reader(urls):
+        return make_batch_reader(urls, schema_fields=['^id$'], shuffle_row_groups=False,
+                                 num_epochs=1)
+
+    follower = AppendFollower(url, max_staleness_s=APPEND_MAX_STALENESS_S,
+                              reader_factory=id_reader)
+    follower.start(on_batch)
+    try:
+        deadline = time.monotonic() + 120
+        while len(delivered) < WRITE_GEN1_ROWS and time.monotonic() < deadline \
+                and follower.error is None:
+            time.sleep(0.01)
+        head = sorted(delivered)
+        t0 = time.perf_counter()
+        gen2 = write_dataset_distributed(url, schema, dicts[WRITE_GEN1_ROWS:],
+                                         pool=ThreadPool(WRITE_WORKERS), append=True, **kw)
+        append_s = time.perf_counter() - t0
+        committed_at = os.path.getmtime(os.path.join(root, '_manifest.json'))
+        while len(delivered) < VIT_ROWS and time.monotonic() < deadline \
+                and follower.error is None:
+            time.sleep(0.01)
+    finally:
+        follower.stop()
+    # wall times of the batches of generation 2, against the commit's mtime
+    tail_stamps = [t for t, count in stamps if count > WRITE_GEN1_ROWS]
+    pickup_lag_s = (tail_stamps[0] - committed_at) if tail_stamps else None
+    delivery_lag_s = (tail_stamps[-1] - committed_at) if tail_stamps else None
+    write_report = telemetry.pipeline_report().get('write')
+    parts_before = len(gen2.manifest['files'])
+
+    # 3. compaction under an open bounded-staleness epoch
+    got = []
+    with make_batch_reader(url, schema_fields=['^id$'], reader_pool_type='dummy',
+                           shuffle_row_groups=False, max_staleness_s=60) as reader:
+        it = iter(reader)
+        got.extend(int(i) for i in next(it).id)
+        t0 = time.perf_counter()
+        compacted = compact_dataset(url)
+        compact_s = time.perf_counter() - t0
+        for batch in it:
+            got.extend(int(i) for i in batch.id)
+    check = self_check(url, sort_key='label')
+    committed = sorted(e['path'] for e in compacted['files'])
+    superseded = sorted(set(on_disk()) - set(committed))
+    removed = sorted(gc_superseded(fs, root_path, grace_s=0))
+    litter = sorted(glob.glob(os.path.join(root, '.tmp.*')))
+    after_gc = on_disk()
+    ids_after = read_ids(max_staleness_s=60)
+
+    # 4. fault drill: the manifest swap of one more append fails
+    with knobs_set({'PETASTORM_TPU_FAULTS': 'io.write:error:1:match=#manifest'}):
+        try:
+            write_dataset_distributed(url, schema, dicts[:WRITE_SHARD_ROWS], append=True, **kw)
+            drill_error = None
+        except FaultInjected as e:
+            drill_error = str(e)
+    drill_generation = load_manifest(fs, root_path)['generation']
+    drill_ids = read_ids()
+    drill_orphans = sorted(gc_superseded(fs, root_path, grace_s=0))
+
+    # 5. backend parity on this machine
+    parity = {}
+    for name, pool in (('local', None), ('thread', ThreadPool(WRITE_WORKERS))):
+        parity_root = os.path.join(tmp, 'vit_write_parity_' + name)
+        write_dataset_distributed('file://' + parity_root, schema, dicts[:WRITE_PARITY_ROWS],
+                                  pool=pool, **kw)
+        parity[name] = _file_hashes(parity_root)
+
+    # 6. training on the compacted dataset, then one epoch's row digests
+    fresh_telemetry()
+    reset_launch_counts()
+    result = train_vit_fused(url, steps=VIT_STEPS, batch_size=VIT_BATCH, device='cuda')
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    epoch = _loader_passes(url, 1)[0]
+    if image_codec in ('png', 'npy'):
+        want_digests = sorted(_row_digest(image, label) for image, label in rows)
+    else:
+        # lossy cells: the CPU's decode of what was committed
+        with make_batch_reader(url, schema_fields=['^image$', '^label$'],
+                               reader_pool_type='dummy') as reader:
+            want_digests = sorted(_row_digest(image, label) for b in reader
+                                  for image, label in zip(b.image, b.label))
+    losses = result['losses']
+    threads_left = _threads_left(threads_before)
+    emit({'phase': 'write_plane_vit_path', 'image_codec': image_codec, 'rows': VIT_ROWS,
+          'gen1_rows': WRITE_GEN1_ROWS, 'shard_rows': WRITE_SHARD_ROWS,
+          'pool': 'ThreadPool(%d)' % WRITE_WORKERS, 'sort_by': 'label',
+          'generations': {'written': gen1.manifest['generation'],
+                          'appended': gen2.manifest['generation'],
+                          'compacted': compacted['generation'],
+                          'after_fault_drill': drill_generation},
+          'parts': {'gen1': len(gen1.manifest['files']), 'before_compaction': parts_before,
+                    'after_compaction': len(compacted['files']),
+                    'superseded_removed': len(removed), 'on_disk_after_gc': len(after_gc)},
+          'write_s': write_s, 'write_rows_per_s': WRITE_GEN1_ROWS / write_s,
+          'write_mb_per_s': gen1_bytes / write_s / 1e6, 'gen1_bytes': gen1_bytes,
+          'append_s': append_s, 'compact_s': compact_s,
+          'follower': {'max_staleness_s': APPEND_MAX_STALENESS_S,
+                       'pickup_lag_s': pickup_lag_s, 'delivery_lag_s': delivery_lag_s,
+                       'staleness_gauge_s': pickup.get('gauge_s'),
+                       'delivered': len(delivered), 'generation': follower.generation},
+          'write_report': write_report, 'self_check': check,
+          'epoch_rows_across_compaction': len(got), 'tmp_litter': litter,
+          'fault_drill': {'error': drill_error, 'orphans_removed': drill_orphans},
+          'backend_parity': {'files': len(parity['local']),
+                             'equal': parity['local'] == parity['thread']},
+          'train': {'steps': len(losses), 'batch_size': VIT_BATCH, 'losses': losses,
+                    'images_per_s': result['images_per_s'],
+                    'batch_devices': result['batch_devices'],
+                    'fused_decode_mode': result['diagnostics']['fused_decode_mode']},
+          'launches': launches,
+          'epoch': {'rows': len(epoch['row_digests']),
+                    'images_per_s': epoch['images_per_s'],
+                    'digests_equal_written': epoch['row_digests'] == want_digests},
+          'threads_left': threads_left, 'seconds': time.perf_counter() - t_phase})
+    assert follower.error is None, follower.error
+    assert head == list(range(WRITE_GEN1_ROWS)), len(head)
+    assert sorted(delivered) == list(range(VIT_ROWS)), len(delivered)
+    assert pickup_lag_s is not None and pickup_lag_s <= APPEND_MAX_STALENESS_S, pickup_lag_s
+    assert (gen1.manifest['generation'], gen2.manifest['generation']) == (1, 2)
+    assert parts_before == WRITE_GEN1_ROWS // WRITE_SHARD_ROWS + \
+        (VIT_ROWS - WRITE_GEN1_ROWS) // WRITE_SHARD_ROWS, parts_before
+    assert sorted(got) == list(range(VIT_ROWS)), len(got)
+    assert compacted['generation'] == 3 and len(compacted['files']) < parts_before
+    assert check['warnings'] == [] and check['stats_coverage'] == 1.0, check
+    assert removed == superseded and superseded, (removed, superseded)
+    assert after_gc == committed and not litter, (after_gc, litter)
+    assert ids_after == list(range(VIT_ROWS))
+    assert drill_error is not None and 'io.write' in drill_error, drill_error
+    assert drill_generation == 3 and drill_ids == list(range(VIT_ROWS))
+    assert parity['local'] == parity['thread'], parity
+    assert len(losses) == VIT_STEPS and all(math.isfinite(v) for v in losses), losses
+    assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
+    assert launches['normalize_images'] == VIT_STEPS, launches
+    for name in FLASH_KERNELS:
+        assert launches[name] == VIT_BASE_KW['n_layers'] * VIT_STEPS, (name, launches)
+    assert epoch['row_digests'] == want_digests, 'epoch rows differ from the written set'
+    assert not threads_left, threads_left
+    return launches
+
+
 def phase_readahead_vit_path(url, image_codec, vit_images_per_s, tmp):
     """vit-imagenetlike-384 through the readahead plane and the staging
     autotuner (module docstring, phase 35)."""
@@ -4069,6 +4328,7 @@ def main(argv=None):
         phase_chaos_path(vit_url, selective_url, labels, cached['uncached'], tmp)
         paths['readahead_vit_path'] = phase_readahead_vit_path(vit_url, image_codec,
                                                                vit_images_per_s, tmp)
+        paths['write_plane_vit_path'] = phase_write_plane_vit_path(image_codec, tmp)
     phase_vit_profile()
     # the headline numbers are this slice's path's: the flash kernels' at
     # the mixture path's shape (the flagship's) and their launches there;
@@ -4088,11 +4348,12 @@ def main(argv=None):
         'bound_by': vit_case['bound_by'], 'library_ms': None,
         'shape': vit_case['shape'],
         'mnist_bf16': {k: main_case[k] for k in ('shape', 'ms', 'wall_ms', 'timer', 'plain_ms',
-                                                'bound_ms', 'max_abs_err')},
+                                                'bound_ms', 'max_abs_err', 'empty_launch_ms')},
         # the PyTorch example's batches (pytorch_path): (32, 28, 28, 1) -> f32
         PYTORCH_KERNEL_CASE: dict(
             {k: pytorch_case[k] for k in ('shape', 'out_dtype', 'ms', 'wall_ms', 'timer',
-                                          'plain_ms', 'bound_ms', 'bound_by', 'max_abs_err')},
+                                          'plain_ms', 'bound_ms', 'bound_by', 'max_abs_err',
+                                          'empty_launch_ms')},
             launches=paths['pytorch_path']['normalize_images'], library_ms=None),
         'imagenet_bf16': {k: kernel['imagenet_bf16'][k]
                           for k in ('ms', 'wall_ms', 'timer', 'plain_ms', 'bound_ms',

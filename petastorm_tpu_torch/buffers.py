@@ -134,11 +134,47 @@ class RandomShufflingBuffer(ShufflingBufferBase):
         return len(self._items)
 
 
-class BatchedNoopShufflingBuffer:
-    """Order-preserving re-batcher: chunks in, fixed batches out."""
+class BatchedShufflingBufferBase(metaclass=ABCMeta):
+    """Column-major buffer contract: items are ``{name: ndarray}`` dicts of
+    equal leading dimension; retrieval returns fixed-size batches."""
 
     def __init__(self, batch_size):
         self.batch_size = batch_size
+
+    @abstractmethod
+    def add_many(self, columns):
+        """Append a column-dict chunk."""
+
+    @abstractmethod
+    def retrieve(self):
+        """Return a ``{name: ndarray}`` batch of ``batch_size`` rows."""
+
+    @abstractmethod
+    def finish(self):
+        """Upstream exhausted; the remaining rows become retrievable (the
+        last batch may be short)."""
+
+    @property
+    @abstractmethod
+    def can_add(self):
+        """True when the buffer takes more chunks."""
+
+    @property
+    @abstractmethod
+    def can_retrieve(self):
+        """True when ``retrieve()`` would return a batch."""
+
+    @property
+    @abstractmethod
+    def size(self):
+        """Buffered row count."""
+
+
+class BatchedNoopShufflingBuffer(BatchedShufflingBufferBase):
+    """Order-preserving re-batcher: chunks in, fixed batches out."""
+
+    def __init__(self, batch_size):
+        super().__init__(batch_size)
         self._chunks = deque()
         self._size = 0
         self._done = False
@@ -195,7 +231,7 @@ class BatchedNoopShufflingBuffer:
         return self._size
 
 
-class BatchedRandomShufflingBuffer:
+class BatchedRandomShufflingBuffer(BatchedShufflingBufferBase):
     """Uniform-random fixed-size batches out of contiguous column buffers
     preallocated to ``capacity + extra_capacity`` rows; retrieval gathers
     ``batch_size`` random rows and backfills the holes with tail rows."""
@@ -210,7 +246,7 @@ class BatchedRandomShufflingBuffer:
             raise ValueError('batch_size (%d) must not exceed the buffer '
                              'capacity (%d)'
                              % (batch_size, shuffling_buffer_capacity))
-        self.batch_size = batch_size
+        super().__init__(batch_size)
         self._capacity = shuffling_buffer_capacity
         self._min_after_retrieve = min_after_retrieve
         self._extra_capacity = extra_capacity

@@ -16,12 +16,17 @@ class MetadataError(PetastormTpuError):
     """Dataset metadata is missing or malformed."""
 
 
+class DecodeFieldError(PetastormTpuError):
+    """A field value failed codec decode."""
+
+
 #: ``ROADMAP.md`` Queue 1 items the port has not reached yet, by number
 ROADMAP_ITEMS = {
     8: 'LM consumer layer across ranks: ring/Ulysses attention, the pipeline, '
        'expert and sequence parallelism',
     9: 'process and service pools, HDFS and object stores',
-    10: 'write plane and ETL tools',
+    10: 'ETL tools: legacy pickled schemas, row-group indexes and selectors, '
+        'metadata generation, copy_dataset and the Spark session CLI',
     11: 'bridges, benchmark, examples and test utilities',
 }
 

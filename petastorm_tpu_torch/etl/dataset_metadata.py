@@ -2,10 +2,15 @@
 
 Counterpart of ``petastorm_tpu/etl/dataset_metadata.py``. The footer keeps
 the same versioned JSON schema key and row-group-count key, so either
-package reads what the other wrote. Not ported yet: the legacy pickled
-schema (read and write), the committed write manifest, and Spark.
+package reads what the other wrote. A dataset committed by a write plane
+(:mod:`petastorm_tpu_torch.write`, or the reference's) is read through its
+manifest: the committed file list, never a directory walk. Not ported yet:
+the legacy pickled schema (read, and the copy the reference stamps beside
+the JSON schema) and Spark.
 """
 
+import collections
+import itertools
 import json
 import logging
 import posixpath
@@ -31,8 +36,9 @@ ROW_GROUPS_PER_FILE_KEY = b'petastorm_tpu.num_row_groups_per_file.v1'
 # same; its pickled schema is not ported
 LEGACY_UNISCHEMA_KEY = b'dataset-toolkit.unischema.v1'
 LEGACY_ROW_GROUPS_PER_FILE_KEY = b'dataset-toolkit.num_row_groups_per_file.v1'
-# committed write manifest of petastorm_tpu.write
-_MANIFEST_NAME = '_manifest.json'
+# row-group size bound of the Spark converter (reference default); pass
+# it to DatasetWriter(rowgroup_size_mb=...)
+DEFAULT_ROW_GROUP_SIZE_MB = 32
 
 
 class RowGroupPiece:
@@ -93,9 +99,17 @@ class ParquetDatasetInfo:
         if fs.isfile(root):
             return [root]
         root_norm = root.rstrip('/')
-        if fs.exists(posixpath.join(root_norm, _MANIFEST_NAME)):
-            raise unported('reading a dataset with a committed write manifest',
-                           10)
+        # a committed manifest is the dataset: one atomic snapshot of its
+        # files, so a reader racing a writer or a compaction never sees a
+        # torn mix of old and new parts
+        from petastorm_tpu_torch.write import manifest as write_manifest
+        try:
+            committed = write_manifest.load(fs, root_norm)
+        except write_manifest.ManifestError as e:
+            logger.warning('Ignoring unreadable dataset manifest: %s', e)
+            committed = None
+        if committed is not None:
+            return sorted(write_manifest.committed_paths(committed, root_norm))
         files = []
         for path in fs.find(root):
             rel = posixpath.relpath(path, root_norm)
@@ -158,6 +172,26 @@ class ParquetDatasetInfo:
 
     def open(self, path):
         return self.fs.open(path, 'rb')
+
+
+def count_rows(dataset_info_or_url, storage_options=None, footer_scan_workers=8):
+    """Total row count of a dataset from its footers alone: the
+    ``_metadata`` summary when it has rows, else one footer read a file."""
+    info = (dataset_info_or_url if isinstance(dataset_info_or_url, ParquetDatasetInfo)
+            else ParquetDatasetInfo(dataset_info_or_url, storage_options))
+    summary = info.summary_metadata
+    if summary is not None and summary.num_rows:
+        return summary.num_rows
+    if not info.file_paths:
+        return 0
+
+    def rows_in(path):
+        with info.open(path) as f:
+            return pq.read_metadata(f).num_rows
+
+    with ThreadPoolExecutor(max_workers=min(footer_scan_workers,
+                                            len(info.file_paths))) as pool:
+        return sum(pool.map(rows_in, info.file_paths))
 
 
 def load_row_groups(dataset_info, footer_scan_workers=8):
@@ -271,9 +305,15 @@ def _infer_partition_types(dataset_info):
     return {key: dtype_of(values) for key, values in observed.items()}
 
 
+def add_to_dataset_metadata(dataset_info, key, value):
+    """Merge one ``key: value`` entry into the dataset's ``_common_metadata``."""
+    update_dataset_metadata(dataset_info, {key: value})
+
+
 def update_dataset_metadata(dataset_info, entries):
     """Merge ``entries`` into ``_common_metadata`` in one write, keeping the
-    existing entries."""
+    existing entries; a stale ``._common_metadata.crc`` left by another
+    writer is removed."""
     cm = dataset_info.common_metadata
     if cm is not None:
         base_schema = cm.schema.to_arrow_schema()
@@ -287,6 +327,12 @@ def update_dataset_metadata(dataset_info, entries):
     path = posixpath.join(dataset_info.root_path, '_common_metadata')
     with dataset_info.fs.open(path, 'wb') as f:
         pq.write_metadata(base_schema.with_metadata(existing), f)
+    crc = posixpath.join(dataset_info.root_path, '._common_metadata.crc')
+    try:
+        if dataset_info.fs.exists(crc):
+            dataset_info.fs.rm(crc)
+    except (OSError, ValueError):
+        pass
     dataset_info.invalidate_footers()
 
 
@@ -317,28 +363,35 @@ def materialize_dataset(dataset_url, schema, row_group_size_mb=None,
 class DatasetWriter:
     """Writes codec-encoded rows into parquet files with hive partitioning,
     flushing a row-group every ``rowgroup_size_rows`` rows (or
-    ``rowgroup_size_mb``)."""
+    ``rowgroup_size_mb``). Footer statistics are always written.
+
+    ``workers_count > 1`` encodes :meth:`write_row_dicts` in a thread pool
+    of that width (codec encode releases the GIL), rows in input order;
+    ``None``/0/1 encode serially. ``sort_by`` names a column the caller
+    promises to feed in non-decreasing order: it is stamped into each
+    file's footer as parquet sorted-column metadata (the writer does not
+    sort). ``filesystem`` is an fsspec filesystem used in place of the
+    one the URL names."""
 
     def __init__(self, dataset_url, schema, rowgroup_size_rows=1000,
                  partition_by=(), file_prefix='part', storage_options=None,
                  rowgroup_size_mb=None, compression='auto',
                  workers_count=None, sort_by=None, filesystem=None):
-        if workers_count not in (None, 0, 1):
-            raise unported('DatasetWriter(workers_count=)', 10)
-        if sort_by is not None:
-            raise unported('DatasetWriter(sort_by=)', 10)
-        if filesystem is not None:
-            raise unported('DatasetWriter(filesystem=)', 10)
         self.schema = schema
         self._compression = compression
+        self._workers_count = int(workers_count or 0)
+        self._encode_pool = None
         self.rowgroup_size_rows = rowgroup_size_rows
         self.rowgroup_size_bytes = (rowgroup_size_mb * 1024 * 1024
                                     if rowgroup_size_mb else None)
         self.partition_by = tuple(partition_by)
+        self.sort_by = sort_by
+        if sort_by is not None and sort_by not in {f.name for f in schema}:
+            raise ValueError('sort_by column %r is not in the schema' % sort_by)
         self._url = normalize_dir_url(dataset_url)
         self._file_prefix = file_prefix
         self.fs, self.root_path = get_filesystem_and_path_or_paths(
-            self._url, storage_options)
+            self._url, storage_options, filesystem=filesystem)
         self.fs.makedirs(self.root_path, exist_ok=True)
         self._arrow_schema = pa.schema(
             [pa.field(f.name, f.arrow_storage_type(), nullable=True)
@@ -348,6 +401,7 @@ class DatasetWriter:
         self._buffer_bytes = {}
         self._file_seq = 0
         self._files_written = 0
+        self._rows_written = 0
         #: paths of every parquet file this writer has closed
         self.paths_written = []
 
@@ -382,6 +436,17 @@ class DatasetWriter:
             segments.append('%s=%s' % (key, quote(str(row[key]), safe='')))
         return '/'.join(segments)
 
+    def _sorting_columns(self):
+        """Parquet sorted-column metadata for the declared sort key
+        (ascending, nulls last), or None; a partition column is not in
+        the files."""
+        if self.sort_by is None:
+            return None
+        index = self._arrow_schema.get_field_index(self.sort_by)
+        if index < 0:
+            return None
+        return [pq.SortingColumn(index)]
+
     def _writer_for(self, part_dir):
         if part_dir not in self._writers:
             directory = posixpath.join(self.root_path, part_dir) if part_dir else self.root_path
@@ -392,7 +457,8 @@ class DatasetWriter:
             self._writers[part_dir] = (
                 pq.ParquetWriter(sink, self._arrow_schema,
                                  compression=self._resolve_compression(),
-                                 write_statistics=True),
+                                 write_statistics=True,
+                                 sorting_columns=self._sorting_columns()),
                 sink, path)
             self._buffers[part_dir] = []
         return self._writers[part_dir][0]
@@ -412,6 +478,9 @@ class DatasetWriter:
     def write_row_dict(self, row_dict):
         with span('encode'):
             encoded = dict_to_encoded_row(self.schema, row_dict)
+        self._append_encoded(encoded)
+
+    def _append_encoded(self, encoded):
         part_dir = self._partition_dir(encoded)
         self._writer_for(part_dir)
         buf = self._buffers[part_dir]
@@ -425,8 +494,39 @@ class DatasetWriter:
                 self._flush(part_dir)
 
     def write_row_dicts(self, row_dicts):
-        for row in row_dicts:
-            self.write_row_dict(row)
+        if self._workers_count > 1:
+            for encoded in self._encode_parallel(row_dicts):
+                self._append_encoded(encoded)
+        else:
+            for row in row_dicts:
+                self.write_row_dict(row)
+
+    def _encode_parallel(self, row_dicts):
+        """Encoded rows in input order, ``workers_count`` chunks of 64 rows
+        encoding at once; ``row_dicts`` may be a generator (at most
+        ``workers_count + 2`` chunks are held). An encode error surfaces
+        here as it would serially."""
+        if self._encode_pool is None:
+            self._encode_pool = ThreadPoolExecutor(
+                max_workers=self._workers_count,
+                thread_name_prefix='petastorm-tpu-torch-encode')
+
+        def encode_chunk(part):
+            with span('encode'):
+                return [dict_to_encoded_row(self.schema, r) for r in part]
+
+        rows_iter = iter(row_dicts)
+        pending = collections.deque()
+        while True:
+            while len(pending) < self._workers_count + 2:
+                part = list(itertools.islice(rows_iter, 64))
+                if not part:
+                    break
+                pending.append(self._encode_pool.submit(encode_chunk, part))
+            if not pending:
+                break
+            for encoded in pending.popleft().result():
+                yield encoded
 
     def new_file(self):
         """Close current files; later rows open fresh parquet files."""
@@ -443,6 +543,7 @@ class DatasetWriter:
                        for field in self._arrow_schema}
             table = pa.table(columns, schema=self._arrow_schema)
             self._writers[part_dir][0].write_table(table)
+        self._rows_written += len(rows)
         self._buffers[part_dir] = []
 
     def _close_writers(self):
@@ -455,26 +556,40 @@ class DatasetWriter:
             self._files_written += 1
             self.paths_written.append(path)
 
+    def _shutdown_encode_pool(self, cancel=False):
+        if self._encode_pool is not None:
+            self._encode_pool.shutdown(wait=True, cancel_futures=cancel)
+            self._encode_pool = None
+
     def close(self):
+        self._shutdown_encode_pool()
         if self._files_written == 0 and not self._writers and not self.partition_by:
             # zero rows: still one (empty) parquet file, a readable store
             self._writer_for('')
         self._close_writers()
 
     def abort(self):
-        """Tear down without publishing: close the sinks and delete every
-        file this writer opened."""
+        """Tear down without publishing: stop the encode pool, close the
+        sinks and delete every file this writer opened."""
+        self._shutdown_encode_pool(cancel=True)
         opened = []
         for part_dir in list(self._writers):
             writer, sink, path = self._writers.pop(part_dir)
             try:
                 writer.close()
-            finally:
+            except Exception:  # noqa: BLE001 - teardown must reach the deletes
+                logger.debug('abort: parquet writer close failed for %s', path)
+            try:
                 sink.close()
+            except OSError:
+                pass
             opened.append(path)
         for path in opened + self.paths_written:
-            if self.fs.exists(path):
-                self.fs.rm(path)
+            try:
+                if self.fs.exists(path):
+                    self.fs.rm(path)
+            except (OSError, ValueError):
+                pass
         self.paths_written = []
         self._buffers = {}
         self._buffer_bytes = {}
@@ -492,15 +607,14 @@ class DatasetWriter:
 def write_dataset(dataset_url, schema, rows, rowgroup_size_rows=1000,
                   num_files=1, partition_by=(), storage_options=None,
                   rowgroup_size_mb=None, workers_count=None):
-    """One call: write ``rows`` and the metadata footer. ``workers_count``
-    (parallel encode) is not ported yet."""
-    if workers_count not in (None, 0, 1):
-        raise unported('write_dataset(workers_count=)', 10)
+    """One call: write ``rows`` and the metadata footer; ``workers_count``
+    is :class:`DatasetWriter`'s encode width."""
     rows = list(rows)
     with materialize_dataset(dataset_url, schema, storage_options=storage_options):
         with DatasetWriter(dataset_url, schema, rowgroup_size_rows,
                            partition_by, storage_options=storage_options,
-                           rowgroup_size_mb=rowgroup_size_mb) as writer:
+                           rowgroup_size_mb=rowgroup_size_mb,
+                           workers_count=workers_count) as writer:
             if num_files <= 1:
                 writer.write_row_dicts(rows)
             else:

@@ -46,21 +46,54 @@ _SYNSET_WORDS = ['tabby cat', 'golden retriever', 'steam locomotive', 'espresso'
                  'lighthouse']
 
 
-def generate_petastorm_imagenet(output_url, num_rows=128, seed=0):
+def _rows_from_directory(images_dir):
+    """Rows of an ImageNet-layout tree (``<root>/<noun_id>/*.jpg|png``), in
+    sorted order; an unreadable image is skipped."""
+    import os
+
+    import cv2
+    for noun_id in sorted(os.listdir(images_dir)):
+        class_dir = os.path.join(images_dir, noun_id)
+        if not os.path.isdir(class_dir):
+            continue
+        for fname in sorted(os.listdir(class_dir)):
+            if not fname.lower().endswith(('.jpg', '.jpeg', '.png')):
+                continue
+            bgr = cv2.imread(os.path.join(class_dir, fname), cv2.IMREAD_COLOR)
+            if bgr is None:
+                continue
+            yield {'noun_id': noun_id, 'text': noun_id.replace('_', ' '),
+                   'image': cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)}
+
+
+def _synthetic_rows(num_rows, seed=0):
     """Variable-size synthetic images (180–320 pixels a side) with noun ids
-    and texts of five classes, in 64-row row-groups: the JAX example's
-    rows for the same seed."""
-    from petastorm_tpu_torch.etl.dataset_metadata import write_dataset
+    and texts of five classes."""
     rng = np.random.RandomState(seed)
-    rows = []
     for i in range(num_rows):
         cls = i % len(_SYNSET_WORDS)
         h = int(rng.randint(180, 320))
         w = int(rng.randint(180, 320))
-        rows.append({'noun_id': 'n%08d' % cls, 'text': _SYNSET_WORDS[cls],
-                     'image': (rng.rand(h, w, 3) * 100 + cls * 30).astype(np.uint8)})
-    write_dataset(output_url, ImagenetSchema, rows, rowgroup_size_rows=64)
-    return num_rows
+        yield {'noun_id': 'n%08d' % cls, 'text': _SYNSET_WORDS[cls],
+               'image': (rng.rand(h, w, 3) * 100 + cls * 30).astype(np.uint8)}
+
+
+def generate_petastorm_imagenet(output_url, images_dir=None, num_rows=128,
+                                rowgroup_size_mb=64):
+    """Materialize the variable-size dataset in 64-row row-groups (at most
+    ``rowgroup_size_mb`` each): the images of an ImageNet-layout tree under
+    ``images_dir``, or ``num_rows`` synthetic ones, the JAX example's rows
+    either way. Returns the row count."""
+    from petastorm_tpu_torch.etl.dataset_metadata import DatasetWriter, materialize_dataset
+    rows = _rows_from_directory(images_dir) if images_dir else _synthetic_rows(num_rows)
+    count = 0
+    with materialize_dataset(output_url, ImagenetSchema):
+        with DatasetWriter(output_url, ImagenetSchema, rowgroup_size_rows=64,
+                           rowgroup_size_mb=rowgroup_size_mb) as writer:
+            for row in rows:
+                writer.write_row_dict(row)
+                count += 1
+    return count
 
 
 def resize_frame_images(frame, size):
@@ -232,7 +265,14 @@ if __name__ == '__main__':
     parser.add_argument('--image-codec', default='jpeg', choices=('jpeg', 'png', 'npy'))
     parser.add_argument('--steps', type=int, default=20)
     parser.add_argument('--device', default=None)
+    parser.add_argument('--images-dir', default=None,
+                        help='ImageNet-layout directory (<root>/<noun_id>/*.jpg): write it '
+                             'to --dataset-url as the variable-size dataset and exit')
     args = parser.parse_args()
+    if args.images_dir:
+        count = generate_petastorm_imagenet(args.dataset_url, args.images_dir)
+        print('Wrote %d images to %s' % (count, args.dataset_url))
+        raise SystemExit(0)
     if args.generate:
         generate_imagenet_like(args.dataset_url, image_codec=args.image_codec)
     result = train_vit_fused(args.dataset_url, steps=args.steps, device=args.device)

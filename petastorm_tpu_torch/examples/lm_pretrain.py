@@ -9,7 +9,8 @@ fixed rows of ``seq_len + 1`` tokens. The loss shifts a row by one, so
 attention runs at exactly ``seq_len`` positions. :func:`pretrain_mixture`
 trains the same way on a weighted mixture of corpora packed on the host
 (``make_torch_loader(mixture=)``); both resume from a
-``checkpoint_dir``.
+``checkpoint_dir``. :func:`pretrain_example` is the JAX example's own
+recipe: the default ``TransformerConfig`` at 128 positions under Adam.
 
     python -m petastorm_tpu_torch.examples.lm_pretrain --generate --steps 20
 """
@@ -106,19 +107,19 @@ def _tree_bytes(path):
                for root, _, names in os.walk(path) for name in names)
 
 
-def _train(make_loader, steps, batch_size, seq_len, model_kw, attn_impl, device,
+def _train(make_loader, steps, batch_size, seq_len, config, make_optimizer, device,
            checkpoint_dir, checkpoint_every, on_step, report=None):
-    """The AdamW loop both recipes share (see :func:`pretrain`);
-    ``report(loader)`` adds entries to the result at the end."""
+    """The loop every recipe shares (see :func:`pretrain`): the transformer
+    of ``config`` (seed 0) under ``make_optimizer(model)``, ``seq_len``
+    attention positions a row; ``report(loader)`` adds entries to the
+    result at the end."""
     from petastorm_tpu_torch.checkpoint import TrainCheckpointer
     from petastorm_tpu_torch.device.loader import resolve_device
-    from petastorm_tpu_torch.models.transformer import (
-        adamw, init_transformer, transformer_train_step,
-    )
+    from petastorm_tpu_torch.models.transformer import init_transformer, transformer_train_step
 
     device = resolve_device(device)
-    model = init_transformer(0, lm_config(seq_len, model_kw, attn_impl), device)
-    optimizer = adamw(model)
+    model = init_transformer(0, config, device)
+    optimizer = make_optimizer(model)
     step = transformer_train_step(model, optimizer)
     state = {'model': model, 'optimizer': optimizer}
     ckpt = TrainCheckpointer(checkpoint_dir) if checkpoint_dir is not None else None
@@ -165,14 +166,15 @@ def _train(make_loader, steps, batch_size, seq_len, model_kw, attn_impl, device,
 
 def pretrain(dataset_url, batch_size=8, steps=20, seq_len=1024, model_kw=None,
              attn_impl='flash', device=None, checkpoint_dir=None, checkpoint_every=10,
-             on_step=None, **reader_kwargs):
+             on_step=None, learning_rate=1e-3, **reader_kwargs):
     """``steps`` AdamW steps of the bf16 transformer (seed 0) on packed
     rows of ``seq_len + 1`` tokens, so attention runs at ``seq_len``
     positions; the loss is chunked by 256 positions, as the flagship
     benchmark runs it.
 
-    AdamW carries optax ``adamw(1e-3)``'s defaults (betas 0.9/0.999, eps
-    1e-8, weight decay 1e-4; torch's own default decay is 0.01). With
+    AdamW carries optax ``adamw(learning_rate)``'s defaults (betas
+    0.9/0.999, eps 1e-8, weight decay 1e-4; torch's own default decay is
+    0.01). With
     ``checkpoint_dir``, the run resumes from the latest checkpoint there
     (model, optimizer and data position, see
     :class:`~petastorm_tpu_torch.checkpoint.TrainCheckpointer`), returns
@@ -190,6 +192,7 @@ def pretrain(dataset_url, batch_size=8, steps=20, seq_len=1024, model_kw=None,
     seconds and bytes on disk. ``reader_kwargs`` go to the reader (e.g.
     ``workers_count=1`` delivers the row-groups in ventilation order)."""
     from petastorm_tpu_torch.device.loader import make_torch_loader
+    from petastorm_tpu_torch.models.transformer import adamw
 
     def make_loader(device):
         return make_torch_loader(dataset_url, batch_size=batch_size, fields=['^tokens$'],
@@ -197,8 +200,37 @@ def pretrain(dataset_url, batch_size=8, steps=20, seq_len=1024, model_kw=None,
                                  num_epochs=None, shuffle_row_groups=True, device=device,
                                  **reader_kwargs)
 
-    return _train(make_loader, steps, batch_size, seq_len, model_kw, attn_impl, device,
-                  checkpoint_dir, checkpoint_every, on_step)
+    return _train(make_loader, steps, batch_size, seq_len,
+                  lm_config(seq_len, model_kw, attn_impl),
+                  lambda model: adamw(model, learning_rate), device, checkpoint_dir,
+                  checkpoint_every, on_step)
+
+
+def pretrain_example(dataset_url, batch_size=16, steps=20, learning_rate=1e-2, seq_len=128,
+                     device=None, checkpoint_dir=None, checkpoint_every=10, on_step=None,
+                     **reader_kwargs):
+    """The JAX example's recipe (``examples/lm/pretrain_example.py``
+    ``pretrain``, at its defaults): the default ``TransformerConfig`` (vocab
+    256, d_model 64, 4 heads, 2 layers, bf16, dense attention) at
+    ``seq_len`` positions, Adam (optax ``adam``'s betas 0.9/0.999 and eps
+    1e-8) at ``learning_rate``, on packed rows of ``seq_len`` tokens, so
+    attention runs at ``seq_len - 1`` positions. Checkpoints, ``on_step``,
+    the result and ``reader_kwargs`` are :func:`pretrain`'s."""
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    from petastorm_tpu_torch.models.transformer import TransformerConfig
+
+    def make_loader(device):
+        return make_torch_loader(dataset_url, batch_size=batch_size, fields=['^tokens$'],
+                                 transform_spec=packing_transform(seq_len), num_epochs=None,
+                                 shuffle_row_groups=True, device=device, **reader_kwargs)
+
+    def adam(model):
+        return torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
+                                eps=1e-8)
+
+    return _train(make_loader, steps, batch_size, seq_len - 1,
+                  TransformerConfig(max_seq_len=seq_len), adam, device, checkpoint_dir,
+                  checkpoint_every, on_step)
 
 
 def pretrain_mixture(spec, batch_size=8, steps=20, model_kw=None, attn_impl='flash',
@@ -219,6 +251,7 @@ def pretrain_mixture(spec, batch_size=8, steps=20, model_kw=None, attn_impl='fla
     three count what the mixture produced, prefetched rows included."""
     from petastorm_tpu_torch.device.loader import make_torch_loader
     from petastorm_tpu_torch.mixture import InterleaveSchedule, realized_deviation
+    from petastorm_tpu_torch.models.transformer import adamw
 
     if spec.seq_len is None:
         raise ValueError('pretrain_mixture needs a MixtureSpec with seq_len')
@@ -234,8 +267,9 @@ def pretrain_mixture(spec, batch_size=8, steps=20, model_kw=None, attn_impl='fla
         return {'pack_stats': stream.pack_stats, 'source_docs': dict(zip(spec.names, docs)),
                 'realized_deviation': realized_deviation(order, spec.weights)}
 
-    return _train(make_loader, steps, batch_size, spec.seq_len - 1, model_kw, attn_impl,
-                  device, checkpoint_dir, checkpoint_every, on_step, report)
+    return _train(make_loader, steps, batch_size, spec.seq_len - 1,
+                  lm_config(spec.seq_len - 1, model_kw, attn_impl), adamw, device,
+                  checkpoint_dir, checkpoint_every, on_step, report)
 
 
 if __name__ == '__main__':

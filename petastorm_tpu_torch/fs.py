@@ -21,15 +21,19 @@ def normalize_dir_url(url):
 def get_filesystem_and_path_or_paths(url_or_urls, storage_options=None,
                                      filesystem=None):
     """Resolve one URL (or a list of URLs on one filesystem) to
-    ``(fsspec_fs, path_or_paths)``."""
+    ``(fsspec_fs, path_or_paths)``. ``filesystem`` may be a local fsspec
+    filesystem, used as given."""
     urls = url_or_urls if isinstance(url_or_urls, list) else [url_or_urls]
     parsed = [urlparse(u) for u in urls]
     if len({(p.scheme, p.netloc) for p in parsed}) != 1:
         raise ValueError('All dataset URLs must share scheme and netloc: %r' % urls)
-    if filesystem is not None or storage_options:
-        raise unported('filesystem=/storage_options=', 9)
+    local = getattr(filesystem, 'protocol', None) in ('file', ('file', 'local'))
+    if (filesystem is not None and not local) or storage_options:
+        raise unported('filesystem=/storage_options= beyond the local filesystem', 9)
     if parsed[0].scheme not in ('', 'file'):
         raise unported('the %r URL scheme' % parsed[0].scheme, 9)
     fs, _ = fsspec.core.url_to_fs(urls[0])
+    if filesystem is not None:
+        fs = filesystem
     paths = [fsspec.core.url_to_fs(u)[1] for u in urls]
     return fs, (paths if isinstance(url_or_urls, list) else paths[0])

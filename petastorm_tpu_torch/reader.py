@@ -213,6 +213,14 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
         interleave ``share`` in (0, 1]. It scales this source's readahead
         depth to its share of the mixture and changes nothing in the
         stream.
+    :param max_staleness_s: bounded-staleness opt-in for a growing
+        (appended) dataset: it needs a committed manifest
+        (:mod:`petastorm_tpu_torch.write`), whose snapshot at open is the
+        file set, so the reader sees every row committed before it opened;
+        :class:`~petastorm_tpu_torch.write.AppendFollower` tails a dataset
+        within the bound. A dataset URL list, or a dataset without a
+        manifest, raises ``ValueError``: there is no commit point to bound
+        the staleness against.
 
     The reference's other kwargs are taken under its names and at its
     positions; each one set raises ``NotImplementedError`` naming the
@@ -224,9 +232,15 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
         if not 0.0 < share <= 1.0:
             raise ValueError('interleave share must be in (0, 1], got %r' % (share,))
         mixture_interleave = dict(mixture_interleave, share=share)
-    if max_staleness_s is not None:
-        raise unported('make_batch_reader(max_staleness_s=)', 10)
     info = ParquetDatasetInfo(dataset_url_or_urls, storage_options, filesystem=filesystem)
+    if max_staleness_s is not None:
+        from petastorm_tpu_torch.write import manifest as write_manifest
+        if isinstance(dataset_url_or_urls, (list, tuple)) or \
+                write_manifest.load(info.fs, info.root_path) is None:
+            raise ValueError(
+                'max_staleness_s requires a single dataset URL with a committed '
+                'manifest (written by petastorm_tpu_torch.write); %r has none'
+                % (dataset_url_or_urls,))
     return Reader(info, schema_fields=schema_fields,
                   reader_pool_type=reader_pool_type, workers_count=workers_count,
                   results_queue_size=results_queue_size,
@@ -277,10 +291,13 @@ class Reader:
 
     def __init__(self, dataset_info, schema_fields=None, reader_pool_type='thread',
                  workers_count=None, results_queue_size=50, shuffle_row_groups=True,
-                 shuffle_row_drop_partitions=1, predicate=None, num_epochs=1,
-                 cur_shard=None, shard_count=None, seed=0, cache=None, transform_spec=None,
-                 ngram=None, filters=None, defer_image_decode=False,
-                 mixture_interleave=None, batched_output=True):
+                 shuffle_row_drop_partitions=1, predicate=None,
+                 rowgroup_selector=None, num_epochs=1, cur_shard=None,
+                 shard_count=None, seed=0, cache=None, transform_spec=None,
+                 ngram=None, filters=None, batched_output=True,
+                 defer_image_decode=False, poison_policy=None,
+                 mixture_interleave=None):
+        _refuse_unported('Reader', rowgroup_selector, poison_policy)
         self.dataset_info = dataset_info
         self.mixture_interleave = mixture_interleave
         self.batched_output = batched_output and ngram is None

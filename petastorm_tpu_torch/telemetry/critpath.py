@@ -45,7 +45,7 @@ AUTOTUNE_MODULE = 'petastorm_tpu_torch.device.autotune'
 #: limited to the port's stages.
 _PRIORITY = (
     'decode_fused', 'decode', 'late_materialize', 'transform', 'filter',
-    'collate', 'pack', 'encode', 'write_flush', 'cache_fill', 'cache_hit_read', 'io',
+    'collate', 'pack', 'encode', 'write_flush', 'compact', 'cache_fill', 'cache_hit_read', 'io',
     'readahead_fetch', 'rowgroup_prune', 'stage_fill', 'h2d_dispatch', 'h2d_ready', 'autotune',
     'ventilate', 'queue_wait',
 )

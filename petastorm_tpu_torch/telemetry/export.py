@@ -208,6 +208,9 @@ def pipeline_report(registry=None, wall_time_s=None, baseline=None, attributor=N
     readahead = _readahead_section(registry)
     if readahead is not None:
         report['readahead'] = readahead
+    write = _write_section(registry)
+    if write is not None:
+        report['write'] = write
     pipesan = _sanitizer_section(registry)
     if pipesan is not None:
         report['pipesan'] = pipesan
@@ -253,6 +256,28 @@ def _readahead_section(registry):
         'depth': readahead.current_depth(),
         'pool_bytes': int(used),
         'pool_budget_bytes': int(budget),
+    }
+
+
+def _write_section(registry):
+    """The write plane's activity (:mod:`petastorm_tpu_torch.write`), present
+    only when this process wrote, committed or compacted; the generation
+    is the latest manifest swap this process published."""
+    from petastorm_tpu_torch.write import compact, writer
+    from petastorm_tpu_torch.write import manifest as write_manifest
+    rows = registry.counter_value(writer.WRITE_ROWS)
+    commits = registry.counter_value(write_manifest.WRITE_COMMITS)
+    compact_runs = registry.counter_value(compact.COMPACT_RUNS)
+    if not rows and not commits and not compact_runs:
+        return None
+    return {
+        'rows_written': int(rows),
+        'bytes_written': int(registry.counter_value(writer.WRITE_BYTES)),
+        'files_written': int(registry.counter_value(writer.WRITE_FILES)),
+        'commits': int(commits),
+        'generation': int(registry.gauge_value(write_manifest.MANIFEST_GENERATION) or 0),
+        'compact_runs': int(compact_runs),
+        'files_folded': int(registry.counter_value(compact.COMPACT_FILES_FOLDED)),
     }
 
 
@@ -515,6 +540,16 @@ def format_pipeline_report(report):
                          if r['mean_coalesced_bytes'] is not None else ''),
                         r['depth'], r['pool_bytes'], r['pool_budget_bytes'],
                         (' — degraded: %s' % reasons) if reasons else ''))
+    if 'write' in report:
+        w = report['write']
+        compact_bit = ''
+        if w['compact_runs']:
+            compact_bit = (', %d compaction run(s) folding %d file(s)'
+                           % (w['compact_runs'], w['files_folded']))
+        lines.append('write plane: %d row(s) / %d B in %d part file(s), %d commit(s), '
+                     'generation %d%s'
+                     % (w['rows_written'], w['bytes_written'], w['files_written'],
+                        w['commits'], w['generation'], compact_bit))
     if 'pipesan' in report:
         p = report['pipesan']
         kinds = ', '.join('%s: %d' % (k, v) for k, v in sorted(p['by_kind'].items()))

@@ -25,14 +25,15 @@ enforced from both sides. It imports nothing.
 #: ``decode_fused`` encoded image cells decoded straight into the slot's
 #: rows · ``h2d_dispatch`` async transfer dispatch · ``pack`` mixture
 #: documents packed into fixed rows · ``encode`` write-path codec encode ·
-#: ``write_flush`` one row-group flushed into a part file · ``autotune`` one
+#: ``write_flush`` one row-group flushed into a part file · ``compact`` one
+#: compaction fold of small part files into one · ``autotune`` one
 #: staging-autotuner tick (registry snapshot, window close, policy) ·
 #: ``readahead_fetch`` one coalesced prefetch of an upcoming row-group's
 #: column chunks on a readahead fetch thread
 STAGES = ('ventilate', 'io', 'decode', 'filter', 'late_materialize', 'rowgroup_prune',
           'transform', 'cache_hit_read', 'cache_fill', 'queue_wait', 'collate', 'h2d_ready',
           'stage_fill', 'decode_fused', 'h2d_dispatch', 'pack', 'encode', 'write_flush',
-          'autotune', 'readahead_fetch')
+          'compact', 'autotune', 'readahead_fetch')
 
 #: trace-event names the port records outside the stage spans (the
 #: reference's set, limited to what the port records): ``attempt`` one
@@ -93,6 +94,12 @@ KNOWN_KNOBS = frozenset([
     'PETASTORM_TPU_TRACE_AUTODUMP_WINDOWS',
     'PETASTORM_TPU_TRACE_DUMP',
     'PETASTORM_TPU_TRACE_SAMPLE',
+    'PETASTORM_TPU_WRITE_ROWGROUP_MB',
+    'PETASTORM_TPU_WRITE_SELF_CHECK',
+    'PETASTORM_TPU_WRITE_SHARD_ROWS',
+    'PETASTORM_TPU_WRITE_WORKERS',
+    'PETASTORM_TPU_COMPACT_MIN_FILES',
+    'PETASTORM_TPU_COMPACT_TARGET_MB',
 ])
 
 #: every metric series name — the registry namespace (``petastorm_tpu_*``):

@@ -40,6 +40,11 @@ class FlightRecorder:
         with self._lock:
             return list(self._events)
 
+    def clear(self):
+        """Drop every buffered event."""
+        with self._lock:
+            self._events.clear()
+
 
 _global_lock = threading.Lock()
 _global_recorder = None

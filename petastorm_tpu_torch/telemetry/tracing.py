@@ -131,6 +131,12 @@ def current_context():
     return getattr(_state, 'ctx', None)
 
 
+def current_trace_id():
+    """The active context's trace id, or None."""
+    ctx = current_context()
+    return ctx.trace_id if ctx is not None else None
+
+
 # -- activation ---------------------------------------------------------------
 
 

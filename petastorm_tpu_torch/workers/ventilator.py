@@ -7,6 +7,7 @@ package."""
 import inspect
 import logging
 import threading
+from abc import ABCMeta, abstractmethod
 
 import numpy as np
 
@@ -42,7 +43,31 @@ def epoch_order(n_items, seed, epoch, randomize):
     return [int(i) for i in rng.permutation(n_items)]
 
 
-class ConcurrentVentilator:
+class Ventilator(metaclass=ABCMeta):
+    """Base class of the ventilators: what a pool calls on the one it is
+    started with."""
+
+    def __init__(self, ventilate_fn):
+        self._ventilate_fn = ventilate_fn
+
+    @abstractmethod
+    def start(self):
+        """Begin ventilation."""
+
+    @abstractmethod
+    def processed_item(self):
+        """Called by the pool whenever a worker finishes one item."""
+
+    @abstractmethod
+    def completed(self):
+        """True when no more items will ever be ventilated."""
+
+    @abstractmethod
+    def stop(self):
+        """Stop ventilation."""
+
+
+class ConcurrentVentilator(Ventilator):
     """Feeds items from a background thread, keeping at most
     ``max_ventilation_queue_size`` in flight.
 
@@ -71,7 +96,7 @@ class ConcurrentVentilator:
                  always_exclude=None):
         if iterations is not None and iterations <= 0:
             raise ValueError('iterations must be positive or None, got %r' % iterations)
-        self._ventilate_fn = ventilate_fn
+        super().__init__(ventilate_fn)
         self._pass_epoch = pass_epoch
         self._items = list(items_to_ventilate)
         self._initial_iterations = iterations

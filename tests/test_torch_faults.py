@@ -243,6 +243,9 @@ PORT_SITES = {
     'pushdown.py': 1,               # io.read #footer
     'readahead.py': 1,              # io.read #readahead
     os.path.join('device', 'staging.py'): 1,  # staging.h2d
+    os.path.join('write', 'manifest.py'): 1,  # io.write #manifest
+    os.path.join('write', 'writer.py'): 2,    # io.write #part, #rename
+    os.path.join('write', 'compact.py'): 2,   # io.write #part, #rename
 }
 
 
@@ -296,5 +299,5 @@ def test_every_port_site_is_a_registered_faultpoint():
                     and node.args and isinstance(node.args[0], ast.Constant)):
                 named.add(node.args[0].value)
     assert named == {'io.read', 'decode.rowgroup', 'decode.batch', 'cache.read',
-                     'cache.write', 'staging.h2d'}
+                     'cache.write', 'staging.h2d', 'io.write'}
     assert named <= set(FAULTPOINTS)

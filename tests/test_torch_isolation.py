@@ -70,7 +70,10 @@ def test_port_has_modules_to_scan():
                    ('analysis', 'pass_payloads.py'), ('analysis', 'pass_buffers.py'),
                    ('faults.py',), ('cache.py',), ('materialized_cache.py',),
                    ('ops', '__init__.py'), ('models', '__init__.py'),
-                   ('readahead.py',), ('device', 'autotune.py')):
+                   ('readahead.py',), ('device', 'autotune.py'),
+                   ('write', '__init__.py'), ('write', 'manifest.py'),
+                   ('write', 'layout.py'), ('write', 'writer.py'), ('write', 'append.py'),
+                   ('write', 'compact.py'), ('etl', 'dataset_metadata.py')):
         assert os.path.join('petastorm_tpu_torch', *module) in rel
     assert len(rel) > 20
 

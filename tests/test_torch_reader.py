@@ -10,6 +10,7 @@ the dummy pool and the same per-shard split on the thread pool; a
 import json
 import os
 
+import fsspec
 import numpy as np
 import pyarrow.parquet as pq
 import pytest
@@ -222,7 +223,7 @@ REFERENCE_KWARGS = {
     'mixture_interleave': ({'share': 0.5}, None),
     'storage_options': ({'anon': True}, 9),
     'filesystem': (object(), 9),
-    'max_staleness_s': (1.0, 10),
+    'max_staleness_s': (1.0, 'no-manifest'),
 }
 
 
@@ -244,6 +245,12 @@ def test_reference_kwargs_raise_their_item(synthetic_dataset, name, tmp_path):
         with torch_make_batch_reader(synthetic_dataset.url, reader_pool_type='dummy',
                                      **{name: value}) as reader:
             assert getattr(reader, name) == value
+    elif item == 'no-manifest':
+        # ported: a dataset without a committed manifest has nothing to
+        # bound the staleness against, in both packages
+        for make in (jax_make_batch_reader, torch_make_batch_reader):
+            with pytest.raises(ValueError, match='committed manifest'):
+                make(synthetic_dataset.url, **{name: value})
     else:
         with pytest.raises(NotImplementedError,
                            match=r'ROADMAP.md: Queue 1 item %d,' % item):
@@ -276,9 +283,9 @@ def test_materialize_dataset_takes_row_group_size_mb(tmp_path):
 
 @pytest.mark.parametrize('call,item', [
     ('materialize-spark', 11),
-    ('writer-workers-count', 10),
-    ('writer-sort-by', 10),
-    ('writer-filesystem', 10),
+    ('writer-workers-count', None),
+    ('writer-sort-by', None),
+    ('writer-filesystem', None),
     ('transform-cacheable', None),
 ])
 def test_write_and_transform_kwargs_raise_their_item(tmp_path, call, item):
@@ -290,12 +297,20 @@ def test_write_and_transform_kwargs_raise_their_item(tmp_path, call, item):
                                                          spark=object()).__enter__(),
         'writer-workers-count': lambda: DatasetWriter(url, schema, workers_count=4),
         'writer-sort-by': lambda: DatasetWriter(url, schema, sort_by='id'),
-        'writer-filesystem': lambda: DatasetWriter(url, schema, filesystem=object()),
+        'writer-filesystem': lambda: DatasetWriter(url, schema,
+                                                   filesystem=fsspec.filesystem('file')),
         'transform-cacheable': lambda: TorchTransformSpec(lambda f: f, cacheable=True),
     }
-    if item is None:
+    if call == 'transform-cacheable':
         # ported: the decoded cache's opt-in, kept as the reference keeps it
         assert calls[call]().cacheable is True
+        return
+    if item is None:
+        # ported: the writer takes the kwarg, writes and reads back
+        with calls[call]() as writer:
+            writer.write_row_dicts([_row(i) for i in range(12)])
+        assert writer.sort_by == ('id' if call == 'writer-sort-by' else None)
+        assert len(writer.paths_written) == 1
         return
     with pytest.raises(NotImplementedError, match=r'ROADMAP.md: Queue 1 item %d,' % item):
         calls[call]()

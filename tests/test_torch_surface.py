@@ -363,3 +363,77 @@ def test_readahead_exports_the_references_names():
     assert autotune.AUTOTUNE_DECISIONS == jax_autotune.AUTOTUNE_DECISIONS
     assert autotune._MAX_INFLIGHT_EXTRA == jax_autotune._MAX_INFLIGHT_EXTRA
     assert autotune._READAHEAD_POOL_PRESSURE == jax_autotune._READAHEAD_POOL_PRESSURE
+
+
+# -- the reference's names the port dropped (ROADMAP Queue 3) ------------------------
+
+
+def test_reader_positions_are_the_references():
+    """``Reader.__init__`` takes ``rowgroup_selector`` and
+    ``poison_policy`` at the reference's positions, and its tail in the
+    reference's order."""
+    from petastorm_tpu.reader import Reader as JaxReader
+    from petastorm_tpu_torch.reader import Reader
+    assert list(inspect.signature(Reader.__init__).parameters) == \
+        list(inspect.signature(JaxReader.__init__).parameters)
+
+
+@pytest.mark.parametrize('kwarg,item', [('rowgroup_selector', 10), ('poison_policy', 9)])
+def test_reader_refuses_what_it_lacks(scalar_dataset, kwarg, item):
+    from petastorm_tpu_torch.etl.dataset_metadata import ParquetDatasetInfo
+    from petastorm_tpu_torch.reader import Reader
+    info = ParquetDatasetInfo(scalar_dataset.url)
+    with pytest.raises(NotImplementedError, match=r'ROADMAP.md: Queue 1 item %d,' % item):
+        Reader(info, reader_pool_type='dummy', **{kwarg: 'skip'})
+    if kwarg == 'rowgroup_selector':
+        # the ninth positional argument is the selector, as in the reference
+        with pytest.raises(NotImplementedError, match=r'ROADMAP.md: Queue 1 item 10,'):
+            Reader(info, None, 'dummy', None, 50, False, 1, None, object())
+
+
+def test_current_trace_id_is_the_references():
+    from petastorm_tpu.telemetry import tracing as jax_tracing
+    from petastorm_tpu_torch.telemetry import tracing
+    assert tracing.current_trace_id() is None is jax_tracing.current_trace_id()
+    ctx = tracing.TraceContext('run-e0-i7', 7, 0, None)
+    with tracing.activate(ctx, 'main'):
+        assert tracing.current_trace_id() == 'run-e0-i7'
+    assert tracing.current_trace_id() is None
+
+
+def test_flight_recorder_clear_is_the_references():
+    from petastorm_tpu.telemetry.recorder import FlightRecorder as JaxRecorder
+    from petastorm_tpu_torch.telemetry.recorder import FlightRecorder
+    for recorder in (FlightRecorder(), JaxRecorder()):
+        recorder.add({'name': 'io'})
+        recorder.add({'name': 'decode'})
+        assert recorder.clear() is None
+        assert len(recorder) == 0 and recorder.snapshot() == []
+
+
+@pytest.mark.parametrize('base,subclasses', [
+    ('buffers.BatchedShufflingBufferBase',
+     ('buffers.BatchedNoopShufflingBuffer', 'buffers.BatchedRandomShufflingBuffer')),
+    ('workers.ventilator.Ventilator', ('workers.ventilator.ConcurrentVentilator',)),
+])
+def test_base_classes_are_the_references(base, subclasses):
+    import importlib
+
+    def resolve(package, dotted):
+        module, _, name = ('%s.%s' % (package, dotted)).rpartition('.')
+        return getattr(importlib.import_module(module), name)
+
+    port_base, jax_base = resolve('petastorm_tpu_torch', base), resolve('petastorm_tpu', base)
+    assert port_base.__abstractmethods__ == jax_base.__abstractmethods__
+    for sub in subclasses:
+        assert issubclass(resolve('petastorm_tpu_torch', sub), port_base)
+    with pytest.raises(TypeError):
+        port_base(4)
+
+
+def test_decode_field_error_is_the_references():
+    from petastorm_tpu import errors as jax_errors
+    from petastorm_tpu_torch import errors
+    assert issubclass(errors.DecodeFieldError, errors.PetastormTpuError)
+    assert errors.DecodeFieldError.__mro__[1].__name__ == \
+        jax_errors.DecodeFieldError.__mro__[1].__name__

@@ -170,3 +170,49 @@ def test_train_vit_resize_path(imagenet_url):
     losses = train_vit(imagenet_url, batch_size=4, steps=4, size=32, patch_size=8,
                        device='cpu', log=lambda line: None)
     assert len(losses) == 4 and all(np.isfinite(losses))
+
+
+@pytest.mark.parametrize('source', ['images-dir', 'synthetic'])
+def test_generate_petastorm_imagenet_is_the_references(tmp_path, source):
+    """``generate_petastorm_imagenet(output_url, images_dir=None,
+    num_rows=128, rowgroup_size_mb=64)`` at the reference's positions: a
+    small ``<root>/<noun_id>/*.png`` tree (or the synthetic rows) written by
+    the port and by the JAX example give the same part-file bytes, and the
+    port reads back every image."""
+    import glob
+    import inspect
+
+    import cv2
+    from examples.imagenet.generate_petastorm_imagenet import (
+        generate_petastorm_imagenet as jax_generate,
+    )
+    from petastorm_tpu_torch.examples.imagenet import generate_petastorm_imagenet
+    from petastorm_tpu_torch.reader import make_reader
+    assert list(inspect.signature(generate_petastorm_imagenet).parameters) == \
+        list(inspect.signature(jax_generate).parameters)
+    images_dir = None
+    if source == 'images-dir':
+        rng = np.random.RandomState(0)
+        images_dir = tmp_path / 'tree'
+        for noun_id in ('n01440764', 'n02102040'):
+            (images_dir / noun_id).mkdir(parents=True)
+            for i in range(3):
+                image = rng.randint(0, 256, (20 + 4 * i, 24, 3)).astype(np.uint8)
+                cv2.imwrite(str(images_dir / noun_id / ('%d.png' % i)), image)
+        (images_dir / 'n01440764' / 'notes.txt').write_text('not an image')
+        images_dir = str(images_dir)
+    urls = {name: 'file://%s/%s' % (tmp_path, name) for name in ('jax', 'torch')}
+    counts = {'jax': jax_generate(urls['jax'], images_dir, 9),
+              'torch': generate_petastorm_imagenet(urls['torch'], images_dir, 9)}
+    assert counts['torch'] == counts['jax'] == (6 if images_dir else 9)
+    parts = {name: [open(p, 'rb').read() for p in sorted(glob.glob(
+        '%s/%s/part-*' % (tmp_path, name)))] for name in urls}
+    assert parts['torch'] and parts['torch'] == parts['jax']
+    with make_reader(urls['torch'], reader_pool_type='dummy',
+                     shuffle_row_groups=False) as reader:
+        rows = list(reader)
+    assert len(rows) == counts['torch']
+    if images_dir:
+        assert sorted({r.noun_id for r in rows}) == ['n01440764', 'n02102040']
+        first = cv2.cvtColor(cv2.imread('%s/n01440764/0.png' % images_dir), cv2.COLOR_BGR2RGB)
+        np.testing.assert_array_equal(rows[0].image, first)
