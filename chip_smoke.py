@@ -318,6 +318,28 @@ outlives its phase.
     digests equal the written rows'. Rows, generations, parts before and
     after, write/append/compaction seconds, write rows/s and MB/s, the
     follower's lag and images/s are printed.
+41. ``etl_tools_vit_path`` (after ``write_plane_vit_path``): the ETL tools
+    on the image path. (a) ``build_rowgroup_index`` of a ``label`` and an
+    ``id`` ``SingleFieldIndexer`` over the folded write-plane dataset; a
+    ``SingleIndexSelector`` of the labels of the first quarter of rows in
+    label order keeps the row-groups a numpy scan of each row-group's
+    labels predicts (a strict subset); ``make_torch_loader(rowgroup_selector=)``
+    reads the union of their ids on the card, batch for batch equal to the
+    CPU loader (dummy pool); ``SELECTIVE_STEPS`` ViT-Base steps on the
+    subset. (b) A hard-linked copy of vit-selective whose
+    ``_common_metadata`` keeps only the original petastorm's two
+    ``dataset-toolkit.*`` keys (the port's pickled schema and counts): its
+    schema equals the JSON one, its card batches equal the JSON-footer
+    dataset's, then ``SELECTIVE_STEPS`` ViT-Base steps on it. Launches
+    exact in both runs. (c) ``tests/data/reference_written``, written by
+    the original petastorm: its 24 rows read by ``make_reader`` and
+    ``make_batch_reader`` equal ``RandomState(42)``'s values, and its
+    (24, 16, 32, 3) images go through the normalize kernel against its
+    plain version (f32 1e-5, bf16 1 ulp). (d) ``copy_dataset`` of ``id``
+    and ``label`` (rows equal the source's); its ``_common_metadata``
+    deleted and rebuilt by ``generate_petastorm_metadata`` from the
+    projected schema (the copy reads back); ``print_metadata`` of the
+    source (row-groups and both indexes). Each step is timed.
 ``--trace-dir DIR`` keeps the two Chrome traces in ``DIR``.
 
 Then the ``kernels`` summary (each kernel's launches on every path), the
@@ -438,6 +460,12 @@ WRITE_SHARD_ROWS = 64
 WRITE_WORKERS = 4
 WRITE_PARITY_ROWS = 128
 APPEND_MAX_STALENESS_S = 2.0
+
+# etl_tools_vit_path: the rows of tests/data/reference_written (written by
+# the original petastorm), and the projected schema the regenerated copy
+# footer is located by (set by the phase)
+PINNED_ROWS = 24
+ETL_COPY_SCHEMA = None
 
 # the variable-length LM path: one document a row, bucketed by length
 VARLEN_STEPS = 40
@@ -3933,6 +3961,259 @@ def phase_write_plane_vit_path(image_codec, tmp):
     return launches
 
 
+def _rowgroup_columns(url, columns):
+    """``[{column: values}]`` of every row-group in ``load_row_groups``
+    order (the ordinals an index names), read with pyarrow alone."""
+    import pyarrow.parquet as pq
+    from petastorm_tpu_torch.etl.dataset_metadata import ParquetDatasetInfo, load_row_groups
+    info = ParquetDatasetInfo(url)
+    out = []
+    for piece in load_row_groups(info):
+        with info.open(piece.path) as f:
+            table = pq.ParquetFile(f).read_row_group(piece.row_group, columns=list(columns))
+        out.append({c: table.column(c).to_numpy() for c in columns})
+    return out
+
+
+def _legacy_only_copy(src_root, dst_root):
+    """A copy of a dataset whose parts are hard links and whose
+    ``_common_metadata`` keeps only the original petastorm's two keys: the
+    footer the original petastorm writes."""
+    import pyarrow.parquet as pq
+    from petastorm_tpu_torch.etl.dataset_metadata import (
+        LEGACY_ROW_GROUPS_PER_FILE_KEY, LEGACY_UNISCHEMA_KEY,
+    )
+    os.makedirs(dst_root)
+    for name in sorted(os.listdir(src_root)):
+        if name.endswith('.parquet') and not name.startswith(('_', '.')):
+            os.link(os.path.join(src_root, name), os.path.join(dst_root, name))
+    cm = pq.read_metadata(os.path.join(src_root, '_common_metadata'))
+    keep = {k: v for k, v in cm.metadata.items()
+            if k in (LEGACY_UNISCHEMA_KEY, LEGACY_ROW_GROUPS_PER_FILE_KEY)}
+    pq.write_metadata(cm.schema.to_arrow_schema().with_metadata(keep),
+                      os.path.join(dst_root, '_common_metadata'))
+    return sorted(keep)
+
+
+def _pinned_expected_rows():
+    """The values ``tests/data/reference_written`` (written by the original
+    petastorm) holds: ``RandomState(42)``'s draws, as
+    ``tests/test_interop_pinned.py`` regenerates them."""
+    import numpy as np
+    rng = np.random.RandomState(42)
+    rows = {}
+    for i in range(PINNED_ROWS):
+        vec = rng.rand(8).astype(np.float32)
+        rng.rand(4)                                      # cvec
+        rows[i] = {'vec': vec, 'img': rng.randint(0, 255, (16, 32, 3), np.uint8)}
+    return rows
+
+
+def _check_normalize(x):
+    """The normalize kernel on ``x`` against its plain version, f32 within
+    1e-5 and bf16 within 1 ulp: ``{dtype: max error}``."""
+    from petastorm_tpu_torch.ops.normalize import normalize_images, normalize_images_reference
+    mean, std = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        got = normalize_images(x, mean, std, dtype)
+        want = normalize_images_reference(x, mean, std, dtype)
+        torch.cuda.synchronize()
+        assert got.shape == x.shape and got.dtype == dtype and got.is_cuda
+        if dtype == torch.float32:
+            err = float((got - want).abs().max())
+            assert err <= 1e-5, err
+            out['f32_max_abs_err'] = err
+        else:
+            ulps = bf16_ulp_distance(got, want)
+            assert ulps <= 1, ulps
+            out['bf16_max_ulps'] = ulps
+    return out
+
+
+def phase_etl_tools_vit_path(selective_url, tmp):
+    """Item 10b on the image path (module docstring, phase 41): a row-group
+    index and a selector over the write plane's folded dataset, a
+    legacy-only footer, the pinned dataset the original petastorm wrote,
+    and the host tools."""
+    import io
+    import numpy as np
+    from petastorm_tpu_torch.etl.dataset_metadata import (
+        ParquetDatasetInfo, get_schema, get_schema_from_dataset_url,
+    )
+    from petastorm_tpu_torch.etl.metadata_util import print_metadata
+    from petastorm_tpu_torch.etl.petastorm_generate_metadata import (
+        generate_petastorm_metadata,
+    )
+    from petastorm_tpu_torch.etl.rowgroup_indexers import SingleFieldIndexer
+    from petastorm_tpu_torch.etl.rowgroup_indexing import (
+        build_rowgroup_index, get_row_group_indexes,
+    )
+    from petastorm_tpu_torch.examples.imagenet import VIT_BASE_KW, train_vit_fused
+    from petastorm_tpu_torch.reader import make_batch_reader, make_reader
+    from petastorm_tpu_torch.selectors import SingleIndexSelector
+    from petastorm_tpu_torch.tools.copy_dataset import copy_dataset
+    global ETL_COPY_SCHEMA
+    t_phase = time.perf_counter()
+    threads_before = _port_threads()
+    root = os.path.join(tmp, 'vit_write_plane')
+    url = 'file://' + root
+    launches = {name: 0 for name in (*FLASH_KERNELS, 'normalize_images')}
+
+    def train(dataset_url, **kwargs):
+        fresh_telemetry()
+        reset_launch_counts()
+        result = train_vit_fused(dataset_url, steps=SELECTIVE_STEPS, batch_size=VIT_BATCH,
+                                 device='cuda', **kwargs)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for name, n in counts.items():
+            launches[name] += n
+        losses = result['losses']
+        assert len(losses) == SELECTIVE_STEPS and all(math.isfinite(v) for v in losses), losses
+        assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
+        assert counts['normalize_images'] == SELECTIVE_STEPS, counts
+        for name in FLASH_KERNELS:
+            assert counts[name] == VIT_BASE_KW['n_layers'] * SELECTIVE_STEPS, (name, counts)
+        return {'steps': len(losses), 'losses': losses, 'images_per_s': result['images_per_s'],
+                'fused_decode_mode': result['diagnostics']['fused_decode_mode'],
+                'launches': counts}
+
+    def same_batches(a, b):
+        assert len(a) == len(b) > 0, (len(a), len(b))
+        for x, y in zip(a, b):
+            assert sorted(x) == sorted(y)
+            for name in x:
+                assert torch.equal(x[name], y[name]), name
+
+    # (a) an index and a selector over the folded, committed dataset
+    t0 = time.perf_counter()
+    build_rowgroup_index(url, [SingleFieldIndexer('label_index', 'label'),
+                               SingleFieldIndexer('id_index', 'id')])
+    index_s = time.perf_counter() - t0
+    groups = _rowgroup_columns(url, ('label', 'id'))
+    labels_in_order = sorted(int(v) for g in groups for v in g['label'])
+    selected_labels = sorted(set(labels_in_order[:len(labels_in_order) // 4]))
+    predicted = sorted(i for i, g in enumerate(groups)
+                       if np.isin(g['label'], selected_labels).any())
+    want_ids = sorted(int(v) for i in predicted for v in groups[i]['id'])
+    selector = SingleIndexSelector('label_index', selected_labels)
+    indexes = get_row_group_indexes(ParquetDatasetInfo(url))
+    selected = sorted(selector.select_row_groups(indexes))
+    read_kw = dict(rowgroup_selector=selector, reader_pool_type='dummy',
+                   shuffle_row_groups=False)
+    card = _read_epoch(url, 'cuda', keep=True, **read_kw)
+    host = _read_epoch(url, 'cpu', keep=True, **read_kw)
+    same_batches(card['batches'], host['batches'])
+    del card['batches'], host['batches']
+    selected_train = train(url, rowgroup_selector=selector)
+
+    # (b) a legacy-only footer: a hard-linked copy of vit_selective
+    legacy_root = os.path.join(tmp, 'vit_legacy_footer')
+    legacy_url = 'file://' + legacy_root
+    legacy_keys = _legacy_only_copy(selective_url[len('file://'):], legacy_root)
+    legacy_schema = get_schema_from_dataset_url(legacy_url)
+    json_schema = get_schema_from_dataset_url(selective_url)
+    epoch_kw = dict(reader_pool_type='dummy', shuffle_row_groups=False)
+    legacy_epoch = _read_epoch(legacy_url, 'cuda', keep=True, **epoch_kw)
+    json_epoch = _read_epoch(selective_url, 'cuda', keep=True, **epoch_kw)
+    same_batches(legacy_epoch['batches'], json_epoch['batches'])
+    legacy_batches = len(legacy_epoch['batches'])
+    del legacy_epoch['batches'], json_epoch['batches']
+    legacy_train = train(legacy_url)
+
+    # (c) the dataset the original petastorm wrote
+    pinned_url = 'file://' + os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                          'tests', 'data', 'reference_written')
+    expected = _pinned_expected_rows()
+    with make_reader(pinned_url, reader_pool_type='dummy', shuffle_row_groups=False) as reader:
+        pinned_rows = {int(r.id): r for r in reader}
+    with make_batch_reader(pinned_url, reader_pool_type='dummy', shuffle_row_groups=False,
+                           schema_fields=['^id$', '^img$']) as reader:
+        pinned_batch = {int(i): img for b in reader for i, img in zip(b.id, b.img)}
+    assert sorted(pinned_rows) == sorted(pinned_batch) == list(range(PINNED_ROWS))
+    for i, want in expected.items():
+        np.testing.assert_array_equal(pinned_rows[i].vec, want['vec'])
+        np.testing.assert_array_equal(pinned_rows[i].img, want['img'])
+        np.testing.assert_array_equal(pinned_batch[i], want['img'])
+    images = torch.from_numpy(np.stack([pinned_batch[i] for i in range(PINNED_ROWS)])).cuda()
+    pinned_kernel = dict(_check_normalize(images), shape=list(images.shape))
+
+    # (d) the host tools
+    copy_root = os.path.join(tmp, 'vit_copy')
+    copy_url = 'file://' + copy_root
+    t0 = time.perf_counter()
+    copied = copy_dataset(url, copy_url, field_regex=['^id$', '^label$'])
+    copy_s = time.perf_counter() - t0
+
+    def id_label_pairs(dataset_url):
+        with make_batch_reader(dataset_url, schema_fields=['^id$', '^label$'],
+                               reader_pool_type='dummy') as reader:
+            return sorted((int(i), int(v)) for b in reader for i, v in zip(b.id, b.label))
+
+    source_pairs = id_label_pairs(url)
+    copy_pairs = id_label_pairs(copy_url)
+    os.remove(os.path.join(copy_root, '_common_metadata'))
+    projected = get_schema(ParquetDatasetInfo(url)).create_schema_view(['^id$', '^label$'])
+    ETL_COPY_SCHEMA = projected
+    t0 = time.perf_counter()
+    generated = generate_petastorm_metadata(copy_url,
+                                            unischema_class=__name__ + '.ETL_COPY_SCHEMA')
+    generate_s = time.perf_counter() - t0
+    regenerated_schema = get_schema_from_dataset_url(copy_url)
+    regenerated_pairs = id_label_pairs(copy_url)
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    print_metadata(url, out=printed)
+    print_s = time.perf_counter() - t0
+    text = printed.getvalue()
+    threads_left = _threads_left(threads_before)
+    emit({'phase': 'etl_tools_vit_path', 'config': 'vit-imagenetlike-write-plane',
+          'entry': 'build_rowgroup_index -> make_torch_loader(rowgroup_selector=) -> '
+                   'normalize -> ViT-Base',
+          'index': {'seconds': index_s, 'indexes': sorted(indexes),
+                    'label_values': len(indexes['label_index'].indexed_values),
+                    'id_values': len(indexes['id_index'].indexed_values)},
+          'selector': {'labels': selected_labels, 'rowgroups_before': len(groups),
+                       'rowgroups_after': len(selected), 'predicted': predicted,
+                       'rows_selected': len(want_ids), 'card_rows': card['rows'],
+                       'read_images_per_s': card['images_per_s'],
+                       'card_vs_cpu_equal': True},
+          'selected_train': selected_train,
+          'legacy_footer': {'keys': [k.decode() for k in legacy_keys],
+                            'schema_equal_json': legacy_schema.to_json_dict() ==
+                            json_schema.to_json_dict(),
+                            'rows': legacy_epoch['rows'], 'batches': legacy_batches,
+                            'read_images_per_s': legacy_epoch['images_per_s'],
+                            'json_read_images_per_s': json_epoch['images_per_s']},
+          'legacy_train': legacy_train,
+          'pinned': {'rows': len(pinned_rows), 'normalize': pinned_kernel},
+          'copy': {'seconds': copy_s, 'rows': copied,
+                   'rows_per_s': copied / copy_s if copy_s else None},
+          'generate_metadata': {'seconds': generate_s, 'fields': list(generated.fields)},
+          'print_metadata': {'seconds': print_s, 'lines': len(text.splitlines())},
+          'launches': launches, 'threads_left': threads_left,
+          'seconds': time.perf_counter() - t_phase})
+    print(text, end='', flush=True)
+    assert 0 < len(selected) < len(groups), (len(selected), len(groups))
+    assert selected == predicted, (selected, predicted)
+    assert card['ids'] == host['ids'] == want_ids, (card['rows'], len(want_ids))
+    assert legacy_keys == [b'dataset-toolkit.num_row_groups_per_file.v1',
+                           b'dataset-toolkit.unischema.v1'], legacy_keys
+    assert legacy_schema.to_json_dict() == json_schema.to_json_dict()
+    assert legacy_epoch['ids'] == json_epoch['ids'] == list(range(VIT_ROWS))
+    assert copied == VIT_ROWS and copy_pairs == source_pairs, (copied, len(copy_pairs))
+    assert generated.to_json_dict() == projected.to_json_dict()
+    assert regenerated_schema.to_json_dict() == projected.to_json_dict()
+    assert regenerated_pairs == source_pairs
+    assert 'Row-groups: %d over ' % len(groups) in text, text
+    assert "  label_index: fields=['label'] values=%d" % len(
+        indexes['label_index'].indexed_values) in text, text
+    assert "  id_index: fields=['id'] values=%d" % VIT_ROWS in text, text
+    assert not threads_left, threads_left
+    return launches
+
+
 def phase_readahead_vit_path(url, image_codec, vit_images_per_s, tmp):
     """vit-imagenetlike-384 through the readahead plane and the staging
     autotuner (module docstring, phase 35)."""
@@ -4329,6 +4610,7 @@ def main(argv=None):
         paths['readahead_vit_path'] = phase_readahead_vit_path(vit_url, image_codec,
                                                                vit_images_per_s, tmp)
         paths['write_plane_vit_path'] = phase_write_plane_vit_path(image_codec, tmp)
+        paths['etl_tools_vit_path'] = phase_etl_tools_vit_path(selective_url, tmp)
     phase_vit_profile()
     # the headline numbers are this slice's path's: the flash kernels' at
     # the mixture path's shape (the flagship's) and their launches there;

@@ -593,6 +593,20 @@ def _as_arrow_type(storage_type):
     return numpy_to_arrow_type(storage_type)
 
 
+#: arrow type (by ``str()``) → pyspark type class name, the reference's
+#: table: the footer's pickled schema for the original petastorm
+#: (:mod:`petastorm_tpu_torch.etl.legacy`) names these classes
+ARROW_TO_SPARK_TYPE_NAME = {
+    'bool': 'BooleanType', 'int8': 'ByteType', 'int16': 'ShortType',
+    'int32': 'IntegerType', 'int64': 'LongType',
+    'uint8': 'ShortType', 'uint16': 'IntegerType', 'uint32': 'LongType',
+    'halffloat': 'FloatType', 'float': 'FloatType', 'double': 'DoubleType',
+    'string': 'StringType', 'large_string': 'StringType',
+    'binary': 'BinaryType', 'large_binary': 'BinaryType',
+    'date32[day]': 'DateType',
+}
+
+
 def codec_to_json(codec):
     return None if codec is None else codec.to_json_dict()
 

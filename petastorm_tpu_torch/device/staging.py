@@ -8,7 +8,8 @@ Counterpart of ``petastorm_tpu/jax/staging.py``. Two strategies, by target:
   and cast write INTO the slot (``np.copyto`` with cast-during-copy), the
   copy to the card is dispatched ``non_blocking`` on a side copy stream,
   and a CUDA event is recorded after it. A slot is refilled only after the
-  event of its PREVIOUS handoff has completed. The consumer's stream waits
+  event of its PREVIOUS handoff has completed (asked with ``query()``
+  first, so a finished copy costs the staging thread no GIL hand-off). The consumer's stream waits
   on the batch's event before use, and every device tensor is
   ``record_stream``-ed on the consumer stream so the caching allocator
   cannot hand its memory out early.
@@ -194,9 +195,14 @@ class _Slot:
 
     def await_retired(self):
         """Block until the transfer previously dispatched from this slot has
-        read its buffers; only then may they be overwritten."""
+        read its buffers; only then may they be overwritten. The event is
+        asked first: ``query()`` keeps the GIL, while ``synchronize()``
+        drops it and must win it back from whichever thread took it (up to
+        the interpreter's switch interval), a wait that would land in
+        ``h2d_ready`` for a copy that had long finished."""
         if self.event is not None:
-            self.event.synchronize()
+            if not self.event.query():
+                self.event.synchronize()
             self.event = None
 
 

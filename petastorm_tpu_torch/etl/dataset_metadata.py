@@ -2,11 +2,13 @@
 
 Counterpart of ``petastorm_tpu/etl/dataset_metadata.py``. The footer keeps
 the same versioned JSON schema key and row-group-count key, so either
-package reads what the other wrote. A dataset committed by a write plane
-(:mod:`petastorm_tpu_torch.write`, or the reference's) is read through its
-manifest: the committed file list, never a directory walk. Not ported yet:
-the legacy pickled schema (read, and the copy the reference stamps beside
-the JSON schema) and Spark.
+package reads what the other wrote, and beside them the original
+petastorm's keys: its pickled schema (:mod:`petastorm_tpu_torch.etl.legacy`)
+and its row-group counts. So a dataset the original petastorm wrote opens
+here, and one written here opens there. A dataset committed by a write
+plane (:mod:`petastorm_tpu_torch.write`, or the reference's) is read
+through its manifest: the committed file list, never a directory walk.
+Not ported yet: Spark.
 """
 
 import collections
@@ -32,8 +34,8 @@ logger = logging.getLogger(__name__)
 
 UNISCHEMA_KEY = b'petastorm_tpu.unischema.v1'
 ROW_GROUPS_PER_FILE_KEY = b'petastorm_tpu.num_row_groups_per_file.v1'
-# keys of the original petastorm footer: the row-group counts read the
-# same; its pickled schema is not ported
+# keys of the original petastorm footer: its pickled schema and its
+# row-group counts
 LEGACY_UNISCHEMA_KEY = b'dataset-toolkit.unischema.v1'
 LEGACY_ROW_GROUPS_PER_FILE_KEY = b'dataset-toolkit.num_row_groups_per_file.v1'
 # row-group size bound of the Spark converter (reference default); pass
@@ -259,7 +261,8 @@ def get_schema(dataset_info):
     if UNISCHEMA_KEY in meta:
         return Unischema.from_json_dict(json.loads(meta[UNISCHEMA_KEY].decode('utf-8')))
     if LEGACY_UNISCHEMA_KEY in meta:
-        raise unported('reading a pickled reference schema (etl/legacy.py)', 10)
+        from petastorm_tpu_torch.etl.legacy import depickle_legacy_unischema
+        return depickle_legacy_unischema(meta[LEGACY_UNISCHEMA_KEY])
     raise MetadataError('_common_metadata of %r carries no unischema entry'
                         % dataset_info.url)
 
@@ -336,22 +339,37 @@ def update_dataset_metadata(dataset_info, entries):
     dataset_info.invalidate_footers()
 
 
+def footer_entries(schema, counts_json):
+    """The footer's entries for ``schema`` and its row-group counts: the
+    JSON keys, and the original petastorm's pickled schema and counts
+    unless the schema has no pickled form (a codec or type the original
+    lacks; the dataset is then JSON-only)."""
+    entries = {
+        ROW_GROUPS_PER_FILE_KEY: counts_json,
+        UNISCHEMA_KEY: json.dumps(schema.to_json_dict()).encode('utf-8'),
+    }
+    from petastorm_tpu_torch.etl.legacy import pickle_unischema_for_reference
+    try:
+        entries[LEGACY_UNISCHEMA_KEY] = pickle_unischema_for_reference(schema)
+        entries[LEGACY_ROW_GROUPS_PER_FILE_KEY] = counts_json
+    except MetadataError as e:
+        logger.debug('Not writing reference-compatible schema pickle: %s', e)
+    return entries
+
+
 def _write_dataset_footer(dataset_url, schema, storage_options=None):
     info = ParquetDatasetInfo(dataset_url, storage_options)
     counts_json = json.dumps(
         _row_group_counts_from_footers(info, workers=8)).encode('utf-8')
-    update_dataset_metadata(info, {
-        ROW_GROUPS_PER_FILE_KEY: counts_json,
-        UNISCHEMA_KEY: json.dumps(schema.to_json_dict()).encode('utf-8'),
-    })
+    update_dataset_metadata(info, footer_entries(schema, counts_json))
 
 
 @contextmanager
 def materialize_dataset(dataset_url, schema, row_group_size_mb=None,
                         storage_options=None, spark=None):
     """Run any parquet-producing job in the body; on exit the footer
-    (``_common_metadata`` with the schema JSON and row-group counts) is
-    written. ``row_group_size_mb`` is accepted as the reference accepts it:
+    (``_common_metadata`` with the schema JSON, the original petastorm's
+    pickled schema and the row-group counts) is written. ``row_group_size_mb`` is accepted as the reference accepts it:
     there it only sets a Spark session's parquet block size, and ``spark=``
     (the Spark bridge) is not ported yet."""
     if spark is not None:

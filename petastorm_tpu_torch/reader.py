@@ -5,7 +5,9 @@ Counterpart of ``petastorm_tpu/reader.py`` on the dummy and thread pools.
 It opens a (materialized or plain) Parquet dataset, enumerates its
 row-groups, prunes them against ``filters=``/``predicate=`` (partition
 values before sharding, footer statistics after, see
-:mod:`petastorm_tpu_torch.pushdown`), shards them (by the live
+:mod:`petastorm_tpu_torch.pushdown`), keeps those a ``rowgroup_selector=``
+selects through the footer's row-group indexes
+(:mod:`petastorm_tpu_torch.selectors`), shards them (by the live
 ``torch.distributed`` rank unless ``cur_shard``/``shard_count`` say
 otherwise), ventilates them to a decode pool and iterates them: whole
 row-groups as namedtuples of column arrays (``make_batch_reader``), or one
@@ -67,11 +69,9 @@ _VENTILATE_EXTRA_ROWGROUPS = 2
 _PULL_NOTE_FLOOR_S = 0.01
 
 
-def _refuse_unported(entry, rowgroup_selector, poison_policy):
-    """Raise the ``unported`` error of the first reference kwarg that is
-    set and reaches code the port lacks."""
-    if rowgroup_selector is not None:
-        raise unported('%s(rowgroup_selector=)' % entry, 10)
+def _refuse_unported(poison_policy):
+    """Raise the ``unported`` error of a reference kwarg that is set and
+    reaches code the port lacks."""
     if poison_policy is not None:
         raise unported('poison_policy=', 9)
 
@@ -135,7 +135,7 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
     Use :func:`make_batch_reader` for plain Parquet stores or column-batch
     output.
     """
-    _refuse_unported('make_reader', rowgroup_selector, poison_policy)
+    _refuse_unported(poison_policy)
     info = ParquetDatasetInfo(dataset_url, storage_options, filesystem=filesystem)
     try:
         get_schema(info)
@@ -148,7 +148,8 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
                   results_queue_size=results_queue_size,
                   shuffle_row_groups=shuffle_row_groups,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
-                  predicate=predicate, num_epochs=num_epochs, cur_shard=cur_shard,
+                  predicate=predicate, rowgroup_selector=rowgroup_selector,
+                  num_epochs=num_epochs, cur_shard=cur_shard,
                   shard_count=shard_count, seed=seed,
                   cache=_make_cache(cache_type, cache_location, cache_size_limit,
                                     cache_row_size_estimate, predicate=predicate),
@@ -183,6 +184,12 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
         the workers evaluate on its own columns first; the other columns of
         a row-group decode for its surviving rows only. Row-groups the
         footer statistics prove empty are never read.
+    :param rowgroup_selector: a
+        :class:`~petastorm_tpu_torch.selectors.RowGroupSelectorBase`: only
+        the row-groups it selects through the footer's row-group indexes
+        (:func:`~petastorm_tpu_torch.etl.rowgroup_indexing.build_rowgroup_index`)
+        are read; applied after ``filters``/``predicate`` pruning and
+        before sharding.
     :param num_epochs: epochs to read; None = infinite.
     :param cur_shard: this reader's shard (with ``shard_count``): row-group
         ``n`` of the list goes to shard ``n % shard_count``. With neither
@@ -226,7 +233,7 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
     positions; each one set raises ``NotImplementedError`` naming the
     ``ROADMAP.md`` item that ports it.
     """
-    _refuse_unported('make_batch_reader', rowgroup_selector, poison_policy)
+    _refuse_unported(poison_policy)
     if mixture_interleave is not None:
         share = float(mixture_interleave.get('share', 1.0))
         if not 0.0 < share <= 1.0:
@@ -246,7 +253,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
                   results_queue_size=results_queue_size,
                   shuffle_row_groups=shuffle_row_groups,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
-                  predicate=predicate, num_epochs=num_epochs, cur_shard=cur_shard,
+                  predicate=predicate, rowgroup_selector=rowgroup_selector,
+                  num_epochs=num_epochs, cur_shard=cur_shard,
                   shard_count=shard_count, seed=seed,
                   cache=_make_cache(cache_type, cache_location, cache_size_limit,
                                     cache_row_size_estimate, predicate=predicate),
@@ -297,7 +305,7 @@ class Reader:
                  ngram=None, filters=None, batched_output=True,
                  defer_image_decode=False, poison_policy=None,
                  mixture_interleave=None):
-        _refuse_unported('Reader', rowgroup_selector, poison_policy)
+        _refuse_unported(poison_policy)
         self.dataset_info = dataset_info
         self.mixture_interleave = mixture_interleave
         self.batched_output = batched_output and ngram is None
@@ -347,7 +355,7 @@ class Reader:
                        if transform_spec is not None else self.loaded_schema)
 
         # row-groups: filters' partition and statistics prune, partition-key
-        # predicates, then shards
+        # predicates, the selector's indexes, then shards
         all_pieces = load_row_groups(dataset_info)
         self._row_groups = all_pieces
         piece_indices = list(range(len(all_pieces)))
@@ -359,6 +367,7 @@ class Reader:
             filters_emptied = not piece_indices
         piece_indices, worker_predicate = self._apply_predicate_pushdown(piece_indices,
                                                                          predicate)
+        piece_indices = self._apply_selector(piece_indices, rowgroup_selector)
         piece_indices = self._apply_sharding(piece_indices, cur_shard, shard_count)
         if not piece_indices:
             detail = 'check shard/predicate/selector configuration'
@@ -478,6 +487,20 @@ class Reader:
                          for k in pred_fields})]
             return kept, None
         return piece_indices, predicate
+
+    def _apply_selector(self, piece_indices, selector):
+        """Keep the row-groups a
+        :class:`~petastorm_tpu_torch.selectors.RowGroupSelectorBase`
+        selects through the footer's row-group indexes."""
+        if selector is None:
+            return piece_indices
+        from petastorm_tpu_torch.etl.rowgroup_indexing import get_row_group_indexes
+        index_dict = get_row_group_indexes(self.dataset_info)
+        missing = [n for n in selector.get_index_names() if n not in index_dict]
+        if missing:
+            raise ValueError('Dataset has no row-group index named %s' % missing)
+        selected = selector.select_row_groups(index_dict)
+        return [i for i in piece_indices if i in selected]
 
     def _apply_sharding(self, piece_indices, cur_shard, shard_count):
         """Row-group ``n`` of the list goes to shard ``n % shard_count``;

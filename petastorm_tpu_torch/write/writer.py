@@ -21,9 +21,9 @@ Exactly-once publication:
    footer, so readers see the previous generation or the whole new one.
 
 The footer (``_common_metadata``) carries the unischema JSON and the
-row-group counts. The reference also stamps a pickled copy of the schema
-for the original petastorm; the port leaves it out until ``etl/legacy.py``
-is ported (``ROADMAP.md`` item 10).
+row-group counts, and the original petastorm's pickled schema and counts
+beside them (:func:`~petastorm_tpu_torch.etl.dataset_metadata.footer_entries`),
+as the reference stamps them.
 """
 
 import json
@@ -35,8 +35,8 @@ import pyarrow.parquet as pq
 from petastorm_tpu_torch import faults
 from petastorm_tpu_torch.errors import unported
 from petastorm_tpu_torch.etl.dataset_metadata import (
-    ROW_GROUPS_PER_FILE_KEY, UNISCHEMA_KEY, DatasetWriter, ParquetDatasetInfo,
-    _row_group_counts_from_common_metadata, update_dataset_metadata,
+    DatasetWriter, ParquetDatasetInfo, _row_group_counts_from_common_metadata,
+    footer_entries, update_dataset_metadata,
 )
 from petastorm_tpu_torch.fs import get_filesystem_and_path_or_paths, normalize_dir_url
 from petastorm_tpu_torch.telemetry import get_registry, knobs, metrics_disabled, tracing
@@ -316,8 +316,9 @@ class DistributedDatasetWriter:
                                    int(self.fs.info(path)['size']), source='write')
 
     def _write_footer(self, built):
-        """Stamp ``_common_metadata`` (schema JSON and row-group counts) from
-        the counts the manifest already holds, before the manifest swap.
+        """Stamp ``_common_metadata`` (the schema, JSON and pickled, and the
+        row-group counts) from the counts the manifest already holds,
+        before the manifest swap.
         The counts merge over the previously stamped map, so a reader
         holding an older generation keeps resolving its files."""
         info = ParquetDatasetInfo(self._url, self._storage_options, validate=False)
@@ -329,10 +330,8 @@ class DistributedDatasetWriter:
             previous = None
         counts = manifest.merge_footer_counts(self.fs, self.root_path,
                                               manifest.row_group_counts(built), previous)
-        update_dataset_metadata(info, {
-            ROW_GROUPS_PER_FILE_KEY: json.dumps(counts, sort_keys=True).encode('utf-8'),
-            UNISCHEMA_KEY: json.dumps(self.schema.to_json_dict()).encode('utf-8'),
-        })
+        counts_json = json.dumps(counts, sort_keys=True).encode('utf-8')
+        update_dataset_metadata(info, footer_entries(self.schema, counts_json))
 
     def dump_trace(self, path):
         """Export this process's flight recorder as Chrome trace-event JSON

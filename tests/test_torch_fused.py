@@ -238,6 +238,9 @@ def test_encoded_column_surface():
 
 
 class _Event:
+    def query(self):
+        return False
+
     def synchronize(self):
         pass
 

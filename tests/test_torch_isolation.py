@@ -73,7 +73,12 @@ def test_port_has_modules_to_scan():
                    ('readahead.py',), ('device', 'autotune.py'),
                    ('write', '__init__.py'), ('write', 'manifest.py'),
                    ('write', 'layout.py'), ('write', 'writer.py'), ('write', 'append.py'),
-                   ('write', 'compact.py'), ('etl', 'dataset_metadata.py')):
+                   ('write', 'compact.py'), ('etl', 'dataset_metadata.py'),
+                   ('etl', '__init__.py'), ('etl', 'legacy.py'),
+                   ('etl', 'rowgroup_indexers.py'), ('etl', 'rowgroup_indexing.py'),
+                   ('etl', 'metadata_util.py'), ('etl', 'petastorm_generate_metadata.py'),
+                   ('selectors.py',), ('tools', 'copy_dataset.py'),
+                   ('tools', 'spark_session_cli.py')):
         assert os.path.join('petastorm_tpu_torch', *module) in rel
     assert len(rel) > 20
 

@@ -219,8 +219,13 @@ def test_string_field_refused_with_reason(scalar_dataset):
 
 
 class _FakeEvent:
-    def __init__(self, log, index):
-        self.log, self.index, self.synchronized = log, index, False
+    def __init__(self, log, index, done=False):
+        self.log, self.index, self.synchronized, self.done = log, index, False, done
+        self.asked = 0
+
+    def query(self):
+        self.asked += 1
+        return self.done
 
     def synchronize(self):
         self.synchronized = True
@@ -233,13 +238,13 @@ class _FakeTarget:
 
     pin_memory = False
 
-    def __init__(self):
-        self.events, self.waits, self.delivered = [], [], 0
+    def __init__(self, done=False):
+        self.events, self.waits, self.delivered, self.done = [], [], 0, done
 
     def transfer(self, host, device_casts):
         out = {k: (v.clone().to(device_casts[k]) if k in device_casts else v.clone())
                for k, v in host.items()}
-        event = _FakeEvent(self.waits, len(self.events))
+        event = _FakeEvent(self.waits, len(self.events), self.done)
         self.events.append(event)
         return out, event
 
@@ -265,6 +270,18 @@ def test_ring_recycles_a_slot_only_after_its_previous_handoff():
         assert batch['x'].tolist() == [10. * i, 10. * i + 1, 10. * i + 2, 0.]
         assert batch['y'].tolist() == [i, i, i, 0]
         assert batch[MASK_FIELD].tolist() == [True, True, True, False]
+
+
+def test_ring_blocks_only_on_a_copy_still_in_flight():
+    # a copy that has finished is asked, never waited on: the refill gate
+    # keeps the GIL when there is nothing to wait for
+    target = _FakeTarget(done=True)
+    engine = staging.StagingEngine(4, None, 'short', target, num_slots=2)
+    held = [engine.stage([{'x': np.full(4, i)}], 4).deliver() for i in range(6)]
+    assert target.waits == []
+    assert [e.asked for e in target.events] == [1, 1, 1, 1, 0, 0]
+    assert [b['x'].tolist() for b in held] == [[i] * 4 for i in range(6)]
+    assert engine.slot_refills == 4
 
 
 def test_ring_assembles_parts_and_short_tails():

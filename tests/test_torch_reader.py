@@ -191,16 +191,24 @@ def test_state_dict_resumes_across_packages(synthetic_dataset, saver, loader):
 ], ids=['process', 'service', 'decoded-cache', 'filters', 'rowgroup-selector', 'predicate'])
 def test_unported_kwargs_raise(synthetic_dataset, kwargs, tmp_path):
     """Each kwarg still unported raises its ROADMAP item; ``filters``,
-    ``predicate`` and the decoded cache are ported and read the JAX
-    reader's batches."""
-    if 'filters' in kwargs or 'predicate' in kwargs or 'cache_type' in kwargs:
+    ``predicate``, ``rowgroup_selector`` and the decoded cache are ported
+    and read the JAX reader's batches."""
+    if set(kwargs) & {'filters', 'predicate', 'cache_type', 'rowgroup_selector'}:
         from petastorm_tpu import predicates as jax_predicates
+        from petastorm_tpu import selectors as jax_selectors
         from petastorm_tpu_torch import predicates as torch_predicates
+        from petastorm_tpu_torch import selectors as torch_selectors
         out = {}
-        for package, predicates in (('jax', jax_predicates), ('torch', torch_predicates)):
+        for package, predicates, selectors in (
+                ('jax', jax_predicates, jax_selectors),
+                ('torch', torch_predicates, torch_selectors)):
             kw = dict(kwargs)
             if 'predicate' in kw:
                 kw['predicate'] = predicates.in_set({3, 31, 47}, 'id')
+            if 'rowgroup_selector' in kw:
+                # the synthetic dataset's id index, built by the JAX package
+                kw['rowgroup_selector'] = selectors.SingleIndexSelector('id_index',
+                                                                        ['3', '47'])
             if 'cache_type' in kw:
                 kw['cache_location'] = str(tmp_path / package)
             out[package] = _read(package, synthetic_dataset.url, reader_pool_type='dummy',

@@ -189,7 +189,7 @@ UNPORTED_KWARGS = {
     'cache_location': ('cache', None),
     'cache_size_limit': (1 << 20, None),
     'cache_row_size_estimate': (1024, None),
-    'rowgroup_selector': (object(), 10),
+    'rowgroup_selector': ('id_index', None),
     'reader_pool_type': ('process', 9),
     'poison_policy': ('skip', 9),
     'storage_options': ({'anon': True}, 9),
@@ -206,10 +206,17 @@ def test_unported_kwargs_raise_their_item(synthetic_dataset, name, tmp_path):
         value, item = UNPORTED_KWARGS[name]
     if item is None:
         from petastorm_tpu import predicates as jax_predicates
+        from petastorm_tpu import selectors as jax_selectors
         from petastorm_tpu_torch import predicates as torch_predicates
+        from petastorm_tpu_torch import selectors as torch_selectors
         ids = {}
-        for package, predicates in (('jax', jax_predicates), ('torch', torch_predicates)):
+        for package, predicates, selectors in (
+                ('jax', jax_predicates, jax_selectors),
+                ('torch', torch_predicates, torch_selectors)):
             kw = {name: predicates.in_set({3, 31, 47}, 'id') if value == 'in_set' else value}
+            if name == 'rowgroup_selector':
+                # the synthetic dataset's id index, built by the JAX package
+                kw[name] = selectors.SingleIndexSelector(value, ['3', '47'])
             if name == 'cache_location':
                 kw[name] = str(tmp_path / value)   # ignored by the default null cache
             elif name == 'cache_type':

@@ -46,6 +46,9 @@ def armed(monkeypatch):
 
 
 class _Event:
+    def query(self):
+        return False
+
     def synchronize(self):
         pass
 

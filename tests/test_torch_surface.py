@@ -8,7 +8,8 @@ signatures of ``ConcurrentVentilator`` (with its ``error``),
 ``force_kernel=``, and the readahead and autotune seams
 (``Reader.ventilate_extra``/``set_ventilate_extra``, the decoder-thread
 override, ``TorchLoader.autotune_report``, ``set_num_slots``, the public
-names of ``readahead`` and ``device.autotune``)."""
+names of ``readahead`` and ``device.autotune``), and the names of item
+10b (the ETL tools) where the reference exports them."""
 
 import inspect
 import subprocess
@@ -378,17 +379,86 @@ def test_reader_positions_are_the_references():
         list(inspect.signature(JaxReader.__init__).parameters)
 
 
-@pytest.mark.parametrize('kwarg,item', [('rowgroup_selector', 10), ('poison_policy', 9)])
+# the ids are those of when the selector still raised item 10
+@pytest.mark.parametrize('kwarg,item', [('rowgroup_selector', None), ('poison_policy', 9)],
+                         ids=['rowgroup_selector-10', 'poison_policy-9'])
 def test_reader_refuses_what_it_lacks(scalar_dataset, kwarg, item):
+    """``poison_policy`` raises its item; the selector is ported, and a
+    dataset without a row-group index refuses it as the JAX reader does."""
+    from petastorm_tpu.etl.dataset_metadata import ParquetDatasetInfo as JaxInfo
+    from petastorm_tpu.reader import Reader as JaxReader
+    from petastorm_tpu_torch.errors import MetadataError
     from petastorm_tpu_torch.etl.dataset_metadata import ParquetDatasetInfo
     from petastorm_tpu_torch.reader import Reader
+    from petastorm_tpu_torch.selectors import SingleIndexSelector
     info = ParquetDatasetInfo(scalar_dataset.url)
-    with pytest.raises(NotImplementedError, match=r'ROADMAP.md: Queue 1 item %d,' % item):
-        Reader(info, reader_pool_type='dummy', **{kwarg: 'skip'})
-    if kwarg == 'rowgroup_selector':
-        # the ninth positional argument is the selector, as in the reference
-        with pytest.raises(NotImplementedError, match=r'ROADMAP.md: Queue 1 item 10,'):
-            Reader(info, None, 'dummy', None, 50, False, 1, None, object())
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=r'ROADMAP.md: Queue 1 item %d,' % item):
+            Reader(info, reader_pool_type='dummy', **{kwarg: 'skip'})
+        return
+    # the ninth positional argument is the selector, as in the reference
+    for reader, dataset_info, error in ((Reader, info, MetadataError),
+                                        (JaxReader, JaxInfo(scalar_dataset.url), Exception)):
+        with pytest.raises(error, match='carries no row-group index'):
+            reader(dataset_info, None, 'dummy', None, 50, False, 1, None,
+                   SingleIndexSelector('id_index', ['3']))
+
+
+def test_no_item_10_is_left():
+    """ROADMAP item 10 is done: ``ROADMAP_ITEMS`` has no entry for it and
+    no ``unported(..., 10)`` is left in the port."""
+    import ast
+    import os
+    from petastorm_tpu_torch import errors
+    assert 10 not in errors.ROADMAP_ITEMS and set(errors.ROADMAP_ITEMS) == {8, 9, 11}
+    root = os.path.dirname(os.path.abspath(petastorm_tpu_torch.__file__))
+    items = set()
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if not name.endswith('.py'):
+                continue
+            with open(os.path.join(dirpath, name)) as f:
+                tree = ast.parse(f.read())
+            for node in ast.walk(tree):
+                if (isinstance(node, ast.Call) and getattr(node.func, 'id', None) == 'unported'
+                        and len(node.args) == 2 and isinstance(node.args[1], ast.Constant)):
+                    items.add(node.args[1].value)
+    assert items == {8, 9, 11}
+
+
+@pytest.mark.parametrize('module,names', [
+    ('errors', ('MetadataGenerationError', 'MetadataError', 'NoDataAvailableError')),
+    ('etl', ('RowGroupIndexerBase',)),
+    ('etl.rowgroup_indexers', ('SingleFieldIndexer', 'FieldNotNullIndexer',
+                               'indexer_from_json')),
+    ('etl.rowgroup_indexing', ('build_rowgroup_index', 'get_row_group_indexes',
+                               'ROWGROUPS_INDEX_KEY')),
+    ('selectors', ('RowGroupSelectorBase', 'SingleIndexSelector', 'IntersectIndexSelector',
+                   'UnionIndexSelector')),
+    ('etl.legacy', ('depickle_legacy_unischema', 'pickle_unischema_for_reference')),
+    ('etl.metadata_util', ('print_metadata', 'main')),
+    ('etl.petastorm_generate_metadata', ('generate_petastorm_metadata', 'main')),
+    ('tools.copy_dataset', ('copy_dataset', 'main')),
+    ('tools.spark_session_cli', ('add_configure_spark_arguments', 'configure_spark',
+                                 'parse_session_config')),
+    ('codecs', ('ARROW_TO_SPARK_TYPE_NAME',)),
+])
+def test_etl_tools_export_the_references_names(module, names):
+    """Item 10b's names sit where the reference exports them, with the
+    reference's signatures and, for the error, its base class."""
+    import importlib
+    ref = importlib.import_module('petastorm_tpu.' + module)
+    port = importlib.import_module('petastorm_tpu_torch.' + module)
+    for name in names:
+        assert hasattr(ref, name), name
+        obj = getattr(port, name)
+        if inspect.isfunction(obj):
+            assert inspect.signature(obj) == inspect.signature(getattr(ref, name)), name
+        elif inspect.isclass(obj):
+            assert [c.__name__ for c in obj.__mro__] == \
+                [c.__name__ for c in getattr(ref, name).__mro__], name
+        else:
+            assert obj == getattr(ref, name), name
 
 
 def test_current_trace_id_is_the_references():

@@ -12,9 +12,9 @@ observability. Then the two packages against each other:
   image) written through either package's ``write_dataset_distributed``
   with the same ``shard_rows``, ``rowgroup_size_rows``, ``sort_by`` and
   pool kind give byte-identical part files and ``_manifest.json``, inline
-  and on a three-thread pool; ``_common_metadata`` is compared by its
-  entries (the reference also stamps a pickled schema the port leaves
-  out until ``etl/legacy.py`` is ported);
+  and on a three-thread pool, and the same ``_common_metadata``: every
+  key and value, the original petastorm's pickled schema and counts
+  included;
 * each package's reader reads the other's committed, appended and
   compacted dataset multiset-exact, and never the parts a compaction
   superseded that are still on disk;
@@ -431,10 +431,11 @@ class TestBackendParity:
 @pytest.mark.parametrize('pool', ['local', 'thread'])
 def test_parts_and_manifest_are_the_references(tmp_path, pool):
     """The same rows through either package: byte-identical part files and
-    manifests; ``_common_metadata`` equal by its schema JSON and counts."""
+    manifests, and ``_common_metadata`` equal in every key and value."""
     from petastorm_tpu.etl.dataset_metadata import ParquetDatasetInfo as JaxInfo
     from petastorm_tpu_torch.etl.dataset_metadata import (
-        ROW_GROUPS_PER_FILE_KEY, UNISCHEMA_KEY, ParquetDatasetInfo,
+        LEGACY_ROW_GROUPS_PER_FILE_KEY, LEGACY_UNISCHEMA_KEY, ROW_GROUPS_PER_FILE_KEY,
+        UNISCHEMA_KEY, ParquetDatasetInfo,
     )
     rows = _image_rows(320)
     written = {}
@@ -453,6 +454,8 @@ def test_parts_and_manifest_are_the_references(tmp_path, pool):
     want = JaxInfo(_url(tmp_path / 'jax')).common_metadata.metadata
     for key in (UNISCHEMA_KEY, ROW_GROUPS_PER_FILE_KEY):
         assert json.loads(got[key]) == json.loads(want[key])
+    assert {LEGACY_UNISCHEMA_KEY, LEGACY_ROW_GROUPS_PER_FILE_KEY} <= set(got)
+    assert dict(got) == dict(want)
     assert written['torch'].last_self_check == written['jax'].last_self_check
 
 
