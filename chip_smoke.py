@@ -340,6 +340,35 @@ outlives its phase.
     deleted and rebuilt by ``generate_petastorm_metadata`` from the
     projected schema (the copy reads back); ``print_metadata`` of the
     source (row-groups and both indexes). Each step is timed.
+42. ``sp_lm_path`` (after ``dp_lm_path``): two spawned ranks in a gloo
+    group on the one card, each first pinning the card, over a ``{'data':
+    1, 'seq': 2}`` mesh (``make_named_mesh``). ``ring_attention`` and
+    ``ulysses_attention`` alone at (4, 2048, 16, 96) bf16, each rank's
+    block within ``SP_ATTN_TOL`` of max-abs of ``reference_attention`` on
+    the full sequence; then the flagship (``FLAGSHIP_LM_KW``) at batch
+    ``SP_BATCH``, ``SP_SEQ`` global positions (rows of ``SP_SEQ + 1``
+    tokens packed from the LM documents), ``remat=True``, ``SP_STEPS``
+    AdamW steps with ``seq_impl='ring'`` and again with ``'ulysses'``:
+    the first step's loss within ``DP_LOSS_RTOL`` and each gradient within
+    ``DP_GRAD_TOL`` of its max-abs of one process's dense step on the full
+    sequence (same weights and rows), ring and Ulysses within the same of
+    each other, and 0 flash launches (with ``seq_axis`` set, ring and
+    Ulysses own attention and ``attn_impl`` is ignored, the JAX package's
+    rule). Tokens/s, peak memory, collective calls and host-copy seconds
+    per rank are printed.
+43. ``tp_path`` (after ``etl_tools_vit_path``): two spawned ranks over a
+    ``{'data': 1, 'model': 2}`` mesh (``make_mesh(model=2)``), the
+    Megatron split of each model. The flagship: ``TP_STEPS`` AdamW steps
+    on packed 1025-token rows, both ranks reading the same rows; the
+    first step's loss within ``DP_LOSS_RTOL`` and every gradient shard
+    within ``DP_GRAD_TOL`` of its max-abs of one process's step with the
+    same weights and batch; each flash kernel a ``_wgmma`` one launched
+    layers x steps times per rank, every launch at (8, 1024, 8, 96).
+    ViT-Base the same way on the PNG rows (a head drawn from a seed, so
+    the first step has gradients below it): flash at (16, 1024, 6, 64),
+    12 x ``TP_STEPS`` launches of each kernel and ``TP_STEPS`` normalize
+    launches per rank. Tokens/s, images/s, peak memory, collective calls
+    and host-copy seconds per rank are printed.
 ``--trace-dir DIR`` keeps the two Chrome traces in ``DIR``.
 
 Then the ``kernels`` summary (each kernel's launches on every path), the
@@ -421,12 +450,17 @@ FLASH_CASES = [
     # and the tail masks fall on the same tile
     ('varlen63_causal_bf16', (16, 63, 16, 96), torch.bfloat16, True, 1.0),
     ('varlen255_causal_bf16', (16, 255, 16, 96), torch.bfloat16, True, 1.0),
+    # one rank's share of the flagship and of ViT-Base split over two
+    # 'model' ranks (tp_path): half the heads each
+    ('tp_causal_bf16', (8, 1024, 8, 96), torch.bfloat16, True, 1.0),
+    ('tp_vit_bidir_bf16', (16, 1024, 6, 64), torch.bfloat16, False, 1.0),
 ]
 FLASH_MAIN_CASE = 'flagship_causal_bf16'
 VIT_FLASH_CASE = 'vit_bidir_bf16'
 VARLEN_FLASH_CASE = 'varlen511_causal_bf16'
 # the bucketed path's other buckets, listed beside it in the kernels line
 VARLEN_TAIL_CASES = ('varlen127_causal_bf16', 'varlen255_causal_bf16', 'varlen63_causal_bf16')
+TP_FLASH_CASES = ('tp_causal_bf16', 'tp_vit_bidir_bf16')
 # name -> (launch counter in ops/flash_attention.py, key in a
 # flash_kernel case, outputs, the jax Pallas TPU kernel that
 # flash_attention_fused (petastorm_tpu/ops/flash_attention.py:59) reaches)
@@ -554,6 +588,15 @@ DP_STEPS = 5                 # the first is held against one process; the rest t
 DP_TIMEOUT_S = 600
 DP_GRAD_TOL = 3e-2           # max|avg - one process| / max|one process|, bf16
 DP_LOSS_RTOL = 1e-3
+# tensor and sequence parallelism: two ranks on the one card (gloo)
+PARALLEL_RANKS = 2
+PARALLEL_TIMEOUT_S = 600
+TP_STEPS = 5                 # the first is held against one process; the rest timed
+SP_STEPS = 3
+SP_BATCH = 4
+REPLICA_READ_BATCHES = 16    # ViT batches a replica reads per worker count in tp_path
+SP_SEQ = 2048                # global attention positions; rows of SP_SEQ + 1 tokens
+SP_ATTN_TOL = 2e-2           # max|block - reference| / max|reference|, bf16
 # the traced paths: PETASTORM_TPU_TRACE=1; the LM run traces every other
 # row-group (PETASTORM_TPU_TRACE_SAMPLE), the ViT run every one
 TRACE_LM_SAMPLE = 2
@@ -4520,6 +4563,485 @@ def phase_dp_lm_path(url, lm_tokens_per_s):
     return {name: sum(r['launches'][name] for r in results) for name in FLASH_KERNELS}
 
 
+
+def _run_ranks(body, args):
+    """``body(rank, *args)`` in ``PARALLEL_RANKS`` spawned processes joined
+    in a gloo group on the one card (NCCL refuses two ranks on one GPU);
+    each rank's JSON result, in rank order. A rank that dies or outlives
+    ``PARALLEL_TIMEOUT_S`` fails the phase, and no rank is left running."""
+    out_dir = tempfile.mkdtemp()
+    ctx = torch.multiprocessing.get_context('spawn')
+    procs = [ctx.Process(target=_parallel_rank,
+                         args=(rank, os.path.join(out_dir, 'rendezvous'), body, args, out_dir))
+             for rank in range(PARALLEL_RANKS)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        assert codes == [0] * PARALLEL_RANKS, '%s: a rank failed or timed out: exit codes %s' % (
+            body, codes)
+        results = []
+        for rank in range(PARALLEL_RANKS):
+            with open(os.path.join(out_dir, 'rank%d.json' % rank)) as f:
+                results.append(json.load(f))
+        return results
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _parallel_rank(rank, init_file, body, args, out_dir):
+    """A spawned rank of ``tp_path`` or ``sp_lm_path``: pins the card,
+    joins the gloo group through ``init_file``, runs ``body`` and leaves
+    its result in ``out_dir``."""
+    torch.cuda.set_device(0)
+    import datetime
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    dist.init_process_group('gloo', init_method='file://' + init_file, rank=rank,
+                            world_size=PARALLEL_RANKS,
+                            timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S))
+    try:
+        result = globals()[body](rank, *args)
+        with open(os.path.join(out_dir, 'rank%d.json' % rank), 'w') as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _same_on_every_rank(value):
+    """Whether every rank of the default group holds the same ``value``."""
+    import torch.distributed as dist
+    values = [None] * dist.get_world_size()
+    dist.all_gather_object(values, value)
+    return all(v == values[0] for v in values)
+
+
+def _grads(model):
+    return {name: p.grad.detach() for name, p in model.named_parameters()}
+
+
+def _grad_errors(grads, reference, shard=None):
+    """``{name: max|grad - reference| / max|reference|}``; ``shard(name,
+    full)`` cuts a full reference gradient to a tensor-parallel rank's
+    part."""
+    errors = {}
+    for name, grad in grads.items():
+        want = reference[name] if shard is None else shard(name, reference[name])
+        scale = float(want.abs().max())
+        diff = float((grad.float() - want.float()).abs().max())
+        errors[name] = diff / scale if scale else diff
+    return errors
+
+
+def _recording_flash_shapes():
+    """Wrap ``flash_attention._launch`` to count launches by kernel and
+    ``q`` shape; returns the counter and a function that unwraps."""
+    from petastorm_tpu_torch.ops import flash_attention
+    launch = flash_attention._launch
+    shapes = collections.Counter()
+
+    def recording(fn, name, pointers, tensors, q, *args):
+        shapes['%s %s' % (name, tuple(q.shape))] += 1
+        return launch(fn, name, pointers, tensors, q, *args)
+
+    flash_attention._launch = recording
+
+    def restore():
+        flash_attention._launch = launch
+    return shapes, restore
+
+
+def _split_steps(split, full_grads, full_loss, run_step, inputs, per_step):
+    """The split model's steps, the first held against one process's
+    ``full_loss`` and ``full_grads`` (same weights, same inputs): launch,
+    collective and peak-memory counts start here; step 2 is profiled for
+    the flash kernels' names; steps 2.. are timed. ``inputs(i)`` makes
+    step i's arguments (counted launches included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from petastorm_tpu_torch.parallel import collectives
+    shapes, restore = _recording_flash_shapes()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    collectives.reset_counts()
+    out = {'losses': []}
+    try:
+        for i in range(TP_STEPS):
+            args = inputs(i)
+            if i == 1:
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+            with (profile(activities=[ProfilerActivity.CUDA]) if i == 1
+                  else contextlib.nullcontext()) as prof:
+                loss = run_step(*args)
+                if i == 1:
+                    torch.cuda.synchronize()
+            if i == 1:
+                out['flash_kernel_names'] = sorted(
+                    {e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and _kernel_kind(e.name) in FLASH_KERNELS})
+            if i == 0:
+                out['first_loss'] = float(loss)
+                out['one_process_loss'] = full_loss
+                errors = _grad_errors(_grads(split), full_grads, split.parallel.shard)
+                out['grad_err_over_max_abs'] = max(errors.values())
+                out['worst_grad'] = max(errors, key=errors.get)
+                full_grads.clear()
+            out['losses'].append(loss)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+    finally:
+        restore()
+    out['losses'] = [float(v) for v in out['losses']]
+    out['rate'] = (TP_STEPS - 1) * per_step / elapsed
+    out['launches'] = launch_counts()
+    out['flash_shapes'] = dict(shapes)
+    out['collectives'] = collectives.counts()
+    out['peak_memory_bytes'] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _one_process(full, loss_of):
+    """One process's loss and gradients (on the card, unsplit)."""
+    full.zero_grad(set_to_none=True)
+    loss = loss_of(full)
+    loss.backward()
+    return _grads(full), float(loss)
+
+
+def _replica_read(url, mesh, workers):
+    """One replica's in-order ViT loader over ``REPLICA_READ_BATCHES``
+    batches with ``workers`` reader threads (None: the reader's default):
+    images/s from the first batch to the last, the pool's worker count,
+    and whether every rank read the same rows."""
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    from petastorm_tpu_torch.parallel.mesh import DATA_AXIS
+    kw = {} if workers is None else {'workers_count': workers}
+    sums = []
+    with make_torch_loader(url, VIT_BATCH, mesh, (DATA_AXIS,), fields=['^image$', '^label$'],
+                           num_epochs=None, shuffle_row_groups=True, device='cuda',
+                           **kw) as loader:
+        for i, batch in enumerate(loader.iter_steps(REPLICA_READ_BATCHES)):
+            sums.append(int(batch['image'].long().sum()))
+            if i == 0:
+                start = time.perf_counter()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        count = loader.reader._pool.workers_count
+    return {'images_per_s': (REPLICA_READ_BATCHES - 1) * VIT_BATCH / elapsed,
+            'workers_count': count, 'same_rows': _same_on_every_rank(sums)}
+
+
+def _tp_train(rank, lm_url, vit_url):
+    """One rank's part of ``tp_path``: the flagship and then ViT-Base split
+    over a ``(1, 2)`` ``('data', 'model')`` mesh."""
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    from petastorm_tpu_torch.examples.imagenet import VIT_BASE_KW, _prepare
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, packing_transform
+    from petastorm_tpu_torch.models.transformer import (
+        TransformerConfig, adamw, init_transformer, transformer_loss, transformer_train_step,
+    )
+    from petastorm_tpu_torch.models.vit import ViTConfig, init_vit, vit_loss, vit_train_step
+    from petastorm_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+    mesh = make_mesh(data=1, model=PARALLEL_RANKS, device_type='cuda')
+    out = {'rank': rank, 'coordinate': list(mesh.get_coordinate())}
+
+    config = TransformerConfig(max_seq_len=LM_SEQ, loss_chunk=256, attn_impl='flash',
+                               **FLAGSHIP_LM_KW)
+    with make_torch_loader(lm_url, LM_BATCH, mesh, (DATA_AXIS,), fields=['^tokens$'],
+                           transform_spec=packing_transform(LM_SEQ + 1), num_epochs=None,
+                           shuffle_row_groups=True, device='cuda') as loader:
+        batches = [b['tokens'].clone() for b in loader.iter_steps(TP_STEPS)]
+    out['same_rows'] = _same_on_every_rank([int(b.long().sum()) for b in batches])
+    full = init_transformer(0, config, 'cuda')
+    grads, loss = _one_process(full, lambda m: transformer_loss(m, batches[0]))
+    del full
+    split = init_transformer(0, config, 'cuda', mesh=mesh)
+    step = transformer_train_step(split, adamw(split))
+    out['lm'] = _split_steps(split, grads, loss, step, lambda i: (batches[i],),
+                             LM_BATCH * LM_SEQ)
+    out['lm']['params_per_rank'] = sum(p.numel() for p in split.parameters())
+    del split, step, grads
+    torch.cuda.empty_cache()
+
+    vit_config = ViTConfig(attn_impl='flash', **VIT_BASE_KW)
+    with make_torch_loader(vit_url, VIT_BATCH, mesh, (DATA_AXIS,),
+                           fields=['^image$', '^label$'], num_epochs=None,
+                           shuffle_row_groups=True, device='cuda') as loader:
+        raw = [(b['image'].clone(), b['label'].clone()) for b in loader.iter_steps(TP_STEPS)]
+    out['same_images'] = _same_on_every_rank([int(x.long().sum()) for x, _ in raw])
+    # the in-order read of a replica: one reader thread against the default
+    out['replica_read'] = [_replica_read(vit_url, mesh, w) for w in (1, None)]
+
+    def prepared(seed=1):
+        # flips and cutout from one seeded generator, then the normalize kernel
+        gen = torch.Generator(device='cuda').manual_seed(seed)
+        return lambda i: (_prepare(raw[i][0], gen, True, vit_config.image_size // 8),
+                          raw[i][1])
+
+    def vit(m):
+        # a head drawn from a seed in place of the init's zeros, so the
+        # first step has gradients below the head
+        head = torch.Generator().manual_seed(2)
+        with torch.no_grad():
+            m.head.copy_(torch.randn(m.head.shape, generator=head) * 0.02)
+        return m
+
+    full = vit(init_vit(0, vit_config, 'cuda'))
+    images, labels = prepared()(0)
+    grads, loss = _one_process(full, lambda m: vit_loss(m, images, labels))
+    del full, images
+    split = vit(init_vit(0, vit_config, 'cuda', mesh=mesh))
+    step = vit_train_step(split, adamw(split))
+    out['vit'] = _split_steps(split, grads, loss, step, prepared(), VIT_BATCH)
+    out['vit']['params_per_rank'] = sum(p.numel() for p in split.parameters())
+    return out
+
+
+def _split_flash_shape(model_kw, batch, positions):
+    """The ``(B, S, H, D)`` of one rank's flash launches when the heads
+    split over ``PARALLEL_RANKS``."""
+    heads = model_kw['n_heads']
+    return (batch, positions, heads // PARALLEL_RANKS, model_kw['d_model'] // heads)
+
+
+def phase_tp_path(lm_url, vit_url, lm_tokens_per_s, vit_images_per_s):
+    """Tensor parallelism over ``'model'``: the flagship and ViT-Base each
+    split over two ranks on the one card (see ``_tp_train``). Held: the
+    first step's loss and every gradient shard against one process's
+    step; each flash kernel a ``_wgmma`` one, layers x steps launches per
+    rank at the split shape; ``TP_STEPS`` normalize launches per rank."""
+    from petastorm_tpu_torch.examples.imagenet import VIT_BASE_KW
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = _run_ranks('_tp_train', (lm_url, vit_url))
+    seconds = time.perf_counter() - t0
+    report = {'phase': 'tp_path', 'mesh': {'data': 1, 'model': PARALLEL_RANKS},
+              'entry': 'init_transformer/init_vit(mesh=make_mesh(data=1, model=2)), '
+                       'transformer_train_step/vit_train_step on a gloo group',
+              'steps': TP_STEPS, 'seconds': seconds,
+              'coordinates': [r['coordinate'] for r in results]}
+    for part, model_kw, shape, rate_name, one_rank in (
+            ('lm', FLAGSHIP_LM_KW, _split_flash_shape(FLAGSHIP_LM_KW, LM_BATCH, LM_SEQ),
+             'tokens_per_s', lm_tokens_per_s),
+            ('vit', VIT_BASE_KW, _split_flash_shape(
+                VIT_BASE_KW, VIT_BATCH,
+                (VIT_BASE_KW['image_size'] // VIT_BASE_KW['patch_size']) ** 2),
+             'images_per_s', vit_images_per_s)):
+        runs = [r[part] for r in results]
+        first = runs[0]
+        loss_gap = abs(first['first_loss'] - first['one_process_loss']) / abs(
+            first['one_process_loss'])
+        report[part] = {
+            'model': model_kw, 'flash_shape': list(shape),
+            'loss_rel_gap': [abs(r['first_loss'] - r['one_process_loss'])
+                             / abs(r['one_process_loss']) for r in runs],
+            'loss_tolerance': 'rel <= %g' % DP_LOSS_RTOL,
+            'grad_err_over_max_abs': [r['grad_err_over_max_abs'] for r in runs],
+            'worst_grad': [r['worst_grad'] for r in runs],
+            'grad_tolerance': 'each max|shard - one process| / max|one process| <= %g'
+                              % DP_GRAD_TOL,
+            'losses': [r['losses'] for r in runs],
+            rate_name + '_per_rank': [r['rate'] for r in runs],
+            'one_device_' + rate_name: one_rank,
+            'rate_timing': 'steps 2-%d, gloo all-reduces through the host included'
+                           % TP_STEPS,
+            'peak_memory_bytes_per_rank': [r['peak_memory_bytes'] for r in runs],
+            'params_per_rank': [r['params_per_rank'] for r in runs],
+            'launches_per_rank': [r['launches'] for r in runs],
+            'flash_shapes_per_rank': [r['flash_shapes'] for r in runs],
+            'flash_kernel_names': sorted({n for r in runs for n in r['flash_kernel_names']}),
+            'collectives_per_rank': [r['collectives'] for r in runs]}
+        assert loss_gap <= DP_LOSS_RTOL, (part, loss_gap)
+        want = model_kw['n_layers'] * TP_STEPS
+        for r in runs:
+            assert len(r['losses']) == TP_STEPS and all(math.isfinite(v) for v in r['losses'])
+            assert abs(r['first_loss'] - r['one_process_loss']) <= DP_LOSS_RTOL * abs(
+                r['one_process_loss']), (part, r['first_loss'], r['one_process_loss'])
+            assert r['grad_err_over_max_abs'] <= DP_GRAD_TOL, (part, r['worst_grad'],
+                                                               r['grad_err_over_max_abs'])
+            for name in FLASH_KERNELS:
+                assert r['launches'][name] == want, (part, name, r['launches'][name], want)
+            assert all(key.endswith(str(tuple(shape))) for key in r['flash_shapes']), \
+                r['flash_shapes']
+            assert sum(r['flash_shapes'].values()) == 3 * want, r['flash_shapes']
+            assert r['flash_kernel_names'] and all('_wgmma' in n
+                                                   for n in r['flash_kernel_names'])
+            assert r['collectives']['calls'].get('reduce_from_model', 0) > 0
+        assert len({r['params_per_rank'] for r in runs}) == 1
+    report['vit_replica_read'] = {
+        'images_per_s_per_rank': {'workers_%d' % run['workers_count']: [
+            r['replica_read'][i]['images_per_s'] for r in results]
+            for i, run in enumerate(results[0]['replica_read'])},
+        'timing': '%d ViT batches of %d through make_torch_loader on a (1, 2) mesh, '
+                  'in ventilation order, batch 2 to the last' % (REPLICA_READ_BATCHES,
+                                                                  VIT_BATCH)}
+    emit(report)
+    assert all(r['same_rows'] and r['same_images'] for r in results)
+    assert all(run['same_rows'] for r in results for run in r['replica_read'])
+    for r in results:
+        assert r['vit']['launches']['normalize_images'] == TP_STEPS, r['vit']['launches']
+        assert r['lm']['launches']['normalize_images'] == 0
+    return {name: sum(r[part]['launches'][name] for r in results for part in ('lm', 'vit'))
+            for name in (*FLASH_KERNELS, 'normalize_images')}
+
+
+def _attention_blocks(rank, mesh):
+    """``ring_attention`` and ``ulysses_attention`` alone at (SP_BATCH,
+    SP_SEQ, 16, 96) bf16: this rank's block against ``reference_attention``
+    on the full sequence, causal."""
+    from petastorm_tpu_torch.ops.ring_attention import reference_attention, ring_attention
+    from petastorm_tpu_torch.ops.ulysses_attention import ulysses_attention
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    q, k, v = (torch.randn((SP_BATCH, SP_SEQ, 16, 96), generator=gen, device='cuda').to(
+        torch.bfloat16) for _ in range(3))
+    n = SP_SEQ // PARALLEL_RANKS
+    block = slice(rank * n, (rank + 1) * n)
+    want = reference_attention(q, k, v, causal=True)[:, block].float()
+    scale = float(want.abs().max())
+    out = {}
+    for name, fn in (('ring', ring_attention), ('ulysses', ulysses_attention)):
+        got = fn(q[:, block], k[:, block], v[:, block], mesh, causal=True)
+        torch.cuda.synchronize()
+        out[name] = float((got.float() - want).abs().max()) / scale
+    return out
+
+
+def _sp_train(rank, lm_url):
+    """One rank's part of ``sp_lm_path``: the attention blocks alone, one
+    process's dense step on the full sequence, then the flagship with the
+    sequence split, ring and then Ulysses."""
+    import dataclasses
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, packing_transform
+    from petastorm_tpu_torch.models.transformer import (
+        TransformerConfig, adamw, init_transformer, transformer_loss, transformer_train_step,
+    )
+    from petastorm_tpu_torch.parallel import collectives
+    from petastorm_tpu_torch.parallel.mesh import DATA_AXIS, SEQ_AXIS, make_named_mesh
+    mesh = make_named_mesh({DATA_AXIS: 1, SEQ_AXIS: PARALLEL_RANKS}, device_type='cuda')
+    out = {'rank': rank, 'coordinate': list(mesh.get_coordinate())}
+    out['attention_err_over_max_abs'] = _attention_blocks(rank, mesh)
+    with make_torch_loader(lm_url, SP_BATCH, mesh, (DATA_AXIS,), fields=['^tokens$'],
+                           transform_spec=packing_transform(SP_SEQ + 1), num_epochs=None,
+                           shuffle_row_groups=True, device='cuda') as loader:
+        batches = [b['tokens'].clone() for b in loader.iter_steps(SP_STEPS)]
+    out['same_rows'] = _same_on_every_rank([int(b.long().sum()) for b in batches])
+    dense = TransformerConfig(max_seq_len=SP_SEQ + 1, loss_chunk=256, attn_impl='dense',
+                              remat=True, **FLAGSHIP_LM_KW)
+    full = init_transformer(0, dense, 'cuda')
+    reference, reference_loss = _one_process(full, lambda m: transformer_loss(m, batches[0]))
+    del full
+    first_grads = {}
+    for impl in ('ring', 'ulysses'):
+        # attn_impl='flash' is ignored with seq_axis set, as in the JAX package
+        config = dataclasses.replace(dense, seq_axis=SEQ_AXIS, seq_impl=impl,
+                                     attn_impl='flash')
+        model = init_transformer(0, config, 'cuda', mesh=mesh)
+        step = transformer_train_step(model, adamw(model))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        collectives.reset_counts()
+        losses = []
+        for i, tokens in enumerate(batches):
+            if i == 1:
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+            losses.append(step(tokens))
+            if i == 0:
+                errors = _grad_errors(_grads(model), reference)
+                run = {'first_loss': float(losses[0]), 'grad_err_over_max_abs':
+                       max(errors.values()), 'worst_grad': max(errors, key=errors.get)}
+                first_grads[impl] = {n: g.clone() for n, g in _grads(model).items()}
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        run.update(losses=[float(v) for v in losses], launches=launch_counts(),
+                   tokens_per_s=(SP_STEPS - 1) * SP_BATCH * SP_SEQ / elapsed,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   collectives=collectives.counts(), one_process_loss=reference_loss)
+        out[impl] = run
+        del model, step
+        torch.cuda.empty_cache()
+    reference.clear()
+    ring_vs_ulysses = _grad_errors(first_grads['ulysses'], first_grads['ring'])
+    out['ring_vs_ulysses_grad_err'] = max(ring_vs_ulysses.values())
+    return out
+
+
+def phase_sp_lm_path(url, lm_tokens_per_s):
+    """Sequence parallelism: the flagship with its 2048 positions split
+    over two ranks on the one card (see ``_sp_train``)."""
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = _run_ranks('_sp_train', (url,))
+    seconds = time.perf_counter() - t0
+    report = {'phase': 'sp_lm_path', 'mesh': {'data': 1, 'seq': PARALLEL_RANKS},
+              'entry': "init_transformer(TransformerConfig(seq_axis='seq', seq_impl=...), "
+                       "mesh=make_named_mesh({'data': 1, 'seq': 2})), transformer_train_step "
+                       'on a gloo group', 'model': FLAGSHIP_LM_KW, 'batch_size': SP_BATCH,
+              'attention_positions': SP_SEQ, 'positions_per_rank': SP_SEQ // PARALLEL_RANKS,
+              'remat': True, 'steps': SP_STEPS, 'seconds': seconds,
+              'coordinates': [r['coordinate'] for r in results],
+              'attention_err_over_max_abs': [r['attention_err_over_max_abs'] for r in results],
+              'attention_tolerance': 'max|block - reference_attention| / max|reference| <= %g'
+                                     ' at (%d, %d, 16, 96) bf16' % (SP_ATTN_TOL, SP_BATCH,
+                                                                   SP_SEQ),
+              'ring_vs_ulysses_grad_err': [r['ring_vs_ulysses_grad_err'] for r in results],
+              'flash_launches_why': 'seq_axis set: ring and Ulysses own attention and '
+                                    "attn_impl='flash' is ignored, the JAX package's rule",
+              'lm_path_tokens_per_s': lm_tokens_per_s}
+    for impl in ('ring', 'ulysses'):
+        runs = [r[impl] for r in results]
+        report[impl] = {
+            'loss_rel_gap': [abs(r['first_loss'] - r['one_process_loss'])
+                             / abs(r['one_process_loss']) for r in runs],
+            'grad_err_over_max_abs': [r['grad_err_over_max_abs'] for r in runs],
+            'worst_grad': [r['worst_grad'] for r in runs],
+            'losses': [r['losses'] for r in runs],
+            'tokens_per_s_per_rank': [r['tokens_per_s'] for r in runs],
+            'peak_memory_bytes_per_rank': [r['peak_memory_bytes'] for r in runs],
+            'launches_per_rank': [r['launches'] for r in runs],
+            'collectives_per_rank': [r['collectives'] for r in runs]}
+    report['tolerances'] = ('loss rel <= %g; each gradient max|split - one process| / '
+                            'max|one process| <= %g' % (DP_LOSS_RTOL, DP_GRAD_TOL))
+    emit(report)
+    for r in results:
+        assert r['same_rows']
+        for name, err in r['attention_err_over_max_abs'].items():
+            assert err <= SP_ATTN_TOL, (name, err)
+        assert r['ring_vs_ulysses_grad_err'] <= DP_GRAD_TOL, r['ring_vs_ulysses_grad_err']
+        assert abs(r['ring']['first_loss'] - r['ulysses']['first_loss']) <= DP_LOSS_RTOL * abs(
+            r['ring']['first_loss'])
+        for impl in ('ring', 'ulysses'):
+            run = r[impl]
+            assert len(run['losses']) == SP_STEPS and all(math.isfinite(v)
+                                                          for v in run['losses'])
+            assert abs(run['first_loss'] - run['one_process_loss']) <= DP_LOSS_RTOL * abs(
+                run['one_process_loss']), (impl, run['first_loss'], run['one_process_loss'])
+            assert run['grad_err_over_max_abs'] <= DP_GRAD_TOL, (impl, run['worst_grad'],
+                                                                 run['grad_err_over_max_abs'])
+            for name in FLASH_KERNELS:
+                assert run['launches'][name] == 0, (impl, name, run['launches'][name])
+            assert run['collectives']['calls'].get(
+                'ppermute' if impl == 'ring' else 'all_to_all', 0) > 0, run['collectives']
+    return {name: 0 for name in FLASH_KERNELS}
+
 def _launches_by_path(name, paths):
     return {path: counts[name] for path, counts in paths.items() if name in counts}
 
@@ -4578,6 +5100,7 @@ def main(argv=None):
         bridge = phase_bridge_lm(lm_url, lm_tokens_per_s)
         paths['bridge_lm'] = {name: bridge[name] for name in FLASH_KERNELS}
         paths['dp_lm_path'] = phase_dp_lm_path(lm_url, lm_tokens_per_s)
+        paths['sp_lm_path'] = phase_sp_lm_path(lm_url, lm_tokens_per_s)
         phase_varlen_reference(lm_url)
         paths['varlen_path'] = phase_varlen_path(lm_url)
         phase_varlen_profile()
@@ -4611,6 +5134,7 @@ def main(argv=None):
                                                                vit_images_per_s, tmp)
         paths['write_plane_vit_path'] = phase_write_plane_vit_path(image_codec, tmp)
         paths['etl_tools_vit_path'] = phase_etl_tools_vit_path(selective_url, tmp)
+        paths['tp_path'] = phase_tp_path(lm_url, vit_url, lm_tokens_per_s, vit_images_per_s)
     phase_vit_profile()
     # the headline numbers are this slice's path's: the flash kernels' at
     # the mixture path's shape (the flagship's) and their launches there;
@@ -4648,7 +5172,8 @@ def main(argv=None):
                  'source': 'petastorm_tpu_torch/csrc/flash_attention.cu',
                  'replaces': replaces, 'launches': paths['mixture_path'][name],
                  'launches_by_path': _launches_by_path(name, paths)}
-        for label in (VARLEN_FLASH_CASE, *VARLEN_TAIL_CASES, VIT_FLASH_CASE, FLASH_MAIN_CASE):
+        for label in (VARLEN_FLASH_CASE, *VARLEN_TAIL_CASES, VIT_FLASH_CASE, *TP_FLASH_CASES,
+                      FLASH_MAIN_CASE):
             case = flash[label]
             timing = case['kernels'][key]
             numbers = {

@@ -25,6 +25,9 @@ renamed into place::
     <directory>/<step>/train_state/state.pt      torch.save of the state dicts
     <directory>/<step>/loader_state/metadata     JSON {str(rank): loader state}
 
+(``train_state/state.<rank>.pt``, one per rank, for a model split over
+ranks).
+
 The loader file sits where the JAX package's orbax checkpointer writes
 its JSON item and holds the same dict, so the loader position of a
 checkpoint that either package wrote restores in the other.
@@ -32,8 +35,11 @@ checkpoint that either package wrote restores in the other.
 With an initialized ``torch.distributed`` process group every rank calls
 ``save``: the loader states are gathered, keyed by rank, and rank 0
 writes (the model and optimizer states of data-parallel ranks are
-replicas). A checkpoint restored on a different number of ranks merges
-every rank's progress (:func:`merge_loader_states`, or
+replicas). A model split over ranks (``init_transformer(mesh=)`` with a
+``'model'`` dim of more than one rank) holds a different shard on each,
+so every rank writes its own train state and reads its own back, on the
+same number of ranks. A checkpoint restored on a different number of
+ranks merges every rank's progress (:func:`merge_loader_states`, or
 :func:`~petastorm_tpu_torch.mixture.merge_mixture_states` for a mixture)
 and re-deals it under the new layout.
 """
@@ -154,6 +160,21 @@ def _barrier():
         torch.distributed.barrier()
 
 
+def _rank_file(rank):
+    return 'state.%d.pt' % rank
+
+
+def _split_modules(value):
+    """Whether a train state holds a module split over ``'model'`` ranks
+    (its ``parallel.tp`` above one)."""
+    if isinstance(value, dict):
+        return any(_split_modules(v) for v in value.values())
+    if isinstance(value, (list, tuple)):
+        return any(_split_modules(v) for v in value)
+    par = getattr(value, 'parallel', None)
+    return getattr(par, 'tp', 1) > 1
+
+
 def _state_of(value):
     """What is saved for one train-state entry: an object's ``state_dict``
     (a module, an optimizer, a scheduler), or the value itself (tensors,
@@ -242,15 +263,28 @@ class TrainCheckpointer:
         payload = (_gather_per_process(loader.state_dict())
                    if loader is not None else None)
         _, rank = _world()
+        per_rank = _split_modules(train_state)
+        tmp = None
         if rank == 0:
             if os.path.exists(final):
                 raise ValueError('checkpoint step %d already exists in %s'
                                  % (step, self._directory))
             tmp = tempfile.mkdtemp(prefix='.tmp-%d-' % step, dir=self._directory)
+            os.makedirs(os.path.join(tmp, _STATE_DIR))
+        if per_rank:
+            # every rank writes its file into rank 0's temporary directory
+            # before rank 0 renames it into place
+            shared = [tmp]
+            torch.distributed.broadcast_object_list(shared, src=0)
+            tmp = shared[0]
+            torch.save(_state_of(train_state),
+                       os.path.join(tmp, _STATE_DIR, _rank_file(rank)))
+            _barrier()
+        if rank == 0:
             try:
-                os.makedirs(os.path.join(tmp, _STATE_DIR))
-                torch.save(_state_of(train_state),
-                           os.path.join(tmp, _STATE_DIR, _STATE_FILE))
+                if not per_rank:
+                    torch.save(_state_of(train_state),
+                               os.path.join(tmp, _STATE_DIR, _STATE_FILE))
                 if payload is not None:
                     os.makedirs(os.path.join(tmp, _LOADER_DIR))
                     with open(os.path.join(tmp, _LOADER_DIR, _LOADER_FILE), 'w') as f:
@@ -272,8 +306,19 @@ class TrainCheckpointer:
         step = self.latest_step if step is None else step
         if step is None:
             return train_state_template
-        saved = torch.load(os.path.join(self._step_dir(step), _STATE_DIR, _STATE_FILE),
-                           map_location='cpu', weights_only=True)
+        directory = os.path.join(self._step_dir(step), _STATE_DIR)
+        name = _STATE_FILE
+        if _split_modules(train_state_template):
+            world, rank = _world()
+            saved_ranks = sum(f.startswith('state.') and f != _STATE_FILE
+                              for f in os.listdir(directory))
+            if saved_ranks != world:
+                raise ValueError('checkpoint step %d holds the split train states of %d '
+                                 'ranks; it restores on %d ranks, not %d'
+                                 % (step, saved_ranks, saved_ranks, world))
+            name = _rank_file(rank)
+        saved = torch.load(os.path.join(directory, name), map_location='cpu',
+                           weights_only=True)
         return _restore_into(train_state_template, saved)
 
     def restore_loader(self, loader, step=None):

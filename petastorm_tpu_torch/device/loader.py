@@ -204,7 +204,14 @@ def make_torch_loader(dataset_url_or_urls, batch_size, mesh=None, data_axes=None
         the shard of its coordinate over the data dims (ranks that differ
         only on the other dims read the same rows), and :attr:`TorchLoader.sharding`
         gives ``DTensor.from_local`` what it needs to build the global
-        batch.
+        batch. Ranks that replicate a batch (a ``'model'`` or ``'seq'``
+        dim of more than one rank) must also see the rows in the same
+        order: a pool delivers row-groups in the order they finish, so the
+        loader then takes them in the reader's ventilation order (the
+        mixture engine's :class:`~petastorm_tpu_torch.mixture.engine.Resequencer`),
+        whatever the pool and its worker count; a reader without
+        ``ventilation_order`` or with ``seed=None``, or a row shuffle with
+        ``seed=None``, raises ``ValueError`` there.
     :param data_axes: mesh dim name(s) the batch splits over (default: all
         of them); ``batch_size`` times the mesh's ranks must divide evenly
         over their shards, which a ``DeviceMesh`` always satisfies.
@@ -280,6 +287,11 @@ def make_torch_loader(dataset_url_or_urls, batch_size, mesh=None, data_axes=None
             'pass num_epochs=1 (the default) and re-iterate the loader for '
             'more epochs (got num_epochs=%r)' % (num_epochs,))
     device = resolve_device(device)
+    # ranks that replicate a batch read the same rows in the same order
+    in_order = mixture is None and sharding is not None and _replicas(*sharding) > 1
+    if in_order and shuffle_rows and seed is None:
+        raise ValueError('ranks that replicate a batch need one row order: give '
+                         'shuffle_rows a seed, not seed=None')
     if mixture is not None:
         reader = _mixture_reader(mixture, batch_size, num_epochs, reader_kwargs)
     else:
@@ -294,6 +306,9 @@ def make_torch_loader(dataset_url_or_urls, batch_size, mesh=None, data_axes=None
                 'defer_image_decode',
                 not shuffle_rows and bucket_boundaries is None
                 and staging.staging_enabled())
+        if in_order and reader_kwargs.get('seed', 0) is None:
+            raise ValueError('ranks that replicate a batch need one row-group order: '
+                             'give the reader a seed, not seed=None')
         reader = reader_factory(dataset_url_or_urls, schema_fields=fields,
                                 num_epochs=1 if inmemory_cache_all else num_epochs,
                                 **reader_kwargs)
@@ -305,7 +320,8 @@ def make_torch_loader(dataset_url_or_urls, batch_size, mesh=None, data_axes=None
                              extra_capacity=extra_capacity, seed=seed,
                              last_batch=last_batch, dtypes=dtypes,
                              prefetch=prefetch, pad_ragged=pad_ragged,
-                             bucket_boundaries=bucket_boundaries, sharding=sharding)
+                             bucket_boundaries=bucket_boundaries, sharding=sharding,
+                             in_order=in_order)
     except Exception:
         reader.stop()
         reader.join()
@@ -343,6 +359,13 @@ def resolve_mesh(mesh, data_axes, batch_size):
             'over the %d data shards of mesh axes %s'
             % (batch_size, world, n_shards, axes))
     return mesh, tuple(Shard(0) if name in axes else Replicate() for name in names)
+
+
+def _replicas(mesh, placements):
+    """How many ranks hold each batch: the product of the mesh's
+    replicated dims."""
+    return int(np.prod([mesh.size(dim) for dim, placement in enumerate(placements)
+                        if not placement.is_shard()]))
 
 
 def mesh_shard(mesh, placements):
@@ -385,7 +408,8 @@ class TorchLoader:
     def __init__(self, reader, batch_size, device, shuffle_rows=False,
                  shuffling_queue_capacity=None, min_after_retrieve=None,
                  extra_capacity=None, seed=0, last_batch='drop', dtypes=None,
-                 prefetch=2, pad_ragged=None, bucket_boundaries=None, sharding=None):
+                 prefetch=2, pad_ragged=None, bucket_boundaries=None, sharding=None,
+                 in_order=False):
         if last_batch not in ('drop', 'pad', 'short'):
             raise ValueError("last_batch must be 'drop', 'pad' or 'short'; "
                              'got %r' % (last_batch,))
@@ -416,7 +440,13 @@ class TorchLoader:
         if not getattr(reader, 'batched_output', True):
             raise ValueError('TorchLoader requires a batched reader '
                              '(make_batch_reader), which decodes codec fields too')
+        if in_order and not hasattr(reader, 'ventilation_order'):
+            raise ValueError('in_order=True needs a reader with ventilation_order '
+                             '(make_batch_reader)')
         self._reader = reader
+        self._in_order = in_order
+        # the epoch a restored reader resumes in (where in_order starts)
+        self._resume_epoch = 0
         self._batch_size = batch_size
         self._sharding = sharding
         self._device = resolve_device(device)
@@ -525,6 +555,7 @@ class TorchLoader:
             self._stage_thread.join(timeout=10)
             # replay: restart the fully consumed reader for a fresh pass
             self._reader.reset()
+            self._resume_epoch = 0
             self._exhausted = False
             self._epoch += 1
             self._awaiting_first_delivery = True
@@ -667,13 +698,29 @@ class TorchLoader:
         return BatchedRandomShufflingBuffer(capacity, min_after, self._batch_size,
                                             extra_capacity=extra, seed=seed)
 
-    def _pull_batches(self):
-        """Column dicts from the reader, each row tagged with its pull id."""
+    def _reader_batches(self):
+        """``(columns, item_index, epoch)`` of each row-group: as the pool
+        delivers them, or with ``in_order`` in the reader's ventilation
+        order."""
+        if not self._in_order:
+            while True:
+                try:
+                    yield self._reader.next_batch_info()
+                except StopIteration:
+                    return
+        from petastorm_tpu_torch.mixture.engine import Resequencer
+        ordered = Resequencer(self._reader, epoch=self._resume_epoch)
         while True:
             try:
-                columns, item_index, epoch = self._reader.next_batch_info()
+                (epoch, item_index), columns = ordered.next()
             except StopIteration:
                 return
+            if columns is not None:
+                yield columns, item_index, epoch
+
+    def _pull_batches(self):
+        """Column dicts from the reader, each row tagged with its pull id."""
+        for columns, item_index, epoch in self._reader_batches():
             if tracing.trace_enabled():
                 self._last_pull_ctx = tracing.ctx_for(
                     item_index, epoch, getattr(self._reader, 'cur_shard', None))
@@ -935,6 +982,8 @@ class TorchLoader:
 
     def load_state_dict(self, state):
         self._reader.load_state_dict(state)
+        if self._in_order:
+            self._resume_epoch = int(state['epoch'])
         with self._prov_lock:
             self._delivered_by_epoch = \
                 self._reader.consumption_record_for_resume(state)

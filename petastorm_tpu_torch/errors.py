@@ -27,8 +27,8 @@ class DecodeFieldError(PetastormTpuError):
 #: ``ROADMAP.md`` Queue 1 items the port has not reached yet, by number
 #: (done items leave gaps: numbers are never reused)
 ROADMAP_ITEMS = {
-    8: 'LM consumer layer across ranks: ring/Ulysses attention, the pipeline, '
-       'expert and sequence parallelism',
+    8: 'LM consumer layer across ranks: expert parallelism across ranks, '
+       'moe_forward(seq_axis=), the pipeline, and the multi-rank families',
     9: 'process and service pools, HDFS and object stores',
     11: 'bridges, benchmark, examples and test utilities',
 }

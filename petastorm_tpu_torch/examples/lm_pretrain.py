@@ -108,19 +108,19 @@ def _tree_bytes(path):
 
 
 def _train(make_loader, steps, batch_size, seq_len, config, make_optimizer, device,
-           checkpoint_dir, checkpoint_every, on_step, report=None):
+           checkpoint_dir, checkpoint_every, on_step, report=None, mesh=None):
     """The loop every recipe shares (see :func:`pretrain`): the transformer
-    of ``config`` (seed 0) under ``make_optimizer(model)``, ``seq_len``
-    attention positions a row; ``report(loader)`` adds entries to the
-    result at the end."""
+    of ``config`` (seed 0, split over ``mesh`` when one is given) under
+    ``make_optimizer(model)``, ``seq_len`` attention positions a row;
+    ``report(loader)`` adds entries to the result at the end."""
     from petastorm_tpu_torch.checkpoint import TrainCheckpointer
     from petastorm_tpu_torch.device.loader import resolve_device
     from petastorm_tpu_torch.models.transformer import init_transformer, transformer_train_step
 
     device = resolve_device(device)
-    model = init_transformer(0, config, device)
+    model = init_transformer(0, config, device, mesh=mesh)
     optimizer = make_optimizer(model)
-    step = transformer_train_step(model, optimizer)
+    step = transformer_train_step(model, optimizer, mesh)
     state = {'model': model, 'optimizer': optimizer}
     ckpt = TrainCheckpointer(checkpoint_dir) if checkpoint_dir is not None else None
     losses = []
@@ -206,21 +206,34 @@ def pretrain(dataset_url, batch_size=8, steps=20, seq_len=1024, model_kw=None,
                   checkpoint_every, on_step)
 
 
-def pretrain_example(dataset_url, batch_size=16, steps=20, learning_rate=1e-2, seq_len=128,
-                     device=None, checkpoint_dir=None, checkpoint_every=10, on_step=None,
-                     **reader_kwargs):
+def pretrain_example(dataset_url, batch_size=16, steps=20, learning_rate=1e-2, model_axis=1,
+                     seq_len=128, device=None, checkpoint_dir=None, checkpoint_every=10,
+                     on_step=None, **reader_kwargs):
     """The JAX example's recipe (``examples/lm/pretrain_example.py``
     ``pretrain``, at its defaults): the default ``TransformerConfig`` (vocab
     256, d_model 64, 4 heads, 2 layers, bf16, dense attention) at
     ``seq_len`` positions, Adam (optax ``adam``'s betas 0.9/0.999 and eps
     1e-8) at ``learning_rate``, on packed rows of ``seq_len`` tokens, so
-    attention runs at ``seq_len - 1`` positions. Checkpoints, ``on_step``,
-    the result and ``reader_kwargs`` are :func:`pretrain`'s."""
-    from petastorm_tpu_torch.device.loader import make_torch_loader
+    attention runs at ``seq_len - 1`` positions. Under a live process
+    group the model is split ``model_axis`` ways over
+    ``make_mesh(model=model_axis)`` (the other ranks form ``'data'``, and
+    the loader shards batches over it, ``batch_size`` rows a rank); with
+    no group ``model_axis`` must be 1. Checkpoints, ``on_step``, the
+    result and ``reader_kwargs`` are :func:`pretrain`'s; a split model's
+    checkpoint holds each rank's shards and resumes on as many ranks."""
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch.device.loader import make_torch_loader, resolve_device
     from petastorm_tpu_torch.models.transformer import TransformerConfig
+    from petastorm_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+
+    mesh = None
+    if dist.is_initialized() or model_axis != 1:
+        mesh = make_mesh(model=model_axis, device_type=resolve_device(device).type)
 
     def make_loader(device):
         return make_torch_loader(dataset_url, batch_size=batch_size, fields=['^tokens$'],
+                                 mesh=mesh, data_axes=(DATA_AXIS,) if mesh else None,
                                  transform_spec=packing_transform(seq_len), num_epochs=None,
                                  shuffle_row_groups=True, device=device, **reader_kwargs)
 
@@ -230,7 +243,7 @@ def pretrain_example(dataset_url, batch_size=16, steps=20, learning_rate=1e-2, s
 
     return _train(make_loader, steps, batch_size, seq_len - 1,
                   TransformerConfig(max_seq_len=seq_len), adam, device, checkpoint_dir,
-                  checkpoint_every, on_step)
+                  checkpoint_every, on_step, mesh=mesh)
 
 
 def pretrain_mixture(spec, batch_size=8, steps=20, model_kw=None, attn_impl='flash',

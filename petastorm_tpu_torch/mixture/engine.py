@@ -67,21 +67,96 @@ def _doc_rows(column):
     return [np.asarray(row).ravel() for row in arr]
 
 
-class _OrderedDocSource:
-    """Deterministic per-row document stream over one batched Reader.
+class Resequencer:
+    """One batched Reader's row-group batches in its ventilation order.
 
     Pools deliver row-group batches in COMPLETION order — whichever
-    worker finishes first — which varies run to run. Determinism is
-    restored here: batches are buffered by ``(epoch, item_index)``
-    provenance (``next_batch_info``) and released strictly in the
-    ventilator's arithmetic ventilation order
-    (:meth:`~petastorm_tpu_torch.reader.Reader.ventilation_order`), so the
-    document sequence any consumer observes is a pure function of the
-    reader's (seed, shard, epoch) — independent of pool flavor, worker
-    count, and scheduling jitter. The reorder buffer is bounded
-    (``PETASTORM_TPU_MIXTURE_RESEQ_MAX``): ventilation back-pressure
-    keeps in-flight items near the pool size, so the bound trips only
-    on a contract violation, and loudly.
+    worker finishes first — which varies run to run. Batches are
+    buffered here by their ``(epoch, item_index)`` provenance
+    (``next_batch_info``) and released strictly in the ventilator's
+    arithmetic order
+    (:meth:`~petastorm_tpu_torch.reader.Reader.ventilation_order`), so
+    what a consumer sees is a pure function of the reader's (seed, shard,
+    epoch), independent of pool flavor, worker count and scheduling
+    jitter. The reorder buffer is bounded (``reseq_max``, default
+    ``PETASTORM_TPU_MIXTURE_RESEQ_MAX``): ventilation back-pressure keeps
+    in-flight items near the pool size, so the bound trips only on a
+    contract violation, and loudly.
+
+    ``prepare(columns, item, epoch, started)`` turns each pulled batch
+    into what is held and returned (default: the columns), ``started``
+    being the ``time.time()`` the pull began at.
+    """
+
+    def __init__(self, reader, prepare=None, reseq_max=None, epoch=0):
+        if reseq_max is None:
+            reseq_max = knobs.get_int('PETASTORM_TPU_MIXTURE_RESEQ_MAX',
+                                      DEFAULT_RESEQ_MAX, floor=1)
+        self._reader = reader
+        self._prepare = prepare
+        self._reseq_max = int(reseq_max)
+        self.restart(epoch)
+
+    def restart(self, epoch):
+        """Start over at ``epoch``'s ventilation order, holding nothing
+        (the reader was just reset or restored to that epoch)."""
+        self.epoch = epoch
+        self._order = deque(self._reader.ventilation_order(epoch))
+        self._buffer = {}
+        self._drained = False
+
+    def next(self):
+        """``((epoch, item), value)`` of the next item in ventilation
+        order. ``value`` is None for an item the pool never produced (a
+        poison skip or a zero-row group), known once the reader is
+        drained. Raises StopIteration at the end."""
+        while True:
+            if not self._order:
+                if self._drained and not self._buffer:
+                    raise StopIteration
+                nxt = self.epoch + 1
+                epochs = self._reader.num_epochs
+                if epochs is not None and nxt >= epochs:
+                    if self._drained:
+                        raise StopIteration
+                else:
+                    self.epoch = nxt
+                    self._order = deque(self._reader.ventilation_order(nxt))
+                    continue
+            if self._order:
+                key = (self.epoch, self._order[0])
+                if key in self._buffer:
+                    self._order.popleft()
+                    return key, self._buffer.pop(key)
+                if self._drained:
+                    self._order.popleft()
+                    return key, None
+            self._pull()
+
+    def _pull(self):
+        t0 = time.time()
+        try:
+            columns, item, epoch = self._reader.next_batch_info()
+        except StopIteration:
+            self._drained = True
+            return
+        self._buffer[(epoch, item)] = (columns if self._prepare is None
+                                       else self._prepare(columns, item, epoch, t0))
+        if len(self._buffer) > self._reseq_max:
+            raise RuntimeError(
+                'Resequencer overflow: %d out-of-order batches '
+                'held (bound %d, PETASTORM_TPU_MIXTURE_RESEQ_MAX) waiting '
+                'for item %r of epoch %d — the pool is delivering items '
+                'the ventilator never ordered'
+                % (len(self._buffer), self._reseq_max,
+                   self._order[0] if self._order else None, self.epoch))
+
+
+class _OrderedDocSource:
+    """Deterministic per-row document stream over one batched Reader: its
+    row-group batches through a :class:`Resequencer`, served row by row,
+    so the document sequence any consumer observes is a pure function of
+    the reader's (seed, shard, epoch).
 
     Checkpointing rides the reader's at-least-once machinery: an item is
     recorded consumed only when its LAST row was handed out, and a
@@ -98,23 +173,16 @@ class _OrderedDocSource:
         if not getattr(reader, 'batched_output', False):
             raise ValueError('Mixture sources need batched readers '
                              '(make_batch_reader)')
-        if reseq_max is None:
-            reseq_max = knobs.get_int('PETASTORM_TPU_MIXTURE_RESEQ_MAX',
-                                      DEFAULT_RESEQ_MAX, floor=1)
         self._reader = reader
         self._token_field = token_field
         self._source = source
-        self._reseq_max = int(reseq_max)
-        self._epoch = 0
-        self._order = deque(reader.ventilation_order(0))
-        self._buffer = {}
+        self._reseq = Resequencer(reader, self._docs, reseq_max)
         self._delivered = {}
         self._current = None
         self._current_key = None
         self._row = 0
         self._skip_item = None
         self._skip_rows = 0
-        self._drained = False
 
     @property
     def reader(self):
@@ -133,45 +201,17 @@ class _OrderedDocSource:
                 epoch, item = self._current_key
                 self._delivered.setdefault(epoch, set()).add(item)
                 self._current = None
-            if not self._order:
-                if self._drained and not self._buffer:
-                    raise StopIteration
-                nxt = self._epoch + 1
-                epochs = self._reader.num_epochs
-                if epochs is not None and nxt >= epochs:
-                    if self._drained:
-                        raise StopIteration
-                else:
-                    self._epoch = nxt
-                    self._order = deque(
-                        self._reader.ventilation_order(nxt))
-                    continue
-            if self._order:
-                key = (self._epoch, self._order[0])
-                if key in self._buffer:
-                    self._order.popleft()
-                    self._current = self._buffer.pop(key)
-                    self._current_key = key
-                    self._row = 0
-                    if self._skip_rows and key[1] == self._skip_item:
-                        self._row = min(self._skip_rows, len(self._current))
-                    self._skip_item, self._skip_rows = None, 0
-                    continue
-                if self._drained:
-                    # The pool never produced this item (poison skip /
-                    # zero-row group): completed-with-zero-rows.
-                    self._delivered.setdefault(self._epoch, set()).add(
-                        self._order.popleft())
-                    continue
-            self._pull()
+            key, docs = self._reseq.next()
+            if docs is None:
+                # the pool never produced this item: completed with zero rows
+                self._delivered.setdefault(key[0], set()).add(key[1])
+                continue
+            self._current, self._current_key, self._row = docs, key, 0
+            if self._skip_rows and key[1] == self._skip_item:
+                self._row = min(self._skip_rows, len(docs))
+            self._skip_item, self._skip_rows = None, 0
 
-    def _pull(self):
-        t0 = time.time()
-        try:
-            columns, item, epoch = self._reader.next_batch_info()
-        except StopIteration:
-            self._drained = True
-            return
+    def _docs(self, columns, item, epoch, t0):
         if self._source is not None:
             # the pull joins the row-group's lifeline: same trace id as
             # the source reader's worker stages, the source as the shard
@@ -184,15 +224,7 @@ class _OrderedDocSource:
             raise KeyError(
                 'Mixture token_field %r missing from batch columns %s' %
                 (self._token_field, sorted(columns)))
-        self._buffer[(epoch, item)] = _doc_rows(column)
-        if len(self._buffer) > self._reseq_max:
-            raise RuntimeError(
-                'Mixture resequencer overflow: %d out-of-order batches '
-                'held (bound %d, PETASTORM_TPU_MIXTURE_RESEQ_MAX) waiting '
-                'for item %r of epoch %d — the pool is delivering items '
-                'the ventilator never ordered'
-                % (len(self._buffer), self._reseq_max,
-                   self._order[0] if self._order else None, self._epoch))
+        return _doc_rows(column)
 
     # -- state -------------------------------------------------------------
 
@@ -216,16 +248,13 @@ class _OrderedDocSource:
         self._reader.load_state_dict(reader_state)
         record = self._reader.consumption_record_for_resume(reader_state)
         self._delivered = {e: set(items) for e, items in record.items()}
-        self._epoch = int(reader_state['epoch'])
-        self._order = deque(self._reader.ventilation_order(self._epoch))
-        self._buffer = {}
+        self._reseq.restart(int(reader_state['epoch']))
         self._current = None
         self._current_key = None
         self._row = 0
-        self._drained = False
         partial = state.get('partial')
         self._skip_item, self._skip_rows = None, 0
-        if partial is not None and int(partial['epoch']) == self._epoch:
+        if partial is not None and int(partial['epoch']) == self._reseq.epoch:
             # The partially-consumed batch is re-delivered first (it is
             # the earliest unconsumed item in ventilation order); skip
             # the rows that were already handed out.
@@ -234,15 +263,12 @@ class _OrderedDocSource:
 
     def reset(self):
         self._reader.reset()
-        self._epoch = 0
-        self._order = deque(self._reader.ventilation_order(0))
-        self._buffer = {}
+        self._reseq.restart(0)
         self._delivered = {}
         self._current = None
         self._current_key = None
         self._row = 0
         self._skip_item, self._skip_rows = None, 0
-        self._drained = False
 
     def stop(self):
         self._reader.stop()

@@ -35,6 +35,7 @@ import types
 import torch
 import torch.nn.functional as F
 
+from petastorm_tpu_torch.errors import unported
 from petastorm_tpu_torch.models.transformer import (
     _block_dense_ffn_half, _rmsnorm, _rope_rotate, _split_qkv, transformer_forward,
 )
@@ -170,6 +171,8 @@ def _decode(model, prompt, max_new_tokens, generator, temperature, top_k, top_p,
     if c.n_experts > 0 or c.seq_axis is not None:
         raise NotImplementedError('greedy_generate/sample_generate support dense, '
                                   'unsharded-sequence configs')
+    if model.parallel.tp > 1:
+        raise unported('decoding a model split over ranks', 8)
     if max_new_tokens < 1:
         raise ValueError('max_new_tokens must be >= 1; got %d' % max_new_tokens)
     device = model.embed.device

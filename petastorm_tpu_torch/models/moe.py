@@ -10,7 +10,7 @@ load-balancing loss ``E * sum_e f_e * p_e`` (fraction of tokens routed to
 routing. Routing runs in f32; the expert matmuls run in ``config.dtype``
 with f32 accumulation, as the JAX package leaves them to XLA.
 
-The experts live on the one device. The JAX package shards them over a
+The experts are whole on every rank. The JAX package shards them over a
 mesh axis and routes per sequence shard under ``shard_map``
 (``seq_axis=``); both wait for ROADMAP.md Queue 1 item 8.
 """

@@ -17,7 +17,18 @@ Weights carry across from the JAX package with :func:`params_from_jax`.
 batches. ``n_experts > 0`` swaps every block's dense FFN for a Switch-MoE
 layer (:mod:`petastorm_tpu_torch.models.moe`) whose aux loss joins the
 train loss; decoding is :mod:`petastorm_tpu_torch.models.generate`.
-Sequence parallelism and the pipelined forward are not ported yet
+
+Across ranks (``init_transformer(mesh=)``, a
+:mod:`petastorm_tpu_torch.parallel.mesh` mesh) each rank holds its shards
+of the JAX package's Megatron layout (``_param_specs`` in
+``petastorm_tpu/models/transformer.py``): over ``'model'``, ``qkv`` is
+split by head (each rank's query heads and the K/V heads they read),
+``attn_out`` by the same heads' rows, ``mlp_in``/``mlp_gate`` by columns,
+``mlp_out`` by rows and ``lm_head`` by vocabulary; ``embed``,
+``pos_embed`` and the norm gains are replicated, as is every weight over a
+dim the mesh lacks. ``config.seq_axis`` splits the sequence over that
+mesh dim and runs attention through ring or Ulysses attention. The
+expert-parallel MoE and the pipelined forward are not ported yet
 (``ROADMAP.md`` Queue 1 item 8).
 """
 
@@ -32,6 +43,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from petastorm_tpu_torch.errors import unported
+from petastorm_tpu_torch.parallel.collectives import (
+    all_reduce, copy_to_model, reduce_from_model,
+)
+from petastorm_tpu_torch.parallel.mesh import (
+    DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, axis,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,12 +62,17 @@ class TransformerConfig:
     dtype: object = torch.bfloat16
     # n_experts > 0 swaps every block's dense FFN for a Switch-MoE layer;
     # its aux loss joins the train loss weighted by moe_aux_weight. The
-    # experts live on the one device: expert_axis stays a field only.
-    # Sequence parallelism (seq_axis) is not ported yet.
+    # experts are replicated on every rank: expert_axis stays a field only.
     n_experts: int = 0
     capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
     expert_axis: str = 'expert'
+    # sequence parallelism: a mesh dim name (e.g. 'seq') splits the
+    # sequence of every activation over that dim of the model's mesh, and
+    # attention runs through seq_impl: 'ring' (K/V blocks passed round the
+    # ring; any head count) or 'ulysses' (all-to-all head split; needs
+    # n_heads % n_seq_shards == 0). As in the JAX package, attn_impl is
+    # ignored then: ring and Ulysses own the split-sequence case.
     seq_axis: Optional[str] = None
     seq_impl: str = 'ring'
     # 'dense' materializes the (B, H, S, S) scores; 'flash' runs the fused
@@ -97,8 +119,9 @@ class TransformerConfig:
         if self.ffn != 'gelu' and self.n_experts > 0:
             raise ValueError('ffn=%r applies to dense blocks only; MoE configs '
                              '(n_experts > 0) own their expert FFN' % (self.ffn,))
-        if self.seq_axis is not None:
-            raise unported('TransformerConfig(seq_axis=) (ring/Ulysses attention)', 8)
+        if self.seq_axis is not None and self.n_experts > 0:
+            raise unported('TransformerConfig(seq_axis=, n_experts>0) (MoE routing per '
+                           'sequence shard)', 8)
 
     @property
     def kv_heads(self):
@@ -115,42 +138,187 @@ def _param(*shape):
     return nn.Parameter(torch.empty(shape, dtype=torch.float32))
 
 
+class Parallel:
+    """How one rank's model splits over a mesh (``mesh=None``: not at all).
+
+    Over ``'model'`` (``tp`` ranks) the attention splits by head when
+    ``n_heads % tp == 0``: rank r holds query heads ``[r·H/tp, (r+1)·H/tp)``
+    and the K/V heads those queries read. When ``kv_heads % tp != 0`` (GQA
+    with fewer K/V heads than ranks, or groups that straddle two ranks) a
+    K/V head is held by every rank that reads it, and :meth:`sync_grads`
+    sums its gradient over them. When ``n_heads % tp != 0`` the attention
+    is replicated. The FFN splits its hidden width and the head its
+    vocabulary; both must divide by ``tp``, as the JAX package's even
+    shardings must. ``config.seq_axis`` names the mesh dim the sequence
+    splits over, ``'data'`` the one the batch splits over. ``head=False``
+    (the ViT's blocks) leaves the LM head out of the checks."""
+
+    def __init__(self, config, mesh=None, head=True):
+        c = config
+        self.mesh = mesh
+        self.seq_axis = c.seq_axis
+        self.model_group, self.tp, self.tp_rank = axis(mesh, MODEL_AXIS)
+        self.data_group, self.dp, _ = axis(mesh, DATA_AXIS)
+        for name, what in ((EXPERT_AXIS, 'expert parallelism across ranks'),
+                           (PIPE_AXIS, 'the pipelined transformer')):
+            if axis(mesh, name)[1] > 1:
+                raise unported('%s (a mesh with a %r dim)' % (what, name), 8)
+        self.seq_group, self.seq_size, self.seq_rank = (
+            axis(mesh, c.seq_axis) if c.seq_axis is not None else (None, 1, 0))
+        self.batch_axis = DATA_AXIS if self.dp > 1 else None
+        tp, r = self.tp, self.tp_rank
+        if tp > 1:
+            if c.d_ff % tp:
+                raise ValueError('d_ff=%d does not split over the %d ranks of mesh dim %r'
+                                 % (c.d_ff, tp, MODEL_AXIS))
+            if head and c.vocab_size % tp:
+                raise ValueError('vocab_size=%d does not split over the %d ranks of mesh '
+                                 'dim %r' % (c.vocab_size, tp, MODEL_AXIS))
+        self.split_heads = tp > 1 and c.n_heads % tp == 0
+        self.head_dim = hd = c.d_model // c.n_heads
+        self.heads = c.n_heads // tp if self.split_heads else c.n_heads
+        q0 = r * self.heads if self.split_heads else 0
+        group = c.n_heads // c.kv_heads
+        self.kv_lo = q0 // group
+        self.kv_heads = (q0 + self.heads - 1) // group + 1 - self.kv_lo
+        self.kv_total = c.kv_heads
+        self.kv_shared = self.split_heads and c.kv_heads % tp != 0
+        # local query head j reads local K/V head kv_index[j]; None leaves
+        # it to the unsplit model's expansion (_expand_kv_heads)
+        index = [(q0 + j) // group - self.kv_lo for j in range(self.heads)]
+        self.kv_index = (index if self.split_heads and index != list(range(self.heads))
+                         else None)
+        # the fused qkv's columns this rank holds: its q heads, then its K/V
+        # heads in the K part and in the V part
+        kv_cols = range(self.kv_lo * hd, (self.kv_lo + self.kv_heads) * hd)
+        self._qkv_cols = (list(range(q0 * hd, (q0 + self.heads) * hd))
+                          + [(c.n_heads + part * c.kv_heads) * hd + i
+                             for part in (0, 1) for i in kv_cols])
+        self._head_rows = slice(q0 * hd, (q0 + self.heads) * hd)
+        ff = c.d_ff // tp
+        self._ff = slice(r * ff, (r + 1) * ff)
+        vocab = c.vocab_size // tp
+        self.vocab_start = r * vocab
+        self._vocab = slice(r * vocab, (r + 1) * vocab)
+
+    def shard(self, name, full):
+        """This rank's part of the full-width parameter ``name`` (a
+        ``state_dict`` key)."""
+        leaf = name.rsplit('.', 1)[-1]
+        if self.split_heads and leaf == 'qkv':
+            return full[:, self._qkv_cols].contiguous()
+        if self.split_heads and leaf == 'attn_out':
+            return full[self._head_rows].contiguous()
+        if self.tp > 1 and leaf in ('mlp_in', 'mlp_gate'):
+            return full[:, self._ff].contiguous()
+        if self.tp > 1 and leaf == 'mlp_out':
+            return full[self._ff].contiguous()
+        if self.tp > 1 and leaf == 'lm_head':
+            return full[:, self._vocab].contiguous()
+        return full
+
+    def seq_slice(self, t):
+        """This rank's block of ``t``'s dim 1 (the sequence), or ``t``
+        itself when the sequence is not split."""
+        if self.seq_group is None:
+            return t
+        s = t.shape[1]
+        if s % self.seq_size:
+            raise ValueError('sequence length %d does not split over the %d ranks of mesh '
+                             'dim %r' % (s, self.seq_size, self.seq_axis))
+        n = s // self.seq_size
+        return t[:, self.seq_rank * n:(self.seq_rank + 1) * n]
+
+    @torch.no_grad()
+    def sync_grads(self, model):
+        """Make each rank's gradients its shards of the global loss's: a K/V
+        head held by several ranks sums its gradient over them, and every
+        gradient sums over ``'data'`` and the sequence dim (each rank's
+        loss is the global one, its backward only its own rows' and
+        positions' part, see :meth:`batch_sum`)."""
+        if self.kv_shared:
+            self._sum_shared_kv(model.blocks)
+        if self.seq_group is None and self.dp == 1:
+            return
+        params = list(model.parameters())
+        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                          for p in params])
+        flat = all_reduce(all_reduce(flat, self.seq_group, name='grad_sync'),
+                          self.data_group, name='grad_sync')
+        offset = 0
+        for p in params:
+            p.grad = flat[offset:offset + p.numel()].view_as(p).clone()
+            offset += p.numel()
+
+    def _sum_shared_kv(self, blocks):
+        """Sum the K and V columns' gradients over the ranks that hold
+        them: each rank writes its columns into zeros of the full K/V width,
+        one all-reduce over ``'model'`` adds them, and each reads its own
+        back."""
+        hd = self.head_dim
+        q_w, width, lo = self.heads * hd, self.kv_heads * hd, self.kv_lo * hd
+        first = blocks[0].qkv
+        buf = torch.zeros((len(blocks), 2, first.shape[0], self.kv_total * hd),
+                          dtype=first.grad.dtype, device=first.device)
+        for i, block in enumerate(blocks):
+            for part in (0, 1):
+                start = q_w + part * width
+                buf[i, part, :, lo:lo + width] = block.qkv.grad[:, start:start + width]
+        buf = all_reduce(buf, self.model_group, name='grad_sync')
+        for i, block in enumerate(blocks):
+            for part in (0, 1):
+                start = q_w + part * width
+                block.qkv.grad[:, start:start + width] = buf[i, part, :, lo:lo + width]
+
+    def batch_sum(self, t):
+        """``t`` summed over the ranks that hold the batch's other rows
+        (``'data'``) and positions (``config.seq_axis``). The backward is the
+        identity: each rank's gradient is its own rows' and positions' part,
+        and :meth:`sync_grads` sums the parts."""
+        return reduce_from_model(reduce_from_model(t, self.seq_group), self.data_group)
+
+
 class _Block(nn.Module):
-    def __init__(self, c):
+    def __init__(self, c, par):
         super().__init__()
-        head_dim = c.d_model // c.n_heads
-        self.qkv = _param(c.d_model, (c.n_heads + 2 * c.kv_heads) * head_dim)
-        self.attn_out = _param(c.d_model, c.d_model)
+        hd = c.d_model // c.n_heads
+        self.qkv = _param(c.d_model, (par.heads + 2 * par.kv_heads) * hd)
+        self.attn_out = _param(par.heads * hd, c.d_model)
         self.ln1 = _param(c.d_model)
         self.ln2 = _param(c.d_model)
         if c.n_experts > 0:
             from petastorm_tpu_torch.models.moe import MoE
             self.moe = MoE(c.moe_config())
             return
-        self.mlp_in = _param(c.d_model, c.d_ff)
+        ff = c.d_ff // par.tp
+        self.mlp_in = _param(c.d_model, ff)
         if c.ffn == 'swiglu':
-            self.mlp_gate = _param(c.d_model, c.d_ff)
-        self.mlp_out = _param(c.d_ff, c.d_model)
+            self.mlp_gate = _param(c.d_model, ff)
+        self.mlp_out = _param(ff, c.d_model)
 
 
 @torch.no_grad()
-def reset_block(block, c, generator):
+def reset_block(block, c, generator, par):
     """A block's weights as the JAX init scales them (``fan_in**-0.5``
-    normals, norm gains of one), drawn from ``generator``."""
-    def normal(p, scale):
-        p.copy_(torch.randn(p.shape, generator=generator) * scale)
+    normals, norm gains of one), drawn from ``generator`` at full width
+    and cut to this rank's shards by ``par`` (a :class:`Parallel`)."""
+    hd = c.d_model // c.n_heads
 
-    normal(block.qkv, c.d_model ** -0.5)
-    normal(block.attn_out, c.d_model ** -0.5)
+    def normal(name, full_shape, scale):
+        full = torch.randn(full_shape, generator=generator) * scale
+        getattr(block, name).copy_(par.shard(name, full))
+
+    normal('qkv', (c.d_model, (c.n_heads + 2 * c.kv_heads) * hd), c.d_model ** -0.5)
+    normal('attn_out', (c.d_model, c.d_model), c.d_model ** -0.5)
     block.ln1.fill_(1.0)
     block.ln2.fill_(1.0)
     if c.n_experts > 0:
         block.moe.reset_parameters(generator)
         return
-    normal(block.mlp_in, c.d_model ** -0.5)
+    normal('mlp_in', (c.d_model, c.d_ff), c.d_model ** -0.5)
     if c.ffn == 'swiglu':
-        normal(block.mlp_gate, c.d_model ** -0.5)
-    normal(block.mlp_out, c.d_ff ** -0.5)
+        normal('mlp_gate', (c.d_model, c.d_ff), c.d_model ** -0.5)
+    normal('mlp_out', (c.d_ff, c.d_model), c.d_ff ** -0.5)
 
 
 class Transformer(nn.Module):
@@ -158,23 +326,26 @@ class Transformer(nn.Module):
     ``pos_embed`` (learned positions only), ``lm_head``, ``ln_f`` and
     ``blocks.<i>.{qkv, attn_out, ln1, ln2, mlp_in, mlp_gate, mlp_out}``,
     with ``blocks.<i>.moe.{router, w_in, w_out}`` in place of the dense
-    FFN's matrices when ``n_experts > 0``."""
+    FFN's matrices when ``n_experts > 0``. With a ``mesh`` each parameter
+    is this rank's shard (see :class:`Parallel`, ``model.parallel``)."""
 
-    def __init__(self, config):
+    def __init__(self, config, mesh=None):
         super().__init__()
         c = self.config = config
+        self.parallel = par = Parallel(config, mesh)
         self.embed = _param(c.vocab_size, c.d_model)
         if c.pos_encoding == 'learned':
             self.pos_embed = _param(c.max_seq_len, c.d_model)
-        self.lm_head = _param(c.d_model, c.vocab_size)
+        self.lm_head = _param(c.d_model, c.vocab_size // par.tp)
         self.ln_f = _param(c.d_model)
-        self.blocks = nn.ModuleList(_Block(c) for _ in range(c.n_layers))
+        self.blocks = nn.ModuleList(_Block(c, par) for _ in range(c.n_layers))
 
     @torch.no_grad()
     def reset_parameters(self, generator):
         """Normal draws from ``generator`` in the JAX init's order and
         scales (0.02 for tables and the head, ``fan_in**-0.5`` for block
-        matrices); norm gains are ones."""
+        matrices); norm gains are ones. Each draw is full width, so a rank
+        of a split model holds its shards of the unsplit model's weights."""
         c = self.config
 
         def normal(p, scale):
@@ -183,30 +354,35 @@ class Transformer(nn.Module):
         normal(self.embed, 0.02)
         if c.pos_encoding == 'learned':
             normal(self.pos_embed, 0.02)
-        normal(self.lm_head, 0.02)
+        self.lm_head.copy_(self.parallel.shard('lm_head', torch.randn(
+            (c.d_model, c.vocab_size), generator=generator) * 0.02))
         self.ln_f.fill_(1.0)
         for block in self.blocks:
-            reset_block(block, c, generator)
+            reset_block(block, c, generator, self.parallel)
 
     def forward(self, tokens):
         """tokens ``(B, S)`` int → logits ``(B, S, V)`` f32."""
         return transformer_forward(self, tokens)
 
 
-def init_transformer(seed, config, device=None):
+def init_transformer(seed, config, device=None, mesh=None):
     """A :class:`Transformer` with weights drawn from a CPU
     ``torch.Generator`` seeded ``seed`` (the same weights on every
-    device), on ``device`` (``None`` means the card)."""
+    device), on ``device`` (``None`` means the card). With a ``mesh``
+    (:mod:`petastorm_tpu_torch.parallel.mesh`) the model holds this rank's
+    shards of those weights, cut from the full-width draws."""
     device = torch.device('cuda' if device is None else device)
-    model = Transformer(config)
+    model = Transformer(config, mesh)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(device)
 
 
-def params_from_jax(params):
+def params_from_jax(params, mesh=None, config=None):
     """A :class:`Transformer` ``state_dict`` from the JAX model's parameter
     pytree (numpy arrays): the same names and layouts, as f32 tensors; a
-    nested dict (an MoE block's ``moe``) joins its names with dots."""
+    nested dict (an MoE block's ``moe``) joins its names with dots. With a
+    ``mesh`` (and the ``config``, which says how the heads split) each
+    entry is this rank's shard of the full array."""
     state = {}
     for name in ('embed', 'pos_embed', 'lm_head', 'ln_f'):
         if name in params:
@@ -221,7 +397,19 @@ def params_from_jax(params):
 
     for i, block in enumerate(params['blocks']):
         add('blocks.%d.' % i, block)
-    return state
+    return shard_state(state, mesh, config)
+
+
+def shard_state(state, mesh, config, head=True):
+    """Each full-width entry of ``state`` cut to this rank's shard of
+    ``mesh`` (``state`` itself without a mesh)."""
+    if mesh is None:
+        return state
+    if config is None:
+        raise ValueError('splitting weights over a mesh needs the model config '
+                         '(it says how the heads split)')
+    par = Parallel(config, mesh, head=head)
+    return {name: par.shard(name, value) for name, value in state.items()}
 
 
 def _matmul(x, w, dtype):
@@ -266,64 +454,94 @@ def _expand_kv_heads(t_bshd, n_heads):
     return t_bshd.repeat_interleave(n_heads // kv, dim=2)
 
 
-def _attention(x, qkv_w, out_w, n_heads, dtype, attn_impl='dense', causal=True,
-               kv_heads=None, rope_theta=None):
-    b, s, d = x.shape
-    head_dim = d // n_heads
-    kv_heads = n_heads if kv_heads is None else kv_heads
-    q, k, v = _split_qkv(_matmul(x, qkv_w, dtype), n_heads, kv_heads, head_dim)
-    q = q.reshape(b, s, n_heads, head_dim)
-    k = k.reshape(b, s, kv_heads, head_dim)
-    v = v.reshape(b, s, kv_heads, head_dim)
-    if rope_theta is not None:
-        positions = torch.arange(s, device=x.device)
-        q = _rope_rotate(q, positions, rope_theta)
-        k = _rope_rotate(k, positions, rope_theta)
-    k = _expand_kv_heads(k, n_heads)
-    v = _expand_kv_heads(v, n_heads)
+def _reduce_partial(out, par, dtype):
+    """A row-split matmul's partial product summed over ``'model'`` (in
+    f32), then in ``dtype``."""
+    return reduce_from_model(out.float(), par.model_group).to(dtype)
 
-    if attn_impl == 'flash':
+
+def _attention(x, qkv_w, out_w, config, par, causal=True):
+    """Pre-projected attention of one block on this rank's heads (all of
+    them unsplit). The sequence-split case (``config.seq_axis``) runs ring
+    or Ulysses attention over global positions, whatever ``attn_impl``
+    says, as the JAX package does."""
+    c = config
+    b, s, _ = x.shape
+    hd = par.head_dim
+    heads, kv_heads = par.heads, par.kv_heads
+    if par.split_heads:
+        x = copy_to_model(x, par.model_group)
+    q, k, v = _split_qkv(_matmul(x, qkv_w, c.dtype), heads, kv_heads, hd)
+    q = q.reshape(b, s, heads, hd)
+    k = k.reshape(b, s, kv_heads, hd)
+    v = v.reshape(b, s, kv_heads, hd)
+    if c.pos_encoding == 'rope':
+        # global positions: a sequence shard starts at its rank's offset
+        positions = torch.arange(s, device=x.device) + par.seq_rank * s
+        q = _rope_rotate(q, positions, c.rope_theta)
+        k = _rope_rotate(k, positions, c.rope_theta)
+    if par.kv_index is not None:
+        index = torch.tensor(par.kv_index, device=x.device)
+        k, v = k.index_select(2, index), v.index_select(2, index)
+    else:
+        k = _expand_kv_heads(k, heads)
+        v = _expand_kv_heads(v, heads)
+
+    if c.seq_axis is not None:
+        if c.seq_impl == 'ring':
+            from petastorm_tpu_torch.ops.ring_attention import ring_attention as attend
+        else:
+            from petastorm_tpu_torch.ops.ulysses_attention import ulysses_attention as attend
+        ctx = attend(q, k, v, par.mesh, axis_name=c.seq_axis, causal=causal,
+                     batch_axis=par.batch_axis).reshape(b, s, heads * hd)
+    elif c.attn_impl == 'flash':
         from petastorm_tpu_torch.ops.flash_attention import flash_attention_fused
-        ctx = flash_attention_fused(q, k, v, causal=causal).reshape(b, s, d)
+        ctx = flash_attention_fused(q, k, v, causal=causal).reshape(b, s, heads * hd)
     else:
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(head_dim)
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(hd)
         if causal:
             mask = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
             scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
-        probs = torch.softmax(scores, dim=-1).to(dtype)
-        ctx = torch.matmul(probs, v).transpose(1, 2).reshape(b, s, d)
-    return _matmul(ctx, out_w, dtype)
+        probs = torch.softmax(scores, dim=-1).to(c.dtype)
+        ctx = torch.matmul(probs, v).transpose(1, 2).reshape(b, s, heads * hd)
+    out = _matmul(ctx, out_w, c.dtype)
+    return _reduce_partial(out, par, c.dtype) if par.split_heads else out
 
 
-def _block_attention_half(block, x, config, causal=True):
+def _block_attention_half(block, x, config, par, causal=True):
     """Pre-norm attention sublayer with its residual."""
-    c = config
-    return x + _attention(_rmsnorm(x, block.ln1), block.qkv, block.attn_out, c.n_heads,
-                          c.dtype, attn_impl=c.attn_impl, causal=causal, kv_heads=c.kv_heads,
-                          rope_theta=c.rope_theta if c.pos_encoding == 'rope' else None)
+    return x + _attention(_rmsnorm(x, block.ln1), block.qkv, block.attn_out, config, par,
+                          causal=causal)
 
 
-def _block_dense_ffn_half(block, x, config):
+def _block_dense_ffn_half(block, x, config, par=None):
     """Pre-norm dense-FFN sublayer with its residual: the gelu MLP, or the
-    gated silu one when ``config.ffn == 'swiglu'``."""
+    gated silu one when ``config.ffn == 'swiglu'``; over ``'model'`` the
+    hidden width is split (``par``)."""
     dtype = config.dtype
+    split = par is not None and par.tp > 1
     h = _rmsnorm(x, block.ln2)
+    if split:
+        h = copy_to_model(h, par.model_group)
     up = _matmul(h, block.mlp_in, dtype).float()
     if config.ffn == 'swiglu':
         gate = _matmul(h, block.mlp_gate, dtype).float()
         h = (F.silu(gate) * up).to(dtype)
     else:
         h = F.gelu(up, approximate='tanh').to(dtype)
-    return x + _matmul(h, block.mlp_out, dtype).to(dtype)
+    out = _matmul(h, block.mlp_out, dtype)
+    if split:
+        return x + _reduce_partial(out, par, dtype)
+    return x + out.to(dtype)
 
 
-def _block_forward(block, x, config, causal=True):
+def _block_forward(block, x, config, par, causal=True):
     """One dense pre-norm block: attention then the dense FFN, each
     residual (the layered forward's and, with ``causal=False``, the
     ViT's)."""
-    x = _block_attention_half(block, x, config, causal=causal)
-    return _block_dense_ffn_half(block, x, config)
+    x = _block_attention_half(block, x, config, par, causal=causal)
+    return _block_dense_ffn_half(block, x, config, par=par)
 
 
 def _block_moe_half(block, x, config):
@@ -334,58 +552,102 @@ def _block_moe_half(block, x, config):
     return x + ffn_out.to(config.dtype), aux
 
 
-def _moe_block_forward(block, x, config):
-    return _block_moe_half(block, _block_attention_half(block, x, config), config)
+def _moe_block_forward(block, x, config, par):
+    return _block_moe_half(block, _block_attention_half(block, x, config, par), config)
 
 
-def _dense_block_forward(block, x, config):
-    return _block_forward(block, x, config), None
+def _dense_block_forward(block, x, config, par):
+    return _block_forward(block, x, config, par), None
 
 
-def _run_block(block, x, config):
+def _run_block(block, x, config, par):
     """``(x, aux or None)`` after one block: the one place the MoE/dense
     branch and ``config.remat`` (the whole block, MoE half included,
     recomputed in the backward) meet."""
     forward = _moe_block_forward if config.n_experts > 0 else _dense_block_forward
     if config.remat:
-        return checkpoint(forward, block, x, config, use_reentrant=False)
-    return forward(block, x, config)
+        return checkpoint(forward, block, x, config, par, use_reentrant=False)
+    return forward(block, x, config, par)
 
 
 def _features_with_aux(model, tokens):
     """Post-``ln_f`` hidden states ``(B, S, D)`` and the aux loss: the
     Switch loss summed over the MoE blocks (0.0 for a dense model), the
-    forward without the head."""
-    c = model.config
+    forward without the head. With ``config.seq_axis`` ``tokens`` are the
+    global rows and the states this rank's block of positions."""
+    c, par = model.config, model.parallel
+    if c.seq_axis is not None:
+        if par.mesh is None:
+            raise ValueError('config.seq_axis=%r needs the mesh passed to the '
+                             'forward/train step (ring attention runs a '
+                             'collective over that axis)' % (c.seq_axis,))
+        tokens = par.seq_slice(tokens)
     x = F.embedding(tokens.long(), model.embed).to(c.dtype)
     if c.pos_encoding == 'learned':
-        x = x + model.pos_embed[:tokens.shape[1]].to(c.dtype)
+        start = par.seq_rank * tokens.shape[1]
+        x = x + model.pos_embed[start:start + tokens.shape[1]].to(c.dtype)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in model.blocks:
-        x, aux = _run_block(block, x, c)
+        x, aux = _run_block(block, x, c, par)
         if aux is not None:
             aux_total = aux_total + aux
     return _rmsnorm(x, model.ln_f), aux_total
 
 
 def transformer_forward_with_aux(model, tokens):
-    """tokens ``(B, S)`` int → (logits ``(B, S, V)`` f32, aux loss)."""
+    """tokens ``(B, S)`` int → (logits ``(B, S, V)`` f32, aux loss). On a
+    split model the logits are this rank's block: ``S / n_seq`` positions
+    (``config.seq_axis``) by ``V / tp`` vocabulary entries (``'model'``)."""
     x, aux = _features_with_aux(model, tokens)
+    x = copy_to_model(x, model.parallel.model_group)
     return _matmul(x, model.lm_head, model.config.dtype).float(), aux
 
 
 def transformer_forward(model, tokens):
-    """tokens ``(B, S)`` int → logits ``(B, S, V)`` f32."""
+    """tokens ``(B, S)`` int → logits ``(B, S, V)`` f32 (this rank's
+    block on a split model, see :func:`transformer_forward_with_aux`)."""
     return transformer_forward_with_aux(model, tokens)[0]
 
 
-def _chunk_nll(xc, lm_head, tc, mc, dtype):
+class _VocabParallelNll(torch.autograd.Function):
+    """Next-token NLL from logits split by vocabulary over ``group``: the
+    row max and the sum of exponentials are all-reduced, and the target's
+    logit comes from the rank that holds it. The backward is local:
+    ``softmax - onehot(target)`` on this rank's columns."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, vocab_start, group):
+        from torch.distributed import ReduceOp
+        n = logits.shape[-1]
+        m = all_reduce(logits.amax(dim=-1), group, op=ReduceOp.MAX, name='vocab_max')
+        e = torch.exp(logits - m[..., None])
+        local = targets - vocab_start
+        owned = (local >= 0) & (local < n)
+        index = local.clamp(0, n - 1)
+        target_logit = (logits.gather(-1, index[..., None])[..., 0] - m) * owned
+        sums = all_reduce(torch.stack([e.sum(dim=-1), target_logit]), group,
+                          name='vocab_sum')
+        ctx.save_for_backward(e / sums[0][..., None], index, owned)
+        return sums[0].log() - sums[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        softmax, index, owned = ctx.saved_tensors
+        grad = softmax * g[..., None]
+        grad.scatter_add_(-1, index[..., None], -(g * owned)[..., None])
+        return grad, None, None, None
+
+
+def _chunk_nll(xc, lm_head, tc, mc, dtype, par=None):
     logits = _matmul(xc, lm_head, dtype).float()
+    if par is not None and par.tp > 1:
+        nll = _VocabParallelNll.apply(logits, tc, par.vocab_start, par.model_group)
+        return (nll * mc).sum(), mc.sum()
     ll = torch.log_softmax(logits, dim=-1).gather(-1, tc[..., None])[..., 0]
     return -(ll * mc).sum(), mc.sum()
 
 
-def _chunked_next_token_nll(x, lm_head, targets, mask, chunk, dtype):
+def _chunked_next_token_nll(x, lm_head, targets, mask, chunk, dtype, par=None):
     """``(sum_nll, count)`` over position chunks of ``chunk``: each chunk's
     head matmul, log-softmax and gather run under
     ``torch.utils.checkpoint``, so only one chunk's logits exist at a time,
@@ -402,27 +664,44 @@ def _chunked_next_token_nll(x, lm_head, targets, mask, chunk, dtype):
     for start in range(0, s + pad, chunk):
         part = slice(start, start + chunk)
         nll_c, cnt_c = checkpoint(_chunk_nll, x[:, part], lm_head, targets[:, part],
-                                  mask[:, part], dtype, use_reentrant=False)
+                                  mask[:, part], dtype, par, use_reentrant=False)
         nll = nll + nll_c
         cnt = cnt + cnt_c
     return nll, cnt
 
 
+def _next_token_nll(model, inputs, targets, mask):
+    """``(sum_nll, count, aux)`` over the global batch: this rank's sums
+    over its rows, positions (``config.seq_axis``) and vocabulary (split
+    over ``'model'``), added up over the ranks by :meth:`Parallel.batch_sum`.
+    ``targets`` and ``mask`` are this rank's rows, shifted before the
+    sequence split, so a shard's last target is the next shard's first
+    token. ``aux`` is the Switch loss averaged over ``'data'``."""
+    c, par = model.config, model.parallel
+    x, aux = _features_with_aux(model, inputs)
+    targets, mask = par.seq_slice(targets), par.seq_slice(mask).float()
+    x = copy_to_model(x, par.model_group)
+    if c.loss_chunk > 0:
+        nll, cnt = _chunked_next_token_nll(x, model.lm_head, targets, mask, c.loss_chunk,
+                                           c.dtype, par)
+    else:
+        nll, cnt = _chunk_nll(x, model.lm_head, targets, mask, c.dtype, par)
+    nll, cnt = par.batch_sum(torch.stack([nll, cnt])).unbind()
+    if c.n_experts > 0:
+        aux = reduce_from_model(aux, par.data_group) / par.dp
+    return nll, cnt, aux
+
+
 def transformer_loss(model, tokens):
     """Next-token cross-entropy over ``(B, S)`` int token batches: positions
     ``[:-1]`` predict ``[1:]``, so attention runs at S − 1.
-    ``config.loss_chunk > 0`` computes it chunked."""
-    c = model.config
+    ``config.loss_chunk > 0`` computes it chunked. On a split model each
+    rank passes its rows (the whole sequence: the shift comes before the
+    sequence split) and gets the loss of the global batch."""
     targets = tokens[:, 1:].long()
-    if c.loss_chunk > 0:
-        x, aux = _features_with_aux(model, tokens[:, :-1])
-        mask = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
-        nll, cnt = _chunked_next_token_nll(x, model.lm_head, targets, mask, c.loss_chunk,
-                                           c.dtype)
-        return nll / cnt + c.moe_aux_weight * aux
-    logits, aux = transformer_forward_with_aux(model, tokens[:, :-1])
-    ll = torch.log_softmax(logits, dim=-1).gather(-1, targets[..., None])[..., 0]
-    return -ll.mean() + c.moe_aux_weight * aux
+    mask = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
+    nll, cnt, aux = _next_token_nll(model, tokens[:, :-1], targets, mask)
+    return nll / cnt + model.config.moe_aux_weight * aux
 
 
 def transformer_masked_loss(model, tokens, lengths):
@@ -433,13 +712,14 @@ def transformer_masked_loss(model, tokens, lengths):
     real targets, so the gradient's scale does not depend on padding; a
     batch without one gives 0. Causal attention over right-padded rows
     needs no key mask: a real position attends only to positions before
-    it, all real. ``config.loss_chunk > 0`` computes it chunked.
+    it, all real. ``config.loss_chunk > 0`` computes it chunked. On a
+    split model the sums and counts run over the global batch, as in
+    :func:`transformer_loss`.
 
     Dense configs only, as the JAX version: the Switch router's
     load-balancing statistics run over every position, padding
     included, so an MoE config raises ``NotImplementedError``."""
-    c = model.config
-    if c.n_experts > 0:
+    if model.config.n_experts > 0:
         raise NotImplementedError(
             'transformer_masked_loss supports dense configs only: the Switch aux '
             'statistics would include padding positions. Use packed batches '
@@ -449,34 +729,49 @@ def transformer_masked_loss(model, tokens, lengths):
     limit = torch.clamp(lengths.to(device=tokens.device, dtype=torch.long),
                         max=tokens.shape[1])
     mask = (positions[None, :] + 1 < limit[:, None]).float()
-    if c.loss_chunk > 0:
-        x, aux = _features_with_aux(model, tokens[:, :-1])
-        nll, cnt = _chunked_next_token_nll(x, model.lm_head, targets, mask, c.loss_chunk,
-                                           c.dtype)
-        return nll / torch.clamp(cnt, min=1) + c.moe_aux_weight * aux
-    logits, aux = transformer_forward_with_aux(model, tokens[:, :-1])
-    ll = torch.log_softmax(logits, dim=-1).gather(-1, targets[..., None])[..., 0]
-    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1) + c.moe_aux_weight * aux
+    nll, cnt, _ = _next_token_nll(model, tokens[:, :-1], targets, mask)
+    return nll / torch.clamp(cnt, min=1)
 
 
-def transformer_masked_train_step(model, optimizer):
+def _step_parallel(model, mesh):
+    """The model's :class:`Parallel`; a train step's ``mesh`` must be the
+    one the model was built on."""
+    par = model.parallel
+    if mesh is not None and mesh is not par.mesh:
+        raise ValueError('the train step\'s mesh must be the one the model was built on '
+                         '(init_transformer(mesh=) / init_vit(mesh=))')
+    return par
+
+
+def transformer_masked_train_step(model, optimizer, mesh=None):
     """A ``(tokens, lengths) -> loss`` step over padded or bucketed batches
     (see :func:`transformer_masked_loss`): forward, backward and one
     optimizer update. Nothing is compiled per shape, so one step serves
-    every bucket's width."""
+    every bucket's width. On a split model (``mesh``, default the
+    model's) the gradients sync as :meth:`Parallel.sync_grads` says and
+    the loss is the global batch's, over all its real targets."""
+    par = _step_parallel(model, mesh)
 
     def step(tokens, lengths):
         optimizer.zero_grad(set_to_none=True)
         loss = transformer_masked_loss(model, tokens, lengths)
         loss.backward()
+        par.sync_grads(model)
         optimizer.step()
         return loss.detach()
 
     return step
 
 
-def transformer_train_step(model, optimizer, accum_steps=1):
+def transformer_train_step(model, optimizer, mesh=None, accum_steps=1):
     """A ``tokens -> loss`` step: forward, backward and one optimizer update.
+
+    ``mesh`` (default the model's) must be the mesh the model was built
+    on: each rank passes its rows of the batch (the whole sequence when it
+    is split), the gradients sync over the ranks as
+    :meth:`Parallel.sync_grads` says (summed over ``'data'`` and the
+    sequence dim; the ``'model'`` shards need no sync) and the loss
+    returned is the global batch's.
 
     ``accum_steps=k`` splits the ``(B, S)`` batch into k microbatches of
     B/k rows and averages their gradients before the one update: the
@@ -486,6 +781,7 @@ def transformer_train_step(model, optimizer, accum_steps=1):
     losses, as in the JAX step)."""
     if accum_steps < 1:
         raise ValueError('accum_steps must be >= 1; got %r' % (accum_steps,))
+    par = _step_parallel(model, mesh)
 
     def step(tokens):
         optimizer.zero_grad(set_to_none=True)
@@ -503,10 +799,26 @@ def transformer_train_step(model, optimizer, accum_steps=1):
                 (micro / accum_steps).backward()
                 loss = loss + micro.detach()
             loss = loss / accum_steps
+        par.sync_grads(model)
         optimizer.step()
         return loss.detach()
 
     return step
+
+
+def _pipelined(name):
+    def refuse(*args, **kwargs):
+        raise unported('%s (the pipelined transformer)' % name, 8)
+    refuse.__name__ = name
+    refuse.__doc__ = ('The JAX package\'s ``%s``: not ported yet (``ROADMAP.md`` Queue 1 '
+                      'item 8); raises ``NotImplementedError``.' % name)
+    return refuse
+
+
+init_pipelined_transformer = _pipelined('init_pipelined_transformer')
+pipelined_transformer_forward = _pipelined('pipelined_transformer_forward')
+pipelined_transformer_forward_with_aux = _pipelined('pipelined_transformer_forward_with_aux')
+pipelined_transformer_train_step = _pipelined('pipelined_transformer_train_step')
 
 
 def adamw(model, learning_rate=1e-3):

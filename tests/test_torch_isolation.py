@@ -78,7 +78,9 @@ def test_port_has_modules_to_scan():
                    ('etl', 'rowgroup_indexers.py'), ('etl', 'rowgroup_indexing.py'),
                    ('etl', 'metadata_util.py'), ('etl', 'petastorm_generate_metadata.py'),
                    ('selectors.py',), ('tools', 'copy_dataset.py'),
-                   ('tools', 'spark_session_cli.py')):
+                   ('tools', 'spark_session_cli.py'), ('parallel', 'mesh.py'),
+                   ('parallel', 'collectives.py'), ('ops', 'ulysses_attention.py'),
+                   ('examples', 'long_context.py')):
         assert os.path.join('petastorm_tpu_torch', *module) in rel
     assert len(rel) > 20
 

@@ -238,8 +238,8 @@ def test_example_recipe_losses_match_the_jax_example(c4_datasets, monkeypatch):
     monkeypatch.undo()
     assert len(want) == 20 and want[-1] == final
 
-    def init_from_jax(seed, config, device=None):
-        assert seed == 0
+    def init_from_jax(seed, config, device=None, mesh=None):
+        assert seed == 0 and mesh is None
         jax_config = jt.TransformerConfig(max_seq_len=config.max_seq_len)
         params = jt.init_transformer_params(jax.random.PRNGKey(0), jax_config)
         model = tt.Transformer(config)

@@ -173,7 +173,10 @@ def test_a_pool_instance_without_the_contract_is_refused(tmp_path):
 
 # -- the subpackages' exports ------------------------------------------------------
 
-#: reference exports the port leaves to ROADMAP item 8
+#: reference exports the port reaches at their module only: ``ring_attention``
+#: shares its module's name, and a lazily resolved package attribute is
+#: replaced by the submodule once anything imports it
+#: (``petastorm_tpu_torch.ops.ring_attention.ring_attention``)
 ITEM_8 = {'ring_attention'}
 
 
@@ -507,3 +510,69 @@ def test_decode_field_error_is_the_references():
     assert issubclass(errors.DecodeFieldError, errors.PetastormTpuError)
     assert errors.DecodeFieldError.__mro__[1].__name__ == \
         jax_errors.DecodeFieldError.__mro__[1].__name__
+
+
+# -- ROADMAP item 8: what the multi-rank slice left -------------------------------
+
+
+def test_item_8_names_only_what_is_left():
+    """Tensor and sequence parallelism are ported: ``ROADMAP_ITEMS[8]``
+    names expert parallelism across ranks, ``moe_forward(seq_axis=)``, the
+    pipeline and the multi-rank families."""
+    from petastorm_tpu_torch import errors
+    assert errors.ROADMAP_ITEMS[8] == (
+        'LM consumer layer across ranks: expert parallelism across ranks, '
+        'moe_forward(seq_axis=), the pipeline, and the multi-rank families')
+    assert 'ring' not in errors.ROADMAP_ITEMS[8] and 'sequence' not in errors.ROADMAP_ITEMS[8]
+
+
+def test_seq_axis_config_builds_as_the_references():
+    from petastorm_tpu.models import transformer as jt
+    from petastorm_tpu_torch.models import transformer as tt
+    for impl in ('ring', 'ulysses'):
+        ours = tt.TransformerConfig(seq_axis='seq', seq_impl=impl)
+        theirs = jt.TransformerConfig(seq_axis='seq', seq_impl=impl)
+        assert (ours.seq_axis, ours.seq_impl) == (theirs.seq_axis, theirs.seq_impl)
+
+
+def _pipelined_calls():
+    from petastorm_tpu_torch.models import transformer as tt
+    return {name: getattr(tt, name) for name in (
+        'init_pipelined_transformer', 'pipelined_transformer_forward',
+        'pipelined_transformer_forward_with_aux', 'pipelined_transformer_train_step')}
+
+
+@pytest.mark.parametrize('what', ['moe-seq-config', 'moe_forward-seq_axis', 'expert-mesh-dim',
+                                  'pipe-mesh-dim'] + sorted(_pipelined_calls()))
+def test_what_is_left_of_item_8_raises_it(what):
+    import torch
+
+    from petastorm_tpu_torch.models import moe as tm
+    from petastorm_tpu_torch.models import transformer as tt
+
+    class OneDimMesh:
+        mesh_dim_names = (what.split('-')[0],)
+
+        def get_coordinate(self):
+            return [0]
+
+        def size(self, dim):
+            return 2
+
+        def get_group(self, name):
+            return None
+
+        def get_local_rank(self, name):
+            return 0
+
+    calls = {
+        'moe-seq-config': lambda: tt.TransformerConfig(seq_axis='seq', n_experts=4),
+        'moe_forward-seq_axis': lambda: tm.moe_forward(
+            tm.init_moe(0, tm.MoEConfig(), device='cpu'), torch.zeros((1, 2, 64)),
+            tm.MoEConfig(), seq_axis='seq'),
+        'expert-mesh-dim': lambda: tt.Parallel(tt.TransformerConfig(), OneDimMesh()),
+        'pipe-mesh-dim': lambda: tt.Parallel(tt.TransformerConfig(), OneDimMesh()),
+    }
+    calls.update({name: fn for name, fn in _pipelined_calls().items()})
+    with pytest.raises(NotImplementedError, match='ROADMAP.md: Queue 1 item 8'):
+        calls[what]()

@@ -33,7 +33,11 @@ port's live set, or a reference manager not closed), a
 decoder-thread override, or an autotuner holding either override; the
 reset then closes both packages' managers and drops both packages'
 overrides and owners. Test files that import nothing else of this module
-take ``plane_guard``, the same check alone.
+take ``plane_guard``, the same check alone. Both guards also fail a test
+that leaves a ``torch.distributed`` default process group initialized in
+the test process (every later reader in that worker would shard by its
+rank), and destroy it: multi-rank tests run their ranks in spawned
+processes (``tests/torch_ranks.py``).
 
 ``armed_dump`` is for a test that sets ``PETASTORM_TPU_TRACE_DUMP``: it
 restores the SIGUSR1 handler it found and unregisters the ``atexit``
@@ -97,10 +101,20 @@ def _autotune_modules():
         if sys.modules.get(name) is not None]
 
 
+def _live_default_group():
+    """Whether a ``torch.distributed`` default group is initialized here (a
+    process that never imported ``torch.distributed`` has none)."""
+    dist = sys.modules.get('torch.distributed')
+    return dist is not None and dist.is_available() and dist.is_initialized()
+
+
 def reset_planes():
     """Both packages' readahead managers closed, their autotuners' rings
     and owners cleared and both overrides dropped (the JAX tuner's reset
-    leaves the decoder-thread override set)."""
+    leaves the decoder-thread override set), and a default process group
+    left initialized destroyed."""
+    if _live_default_group():
+        sys.modules['torch.distributed'].destroy_process_group()
     for readahead in (jax_readahead, torch_readahead):
         readahead._reset_for_tests()
     for _, autotune in _autotune_modules():
@@ -141,6 +155,8 @@ def plane_leftovers():
     left behind: live managers, the port's fetch threads, the depth and
     decoder-thread overrides, and autotuners holding an override."""
     found = {}
+    if _live_default_group():
+        found['torch.distributed default process group'] = 'initialized'
     port_managers = torch_readahead.live_manager_count()
     if port_managers:
         found['port readahead managers'] = port_managers
