@@ -369,6 +369,25 @@ outlives its phase.
     12 x ``TP_STEPS`` launches of each kernel and ``TP_STEPS`` normalize
     launches per rank. Tokens/s, images/s, peak memory, collective calls
     and host-copy seconds per rank are printed.
+44. ``ep_pp_path`` (after ``tp_path``): two spawned ranks on the one card.
+    (a) The MoE flagship (``moe_path``'s model: 4 experts, capacity factor
+    1.25, aux weight 0.01) over ``{'data': 1, 'expert': 2}``, each rank
+    holding 2 experts, ``EP_STEPS`` AdamW steps on packed 1025-token rows
+    (both ranks read the same rows): the first step's loss within
+    ``EP_LOSS_RTOL`` and its aux within ``EP_AUX_RTOL`` of one process's
+    step from the same init (run first, then freed), each rank's expert
+    weights' gradients within ``EP_GRAD_TOL`` of max-abs of that step's
+    gradient slices, each flash kernel a ``_wgmma`` one launched layers x
+    steps times per rank at (8, 1024, 16, 96). (b) The dense flagship over
+    ``{'pipe': 2}`` (``init_pipelined_transformer``: 5 layers a stage),
+    ``PP_MICROBATCHES`` microbatches, the same steps and rows: the first
+    loss within ``EP_LOSS_RTOL`` of one process's, every parameter's
+    gradient within ``EP_GRAD_TOL`` of max-abs (the embedding's on both
+    stages included), each flash kernel launched (layers / stages) x
+    microbatches x steps times per rank at (4, 1024, 16, 96): a stage
+    skips the bubble ticks. Tokens/s, peak memory, collective calls
+    (``ppermute`` the stage-to-stage sends and receives) and host-copy
+    seconds per rank are printed.
 ``--trace-dir DIR`` keeps the two Chrome traces in ``DIR``.
 
 Then the ``kernels`` summary (each kernel's launches on every path), the
@@ -454,6 +473,8 @@ FLASH_CASES = [
     # 'model' ranks (tp_path): half the heads each
     ('tp_causal_bf16', (8, 1024, 8, 96), torch.bfloat16, True, 1.0),
     ('tp_vit_bidir_bf16', (16, 1024, 6, 64), torch.bfloat16, False, 1.0),
+    # one pipeline microbatch of the flagship's batch of 8 (ep_pp_path)
+    ('pipe_causal_bf16', (4, 1024, 16, 96), torch.bfloat16, True, 1.0),
 ]
 FLASH_MAIN_CASE = 'flagship_causal_bf16'
 VIT_FLASH_CASE = 'vit_bidir_bf16'
@@ -461,6 +482,7 @@ VARLEN_FLASH_CASE = 'varlen511_causal_bf16'
 # the bucketed path's other buckets, listed beside it in the kernels line
 VARLEN_TAIL_CASES = ('varlen127_causal_bf16', 'varlen255_causal_bf16', 'varlen63_causal_bf16')
 TP_FLASH_CASES = ('tp_causal_bf16', 'tp_vit_bidir_bf16')
+PIPE_FLASH_CASE = 'pipe_causal_bf16'
 # name -> (launch counter in ops/flash_attention.py, key in a
 # flash_kernel case, outputs, the jax Pallas TPU kernel that
 # flash_attention_fused (petastorm_tpu/ops/flash_attention.py:59) reaches)
@@ -597,6 +619,11 @@ SP_BATCH = 4
 REPLICA_READ_BATCHES = 16    # ViT batches a replica reads per worker count in tp_path
 SP_SEQ = 2048                # global attention positions; rows of SP_SEQ + 1 tokens
 SP_ATTN_TOL = 2e-2           # max|block - reference| / max|reference|, bf16
+EP_STEPS = 5                 # ep_pp_path: the first held against one process; the rest timed
+EP_LOSS_RTOL = 1e-4
+EP_AUX_RTOL = 1e-3
+EP_GRAD_TOL = 1e-2           # max|rank - one process| / max|one process|, bf16
+PP_MICROBATCHES = 2
 # the traced paths: PETASTORM_TPU_TRACE=1; the LM run traces every other
 # row-group (PETASTORM_TPU_TRACE_SAMPLE), the ViT run every one
 TRACE_LM_SAMPLE = 2
@@ -4663,7 +4690,7 @@ def _recording_flash_shapes():
     return shapes, restore
 
 
-def _split_steps(split, full_grads, full_loss, run_step, inputs, per_step):
+def _split_steps(split, full_grads, full_loss, run_step, inputs, per_step, steps=TP_STEPS):
     """The split model's steps, the first held against one process's
     ``full_loss`` and ``full_grads`` (same weights, same inputs): launch,
     collective and peak-memory counts start here; step 2 is profiled for
@@ -4679,7 +4706,7 @@ def _split_steps(split, full_grads, full_loss, run_step, inputs, per_step):
     collectives.reset_counts()
     out = {'losses': []}
     try:
-        for i in range(TP_STEPS):
+        for i in range(steps):
             args = inputs(i)
             if i == 1:
                 torch.cuda.synchronize()
@@ -4697,6 +4724,7 @@ def _split_steps(split, full_grads, full_loss, run_step, inputs, per_step):
                 out['first_loss'] = float(loss)
                 out['one_process_loss'] = full_loss
                 errors = _grad_errors(_grads(split), full_grads, split.parallel.shard)
+                out['grad_errors'] = errors
                 out['grad_err_over_max_abs'] = max(errors.values())
                 out['worst_grad'] = max(errors, key=errors.get)
                 full_grads.clear()
@@ -4706,7 +4734,7 @@ def _split_steps(split, full_grads, full_loss, run_step, inputs, per_step):
     finally:
         restore()
     out['losses'] = [float(v) for v in out['losses']]
-    out['rate'] = (TP_STEPS - 1) * per_step / elapsed
+    out['rate'] = (steps - 1) * per_step / elapsed
     out['launches'] = launch_counts()
     out['flash_shapes'] = dict(shapes)
     out['collectives'] = collectives.counts()
@@ -4898,6 +4926,193 @@ def phase_tp_path(lm_url, vit_url, lm_tokens_per_s, vit_images_per_s):
         assert r['lm']['launches']['normalize_images'] == 0
     return {name: sum(r[part]['launches'][name] for r in results for part in ('lm', 'vit'))
             for name in (*FLASH_KERNELS, 'normalize_images')}
+
+
+def _ep_pp_train(rank, lm_url):
+    """One rank's part of ``ep_pp_path``: the MoE flagship with its
+    experts split over ``'expert'``, then the dense flagship as a 2-stage
+    pipeline, each after one process's step from the same init."""
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    from petastorm_tpu_torch.examples.lm_pretrain import (
+        FLAGSHIP_LM_KW, lm_config, packing_transform,
+    )
+    from petastorm_tpu_torch.models import transformer
+    from petastorm_tpu_torch.parallel.mesh import (
+        DATA_AXIS, EXPERT_AXIS, PIPE_AXIS, make_named_mesh,
+    )
+    ep_mesh = make_named_mesh({DATA_AXIS: 1, EXPERT_AXIS: PARALLEL_RANKS}, device_type='cuda')
+    pipe_mesh = make_named_mesh({PIPE_AXIS: PARALLEL_RANKS}, device_type='cuda')
+    out = {'rank': rank, 'coordinate': {'ep': list(ep_mesh.get_coordinate()),
+                                        'pp': list(pipe_mesh.get_coordinate())}}
+    with make_torch_loader(lm_url, LM_BATCH, ep_mesh, (DATA_AXIS,), fields=['^tokens$'],
+                           transform_spec=packing_transform(LM_SEQ + 1), num_epochs=None,
+                           shuffle_row_groups=True, device='cuda') as loader:
+        batches = [b['tokens'].clone() for b in loader.iter_steps(EP_STEPS)]
+    out['same_rows'] = _same_on_every_rank([int(b.long().sum()) for b in batches])
+
+    def reference_step(config):
+        """One process's step on the first batch, the ranks in turn: each
+        holds a whole model's activations while it runs."""
+        import torch.distributed as dist
+        result = None
+        for turn in range(PARALLEL_RANKS):
+            if turn == rank:
+                full = transformer.init_transformer(0, config, 'cuda')
+                result = _one_process(full,
+                                      lambda m: transformer.transformer_loss(m, batches[0]))
+                del full
+                torch.cuda.empty_cache()
+            dist.barrier()
+        return result
+
+    # (a) expert parallelism; the aux of each forward is recorded
+    moe_config = lm_config(LM_SEQ, dict(FLAGSHIP_LM_KW, n_experts=MOE_EXPERTS))
+    features, aux = transformer._features_with_aux, []
+
+    def recording_features(model, tokens):
+        x, total = features(model, tokens)
+        aux.append(float(total.detach()))
+        return x, total
+
+    transformer._features_with_aux = recording_features
+    try:
+        grads, loss = reference_step(moe_config)
+        full_aux = aux[-1]
+        split = transformer.init_transformer(0, moe_config, 'cuda', mesh=ep_mesh)
+        step = transformer.transformer_train_step(split, transformer.adamw(split))
+        aux.clear()
+        out['ep'] = _split_steps(split, grads, loss, step, lambda i: (batches[i],),
+                                 LM_BATCH * LM_SEQ, steps=EP_STEPS)
+    finally:
+        transformer._features_with_aux = features
+    out['ep'].update(first_aux=aux[0], one_process_aux=full_aux,
+                     params_per_rank=sum(p.numel() for p in split.parameters()),
+                     experts_per_rank=split.blocks[0].moe.n_local)
+    del split, step, grads
+    torch.cuda.empty_cache()
+
+    # (b) the pipeline: a stage's gradients against one process's, under
+    # the stage's own block numbers
+    config = lm_config(LM_SEQ)
+    grads, loss = reference_step(config)
+    stage = transformer.init_pipelined_transformer(0, config, pipe_mesh, device='cuda')
+    first, per = stage.first_layer, len(stage.blocks)
+    stage_grads = {}
+    for name, grad in grads.items():
+        if name.startswith('blocks.'):
+            _, index, rest = name.split('.', 2)
+            if first <= int(index) < first + per:
+                stage_grads['blocks.%d.%s' % (int(index) - first, rest)] = grad
+        else:
+            stage_grads[name] = grad
+    del grads
+    step = transformer.pipelined_transformer_train_step(stage, transformer.adamw(stage),
+                                                        n_microbatches=PP_MICROBATCHES)
+    out['pp'] = _split_steps(stage, stage_grads, loss, step, lambda i: (batches[i],),
+                             LM_BATCH * LM_SEQ, steps=EP_STEPS)
+    out['pp'].update(first_layer=first, layers=per,
+                     params_per_rank=sum(p.numel() for p in stage.parameters()))
+    return out
+
+
+def phase_ep_pp_path(lm_url, lm_tokens_per_s):
+    """Expert parallelism and the GPipe pipeline on the one card (see
+    ``_ep_pp_train``). Held: each part's first loss against one process's
+    step, the MoE aux, the expert weights' (the pipeline: every)
+    gradients, the flash kernels' launches per rank and their shape, and
+    that each is a ``_wgmma`` one."""
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = _run_ranks('_ep_pp_train', (lm_url,))
+    seconds = time.perf_counter() - t0
+    heads, d = FLAGSHIP_LM_KW['n_heads'], FLAGSHIP_LM_KW['d_model']
+    layers = FLAGSHIP_LM_KW['n_layers']
+    parts = {
+        'ep': {'mesh': {'data': 1, 'expert': PARALLEL_RANKS},
+               'model': dict(FLAGSHIP_LM_KW, n_experts=MOE_EXPERTS),
+               'entry': 'init_transformer(mesh=make_named_mesh({data: 1, expert: 2})), '
+                        'transformer_train_step',
+               'flash_shape': (LM_BATCH, LM_SEQ, heads, d // heads),
+               'launches': layers * EP_STEPS},
+        'pp': {'mesh': {'pipe': PARALLEL_RANKS}, 'model': FLAGSHIP_LM_KW,
+               'n_microbatches': PP_MICROBATCHES,
+               'entry': 'init_pipelined_transformer(mesh=make_named_mesh({pipe: 2})), '
+                        'pipelined_transformer_train_step(n_microbatches=2)',
+               'flash_shape': (LM_BATCH // PP_MICROBATCHES, LM_SEQ, heads, d // heads),
+               # a stage's layers, each microbatch once a step: no bubble compute
+               'launches': layers // PARALLEL_RANKS * PP_MICROBATCHES * EP_STEPS},
+    }
+    report = {'phase': 'ep_pp_path', 'steps': EP_STEPS, 'batch_size': LM_BATCH,
+              'attention_positions': LM_SEQ, 'seconds': seconds,
+              'one_device_tokens_per_s': lm_tokens_per_s,
+              'coordinates': [r['coordinate'] for r in results],
+              'tolerances': 'loss rel <= %g; aux rel <= %g; gradients max|rank - one process| / '
+                            'max|one process| <= %g' % (EP_LOSS_RTOL, EP_AUX_RTOL, EP_GRAD_TOL)}
+    for part, spec in parts.items():
+        runs = [r[part] for r in results]
+        entry = {k: (list(v) if isinstance(v, tuple) else v) for k, v in spec.items()}
+        entry.update({
+            'loss_rel_gap': [abs(r['first_loss'] - r['one_process_loss'])
+                             / abs(r['one_process_loss']) for r in runs],
+            'first_loss': [r['first_loss'] for r in runs],
+            'one_process_loss': runs[0]['one_process_loss'],
+            'grad_err_over_max_abs': [r['grad_err_over_max_abs'] for r in runs],
+            'worst_grad': [r['worst_grad'] for r in runs],
+            'losses': [r['losses'] for r in runs],
+            'tokens_per_s_per_rank': [r['rate'] for r in runs],
+            'rate_timing': 'steps 2-%d, host copies of the collectives included' % EP_STEPS,
+            'peak_memory_bytes_per_rank': [r['peak_memory_bytes'] for r in runs],
+            'params_per_rank': [r['params_per_rank'] for r in runs],
+            'launches_per_rank': [r['launches'] for r in runs],
+            'flash_shapes_per_rank': [r['flash_shapes'] for r in runs],
+            'flash_kernel_names': sorted({n for r in runs for n in r['flash_kernel_names']}),
+            'collectives_per_rank': [r['collectives'] for r in runs]})
+        if part == 'ep':
+            experts = [{k: v for k, v in r['grad_errors'].items()
+                        if k.endswith(('.w_in', '.w_out'))} for r in runs]
+            entry.update(
+                expert_grad_err_over_max_abs=[max(e.values()) for e in experts],
+                aux_rel_gap=[abs(r['first_aux'] - r['one_process_aux'])
+                             / abs(r['one_process_aux']) for r in runs],
+                first_aux=[r['first_aux'] for r in runs],
+                one_process_aux=runs[0]['one_process_aux'],
+                experts_per_rank=[r['experts_per_rank'] for r in runs])
+        else:
+            entry.update(first_layer=[r['first_layer'] for r in runs],
+                         embed_grad_err_over_max_abs=[r['grad_errors']['embed'] for r in runs])
+        report[part] = entry
+    emit(report)
+    for r in results:
+        assert r['same_rows']
+        for part, spec in parts.items():
+            run = r[part]
+            assert len(run['losses']) == EP_STEPS and all(math.isfinite(v)
+                                                          for v in run['losses'])
+            assert abs(run['first_loss'] - run['one_process_loss']) <= EP_LOSS_RTOL * abs(
+                run['one_process_loss']), (part, run['first_loss'], run['one_process_loss'])
+            for name in FLASH_KERNELS:
+                assert run['launches'][name] == spec['launches'], (
+                    part, name, run['launches'][name], spec['launches'])
+            assert all(key.endswith(str(spec['flash_shape'])) for key in run['flash_shapes']), \
+                (part, run['flash_shapes'])
+            assert sum(run['flash_shapes'].values()) == 3 * spec['launches'], run['flash_shapes']
+            assert run['flash_kernel_names'] and all('_wgmma' in n
+                                                     for n in run['flash_kernel_names'])
+        ep, pp = r['ep'], r['pp']
+        assert ep['experts_per_rank'] == MOE_EXPERTS // PARALLEL_RANKS
+        assert abs(ep['first_aux'] - ep['one_process_aux']) <= EP_AUX_RTOL * abs(
+            ep['one_process_aux']), (ep['first_aux'], ep['one_process_aux'])
+        for name, err in ep['grad_errors'].items():
+            if name.endswith(('.w_in', '.w_out')):
+                assert err <= EP_GRAD_TOL, (name, err)
+        assert ep['collectives']['calls'].get('reduce_from_model', 0) > 0, ep['collectives']
+        assert pp['grad_err_over_max_abs'] <= EP_GRAD_TOL, (pp['worst_grad'],
+                                                             pp['grad_err_over_max_abs'])
+        assert pp['collectives']['calls'].get('ppermute', 0) > 0, pp['collectives']
+    assert sorted(r['pp']['first_layer'] for r in results) == [0, layers // PARALLEL_RANKS]
+    return {name: sum(r[part]['launches'][name] for r in results for part in parts)
+            for name in FLASH_KERNELS}
 
 
 def _attention_blocks(rank, mesh):
@@ -5135,6 +5350,7 @@ def main(argv=None):
         paths['write_plane_vit_path'] = phase_write_plane_vit_path(image_codec, tmp)
         paths['etl_tools_vit_path'] = phase_etl_tools_vit_path(selective_url, tmp)
         paths['tp_path'] = phase_tp_path(lm_url, vit_url, lm_tokens_per_s, vit_images_per_s)
+        paths['ep_pp_path'] = phase_ep_pp_path(lm_url, lm_tokens_per_s)
     phase_vit_profile()
     # the headline numbers are this slice's path's: the flash kernels' at
     # the mixture path's shape (the flagship's) and their launches there;
@@ -5173,7 +5389,7 @@ def main(argv=None):
                  'replaces': replaces, 'launches': paths['mixture_path'][name],
                  'launches_by_path': _launches_by_path(name, paths)}
         for label in (VARLEN_FLASH_CASE, *VARLEN_TAIL_CASES, VIT_FLASH_CASE, *TP_FLASH_CASES,
-                      FLASH_MAIN_CASE):
+                      PIPE_FLASH_CASE, FLASH_MAIN_CASE):
             case = flash[label]
             timing = case['kernels'][key]
             numbers = {

@@ -36,7 +36,10 @@ With an initialized ``torch.distributed`` process group every rank calls
 ``save``: the loader states are gathered, keyed by rank, and rank 0
 writes (the model and optimizer states of data-parallel ranks are
 replicas). A model split over ranks (``init_transformer(mesh=)`` with a
-``'model'`` dim of more than one rank) holds a different shard on each,
+``'model'`` dim, or an MoE model with an ``'expert'`` dim, of more than
+one rank, or a pipeline stage of :func:`init_pipelined_transformer
+<petastorm_tpu_torch.models.transformer.init_pipelined_transformer>`)
+holds different weights on each,
 so every rank writes its own train state and reads its own back, on the
 same number of ranks. A checkpoint restored on a different number of
 ranks merges every rank's progress (:func:`merge_loader_states`, or
@@ -165,14 +168,14 @@ def _rank_file(rank):
 
 
 def _split_modules(value):
-    """Whether a train state holds a module split over ``'model'`` ranks
-    (its ``parallel.tp`` above one)."""
+    """Whether a train state holds a module whose parameters differ by
+    rank: split over ``'model'`` or ``'expert'``, or one pipeline stage
+    (its ``parallel.holds_shards``)."""
     if isinstance(value, dict):
         return any(_split_modules(v) for v in value.values())
     if isinstance(value, (list, tuple)):
         return any(_split_modules(v) for v in value)
-    par = getattr(value, 'parallel', None)
-    return getattr(par, 'tp', 1) > 1
+    return bool(getattr(getattr(value, 'parallel', None), 'holds_shards', False))
 
 
 def _state_of(value):

@@ -171,7 +171,7 @@ def _decode(model, prompt, max_new_tokens, generator, temperature, top_k, top_p,
     if c.n_experts > 0 or c.seq_axis is not None:
         raise NotImplementedError('greedy_generate/sample_generate support dense, '
                                   'unsharded-sequence configs')
-    if model.parallel.tp > 1:
+    if model.parallel.holds_shards:
         raise unported('decoding a model split over ranks', 8)
     if max_new_tokens < 1:
         raise ValueError('max_new_tokens must be >= 1; got %d' % max_new_tokens)

@@ -27,9 +27,15 @@ split by head (each rank's query heads and the K/V heads they read),
 ``mlp_out`` by rows and ``lm_head`` by vocabulary; ``embed``,
 ``pos_embed`` and the norm gains are replicated, as is every weight over a
 dim the mesh lacks. ``config.seq_axis`` splits the sequence over that
-mesh dim and runs attention through ring or Ulysses attention. The
-expert-parallel MoE and the pipelined forward are not ported yet
-(``ROADMAP.md`` Queue 1 item 8).
+mesh dim and runs attention through ring or Ulysses attention. An MoE block's
+experts split over ``config.expert_axis`` (``'expert'``), and its routing
+runs over the whole global batch (:class:`~petastorm_tpu_torch.models.moe.TokenSplit`).
+
+The pipelined transformer (:func:`init_pipelined_transformer`) holds one
+stage's blocks on each rank of ``'pipe'`` and runs them as a GPipe
+pipeline (:mod:`petastorm_tpu_torch.parallel.pipeline`); the embedding and
+the head run on every stage. It composes with ``'model'``, ``'expert'``,
+``'data'`` and ``config.seq_axis`` as the layered model does.
 """
 
 import dataclasses
@@ -42,12 +48,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from petastorm_tpu_torch.errors import unported
 from petastorm_tpu_torch.parallel.collectives import (
     all_reduce, copy_to_model, reduce_from_model,
 )
 from petastorm_tpu_torch.parallel.mesh import (
-    DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, axis,
+    DATA_AXIS, MODEL_AXIS, PIPE_AXIS, axis,
 )
 
 
@@ -61,8 +66,8 @@ class TransformerConfig:
     max_seq_len: int = 128
     dtype: object = torch.bfloat16
     # n_experts > 0 swaps every block's dense FFN for a Switch-MoE layer;
-    # its aux loss joins the train loss weighted by moe_aux_weight. The
-    # experts are replicated on every rank: expert_axis stays a field only.
+    # its aux loss joins the train loss weighted by moe_aux_weight; the
+    # experts split over the mesh dim expert_axis.
     n_experts: int = 0
     capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
@@ -119,9 +124,6 @@ class TransformerConfig:
         if self.ffn != 'gelu' and self.n_experts > 0:
             raise ValueError('ffn=%r applies to dense blocks only; MoE configs '
                              '(n_experts > 0) own their expert FFN' % (self.ffn,))
-        if self.seq_axis is not None and self.n_experts > 0:
-            raise unported('TransformerConfig(seq_axis=, n_experts>0) (MoE routing per '
-                           'sequence shard)', 8)
 
     @property
     def kv_heads(self):
@@ -150,22 +152,35 @@ class Parallel:
     is replicated. The FFN splits its hidden width and the head its
     vocabulary; both must divide by ``tp``, as the JAX package's even
     shardings must. ``config.seq_axis`` names the mesh dim the sequence
-    splits over, ``'data'`` the one the batch splits over. ``head=False``
-    (the ViT's blocks) leaves the LM head out of the checks."""
+    splits over, ``'data'`` the one the batch splits over. An MoE block's
+    experts split over ``config.expert_axis`` (``ep`` ranks; ``n_experts``
+    must divide over them). ``pipe_axis`` (the pipelined model only) names
+    the dim whose ranks each hold one stage; a layered model is replicated
+    over a ``'pipe'`` dim, as the reference's specs replicate over an axis
+    they do not name. ``head=False`` (the ViT's blocks) leaves the LM head
+    out of the checks."""
 
-    def __init__(self, config, mesh=None, head=True):
+    def __init__(self, config, mesh=None, head=True, pipe_axis=None):
+        from petastorm_tpu_torch.models.moe import TokenSplit
         c = config
         self.mesh = mesh
         self.seq_axis = c.seq_axis
         self.model_group, self.tp, self.tp_rank = axis(mesh, MODEL_AXIS)
-        self.data_group, self.dp, _ = axis(mesh, DATA_AXIS)
-        for name, what in ((EXPERT_AXIS, 'expert parallelism across ranks'),
-                           (PIPE_AXIS, 'the pipelined transformer')):
-            if axis(mesh, name)[1] > 1:
-                raise unported('%s (a mesh with a %r dim)' % (what, name), 8)
+        self.data_group, self.dp, self.dp_rank = axis(mesh, DATA_AXIS)
+        self.expert_group, self.ep, self.ep_rank = (
+            axis(mesh, c.expert_axis) if c.n_experts > 0 else (None, 1, 0))
+        if c.n_experts % self.ep:
+            raise ValueError('n_experts=%d does not split over the %d ranks of mesh dim %r'
+                             % (c.n_experts, self.ep, c.expert_axis))
+        self.pipe_axis = pipe_axis
+        self.pipe_group, self.pp, self.stage = (
+            axis(mesh, pipe_axis) if pipe_axis is not None else (None, 1, 0))
         self.seq_group, self.seq_size, self.seq_rank = (
             axis(mesh, c.seq_axis) if c.seq_axis is not None else (None, 1, 0))
         self.batch_axis = DATA_AXIS if self.dp > 1 else None
+        # the layered forward routes the global batch as one array
+        self.moe_split = TokenSplit(rows=self.data_group if self.dp > 1 else None,
+                                    positions=self.seq_group)
         tp, r = self.tp, self.tp_rank
         if tp > 1:
             if c.d_ff % tp:
@@ -201,10 +216,19 @@ class Parallel:
         self.vocab_start = r * vocab
         self._vocab = slice(r * vocab, (r + 1) * vocab)
 
+    @property
+    def holds_shards(self):
+        """Whether this rank's parameters differ from another rank's (a
+        split over ``'model'`` or ``'expert'``, or a pipeline stage)."""
+        return self.tp > 1 or self.ep > 1 or self.pp > 1
+
     def shard(self, name, full):
         """This rank's part of the full-width parameter ``name`` (a
         ``state_dict`` key)."""
         leaf = name.rsplit('.', 1)[-1]
+        if leaf in ('w_in', 'w_out'):
+            from petastorm_tpu_torch.models.moe import expert_shard
+            return expert_shard(name, full, self.ep, self.ep_rank)
         if self.split_heads and leaf == 'qkv':
             return full[:, self._qkv_cols].contiguous()
         if self.split_heads and leaf == 'attn_out':
@@ -235,7 +259,11 @@ class Parallel:
         head held by several ranks sums its gradient over them, and every
         gradient sums over ``'data'`` and the sequence dim (each rank's
         loss is the global one, its backward only its own rows' and
-        positions' part, see :meth:`batch_sum`)."""
+        positions' part, see :meth:`batch_sum`). Nothing sums over
+        ``'expert'`` or ``'pipe'``: an expert shard's gradient is whole on
+        its rank, and so is a replicated weight's (the expert path sums its
+        input's gradient itself, the pipeline hands the batch's gradient
+        to every stage)."""
         if self.kv_shared:
             self._sum_shared_kv(model.blocks)
         if self.seq_group is None and self.dp == 1:
@@ -288,7 +316,7 @@ class _Block(nn.Module):
         self.ln2 = _param(c.d_model)
         if c.n_experts > 0:
             from petastorm_tpu_torch.models.moe import MoE
-            self.moe = MoE(c.moe_config())
+            self.moe = MoE(c.moe_config(), par.mesh, c.expert_axis)
             return
         ff = c.d_ff // par.tp
         self.mlp_in = _param(c.d_model, ff)
@@ -329,16 +357,22 @@ class Transformer(nn.Module):
     FFN's matrices when ``n_experts > 0``. With a ``mesh`` each parameter
     is this rank's shard (see :class:`Parallel`, ``model.parallel``)."""
 
-    def __init__(self, config, mesh=None):
+    def __init__(self, config, mesh=None, pipe_axis=None):
         super().__init__()
         c = self.config = config
-        self.parallel = par = Parallel(config, mesh)
+        self.parallel = par = Parallel(config, mesh, pipe_axis=pipe_axis)
+        if c.n_layers % par.pp:
+            raise ValueError('n_layers=%d not divisible into %d pipeline stages'
+                             % (c.n_layers, par.pp))
+        # a pipeline stage holds layers [first_layer, first_layer + len(blocks))
+        n_blocks = c.n_layers // par.pp
+        self.first_layer = par.stage * n_blocks
         self.embed = _param(c.vocab_size, c.d_model)
         if c.pos_encoding == 'learned':
             self.pos_embed = _param(c.max_seq_len, c.d_model)
         self.lm_head = _param(c.d_model, c.vocab_size // par.tp)
         self.ln_f = _param(c.d_model)
-        self.blocks = nn.ModuleList(_Block(c, par) for _ in range(c.n_layers))
+        self.blocks = nn.ModuleList(_Block(c, par) for _ in range(n_blocks))
 
     @torch.no_grad()
     def reset_parameters(self, generator):
@@ -357,7 +391,17 @@ class Transformer(nn.Module):
         self.lm_head.copy_(self.parallel.shard('lm_head', torch.randn(
             (c.d_model, c.vocab_size), generator=generator) * 0.02))
         self.ln_f.fill_(1.0)
-        for block in self.blocks:
+        other_stage = None
+        for layer in range(c.n_layers):
+            index = layer - self.first_layer
+            if 0 <= index < len(self.blocks):
+                block = self.blocks[index]
+            else:
+                # another stage's layer: drawn all the same, so the
+                # generator's sequence is the unsplit model's
+                if other_stage is None:
+                    other_stage = _Block(c, self.parallel)
+                block = other_stage
             reset_block(block, c, generator, self.parallel)
 
     def forward(self, tokens):
@@ -375,6 +419,21 @@ def init_transformer(seed, config, device=None, mesh=None):
     model = Transformer(config, mesh)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(device)
+
+
+class PipelinedTransformer(Transformer):
+    """The pipelined model's parameters on one rank of ``pipe_axis``:
+    ``embed``, ``pos_embed``, ``lm_head`` and ``ln_f`` as the layered
+    model's (on every stage), and ``blocks`` this stage's ``n_layers /
+    n_stages`` blocks (``blocks.<i>`` is layer ``first_layer + i``), each
+    with its ``'model'`` and ``'expert'`` shards."""
+
+    def __init__(self, config, mesh, pipe_axis=None):
+        super().__init__(config, mesh, pipe_axis=PIPE_AXIS if pipe_axis is None else pipe_axis)
+
+    def forward(self, tokens):
+        """tokens ``(B, S)`` int → logits, through the pipeline."""
+        return pipelined_transformer_forward(self, tokens)
 
 
 def params_from_jax(params, mesh=None, config=None):
@@ -400,7 +459,7 @@ def params_from_jax(params, mesh=None, config=None):
     return shard_state(state, mesh, config)
 
 
-def shard_state(state, mesh, config, head=True):
+def shard_state(state, mesh, config, head=True, pipe_axis=None):
     """Each full-width entry of ``state`` cut to this rank's shard of
     ``mesh`` (``state`` itself without a mesh)."""
     if mesh is None:
@@ -408,8 +467,28 @@ def shard_state(state, mesh, config, head=True):
     if config is None:
         raise ValueError('splitting weights over a mesh needs the model config '
                          '(it says how the heads split)')
-    par = Parallel(config, mesh, head=head)
+    par = Parallel(config, mesh, head=head, pipe_axis=pipe_axis)
     return {name: par.shard(name, value) for name, value in state.items()}
+
+
+def pipelined_params_from_jax(params, mesh, config, pipe_axis=None):
+    """A :class:`PipelinedTransformer` ``state_dict`` for this rank from
+    the JAX pipelined model's parameters: its ``stages`` tree (leaves
+    ``(n_stages, per_stage, ...)``) read at this rank's stage, each block
+    cut to its ``'model'`` and ``'expert'`` shards, and the embedding,
+    positions, norm and head as :func:`params_from_jax` reads them."""
+    pipe_axis = PIPE_AXIS if pipe_axis is None else pipe_axis
+    stage = axis(mesh, pipe_axis)[2]
+
+    def layer(tree, i):
+        return {name: layer(value, i) if isinstance(value, dict)
+                else np.asarray(value)[stage, i] for name, value in tree.items()}
+
+    stages = params['stages']
+    per_stage = next(iter(stages.values())).shape[1]
+    layered = {name: value for name, value in params.items() if name != 'stages'}
+    layered['blocks'] = [layer(stages, i) for i in range(per_stage)]
+    return shard_state(params_from_jax(layered), mesh, config, pipe_axis=pipe_axis)
 
 
 def _matmul(x, w, dtype):
@@ -544,37 +623,38 @@ def _block_forward(block, x, config, par, causal=True):
     return _block_dense_ffn_half(block, x, config, par=par)
 
 
-def _block_moe_half(block, x, config):
-    """MoE FFN sublayer (RMSNorm, Switch MoE, residual). Returns ``(x,
-    aux)``."""
+def _block_moe_half(block, x, config, split):
+    """MoE FFN sublayer (RMSNorm, Switch MoE, residual) routing the array
+    ``split`` describes. Returns ``(x, aux)``."""
     from petastorm_tpu_torch.models.moe import moe_forward
-    ffn_out, aux = moe_forward(block.moe, _rmsnorm(x, block.ln2), config.moe_config())
+    ffn_out, aux = moe_forward(block.moe, _rmsnorm(x, block.ln2), config.moe_config(),
+                               split=split)
     return x + ffn_out.to(config.dtype), aux
 
 
-def _moe_block_forward(block, x, config, par):
-    return _block_moe_half(block, _block_attention_half(block, x, config, par), config)
+def _moe_block_forward(block, x, config, par, split):
+    return _block_moe_half(block, _block_attention_half(block, x, config, par), config, split)
 
 
-def _dense_block_forward(block, x, config, par):
+def _dense_block_forward(block, x, config, par, split):
     return _block_forward(block, x, config, par), None
 
 
-def _run_block(block, x, config, par):
+def _run_block(block, x, config, par, split=None):
     """``(x, aux or None)`` after one block: the one place the MoE/dense
     branch and ``config.remat`` (the whole block, MoE half included,
-    recomputed in the backward) meet."""
+    recomputed in the backward) meet. ``split`` (default the layered
+    forward's, ``par.moe_split``) says which array an MoE block routes."""
     forward = _moe_block_forward if config.n_experts > 0 else _dense_block_forward
+    split = par.moe_split if split is None else split
     if config.remat:
-        return checkpoint(forward, block, x, config, par, use_reentrant=False)
-    return forward(block, x, config, par)
+        return checkpoint(forward, block, x, config, par, split, use_reentrant=False)
+    return forward(block, x, config, par, split)
 
 
-def _features_with_aux(model, tokens):
-    """Post-``ln_f`` hidden states ``(B, S, D)`` and the aux loss: the
-    Switch loss summed over the MoE blocks (0.0 for a dense model), the
-    forward without the head. With ``config.seq_axis`` ``tokens`` are the
-    global rows and the states this rank's block of positions."""
+def _embed(model, tokens):
+    """The embedded ``(B, S, D)`` activations of this rank's rows (its
+    block of positions with ``config.seq_axis``)."""
     c, par = model.config, model.parallel
     if c.seq_axis is not None:
         if par.mesh is None:
@@ -586,6 +666,19 @@ def _features_with_aux(model, tokens):
     if c.pos_encoding == 'learned':
         start = par.seq_rank * tokens.shape[1]
         x = x + model.pos_embed[start:start + tokens.shape[1]].to(c.dtype)
+    return x
+
+
+def _features_with_aux(model, tokens):
+    """Post-``ln_f`` hidden states ``(B, S, D)`` and the aux loss: the
+    Switch loss summed over the MoE blocks (0.0 for a dense model), the
+    forward without the head. With ``config.seq_axis`` ``tokens`` are the
+    global rows and the states this rank's block of positions."""
+    c, par = model.config, model.parallel
+    if par.pipe_axis is not None:
+        raise ValueError('a pipelined model holds one stage\'s blocks: run it through '
+                         'pipelined_transformer_forward and its train step')
+    x = _embed(model, tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in model.blocks:
         x, aux = _run_block(block, x, c, par)
@@ -670,15 +763,17 @@ def _chunked_next_token_nll(x, lm_head, targets, mask, chunk, dtype, par=None):
     return nll, cnt
 
 
-def _next_token_nll(model, inputs, targets, mask):
+def _next_token_nll(model, inputs, targets, mask, features=None):
     """``(sum_nll, count, aux)`` over the global batch: this rank's sums
     over its rows, positions (``config.seq_axis``) and vocabulary (split
     over ``'model'``), added up over the ranks by :meth:`Parallel.batch_sum`.
     ``targets`` and ``mask`` are this rank's rows, shifted before the
     sequence split, so a shard's last target is the next shard's first
-    token. ``aux`` is the Switch loss averaged over ``'data'``."""
+    token. ``aux`` is the global batch's Switch loss, the same on every
+    rank. ``features`` (default the layered forward's) gives the
+    post-``ln_f`` states and the aux."""
     c, par = model.config, model.parallel
-    x, aux = _features_with_aux(model, inputs)
+    x, aux = (features or _features_with_aux)(model, inputs)
     targets, mask = par.seq_slice(targets), par.seq_slice(mask).float()
     x = copy_to_model(x, par.model_group)
     if c.loss_chunk > 0:
@@ -687,8 +782,6 @@ def _next_token_nll(model, inputs, targets, mask):
     else:
         nll, cnt = _chunk_nll(x, model.lm_head, targets, mask, c.dtype, par)
     nll, cnt = par.batch_sum(torch.stack([nll, cnt])).unbind()
-    if c.n_experts > 0:
-        aux = reduce_from_model(aux, par.data_group) / par.dp
     return nll, cnt, aux
 
 
@@ -806,19 +899,125 @@ def transformer_train_step(model, optimizer, mesh=None, accum_steps=1):
     return step
 
 
-def _pipelined(name):
-    def refuse(*args, **kwargs):
-        raise unported('%s (the pipelined transformer)' % name, 8)
-    refuse.__name__ = name
-    refuse.__doc__ = ('The JAX package\'s ``%s``: not ported yet (``ROADMAP.md`` Queue 1 '
-                      'item 8); raises ``NotImplementedError``.' % name)
-    return refuse
+def init_pipelined_transformer(seed, config, mesh, pipe_axis=None, device=None):
+    """A :class:`PipelinedTransformer` for this rank's stage of ``mesh``'s
+    ``pipe_axis`` (default ``'pipe'``): the weights :func:`init_transformer`
+    draws from ``seed``, this stage's layers and this rank's ``'model'`` and
+    ``'expert'`` shards of them, on ``device`` (``None`` means the card).
+    ``config.n_layers`` must divide over the stages."""
+    device = torch.device('cuda' if device is None else device)
+    model = PipelinedTransformer(config, mesh, pipe_axis)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model.to(device)
 
 
-init_pipelined_transformer = _pipelined('init_pipelined_transformer')
-pipelined_transformer_forward = _pipelined('pipelined_transformer_forward')
-pipelined_transformer_forward_with_aux = _pipelined('pipelined_transformer_forward_with_aux')
-pipelined_transformer_train_step = _pipelined('pipelined_transformer_train_step')
+def _microbatch_plan(par, n_microbatches, rows):
+    """``(local microbatches, their TokenSplit, aux gradient scale)`` of a
+    pipeline of ``n_microbatches`` global microbatches (default one a
+    stage) over a batch whose ``rows`` a rank holds. A global microbatch
+    is rows ``[m·B/M, (m+1)·B/M)`` of the global batch, as in the
+    reference: with ``M`` a multiple of ``dp`` each data rank holds
+    ``M/dp`` whole ones and routes each alone; with ``dp`` a multiple of
+    ``M`` one spans ``dp/M`` data ranks, which route it as one array. MoE
+    routing is local to a rank's block of positions with the aux
+    statistics summed over the sequence dim, as the reference's manual
+    region routes."""
+    from petastorm_tpu_torch.models.moe import TokenSplit
+    m = par.pp if n_microbatches is None else n_microbatches
+    batch, dp = rows * par.dp, par.dp
+    if m < 1 or batch % m:
+        raise ValueError('batch %d not divisible into %d microbatches' % (batch, m))
+    if m % dp == 0:
+        return m // dp, TokenSplit(stats=par.seq_group), 1
+    if dp % m == 0:
+        span = dp // m
+        first = par.dp_rank // span * span
+        return 1, TokenSplit(rows=par.data_group, members=tuple(range(first, first + span)),
+                             stats=par.seq_group), span
+    raise ValueError('%d microbatches over %d ranks of %r: a global microbatch would '
+                     'straddle ranks unevenly; give a count that divides or is divided '
+                     'by %d' % (m, dp, DATA_AXIS, dp))
+
+
+def _pipelined_features_with_aux(model, tokens, n_microbatches=None):
+    """The pipelined counterpart of :func:`_features_with_aux`: the
+    embedding on every stage, this stage's blocks as a GPipe stage, and
+    ``ln_f`` on the last stage's output, which every stage receives. The
+    aux is the Switch loss summed over layers and averaged over the
+    global microbatches, each counted once, as in the reference."""
+    from petastorm_tpu_torch.parallel.pipeline import run_pipeline
+    c, par = model.config, model.parallel
+    x = _embed(model, tokens)
+    n_local, split, scale = _microbatch_plan(par, n_microbatches, x.shape[0])
+    moe = c.n_experts > 0
+
+    def stage_fn(blocks, x):
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for block in blocks:
+            x, aux = _run_block(block, x, c, par, split)
+            if aux is not None:
+                aux_total = aux_total + aux
+        return (x, aux_total) if moe else x
+
+    x, aux = run_pipeline(stage_fn, list(model.blocks), x, par.pipe_group, n_local,
+                          with_aux=moe)
+    if moe and par.dp > 1:
+        # every rank's microbatches, over 'data'; a microbatch that spans
+        # `scale` ranks is on each of them, so its value counts 1/scale on
+        # each and its gradient (each rank's own part) counts whole
+        aux = reduce_from_model(aux + (scale - 1) * (aux - aux.detach()), par.data_group) / par.dp
+    return _rmsnorm(x, model.ln_f), aux
+
+
+def pipelined_transformer_forward_with_aux(model, tokens, n_microbatches=None):
+    """tokens ``(B, S)`` int → (logits f32, aux) through the pipeline:
+    this rank's block of the logits (its rows, positions and vocabulary
+    on a split model), on every stage."""
+    x, aux = _pipelined_features_with_aux(model, tokens, n_microbatches)
+    x = copy_to_model(x, model.parallel.model_group)
+    return _matmul(x, model.lm_head, model.config.dtype).float(), aux
+
+
+def pipelined_transformer_forward(model, tokens, n_microbatches=None):
+    """tokens ``(B, S)`` int → logits f32 through the pipeline (aux
+    discarded)."""
+    return pipelined_transformer_forward_with_aux(model, tokens, n_microbatches)[0]
+
+
+def pipelined_transformer_loss(model, tokens, n_microbatches=None):
+    """:func:`transformer_loss` through the pipeline: the global batch's
+    next-token cross-entropy (chunked with ``config.loss_chunk``) plus the
+    weighted aux, on every stage."""
+    def features(m, inputs):
+        return _pipelined_features_with_aux(m, inputs, n_microbatches)
+
+    targets = tokens[:, 1:].long()
+    mask = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
+    nll, cnt, aux = _next_token_nll(model, tokens[:, :-1], targets, mask, features)
+    return nll / cnt + model.config.moe_aux_weight * aux
+
+
+def pipelined_transformer_train_step(model, optimizer, mesh=None, pipe_axis=None,
+                                     n_microbatches=None):
+    """A ``tokens -> loss`` step of the pipelined model: each rank passes
+    its rows of the batch, the GPipe forward and backward run over the
+    stages, the gradients sync as :meth:`Parallel.sync_grads` says and
+    the optimizer updates this rank's parameters. ``mesh`` and
+    ``pipe_axis`` default to the model's and must be them."""
+    par = _step_parallel(model, mesh)
+    if pipe_axis is not None and pipe_axis != par.pipe_axis:
+        raise ValueError('the train step\'s pipe_axis %r is not the model\'s %r'
+                         % (pipe_axis, par.pipe_axis))
+
+    def step(tokens):
+        optimizer.zero_grad(set_to_none=True)
+        loss = pipelined_transformer_loss(model, tokens, n_microbatches)
+        loss.backward()
+        par.sync_grads(model)
+        optimizer.step()
+        return loss.detach()
+
+    return step
 
 
 def adamw(model, learning_rate=1e-3):

@@ -1,5 +1,5 @@
 """Ranks through ``torch.distributed`` (counterpart of
 ``petastorm_tpu/parallel``): shard defaults (``sharding``), named device
-meshes (``mesh``) and the differentiable collectives the tensor- and
-sequence-parallel models run on (``collectives``); the pipeline module
-waits for ROADMAP item 8."""
+meshes (``mesh``), the differentiable collectives the tensor-, sequence-
+and expert-parallel models run on (``collectives``) and the GPipe
+pipeline (``pipeline``)."""

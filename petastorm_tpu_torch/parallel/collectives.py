@@ -13,7 +13,11 @@ that runs eagerly on every rank of ``group``:
   reverse permutation;
 * :func:`all_to_all` (``lax.all_to_all(tiled=True)``): split one dim over
   the ranks and concatenate the received chunks along another; its
-  backward is the inverse exchange.
+  backward is the inverse exchange;
+* :func:`send_to` and :func:`recv_from`: one tensor from one rank of the
+  group to another (not differentiable: the pipeline's schedule sends
+  activations forward and their gradients back itself). Each end counts
+  as one ``'ppermute'`` call.
 
 Gloo refuses CUDA tensors for point-to-point and all-to-all, and NCCL
 refuses two ranks on one GPU, so on a gloo group a CUDA tensor goes
@@ -44,6 +48,13 @@ def counts():
     """``{'calls': {name: n}, 'host_copy_seconds': s}`` since the last
     :func:`reset_counts`."""
     return {'calls': dict(_calls), 'host_copy_seconds': _host_copy_seconds}
+
+
+def size_and_rank(group):
+    """``(ranks, this rank's index)`` of ``group``; ``(1, 0)`` for None."""
+    if group is None:
+        return 1, 0
+    return dist.get_world_size(group), dist.get_rank(group)
 
 
 def _trivial(group):
@@ -86,6 +97,47 @@ def all_reduce(t, group, op=None, name='all_reduce'):
         return [out]
 
     return _run(name, group, [t], body)[0]
+
+
+def send_to(t, group, index):
+    """Start sending ``t`` to the rank at ``index`` of ``group``; returns a
+    function that waits for the send to finish (the tensor, or its host
+    copy, must live until then)."""
+    global _host_copy_seconds
+    import torch.distributed as dist
+    _calls['ppermute'] = _calls.get('ppermute', 0) + 1
+    if _on_host(group, t):
+        t0 = time.perf_counter()
+        t = torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+        _host_copy_seconds += time.perf_counter() - t0
+    else:
+        t = t.contiguous()
+    req = dist.isend(t, dist.get_global_rank(group, index), group=group)
+
+    def wait():
+        req.wait()
+        return t
+
+    return wait
+
+
+def recv_from(shape, dtype, device, group, index):
+    """The tensor of ``shape`` and ``dtype`` that the rank at ``index`` of
+    ``group`` sends, on ``device``."""
+    global _host_copy_seconds
+    import torch.distributed as dist
+    _calls['ppermute'] = _calls.get('ppermute', 0) + 1
+    device = torch.device(device)
+    on_host = device.type == 'cuda' and dist.get_backend(group) == 'gloo'
+    buf = torch.empty(shape, dtype=dtype, pin_memory=on_host,
+                      device='cpu' if on_host else device)
+    dist.irecv(buf, dist.get_global_rank(group, index), group=group).wait()
+    if not on_host:
+        return buf
+    t0 = time.perf_counter()
+    out = buf.to(device)
+    _host_copy_seconds += time.perf_counter() - t0
+    return out
 
 
 def _peer(group, shift):

@@ -5,8 +5,8 @@ port's models, ops and loader:
 
 * ``'data'``   — batch (data-parallel) axis; the loader shards batches here.
 * ``'model'``  — tensor-parallel axis; models split weights and heads here.
-* ``'expert'`` — expert-parallel axis (not ported yet).
-* ``'pipe'``   — pipeline-parallel axis (not ported yet).
+* ``'expert'`` — expert-parallel axis; MoE layers split experts here.
+* ``'pipe'``   — pipeline-parallel axis; each rank holds one stage.
 * ``'seq'``    — sequence axis (ring / Ulysses attention).
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of

@@ -212,13 +212,14 @@ def test_moe_and_seq_configs_rejected():
         tg.greedy_generate(model, torch.zeros((1, 4), dtype=torch.int32), 2)
     with pytest.raises(NotImplementedError, match='dense'):
         _sample(model, np.zeros((1, 4), np.int32), 2, 0)
-    # a sequence-split config decodes in neither package, and a
-    # sequence-split MoE config cannot be built in the port yet (item 8)
+    # a sequence-split config, dense or MoE, decodes in neither package
     seq = tt.Transformer(tt.TransformerConfig(dtype=torch.float32, seq_axis='seq', **BASE))
     with pytest.raises(NotImplementedError, match='dense'):
         tg.greedy_generate(seq, torch.zeros((1, 4), dtype=torch.int32), 2)
-    with pytest.raises(NotImplementedError, match='item 8'):
-        tt.TransformerConfig(seq_axis='seq', n_experts=4, **BASE)
+    seq_moe = tt.Transformer(tt.TransformerConfig(dtype=torch.float32, seq_axis='seq',
+                                                  n_experts=4, **BASE))
+    with pytest.raises(NotImplementedError, match='dense'):
+        tg.greedy_generate(seq_moe, torch.zeros((1, 4), dtype=torch.int32), 2)
 
 
 # -- top-k and top-p: the kept set against JAX's _select ----------------------------

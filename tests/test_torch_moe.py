@@ -171,9 +171,34 @@ def test_grads_match_jax(setup):
 
 
 def test_seq_axis_is_item_8(setup):
-    _, torch_config, _, layer, x = setup
-    with pytest.raises(NotImplementedError, match='item 8'):
+    """``moe_forward(seq_axis=)`` (item 8 until expert parallelism was
+    ported) needs a mesh to find the dim's ranks; on a dim of one shard it
+    routes and sums exactly as the unsplit layer, and as the JAX layer."""
+    jax_config, torch_config, params, layer, x = setup
+
+    class SeqMesh:
+        mesh_dim_names = ('seq',)
+
+        def get_coordinate(self):
+            return [0]
+
+        def size(self, dim):
+            return 1
+
+        def get_group(self, name):
+            return None
+
+        def get_local_rank(self, name):
+            return 0
+
+    with pytest.raises(ValueError, match='needs the mesh'):
         tm.moe_forward(layer, torch.from_numpy(x), torch_config, seq_axis='seq')
+    with torch.no_grad():
+        y, aux = tm.moe_forward(layer, torch.from_numpy(x), torch_config, seq_axis='seq',
+                                mesh=SeqMesh())
+    y_want, aux_want = jm.moe_forward(params, jnp.asarray(x), jax_config)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_want), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(float(aux), float(aux_want), atol=1e-6, rtol=0)
 
 
 def test_init_scales():

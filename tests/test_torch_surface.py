@@ -512,18 +512,36 @@ def test_decode_field_error_is_the_references():
         jax_errors.DecodeFieldError.__mro__[1].__name__
 
 
-# -- ROADMAP item 8: what the multi-rank slice left -------------------------------
+# -- ROADMAP item 8: what the multi-rank slices left ------------------------------
 
 
 def test_item_8_names_only_what_is_left():
-    """Tensor and sequence parallelism are ported: ``ROADMAP_ITEMS[8]``
-    names expert parallelism across ranks, ``moe_forward(seq_axis=)``, the
-    pipeline and the multi-rank families."""
+    """Tensor, sequence and expert parallelism and the pipeline are ported:
+    ``ROADMAP_ITEMS[8]`` names only decoding a model split over ranks, and
+    the one ``unported(..., 8)`` left in the package sits in
+    ``models/generate.py``."""
+    import ast
+    import os
+
+    import petastorm_tpu_torch
     from petastorm_tpu_torch import errors
     assert errors.ROADMAP_ITEMS[8] == (
-        'LM consumer layer across ranks: expert parallelism across ranks, '
-        'moe_forward(seq_axis=), the pipeline, and the multi-rank families')
-    assert 'ring' not in errors.ROADMAP_ITEMS[8] and 'sequence' not in errors.ROADMAP_ITEMS[8]
+        'LM consumer layer across ranks: decoding a model split over ranks')
+    root = os.path.dirname(petastorm_tpu_torch.__file__)
+    found = []
+    for folder, _, files in os.walk(root):
+        for name in files:
+            if not name.endswith('.py'):
+                continue
+            path = os.path.join(folder, name)
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            for node in ast.walk(tree):
+                if (isinstance(node, ast.Call) and getattr(node.func, 'id', None) == 'unported'
+                        and len(node.args) == 2 and isinstance(node.args[1], ast.Constant)
+                        and node.args[1].value == 8):
+                    found.append(os.path.relpath(path, root))
+    assert found == [os.path.join('models', 'generate.py')]
 
 
 def test_seq_axis_config_builds_as_the_references():
@@ -542,37 +560,91 @@ def _pipelined_calls():
         'pipelined_transformer_forward_with_aux', 'pipelined_transformer_train_step')}
 
 
+class _OneDimMesh:
+    """A mesh of one named dim seen from the rank at index 0, whose group
+    is None (no process group: every collective is the identity)."""
+
+    def __init__(self, name, size):
+        self.mesh_dim_names, self._size = (name,), size
+
+    def get_coordinate(self):
+        return [0]
+
+    def size(self, dim):
+        return self._size
+
+    def get_group(self, name):
+        return None
+
+    def get_local_rank(self, name):
+        return 0
+
+
 @pytest.mark.parametrize('what', ['moe-seq-config', 'moe_forward-seq_axis', 'expert-mesh-dim',
                                   'pipe-mesh-dim'] + sorted(_pipelined_calls()))
 def test_what_is_left_of_item_8_raises_it(what):
+    """The calls that raised item 8 before expert parallelism and the
+    pipeline were ported now build and run on the CPU, each against the
+    unsplit model: a sequence-split MoE config, ``moe_forward(seq_axis=)``
+    on one shard, an ``'expert'`` and a ``'pipe'`` mesh dim, and the four
+    pipelined entry points on one stage."""
     import torch
 
+    from petastorm_tpu.models import transformer as jt
     from petastorm_tpu_torch.models import moe as tm
     from petastorm_tpu_torch.models import transformer as tt
-
-    class OneDimMesh:
-        mesh_dim_names = (what.split('-')[0],)
-
-        def get_coordinate(self):
-            return [0]
-
-        def size(self, dim):
-            return 2
-
-        def get_group(self, name):
-            return None
-
-        def get_local_rank(self, name):
-            return 0
-
-    calls = {
-        'moe-seq-config': lambda: tt.TransformerConfig(seq_axis='seq', n_experts=4),
-        'moe_forward-seq_axis': lambda: tm.moe_forward(
-            tm.init_moe(0, tm.MoEConfig(), device='cpu'), torch.zeros((1, 2, 64)),
-            tm.MoEConfig(), seq_axis='seq'),
-        'expert-mesh-dim': lambda: tt.Parallel(tt.TransformerConfig(), OneDimMesh()),
-        'pipe-mesh-dim': lambda: tt.Parallel(tt.TransformerConfig(), OneDimMesh()),
-    }
-    calls.update({name: fn for name, fn in _pipelined_calls().items()})
-    with pytest.raises(NotImplementedError, match='ROADMAP.md: Queue 1 item 8'):
-        calls[what]()
+    base = dict(vocab_size=32, d_model=16, n_heads=2, n_layers=2, d_ff=32, max_seq_len=16,
+                dtype=torch.float32)
+    dense, moe = tt.TransformerConfig(**base), tt.TransformerConfig(n_experts=4, **base)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(0, 32, (2, 9)))
+    if what == 'moe-seq-config':
+        ours = tt.TransformerConfig(seq_axis='seq', n_experts=4)
+        theirs = jt.TransformerConfig(seq_axis='seq', n_experts=4)
+        assert (ours.seq_axis, ours.n_experts) == (theirs.seq_axis, theirs.n_experts)
+    elif what == 'moe_forward-seq_axis':
+        cfg = tm.MoEConfig(dtype=torch.float32)
+        layer = tm.init_moe(0, cfg, device='cpu')
+        x = torch.from_numpy(np.random.RandomState(1).randn(2, 4, 64).astype(np.float32))
+        with torch.no_grad():
+            got = tm.moe_forward(layer, x, cfg, seq_axis='seq', mesh=_OneDimMesh('seq', 1))
+            want = tm.moe_forward(layer, x, cfg)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    elif what == 'expert-mesh-dim':
+        par = tt.Parallel(moe, _OneDimMesh('expert', 2))
+        assert (par.ep, par.ep_rank, par.holds_shards) == (2, 0, True)
+        full = torch.arange(4 * 16 * 32, dtype=torch.float32).reshape(4, 16, 32)
+        assert torch.equal(par.shard('blocks.0.moe.w_in', full), full[:2])
+        assert tt.Parallel(dense, _OneDimMesh('expert', 2)).holds_shards is False
+    elif what == 'pipe-mesh-dim':
+        assert tt.Parallel(dense, _OneDimMesh('pipe', 2)).pp == 1     # layered: replicated
+        par = tt.Parallel(dense, _OneDimMesh('pipe', 2), pipe_axis='pipe')
+        assert (par.pp, par.stage, par.holds_shards) == (2, 0, True)
+    elif what == 'init_pipelined_transformer':
+        stage = tt.init_pipelined_transformer(0, dense, _OneDimMesh('pipe', 2), device='cpu')
+        layered = tt.init_transformer(0, dense, 'cpu')
+        assert len(stage.blocks) == 1 and stage.first_layer == 0
+        for name, value in stage.state_dict().items():
+            assert torch.equal(value, layered.state_dict()[name]), name
+    else:
+        mesh = _OneDimMesh('pipe', 1)
+        config = moe if what.endswith('with_aux') else dense
+        model = tt.init_pipelined_transformer(0, config, mesh, device='cpu')
+        layered = tt.init_transformer(0, config, 'cpu')
+        if what == 'pipelined_transformer_train_step':
+            loss = tt.pipelined_transformer_train_step(
+                model, torch.optim.SGD(model.parameters(), lr=0.0), n_microbatches=2)(tokens)
+            want = tt.transformer_loss(layered, tokens)
+            want.backward()
+            assert abs(float(loss) - want.item()) <= 1e-5
+            for name, p in layered.named_parameters():
+                torch.testing.assert_close(dict(model.named_parameters())[name].grad, p.grad,
+                                           atol=1e-5, rtol=1e-5)
+        else:
+            with torch.no_grad():
+                got = _pipelined_calls()[what](model, tokens, 1)
+                want = tt.transformer_forward_with_aux(layered, tokens)
+            if what == 'pipelined_transformer_forward':
+                torch.testing.assert_close(got, want[0], atol=1e-5, rtol=1e-5)
+            else:
+                torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=1e-5)
+                assert abs(float(got[1]) - float(want[1])) <= 1e-5 and float(got[1]) >= 2.0

@@ -192,8 +192,9 @@ def test_init_is_seeded_and_scaled():
     (dict(ffn='relu'), ValueError),
     (dict(n_experts=4, ffn='swiglu'), ValueError),
     (dict(n_experts=4), None),
-    # the port still refuses a sequence-split MoE config (ROADMAP item 8)
-    (dict(seq_axis='seq', n_experts=4), NotImplementedError),
+    # a sequence-split MoE config routes over the whole sequence, as the
+    # reference's layered forward does
+    (dict(seq_axis='seq', n_experts=4), None),
     (dict(seq_axis='seq'), None),
 ])
 def test_config_checks_match_jax(kw, error):

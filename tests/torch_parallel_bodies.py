@@ -304,3 +304,242 @@ def payload_inputs(label, name, rank):
     _, x_shape, y_shape = COLLECTIVES[name]
     return (rng.randn(*x_shape(n)).astype(np.float32),
             rng.randn(*y_shape(n)).astype(np.float32))
+
+
+# -- expert parallelism, the routing scope and the pipeline -------------------------
+
+_MESHES = {}
+
+
+def _named_mesh(axes):
+    """One mesh per layout for the whole spawn (every rank builds the same
+    ones in the same order, as the group creation needs)."""
+    from petastorm_tpu_torch.parallel.mesh import make_named_mesh
+    key = tuple(axes.items())
+    if key not in _MESHES:
+        _MESHES[key] = make_named_mesh(dict(axes), device_type='cpu')
+    return _MESHES[key]
+
+
+def _sum_over(t, mesh, names):
+    """``t`` summed over the mesh dims ``names`` (the sync a standalone
+    layer's replicated weights need)."""
+    from petastorm_tpu_torch.parallel.collectives import all_reduce
+    from petastorm_tpu_torch.parallel.mesh import axis
+    for name in names:
+        t = all_reduce(t, axis(mesh, name)[0])
+    return t
+
+
+def lm_case(case, mesh):
+    """One LM case, layered or pipelined: this rank's logits block and aux
+    from the forward, then one step (AdamW at ``case['lr']``, default 0):
+    the loss, the synced gradients and the parameters after the step."""
+    from petastorm_tpu_torch.models import transformer as tt
+    config = _config(case['config'])
+    m = case.get('n_microbatches')
+    if case.get('pipelined'):
+        model = tt.PipelinedTransformer(config, mesh)
+        model.load_state_dict(tt.pipelined_params_from_jax(case['params'], mesh, config))
+
+        def forward(t):
+            return tt.pipelined_transformer_forward_with_aux(model, t, m)
+
+        def make_step(opt):
+            return tt.pipelined_transformer_train_step(model, opt, n_microbatches=m)
+    else:
+        model = tt.Transformer(config, mesh)
+        model.load_state_dict(tt.params_from_jax(case['params'], mesh, config))
+
+        def forward(t):
+            return tt.transformer_forward_with_aux(model, t)
+
+        def make_step(opt):
+            return tt.transformer_train_step(model, opt)
+    tokens = _data_rows(torch.from_numpy(case['tokens']), mesh)
+    with torch.no_grad():
+        logits, aux = forward(tokens[:, :-1])
+    loss = make_step(tt.adamw(model, case.get('lr', 0.0)))(tokens)
+    return {'loss': float(loss), 'aux': float(aux), 'logits': logits, 'grads': _grads(model),
+            'params': {k: v.detach().clone() for k, v in model.state_dict().items()},
+            'first_layer': getattr(model, 'first_layer', 0)}
+
+
+def moe_layer_case(case, mesh):
+    """The MoE layer alone on ``mesh``: rows split over ``'data'`` (routed
+    as one array), experts over ``'expert'``, and with ``case['seq_axis']``
+    the sequence over ``'seq'`` under ``moe_forward(seq_axis=)``. Returns
+    ``y`` and ``x``'s gradient for this rank's block, the aux, and the
+    weights' gradients of ``(y * g).sum() + aux`` summed over ``'data'``
+    and ``'seq'``."""
+    from petastorm_tpu_torch.models import moe as tm
+    from petastorm_tpu_torch.parallel.mesh import DATA_AXIS, axis
+    cfg = tm.MoEConfig(dtype=torch.float32, **case['config'])
+    layer = tm.MoE(cfg, mesh)
+    layer.load_state_dict({k: layer.shard(k, torch.from_numpy(v))
+                           for k, v in case['params'].items()})
+    x, g = (_data_rows(torch.from_numpy(case[k]), mesh) for k in ('x', 'g'))
+    seq_axis = case.get('seq_axis')
+    if seq_axis is not None:
+        _, n, i = axis(mesh, seq_axis)
+        width = x.shape[1] // n
+        x, g = (t[:, i * width:(i + 1) * width] for t in (x, g))
+    data_group, dp, _ = axis(mesh, DATA_AXIS)
+    split = tm.TokenSplit(rows=data_group if dp > 1 else None)
+    x = x.clone().requires_grad_()
+    y, aux = tm.moe_forward(layer, x, cfg, capacity=case.get('capacity'), seq_axis=seq_axis,
+                            mesh=mesh, split=split)
+    ((y * g).sum() + aux).backward()
+    names = [n for n in (DATA_AXIS, seq_axis) if n is not None]
+    return {'y': y.detach(), 'aux': float(aux), 'x_grad': x.grad,
+            'grads': {k: _sum_over(p.grad, mesh, names) for k, p in layer.named_parameters()}}
+
+
+def pipe_apply_case(case, mesh):
+    """``pipeline_apply`` on stacked numpy weights: the output, the aux,
+    this stage's weights' gradients and the input's (and an upstream
+    weight's) gradient of ``(out ** 2).sum() + aux``, summed over the
+    sequence dim when it splits."""
+    import torch.nn.functional as F
+
+    from petastorm_tpu_torch.parallel.pipeline import pipeline_apply, shard_stage_params
+    stage = shard_stage_params({k: torch.from_numpy(v) for k, v in case['params'].items()},
+                               mesh)
+    for leaf in stage.values():
+        leaf.requires_grad_()
+    kind, with_aux = case['kind'], case.get('with_aux', False)
+
+    def stage_fn(p, x):
+        if kind == 'multilayer':
+            for i in range(p['w'].shape[0]):
+                x = torch.tanh(x @ p['w'][i])
+        else:
+            x = F.gelu(x @ p['w'] + p['b'], approximate='tanh')
+        return (x, x.mean() ** 2) if with_aux else x
+
+    x = torch.from_numpy(case['x']).requires_grad_(case.get('input_grad', True))
+    h = x
+    up = None
+    if 'w_up' in case:
+        up = torch.from_numpy(case['w_up']).requires_grad_()
+        h = torch.tanh(x @ up)
+    out = pipeline_apply(stage_fn, stage, h, mesh, n_microbatches=case.get('n_microbatches'),
+                         with_aux=with_aux, seq_axis=case.get('seq_axis'))
+    out, aux = out if with_aux else (out, torch.zeros(()))
+    ((out ** 2).sum() + aux).backward()
+    names = [case['seq_axis']] if case.get('seq_axis') else []
+    return {'out': out.detach(), 'aux': float(aux),
+            'grads': {k: _sum_over(v.grad, mesh, names) for k, v in stage.items()},
+            'x_grad': _sum_over(x.grad, mesh, names),
+            'up_grad': None if up is None else _sum_over(up.grad, mesh, names)}
+
+
+def _run_case(case):
+    mesh = _named_mesh(case['mesh'])
+    kind = case['kind']
+    if kind == 'lm':
+        out = lm_case(case, mesh)
+    elif kind == 'moe_layer':
+        out = moe_layer_case(case, mesh)
+    else:
+        out = pipe_apply_case(case, mesh)
+    out['coordinate'] = _coordinate(mesh)
+    return out
+
+
+def _error_case(case):
+    """The error a refused call raises: a pipelined model whose layers do
+    not divide over the stages, a pipeline over an indivisible batch or
+    sequence, an uneven microbatch split over ``'data'``, an expert count
+    that does not divide."""
+    from petastorm_tpu_torch.models import moe as tm
+    from petastorm_tpu_torch.models import transformer as tt
+    from petastorm_tpu_torch.parallel.pipeline import pipeline_apply
+    mesh = _named_mesh(case['mesh'])
+    what = case['what']
+    if what == 'layers':
+        return _error(lambda: tt.init_pipelined_transformer(0, _config(case['config']), mesh,
+                                                            device='cpu'))
+    if what == 'experts':
+        return _error(lambda: tm.MoE(tm.MoEConfig(n_experts=case['n_experts']), mesh))
+    if what == 'microbatches':
+        return _error(lambda: pipeline_apply(lambda p, x: x, None, torch.zeros((7, 8)), mesh,
+                                             n_microbatches=3))
+    if what == 'seq-width':
+        return _error(lambda: pipeline_apply(lambda p, x: x, None, torch.zeros((8, 5, 16)), mesh,
+                                             seq_axis='seq'))
+    model = tt.init_pipelined_transformer(0, _config(case['config']), mesh, device='cpu')
+    tokens = _data_rows(torch.zeros(case['batch'], 9, dtype=torch.long), mesh)
+    return _error(lambda: tt.pipelined_transformer_loss(model, tokens, case['n_microbatches']))
+
+
+def resume_case(case, mesh):
+    """A model split over ``mesh`` trained ``2 * half`` steps on a loader
+    that replicates every batch, unbroken; then ``half`` steps, a
+    ``TrainCheckpointer`` save, fresh model, optimizer and loader restored
+    from it, and ``half`` more. Returns both runs' batch ids and
+    losses."""
+    from petastorm_tpu_torch.checkpoint import TrainCheckpointer
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    from petastorm_tpu_torch.models import transformer as tt
+    config = _config(case['config'])
+    pipelined = case.get('pipelined', False)
+
+    def fresh():
+        if pipelined:
+            model = tt.init_pipelined_transformer(1, config, mesh, device='cpu')
+            optimizer = tt.adamw(model, 1e-2)
+            step = tt.pipelined_transformer_train_step(model, optimizer, n_microbatches=2)
+        else:
+            model = tt.init_transformer(1, config, 'cpu', mesh=mesh)
+            optimizer = tt.adamw(model, 1e-2)
+            step = tt.transformer_train_step(model, optimizer)
+        return model, optimizer, step
+
+    def tokens(ids):
+        return torch.from_numpy(case['table'][ids.numpy()])
+
+    def loader():
+        return make_torch_loader(case['url'], 4, mesh, (), fields=['^id$'], num_epochs=1,
+                                 device='cpu', reader_pool_type='dummy')
+
+    def train(step, batches, n, out):
+        for _ in range(n):
+            ids = next(batches)['id']
+            out['ids'].append(ids.tolist())
+            out['losses'].append(float(step(tokens(ids))))
+
+    unbroken = {'ids': [], 'losses': []}
+    _, _, step = fresh()
+    with loader() as ld:
+        train(step, iter(ld), 2 * case['half'], unbroken)
+    resumed = {'ids': [], 'losses': []}
+    ckpt = TrainCheckpointer(case['dir'])
+    model, optimizer, step = fresh()
+    with loader() as ld:
+        train(step, iter(ld), case['half'], resumed)
+        ckpt.save(case['half'], {'model': model, 'optimizer': optimizer}, ld)
+    model, optimizer, step = fresh()
+    ckpt.restore_state({'model': model, 'optimizer': optimizer})
+    with loader() as ld:
+        ckpt.restore_loader(ld)
+        train(step, iter(ld), case['half'], resumed)
+    import os
+    files = sorted(os.listdir(os.path.join(case['dir'], str(case['half']), 'train_state')))
+    return {'unbroken': unbroken, 'resumed': resumed, 'files': files}
+
+
+def parallel_cases_body(rank, world, payload):
+    """Every case of ``payload['cases']`` (LM, MoE layer or
+    ``pipeline_apply``), the refused calls of ``payload['errors']``, the
+    loaders of ``payload['loaders']`` (:func:`loader_order_body`) and the
+    resumes of ``payload['resumes']``, in one spawn."""
+    out = {'cases': {name: _run_case(case) for name, case in payload['cases'].items()},
+           'errors': {name: _error_case(case) for name, case in payload.get('errors', {}).items()},
+           'loaders': {}, 'resumes': {}}
+    for name, case in payload.get('loaders', {}).items():
+        out['loaders'][name] = loader_order_body(rank, world, case)
+    for name, case in payload.get('resumes', {}).items():
+        case = dict(case, dir='%s/%s' % (case['dir'], name))
+        out['resumes'][name] = resume_case(case, _named_mesh(case['mesh']))
+    return out

@@ -177,3 +177,202 @@ def expected_shard(name, full, kw, tp, index):
     return np.concatenate([full[:, first * hd:(last + 1) * hd],
                            full[:, k0 + lo * hd:k0 + hi * hd],
                            full[:, v0 + lo * hd:v0 + hi * hd]], axis=1)
+
+
+# -- expert parallelism, the routing scope and the pipeline -------------------------
+
+
+def moe_params(kw, rng):
+    """Numpy weights of one Switch-MoE layer (router at 1.0 / sqrt(d), so
+    routing is not flat)."""
+    d, e, ff = kw['d_model'], kw['n_experts'], kw['d_ff']
+    return {'router': (rng.randn(d, e) * d ** -0.5).astype(np.float32),
+            'w_in': (rng.randn(e, d, ff) * d ** -0.5).astype(np.float32),
+            'w_out': (rng.randn(e, ff, d) * ff ** -0.5).astype(np.float32)}
+
+
+def moe_lm_params(kw, seed):
+    """:func:`lm_params` with every block's dense FFN swapped for an MoE
+    layer's weights when ``kw['n_experts'] > 0``."""
+    params = lm_params(kw, seed)
+    if kw.get('n_experts', 0) > 0:
+        rng = np.random.RandomState(seed + 100)
+        for block in params['blocks']:
+            for name in ('mlp_in', 'mlp_out', 'mlp_gate'):
+                block.pop(name, None)
+            block['moe'] = moe_params(kw, rng)
+    return params
+
+
+def stack_stages(params, n_stages):
+    """The reference's pipelined tree from a layered one: the blocks
+    stacked into ``stages`` leaves of ``(n_stages, per_stage, ...)``."""
+    blocks = params['blocks']
+    per = len(blocks) // n_stages
+    stacked = jax.tree_util.tree_map(
+        lambda *leaves: np.stack(leaves).reshape((n_stages, per) + leaves[0].shape), *blocks)
+    out = {k: v for k, v in params.items() if k != 'blocks'}
+    out['stages'] = stacked
+    return out
+
+
+def unstack_stages(tree):
+    """The layered tree of a pipelined one (gradients included)."""
+    stages = tree['stages']
+    n, per = jax.tree_util.tree_leaves(stages)[0].shape[:2]
+    out = {k: np.asarray(v) for k, v in tree.items() if k != 'stages'}
+    out['blocks'] = [jax.tree_util.tree_map(lambda leaf: np.asarray(leaf[s, i]), stages)
+                     for s in range(n) for i in range(per)]
+    return out
+
+
+def full_state_nested(params):
+    """:func:`full_state` with an MoE block's ``moe`` dict joined by dots."""
+    state = {k: v for k, v in params.items() if k != 'blocks'}
+    for i, block in enumerate(params['blocks']):
+        for k, v in block.items():
+            if isinstance(v, dict):
+                state.update({'blocks.%d.%s.%s' % (i, k, n): w for n, w in v.items()})
+            else:
+                state['blocks.%d.%s' % (i, k)] = v
+    return state
+
+
+def _adamw_update(params, grads, lr):
+    import optax
+    opt = optax.adamw(lr)
+    updates, _ = opt.update(grads, opt.init(params), params)
+    return _numpy(optax.apply_updates(params, updates))
+
+
+def _pipelined_loss(config, mesh, n_microbatches):
+    """The reference's pipelined train-step loss (``loss_fn`` of
+    ``pipelined_transformer_train_step``), for its gradients."""
+    def loss_fn(params, tokens):
+        targets = tokens[:, 1:]
+        if config.loss_chunk > 0:
+            x, aux = jt._pipelined_features_with_aux(params, tokens[:, :-1], config, mesh,
+                                                     n_microbatches=n_microbatches)
+            nll, cnt = jt._chunked_next_token_nll(x, params['lm_head'], targets,
+                                                  jnp.ones(targets.shape, jnp.float32),
+                                                  config.loss_chunk, config.dtype)
+            return nll / cnt + config.moe_aux_weight * aux
+        logits, aux = jt.pipelined_transformer_forward_with_aux(
+            params, tokens[:, :-1], config, mesh, n_microbatches=n_microbatches)
+        logp = jax.nn.log_softmax(logits, axis=-1)
+        ll = jnp.take_along_axis(logp, targets[..., None], axis=-1)[..., 0]
+        return -ll.mean() + config.moe_aux_weight * aux
+    return loss_fn
+
+
+def lm_step_reference(kw, params, tokens, axes=None, n_microbatches=None, lr=0.0):
+    """The reference's loss, aux, logits (of ``tokens[:, :-1]``, None for a
+    sequence-split config), gradients and AdamW-updated weights, as
+    layered trees: layered on the mesh of ``axes`` (one device without),
+    or pipelined over its ``'pipe'`` dim with ``n_microbatches``."""
+    config = jax_config(kw)
+    mesh = seq_mesh(axes or {'data': 1})
+    toks = _on_data(tokens, mesh)
+    if 'pipe' in (axes or {}):
+        tree = jax.tree_util.tree_map(jnp.asarray, stack_stages(params, axes['pipe']))
+        loss_fn = _pipelined_loss(config, mesh, n_microbatches)
+        loss, grads = jax.jit(jax.value_and_grad(loss_fn))(tree, toks)
+        logits, aux = jax.jit(lambda p, t: jt.pipelined_transformer_forward_with_aux(
+            p, t, config, mesh, n_microbatches=n_microbatches))(tree, toks[:, :-1])
+        updated = _adamw_update(tree, grads, lr)
+        return {'loss': float(loss), 'aux': float(aux), 'logits': np.asarray(logits),
+                'grads': unstack_stages(_numpy(grads)), 'updated': unstack_stages(updated)}
+    placed = _place(params, jt._param_specs(config), mesh)
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p, t: jt.transformer_loss(p, t, config, mesh)))(placed, toks)
+    logits, aux = jax.jit(lambda p, t: jt.transformer_forward_with_aux(p, t, config, mesh))(
+        placed, toks[:, :-1])
+    return {'loss': float(loss), 'aux': float(aux),
+            'logits': None if config.seq_axis is not None else np.asarray(logits),
+            'grads': _numpy(grads), 'updated': _adamw_update(placed, grads, lr)}
+
+
+def moe_layer_reference(kw, params, x, g, axes, capacity=None, seq_axis=None):
+    """The reference MoE layer under the mesh of ``axes``: experts sharded
+    by ``moe_param_specs``, ``x`` split over ``'data'``; with ``seq_axis``
+    inside a ``shard_map`` manual over it, as the pipelined pp×sp×ep
+    forward runs it. ``y``, aux, and the gradients of ``(y * g).sum() +
+    aux`` for the weights and ``x``."""
+    from petastorm_tpu.models import moe as jm
+    cfg = jm.MoEConfig(dtype=jnp.float32, **kw)
+    mesh = seq_mesh(axes)
+    placed = _place(params, jm.moe_param_specs(cfg), mesh)
+    xs, gs = _on_data(x, mesh), _on_data(g, mesh)
+    if seq_axis is None:
+        def fwd(p, a):
+            return jm.moe_forward(p, a, cfg, capacity=capacity)
+    else:
+        from jax import shard_map
+        spec = P(None, seq_axis, None)
+        fwd = shard_map(lambda p, a: jm.moe_forward(p, a, cfg, capacity=capacity,
+                                                    seq_axis=seq_axis),
+                        mesh=mesh, in_specs=(P(), spec), out_specs=(spec, P()),
+                        axis_names={seq_axis}, check_vma=True)
+
+    def loss(p, a, b):
+        y, aux = fwd(p, a)
+        return jnp.sum(y * b) + aux
+
+    y, aux = jax.jit(fwd)(placed, xs)
+    grads, x_grad = jax.jit(jax.grad(loss, argnums=(0, 1)))(placed, xs, gs)
+    return {'y': np.asarray(y), 'aux': float(aux), 'grads': _numpy(grads),
+            'x_grad': np.asarray(x_grad)}
+
+
+def pipe_apply_reference(case):
+    """The sequential oracle (``reference_pipeline``) of a
+    ``pipeline_apply`` case, or the reference's own ``pipeline_apply`` for
+    an aux over several microbatches: the output, the aux and the
+    gradients of ``(out ** 2).sum() + aux`` for the stacked weights, the
+    input and the upstream weight."""
+    from petastorm_tpu.parallel import pipeline as jp
+    kind, with_aux = case['kind'], case.get('with_aux', False)
+
+    def stage_fn(p, x):
+        if kind == 'multilayer':
+            for i in range(p['w'].shape[0]):
+                x = jnp.tanh(x @ p['w'][i])
+        else:
+            x = jax.nn.gelu(x @ p['w'] + p['b'])
+        return (x, jnp.mean(x) ** 2) if with_aux else x
+
+    m = case.get('n_microbatches') or case['mesh']['pipe']
+    run_pipeline = with_aux and m > 1
+    mesh = seq_mesh({'pipe': case['mesh']['pipe']}) if run_pipeline else None
+
+    def loss(params, x, w_up):
+        h = jnp.tanh(x @ w_up) if w_up is not None else x
+        if run_pipeline:
+            out = jp.pipeline_apply(stage_fn, params, h, mesh, n_microbatches=m, with_aux=True)
+        else:
+            out = jp.reference_pipeline(stage_fn, params, h, with_aux=with_aux)
+        out, aux = out if with_aux else (out, jnp.zeros(()))
+        return jnp.sum(out ** 2) + aux, (out, aux)
+
+    params = jax.tree_util.tree_map(jnp.asarray, case['params'])
+    w_up = jnp.asarray(case['w_up']) if 'w_up' in case else None
+    grad = jax.jit(jax.grad(loss, argnums=(0, 1, 2), has_aux=True))
+    (g_params, g_x, g_up), (out, aux) = grad(params, jnp.asarray(case['x']), w_up)
+    return {'out': np.asarray(out), 'aux': float(aux), 'grads': _numpy(g_params),
+            'x_grad': np.asarray(g_x), 'up_grad': None if w_up is None else np.asarray(g_up)}
+
+
+def expert_part(name, full, ep, index):
+    """The part of a full array a rank at ``index`` of an ``ep``-way
+    ``'expert'`` dim holds: ``w_in``/``w_out`` by expert, the rest whole."""
+    if ep > 1 and name.rsplit('.', 1)[-1] in ('w_in', 'w_out'):
+        return np.split(full, ep, axis=0)[index]
+    return full
+
+
+def rank_part(name, full, kw, coordinate, axes):
+    """What the rank at ``coordinate`` of the mesh ``axes`` holds of the
+    full layered array ``name`` (its ``'model'`` and ``'expert'``
+    shards)."""
+    full = expected_shard(name, full, kw, axes.get('model', 1), coordinate.get('model', 0))
+    return expert_part(name, full, axes.get('expert', 1), coordinate.get('expert', 0))
