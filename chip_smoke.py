@@ -388,7 +388,39 @@ outlives its phase.
     skips the bubble ticks. Tokens/s, peak memory, collective calls
     (``ppermute`` the stage-to-stage sends and receives) and host-copy
     seconds per rank are printed.
+45. ``uneven_pipe_path`` (after ``ep_pp_path``): four spawned ranks on
+    the one card, a narrow f32 model (``UNEVEN_PIPE_KW``, flash attention)
+    on the pipeline layouts whose global microbatches straddle the data
+    ranks unevenly, each rank then holding no rows of some microbatch
+    (``UNEVEN_PIPE_LAYOUTS``: ``{'data': 2, 'pipe': 2}`` with 3
+    microbatches of a 6-row batch, dense and MoE at capacity factor 0.5,
+    and ``{'data': 4, 'pipe': 1}`` with 2 of a 4-row batch). Held: one
+    forward and backward's loss and every gradient within
+    ``UNEVEN_PIPE_TOL`` of one process's mean over the microbatches (each
+    through the layered model), and each flash kernel launched once per
+    stage layer and microbatch the rank holds rows of, none for an empty
+    one.
+46. ``tp_decode_path`` (after ``uneven_pipe_path``): two spawned ranks over
+    ``{'data': 1, 'model': 2}`` (``make_mesh(model=2)``), each holding its
+    shards of the flagship drawn by ``init_transformer(0, mesh=)``, decode
+    bench.py's shape (``DECODE_BATCH`` rows, a ``DECODE_PROMPT``-token
+    prompt, ``TP_DECODE_NEW`` new tokens) greedily, sampled
+    (``GEN_TEMPERATURE``, ``GEN_TOP_P``, a generator seeded alike on both),
+    and greedily for a GQA-4 variant (2 K/V heads a rank). Held: both
+    ranks' tokens equal in all three; the greedy decode's gathered logits
+    within ``DECODE_TOL`` of max-abs of one process's dense forward over
+    the decoded sequence (unsplit, the same draws), each token its argmax
+    or within the tolerance of it; 0 flash launches; each rank's KV cache
+    half of one process's; ``2 x n_layers`` all-reduces and one all-gather
+    a token. Tokens/s, prefill ms, peak memory, collective calls and
+    seconds and host-copy seconds per rank are printed.
 ``--trace-dir DIR`` keeps the two Chrome traces in ``DIR``.
+
+Every phase runs through ``_phase``, and every spawned rank arms the
+same timer: ``faulthandler`` dumps every thread's stack to stderr each
+``PHASE_STACK_DUMP_S`` seconds the phase runs, so a phase that stops
+leaves its stacks behind (the dump only reports); each phase's wall
+seconds go to stderr as ``phase <name>: <s> s``.
 
 Then the ``kernels`` summary (each kernel's launches on every path), the
 ``nvidia-smi`` name and power limit, and the ``ok`` line. The script
@@ -397,6 +429,7 @@ needs CUDA and the repository beside it.
 
 import collections
 import contextlib
+import faulthandler
 import json
 import math
 import os
@@ -613,6 +646,9 @@ DP_LOSS_RTOL = 1e-3
 # tensor and sequence parallelism: two ranks on the one card (gloo)
 PARALLEL_RANKS = 2
 PARALLEL_TIMEOUT_S = 600
+# a phase (or a spawned rank) still running after this many seconds dumps
+# every thread's stack to stderr, and again each time as long again passes
+PHASE_STACK_DUMP_S = 300
 TP_STEPS = 5                 # the first is held against one process; the rest timed
 SP_STEPS = 3
 SP_BATCH = 4
@@ -624,6 +660,18 @@ EP_LOSS_RTOL = 1e-4
 EP_AUX_RTOL = 1e-3
 EP_GRAD_TOL = 1e-2           # max|rank - one process| / max|one process|, bf16
 PP_MICROBATCHES = 2
+# uneven_pipe_path: (mesh, config changes, microbatches, global rows)
+UNEVEN_PIPE_KW = dict(vocab_size=1024, d_model=256, n_heads=4, n_layers=4, d_ff=1024,
+                      max_seq_len=128, attn_impl='flash', dtype=torch.float32)
+UNEVEN_PIPE_LAYOUTS = {
+    'data2-pipe2-m3-b6': ({'data': 2, 'pipe': 2}, {}, 3, 6),
+    'data2-pipe2-moe-m3-b6': ({'data': 2, 'pipe': 2},
+                              dict(n_experts=4, capacity_factor=0.5), 3, 6),
+    'data4-pipe1-m2-b4': ({'data': 4, 'pipe': 1}, {}, 2, 4),
+}
+UNEVEN_PIPE_RANKS = 4
+UNEVEN_PIPE_TOL = 1e-4       # f32: max|rank - one process| / max|one process|
+TP_DECODE_NEW = 64           # tp_decode_path: bench.py's shorter decode length
 # the traced paths: PETASTORM_TPU_TRACE=1; the LM run traces every other
 # row-group (PETASTORM_TPU_TRACE_SAMPLE), the ViT run every one
 TRACE_LM_SAMPLE = 2
@@ -4481,7 +4529,12 @@ def _dp_train(rank, url):
 
 def _dp_rank(rank, port, url, out_dir):
     """A spawned rank of ``dp_lm_path``: joins the gloo group, trains, and
-    leaves its result in ``out_dir``."""
+    leaves its result in ``out_dir`` (under the stack dump)."""
+    with _stack_dump_armed():
+        _dp_rank_body(rank, port, url, out_dir)
+
+
+def _dp_rank_body(rank, port, url, out_dir):
     import datetime
     import torch.distributed as dist
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4591,16 +4644,41 @@ def phase_dp_lm_path(url, lm_tokens_per_s):
 
 
 
-def _run_ranks(body, args):
-    """``body(rank, *args)`` in ``PARALLEL_RANKS`` spawned processes joined
-    in a gloo group on the one card (NCCL refuses two ranks on one GPU);
-    each rank's JSON result, in rank order. A rank that dies or outlives
+@contextlib.contextmanager
+def _stack_dump_armed():
+    """Every thread's stack to stderr each ``PHASE_STACK_DUMP_S`` seconds
+    while the block runs, then nothing: a stop leaves the stacks behind.
+    It only reports (the block's exceptions pass through)."""
+    faulthandler.dump_traceback_later(PHASE_STACK_DUMP_S, repeat=True, exit=False)
+    try:
+        yield
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _phase(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, one phase of :func:`main`, under the stack
+    dump (:func:`_stack_dump_armed`); its wall seconds go to stderr, so a
+    run's time can be read phase by phase against the script's limit."""
+    t0 = time.perf_counter()
+    with _stack_dump_armed():
+        result = fn(*args, **kwargs)
+    print('phase %s: %.1f s' % (fn.__name__, time.perf_counter() - t0), file=sys.stderr,
+          flush=True)
+    return result
+
+
+def _run_ranks(body, args, world=PARALLEL_RANKS):
+    """``body(rank, *args)`` in ``world`` spawned processes joined in a
+    gloo group on the one card (NCCL refuses two ranks on one GPU); each
+    rank's JSON result, in rank order. A rank that dies or outlives
     ``PARALLEL_TIMEOUT_S`` fails the phase, and no rank is left running."""
     out_dir = tempfile.mkdtemp()
     ctx = torch.multiprocessing.get_context('spawn')
     procs = [ctx.Process(target=_parallel_rank,
-                         args=(rank, os.path.join(out_dir, 'rendezvous'), body, args, out_dir))
-             for rank in range(PARALLEL_RANKS)]
+                         args=(rank, os.path.join(out_dir, 'rendezvous'), body, args, out_dir,
+                               world))
+             for rank in range(world)]
     try:
         for p in procs:
             p.start()
@@ -4617,10 +4695,10 @@ def _run_ranks(body, args):
                 p.kill()
                 p.join()
         codes = [p.exitcode for p in procs]
-        assert codes == [0] * PARALLEL_RANKS, '%s: a rank failed or timed out: exit codes %s' % (
+        assert codes == [0] * world, '%s: a rank failed or timed out: exit codes %s' % (
             body, codes)
         results = []
-        for rank in range(PARALLEL_RANKS):
+        for rank in range(world):
             with open(os.path.join(out_dir, 'rank%d.json' % rank)) as f:
                 results.append(json.load(f))
         return results
@@ -4628,23 +4706,24 @@ def _run_ranks(body, args):
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
-def _parallel_rank(rank, init_file, body, args, out_dir):
+def _parallel_rank(rank, init_file, body, args, out_dir, world):
     """A spawned rank of ``tp_path`` or ``sp_lm_path``: pins the card,
     joins the gloo group through ``init_file``, runs ``body`` and leaves
     its result in ``out_dir``."""
-    torch.cuda.set_device(0)
-    import datetime
-    import torch.distributed as dist
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    dist.init_process_group('gloo', init_method='file://' + init_file, rank=rank,
-                            world_size=PARALLEL_RANKS,
-                            timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S))
-    try:
-        result = globals()[body](rank, *args)
-        with open(os.path.join(out_dir, 'rank%d.json' % rank), 'w') as f:
-            json.dump(result, f)
-    finally:
-        dist.destroy_process_group()
+    with _stack_dump_armed():
+        torch.cuda.set_device(0)
+        import datetime
+        import torch.distributed as dist
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        dist.init_process_group('gloo', init_method='file://' + init_file, rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S))
+        try:
+            result = globals()[body](rank, *args)
+            with open(os.path.join(out_dir, 'rank%d.json' % rank), 'w') as f:
+                json.dump(result, f)
+        finally:
+            dist.destroy_process_group()
 
 
 def _same_on_every_rank(value):
@@ -4928,6 +5007,21 @@ def phase_tp_path(lm_url, vit_url, lm_tokens_per_s, vit_images_per_s):
             for name in (*FLASH_KERNELS, 'normalize_images')}
 
 
+def _stage_grads(grads, stage):
+    """One process's ``grads`` a pipeline ``stage`` holds, under the
+    stage's own block numbers."""
+    first, per = stage.first_layer, len(stage.blocks)
+    out = {}
+    for name, grad in grads.items():
+        if name.startswith('blocks.'):
+            _, index, rest = name.split('.', 2)
+            if first <= int(index) < first + per:
+                out['blocks.%d.%s' % (int(index) - first, rest)] = grad
+        else:
+            out[name] = grad
+    return out
+
+
 def _ep_pp_train(rank, lm_url):
     """One rank's part of ``ep_pp_path``: the MoE flagship with its
     experts split over ``'expert'``, then the dense flagship as a 2-stage
@@ -4997,14 +5091,7 @@ def _ep_pp_train(rank, lm_url):
     grads, loss = reference_step(config)
     stage = transformer.init_pipelined_transformer(0, config, pipe_mesh, device='cuda')
     first, per = stage.first_layer, len(stage.blocks)
-    stage_grads = {}
-    for name, grad in grads.items():
-        if name.startswith('blocks.'):
-            _, index, rest = name.split('.', 2)
-            if first <= int(index) < first + per:
-                stage_grads['blocks.%d.%s' % (int(index) - first, rest)] = grad
-        else:
-            stage_grads[name] = grad
+    stage_grads = _stage_grads(grads, stage)
     del grads
     step = transformer.pipelined_transformer_train_step(stage, transformer.adamw(stage),
                                                         n_microbatches=PP_MICROBATCHES)
@@ -5257,6 +5344,272 @@ def phase_sp_lm_path(url, lm_tokens_per_s):
                 'ppermute' if impl == 'ring' else 'all_to_all', 0) > 0, run['collectives']
     return {name: 0 for name in FLASH_KERNELS}
 
+def _uneven_pipe(rank):
+    """One rank's part of ``uneven_pipe_path``: per layout, one process's
+    loss and gradients (each microbatch through the layered model, then
+    their mean), then the pipelined model's on this rank's rows, with the
+    flash launches and this rank's microbatch rows."""
+    from petastorm_tpu_torch.models import transformer
+    from petastorm_tpu_torch.parallel.mesh import make_named_mesh
+    out = {}
+    for name, (dims, changes, n_micro, batch) in UNEVEN_PIPE_LAYOUTS.items():
+        config = transformer.TransformerConfig(**dict(UNEVEN_PIPE_KW, **changes))
+        tokens = torch.randint(0, config.vocab_size, (batch, config.max_seq_len),
+                               generator=torch.Generator().manual_seed(0)).cuda()
+        size = batch // n_micro
+        full = transformer.init_transformer(0, config, 'cuda')
+        grads, loss = _one_process(full, lambda m: sum(
+            transformer.transformer_loss(m, tokens[k * size:(k + 1) * size])
+            for k in range(n_micro)) / n_micro)
+        del full
+        mesh = make_named_mesh(dims, device_type='cuda')
+        stage = transformer.init_pipelined_transformer(0, config, mesh, device='cuda')
+        par = stage.parallel
+        rows = batch // par.dp
+        reset_launch_counts()
+        got = transformer.pipelined_transformer_loss(
+            stage, tokens[par.dp_rank * rows:(par.dp_rank + 1) * rows], n_micro)
+        got.backward()
+        par.sync_grads(stage)
+        torch.cuda.synchronize()
+        errors = _grad_errors(_grads(stage), _stage_grads(grads, stage))
+        out[name] = {'loss': float(got.detach()), 'one_process_loss': loss,
+                     'grad_err_over_max_abs': max(errors.values()),
+                     'worst_grad': max(errors, key=errors.get),
+                     'microbatch_rows': transformer._microbatch_plan(par, n_micro, rows)[0],
+                     'stage_layers': len(stage.blocks), 'launches': launch_counts()}
+        del stage, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_uneven_pipe_path():
+    """The pipeline layouts whose microbatches straddle the data ranks
+    unevenly, on the card with the flash kernels (see ``_uneven_pipe``):
+    a rank holding no rows of a microbatch still runs its stage for it
+    (the MoE routing is a collective) and launches no kernel on it."""
+    t0 = time.perf_counter()
+    results = _run_ranks('_uneven_pipe', (), world=UNEVEN_PIPE_RANKS)
+    report = {'phase': 'uneven_pipe_path', 'model': {k: str(v) for k, v in
+                                                     UNEVEN_PIPE_KW.items()},
+              'seconds': time.perf_counter() - t0,
+              'tolerance': 'loss rel and gradients max|rank - one process| / max|one process| '
+                           '<= %g (f32)' % UNEVEN_PIPE_TOL}
+    for name in UNEVEN_PIPE_LAYOUTS:
+        report[name] = {key: [r[name][key] for r in results]
+                        for key in ('loss', 'one_process_loss', 'grad_err_over_max_abs',
+                                    'worst_grad', 'microbatch_rows', 'launches')}
+    emit(report)
+    totals = {kernel: 0 for kernel in FLASH_KERNELS}
+    for name in UNEVEN_PIPE_LAYOUTS:
+        assert any(0 in r[name]['microbatch_rows'] for r in results), (name, report[name])
+        for r in results:
+            run = r[name]
+            assert abs(run['loss'] - run['one_process_loss']) <= UNEVEN_PIPE_TOL * abs(
+                run['one_process_loss']), (name, run['loss'], run['one_process_loss'])
+            assert run['grad_err_over_max_abs'] <= UNEVEN_PIPE_TOL, (name, run['worst_grad'],
+                                                                     run['grad_err_over_max_abs'])
+            held = sum(1 for n in run['microbatch_rows'] if n)
+            for kernel in FLASH_KERNELS:
+                assert run['launches'][kernel] == run['stage_layers'] * held, (
+                    name, kernel, run['launches'][kernel], run['microbatch_rows'])
+                totals[kernel] += run['launches'][kernel]
+    return totals
+
+
+def _split_decode(model, prompt, logits=None):
+    """One greedy decode of ``TP_DECODE_NEW`` tokens on a split model:
+    the tokens, its K and V caches' bytes, and the collectives it ran with
+    their host seconds beside the decode's own."""
+    from petastorm_tpu_torch.models import generate
+    from petastorm_tpu_torch.parallel import collectives
+    kv_bytes = []
+    collectives.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = generate._generate(
+        model, prompt, TP_DECODE_NEW, None,
+        on_logits=None if logits is None else logits.append,
+        on_cache=lambda k, v: kv_bytes.append(sum(t.numel() * t.element_size() for t in (k, v))))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(collectives.counts(), decode_seconds=seconds)
+    return tokens, kv_bytes[0], counts
+
+
+def _timed_split_decode(model, prompt, new_tokens):
+    """Median host seconds of ``DECODE_RUNS`` greedy decodes of
+    ``new_tokens`` on a split model (one untimed decode first), each to its
+    last token on the card; the ranks start each decode together."""
+    import torch.distributed as dist
+    from petastorm_tpu_torch.models.generate import greedy_generate
+    greedy_generate(model, prompt, new_tokens)
+    samples = []
+    for _ in range(DECODE_RUNS):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        greedy_generate(model, prompt, new_tokens)
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    return statistics.median(samples), samples
+
+
+def _tp_decode(rank):
+    """One rank's part of ``tp_decode_path``: the flagship and its GQA-4
+    variant split over ``{'data': 1, 'model': 2}``, decoded greedily and
+    sampled at bench.py's decode shape; rank 0 then holds the greedy
+    decode's gathered logits against one process's dense forward."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, lm_config
+    from petastorm_tpu_torch.models import generate
+    from petastorm_tpu_torch.models.transformer import init_transformer, transformer_forward
+    from petastorm_tpu_torch.parallel import collectives
+    from petastorm_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(model=PARALLEL_RANKS, device_type='cuda')
+    prompt = torch.from_numpy(np.random.RandomState(0).randint(
+        0, FLAGSHIP_LM_KW['vocab_size'], (DECODE_BATCH, DECODE_PROMPT)).astype(np.int32))
+    out = {'rank': rank, 'coordinate': list(mesh.get_coordinate())}
+    config = lm_config(LM_SEQ)
+    gqa_config = dataclasses.replace(
+        config, n_kv_heads=FLAGSHIP_LM_KW['n_heads'] // DECODE_GQA_GROUP)
+    for label, cfg in (('full', config), ('gqa', gqa_config)):
+        model = init_transformer(0, cfg, 'cuda', mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        logits = [] if label == 'full' else None
+        tokens, kv_bytes, counts = _split_decode(model, prompt, logits)
+        t_new, runs = _timed_split_decode(model, prompt, TP_DECODE_NEW)
+        t_prefill, _ = _timed_split_decode(model, prompt, 1)
+        run = {'tokens': tokens.cpu().tolist(), 'kv_cache_bytes': kv_bytes,
+               'collective_calls': counts['calls'],
+               'host_copy_seconds': counts['host_copy_seconds'],
+               'collective_seconds': counts['seconds'],
+               'decode_seconds': counts['decode_seconds'],
+               'seconds': runs, 'prefill_ms': t_prefill * 1e3,
+               'tokens_per_s': DECODE_BATCH * (TP_DECODE_NEW - 1) / (t_new - t_prefill),
+               'heads': model.parallel.heads, 'kv_heads': model.parallel.kv_heads}
+        if label == 'full':
+            sampled = generate.sample_generate(
+                model, prompt, TP_DECODE_NEW, torch.Generator('cuda').manual_seed(1),
+                temperature=GEN_TEMPERATURE, top_p=GEN_TOP_P)
+            run['sampled'] = sampled.cpu().tolist()
+        torch.cuda.synchronize()
+        run['launches'] = launch_counts()
+        run['peak_memory_bytes'] = torch.cuda.max_memory_allocated()
+        run['same_tokens'] = _same_on_every_rank(run['tokens'])
+        if label == 'full':
+            run['same_sampled'] = _same_on_every_rank(run['sampled'])
+        out[label] = run
+        del model
+        torch.cuda.empty_cache()
+        if label != 'full':
+            continue
+        # teacher-forced on rank 0: one process's dense forward over the
+        # decoded sequence, the unsplit weights (the same draws)
+        if rank == 0:
+            full = init_transformer(0, dataclasses.replace(config, attn_impl='dense'), 'cuda')
+            with torch.no_grad():
+                decode_logits = torch.stack(logits, dim=1)                      # (B, N, V)
+                forward = transformer_forward(full, tokens[:, :-1])[:, DECODE_PROMPT - 1:]
+                scale = forward.abs().max()
+                emitted = tokens[:, DECODE_PROMPT:].long()
+                gap = forward.max(dim=-1).values - forward.gather(-1, emitted[..., None])[..., 0]
+                run['teacher_forced'] = {
+                    'logits_err_over_max_abs': float((decode_logits - forward).abs().max()
+                                                     / scale),
+                    'argmax_equal': int((forward.argmax(dim=-1) == emitted).sum()),
+                    'near_ties': int(((gap > 0) & (gap <= DECODE_TOL * scale)).sum()),
+                    'outside_tolerance': int((gap > DECODE_TOL * scale).sum()),
+                    'tokens': emitted.numel()}
+                # one process's cache for the same decode, for the halving gate
+                run['one_process_kv_cache_bytes'] = _split_decode(full, prompt)[1]
+            del full, forward, decode_logits
+            torch.cuda.empty_cache()
+        logits = None
+        dist.barrier()
+    collectives.reset_counts()
+    return out
+
+
+def phase_tp_decode_path():
+    """Decoding the flagship split over ``'model'`` on the one card (see
+    ``_tp_decode``). Held: both ranks emit the same tokens, greedy and
+    sampled, and for GQA-4; the gathered logits within ``DECODE_TOL`` of
+    one process's dense forward at every generated position, each token
+    its argmax or within the tolerance of it; 0 flash launches; each
+    rank's KV cache half of one process's; per decode step ``2 x
+    n_layers`` all-reduces and one all-gather of the logits."""
+    import numpy as np
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = _run_ranks('_tp_decode', ())
+    seconds = time.perf_counter() - t0
+    layers = FLAGSHIP_LM_KW['n_layers']
+    report = {'phase': 'tp_decode_path', 'config': 'lm-c4like-flagship',
+              'model': FLAGSHIP_LM_KW, 'mesh': {'data': 1, 'model': PARALLEL_RANKS},
+              'entry': 'init_transformer(0, mesh=make_mesh(model=2)), greedy_generate, '
+                       'sample_generate', 'seconds': seconds,
+              'decode_shape': {'batch': DECODE_BATCH, 'prompt': DECODE_PROMPT,
+                               'new_tokens': TP_DECODE_NEW, 'runs': DECODE_RUNS,
+                               'rate': 'batch x (%d - 1) / (median t%d - median t1)'
+                                       % (TP_DECODE_NEW, TP_DECODE_NEW)},
+              'sampling': {'temperature': GEN_TEMPERATURE, 'top_p': GEN_TOP_P},
+              'coordinates': [r['coordinate'] for r in results],
+              'teacher_forced': dict(results[0]['full']['teacher_forced'],
+                                     tolerance='max|a - b| / max|b| <= %g; a token off the '
+                                               'argmax only within it' % DECODE_TOL),
+              'one_process_kv_cache_bytes': results[0]['full']['one_process_kv_cache_bytes']}
+    for label in ('full', 'gqa'):
+        runs = [r[label] for r in results]
+        report[label] = {
+            'heads_per_rank': [r['heads'] for r in runs],
+            'kv_heads_per_rank': [r['kv_heads'] for r in runs],
+            'kv_cache_bytes_per_rank': [r['kv_cache_bytes'] for r in runs],
+            'tokens_per_s_per_rank': [r['tokens_per_s'] for r in runs],
+            'seconds_per_rank': [r['seconds'] for r in runs],
+            'prefill_ms_per_rank': [r['prefill_ms'] for r in runs],
+            'peak_memory_bytes_per_rank': [r['peak_memory_bytes'] for r in runs],
+            'host_copy_seconds_per_rank': [r['host_copy_seconds'] for r in runs],
+            'collective_seconds_per_rank': [r['collective_seconds'] for r in runs],
+            'decode_seconds_per_rank': [r['decode_seconds'] for r in runs],
+            'collective_calls_per_rank': [r['collective_calls'] for r in runs],
+            'launches_per_rank': [r['launches'] for r in runs],
+            'same_tokens': runs[0]['same_tokens']}
+    report['full']['same_sampled'] = results[0]['full']['same_sampled']
+    emit(report)
+    tf = report['teacher_forced']
+    assert [tuple(c) for c in report['coordinates']] == [(0, 0), (0, 1)], report['coordinates']
+    for label, kv_full in (('full', DECODE_KV_BYTES[0]), ('gqa', DECODE_KV_BYTES[1])):
+        entry = report[label]
+        assert entry['same_tokens'], label
+        for r in results:
+            run = r[label]
+            tokens = np.asarray(run['tokens'])
+            assert tokens.shape == (DECODE_BATCH, DECODE_PROMPT + TP_DECODE_NEW), tokens.shape
+            assert ((tokens >= 0) & (tokens < FLAGSHIP_LM_KW['vocab_size'])).all()
+            assert math.isfinite(run['tokens_per_s']) and run['tokens_per_s'] > 0, run
+            for name in FLASH_KERNELS:
+                assert run['launches'][name] == 0, (label, name, run['launches'])
+            # each rank holds half the K/V heads: half of one process's cache
+            assert 2 * run['kv_cache_bytes'] == kv_full, (label, run['kv_cache_bytes'])
+            # one all-gather of the logits and a sum over 'model' after each
+            # block's attention and FFN, a token (the prefill chooses one)
+            assert run['collective_calls'] == {'reduce_from_model': 2 * layers * TP_DECODE_NEW,
+                                               'all_gather': TP_DECODE_NEW}, run
+    assert report['one_process_kv_cache_bytes'] == DECODE_KV_BYTES[0]
+    assert report['full']['same_sampled']
+    assert tf['logits_err_over_max_abs'] <= DECODE_TOL, tf
+    assert tf['outside_tolerance'] == 0, tf
+    return {name: sum(r['full']['launches'][name] + r['gqa']['launches'][name]
+                      for r in results) for name in FLASH_KERNELS}
+
+
 def _launches_by_path(name, paths):
     return {path: counts[name] for path, counts in paths.items() if name in counts}
 
@@ -5274,12 +5627,12 @@ def main(argv=None):
         return 2
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    status, probe = phase_build()
-    phase_pipecheck()
+    status, probe = _phase(phase_build)
+    _phase(phase_pipecheck)
     image_codec = image_codec_for(status, probe)
-    kernel = phase_kernel()
-    flash = phase_flash_kernel()
-    phase_native_decode(status)
+    kernel = _phase(phase_kernel)
+    flash = _phase(phase_flash_kernel)
+    _phase(phase_native_decode, status)
     from petastorm_tpu_torch.examples.mnist import generate_synthetic_mnist
     paths = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -5287,71 +5640,77 @@ def main(argv=None):
         os.makedirs(trace_dir, exist_ok=True)
         url = 'file://' + os.path.join(tmp, 'mnist')
         t0 = time.perf_counter()
-        generate_synthetic_mnist(url, num_rows=MNIST_ROWS)
+        _phase(generate_synthetic_mnist, url, num_rows=MNIST_ROWS)
         emit({'phase': 'write', 'rows': MNIST_ROWS, 'seconds': time.perf_counter() - t0})
-        phase_reference(url)
-        phase_lm_reference()
-        phase_lm_reference_bf16()
-        phase_generate_reference()
-        main_launches, main_rows_per_s = phase_main_path(url)
+        _phase(phase_reference, url)
+        _phase(phase_lm_reference)
+        _phase(phase_lm_reference_bf16)
+        _phase(phase_generate_reference)
+        main_launches, main_rows_per_s = _phase(phase_main_path, url)
         paths['main_path'] = {'normalize_images': main_launches}
-        phase_row_reference(url)
+        _phase(phase_row_reference, url)
         paths['pytorch_path'] = {
-            'normalize_images': phase_pytorch_path(url)['normalize_images']}
+            'normalize_images': _phase(phase_pytorch_path, url)['normalize_images']}
         paths['batched_bridge_path'] = {
-            'normalize_images': phase_batched_bridge_path(url, main_rows_per_s)[
+            'normalize_images': _phase(phase_batched_bridge_path, url, main_rows_per_s)[
                 'normalize_images']}
         paths['obs_drill_path'] = {
-            'normalize_images': phase_obs_drill_path(url, tmp)['normalize_images']}
-        phase_row_resume(url)
+            'normalize_images': _phase(phase_obs_drill_path, url, tmp)['normalize_images']}
+        _phase(phase_row_resume, url)
         ngram_url = 'file://' + os.path.join(tmp, 'ngram_timeseries')
-        phase_ngram_path(ngram_url, write_ngram_dataset(ngram_url))
+        _phase(phase_ngram_path, ngram_url, _phase(write_ngram_dataset, ngram_url))
         lm_url = 'file://' + os.path.join(tmp, 'c4_like')
-        write_lm_dataset(lm_url)
-        paths['lm_path'], lm_tokens_per_s = phase_lm_path(lm_url)
-        paths['traced_lm_path'] = phase_traced_lm_path(lm_url, lm_tokens_per_s, trace_dir)
-        paths['obs_lm_path'] = phase_obs_lm_path(lm_url, tmp)
-        phase_lm_profile()
-        bridge = phase_bridge_lm(lm_url, lm_tokens_per_s)
+        _phase(write_lm_dataset, lm_url)
+        paths['lm_path'], lm_tokens_per_s = _phase(phase_lm_path, lm_url)
+        paths['traced_lm_path'] = _phase(phase_traced_lm_path, lm_url, lm_tokens_per_s,
+                                         trace_dir)
+        paths['obs_lm_path'] = _phase(phase_obs_lm_path, lm_url, tmp)
+        _phase(phase_lm_profile)
+        bridge = _phase(phase_bridge_lm, lm_url, lm_tokens_per_s)
         paths['bridge_lm'] = {name: bridge[name] for name in FLASH_KERNELS}
-        paths['dp_lm_path'] = phase_dp_lm_path(lm_url, lm_tokens_per_s)
-        paths['sp_lm_path'] = phase_sp_lm_path(lm_url, lm_tokens_per_s)
-        phase_varlen_reference(lm_url)
-        paths['varlen_path'] = phase_varlen_path(lm_url)
-        phase_varlen_profile()
+        paths['dp_lm_path'] = _phase(phase_dp_lm_path, lm_url, lm_tokens_per_s)
+        paths['sp_lm_path'] = _phase(phase_sp_lm_path, lm_url, lm_tokens_per_s)
+        _phase(phase_varlen_reference, lm_url)
+        paths['varlen_path'] = _phase(phase_varlen_path, lm_url)
+        _phase(phase_varlen_profile)
         replay_url = 'file://' + os.path.join(tmp, 'c4_like_%d' % REPLAY_DOCS)
-        write_lm_dataset(replay_url, num_docs=REPLAY_DOCS)
-        phase_inmemory_replay(replay_url)
-        mixture = write_mixture_corpora(tmp)
-        paths['mixture_path'] = phase_mixture_path(mixture)
-        phase_mixture_profile(mixture)
-        phase_resume(mixture)
-        paths['generate_path'], paths['generate_decode'] = phase_generate_path(lm_url, tmp)
-        paths['moe_path'] = phase_moe_path(lm_url)
-        paths['modern_path'] = phase_modern_path(tmp)
+        _phase(write_lm_dataset, replay_url, num_docs=REPLAY_DOCS)
+        _phase(phase_inmemory_replay, replay_url)
+        mixture = _phase(write_mixture_corpora, tmp)
+        paths['mixture_path'] = _phase(phase_mixture_path, mixture)
+        _phase(phase_mixture_profile, mixture)
+        _phase(phase_resume, mixture)
+        paths['generate_path'], paths['generate_decode'] = _phase(phase_generate_path, lm_url,
+                                                                  tmp)
+        paths['moe_path'] = _phase(phase_moe_path, lm_url)
+        paths['modern_path'] = _phase(phase_modern_path, tmp)
         vit_url = 'file://' + os.path.join(tmp, 'imagenet_like')
-        write_vit_dataset(vit_url, image_codec)
-        phase_image_reference(vit_url, image_codec)
-        paths['vit_path'], vit_images_per_s = phase_vit_path(vit_url, image_codec)
-        paths['traced_vit_path'] = phase_traced_vit_path(vit_url, image_codec, vit_images_per_s,
-                                                         trace_dir)
-        paths['sanitized_vit_path'] = phase_sanitized_vit_path(vit_url, image_codec,
-                                                               vit_images_per_s)
-        phase_sanitize_drill()
+        _phase(write_vit_dataset, vit_url, image_codec)
+        _phase(phase_image_reference, vit_url, image_codec)
+        paths['vit_path'], vit_images_per_s = _phase(phase_vit_path, vit_url, image_codec)
+        paths['traced_vit_path'] = _phase(phase_traced_vit_path, vit_url, image_codec,
+                                          vit_images_per_s, trace_dir)
+        paths['sanitized_vit_path'] = _phase(phase_sanitized_vit_path, vit_url, image_codec,
+                                             vit_images_per_s)
+        _phase(phase_sanitize_drill)
         selective_url = 'file://' + os.path.join(tmp, 'vit_selective')
-        labels = write_selective_dataset(selective_url, image_codec)
-        paths['selective_vit_path'] = phase_selective_vit_path(selective_url, image_codec,
-                                                               labels, vit_images_per_s)
-        cached = phase_decoded_cache_vit_path(vit_url, image_codec, vit_images_per_s, tmp)
+        labels = _phase(write_selective_dataset, selective_url, image_codec)
+        paths['selective_vit_path'] = _phase(phase_selective_vit_path, selective_url,
+                                             image_codec, labels, vit_images_per_s)
+        cached = _phase(phase_decoded_cache_vit_path, vit_url, image_codec, vit_images_per_s,
+                        tmp)
         paths['decoded_cache_vit_path'] = cached['launches']
-        phase_chaos_path(vit_url, selective_url, labels, cached['uncached'], tmp)
-        paths['readahead_vit_path'] = phase_readahead_vit_path(vit_url, image_codec,
-                                                               vit_images_per_s, tmp)
-        paths['write_plane_vit_path'] = phase_write_plane_vit_path(image_codec, tmp)
-        paths['etl_tools_vit_path'] = phase_etl_tools_vit_path(selective_url, tmp)
-        paths['tp_path'] = phase_tp_path(lm_url, vit_url, lm_tokens_per_s, vit_images_per_s)
-        paths['ep_pp_path'] = phase_ep_pp_path(lm_url, lm_tokens_per_s)
-    phase_vit_profile()
+        _phase(phase_chaos_path, vit_url, selective_url, labels, cached['uncached'], tmp)
+        paths['readahead_vit_path'] = _phase(phase_readahead_vit_path, vit_url, image_codec,
+                                             vit_images_per_s, tmp)
+        paths['write_plane_vit_path'] = _phase(phase_write_plane_vit_path, image_codec, tmp)
+        paths['etl_tools_vit_path'] = _phase(phase_etl_tools_vit_path, selective_url, tmp)
+        paths['tp_path'] = _phase(phase_tp_path, lm_url, vit_url, lm_tokens_per_s,
+                                  vit_images_per_s)
+        paths['ep_pp_path'] = _phase(phase_ep_pp_path, lm_url, lm_tokens_per_s)
+        paths['uneven_pipe_path'] = _phase(phase_uneven_pipe_path)
+        paths['tp_decode_path'] = _phase(phase_tp_decode_path)
+    _phase(phase_vit_profile)
     # the headline numbers are this slice's path's: the flash kernels' at
     # the mixture path's shape (the flagship's) and their launches there;
     # normalize's on the ViT path, the last path that runs it; the

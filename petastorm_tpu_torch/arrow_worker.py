@@ -99,6 +99,19 @@ class ColumnBatch:
         return {name: col[i] for name, col in self.columns.items()}
 
 
+class ZeroRowItem:
+    """What a worker publishes for a ventilated item that yields no rows
+    (its predicate kept none): its provenance only. The reader takes it off
+    the results queue and never hands it to a consumer; an in-order
+    consumer learns from it that the item is done."""
+
+    __slots__ = ('item_index', 'epoch')
+
+    def __init__(self, item_index, epoch):
+        self.item_index = item_index
+        self.epoch = epoch
+
+
 class RowGroupWorker(WorkerBase):
     """Args (dict): dataset_info, loaded_schema (stored fields to read and
     decode), schema (output schema after the TransformSpec),
@@ -144,6 +157,8 @@ class RowGroupWorker(WorkerBase):
         key = self._item_cache_key(piece, worker_predicate, shuffle_row_drop_partition)
         batch = load() if key is None else self._cache.get(key, load)
         if batch is None or batch.length == 0:
+            if item_index is not None:
+                self.publish_func(ZeroRowItem(item_index, epoch))
             return
         if self._ngram is None:
             batch.item_index = item_index

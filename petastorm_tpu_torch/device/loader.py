@@ -717,6 +717,10 @@ class TorchLoader:
                 return
             if columns is not None:
                 yield columns, item_index, epoch
+                continue
+            # an item with no rows is delivered as soon as its turn comes
+            with self._prov_lock:
+                self._delivered_by_epoch.setdefault(epoch, set()).add(item_index)
 
     def _pull_batches(self):
         """Column dicts from the reader, each row tagged with its pull id."""

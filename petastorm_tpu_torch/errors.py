@@ -27,7 +27,6 @@ class DecodeFieldError(PetastormTpuError):
 #: ``ROADMAP.md`` Queue 1 items the port has not reached yet, by number
 #: (done items leave gaps: numbers are never reused)
 ROADMAP_ITEMS = {
-    8: 'LM consumer layer across ranks: decoding a model split over ranks',
     9: 'process and service pools, HDFS and object stores',
     11: 'bridges, benchmark, examples and test utilities',
 }

@@ -83,6 +83,10 @@ class Resequencer:
     in-flight items near the pool size, so the bound trips only on a
     contract violation, and loudly.
 
+    An item that yields no rows (a predicate kept none of them) is
+    released as None once the reader reports it
+    (``take_zero_row_items``), so an endless read goes on past it.
+
     ``prepare(columns, item, epoch, started)`` turns each pulled batch
     into what is held and returned (default: the columns), ``started``
     being the ``time.time()`` the pull began at.
@@ -104,12 +108,19 @@ class Resequencer:
         self._order = deque(self._reader.ventilation_order(epoch))
         self._buffer = {}
         self._drained = False
+        # drop what an earlier pass reported (the first call starts the
+        # reader's record)
+        self._take_zero_rows()
+
+    def _take_zero_rows(self):
+        take = getattr(self._reader, 'take_zero_row_items', None)
+        return take() if take is not None else []
 
     def next(self):
         """``((epoch, item), value)`` of the next item in ventilation
-        order. ``value`` is None for an item the pool never produced (a
-        poison skip or a zero-row group), known once the reader is
-        drained. Raises StopIteration at the end."""
+        order. ``value`` is None for an item that yielded no rows (known
+        when the reader reports it, or once it is drained). Raises
+        StopIteration at the end."""
         while True:
             if not self._order:
                 if self._drained and not self._buffer:
@@ -140,6 +151,9 @@ class Resequencer:
         except StopIteration:
             self._drained = True
             return
+        finally:
+            for key in self._take_zero_rows():
+                self._buffer[key] = None
         self._buffer[(epoch, item)] = (columns if self._prepare is None
                                        else self._prepare(columns, item, epoch, t0))
         if len(self._buffer) > self._reseq_max:

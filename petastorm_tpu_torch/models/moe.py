@@ -60,18 +60,20 @@ class TokenSplit:
     """How the token array that routes as one lies over ranks.
 
     ``rows``: the group whose ranks hold consecutive blocks of its rows
-    (``'data'``); ``members``, when set, the indices in that group of the
-    ranks that share the array (a pipeline microbatch spanning some of the
-    data ranks), the others routing arrays of their own. ``positions``: the
-    group whose ranks hold consecutive blocks of every row's positions
-    (the sequence dim), routed together. ``stats``: a group over which only
-    the aux statistics sum, routing staying local to each rank (the
-    reference's manual ``seq_axis``). None everywhere: the array is this
-    rank's own."""
+    (``'data'``, in equal blocks unless ``members`` is set).
+    ``members`` and ``rows_total``: a pipeline microbatch of
+    ``rows_total`` rows held, unequally, by the ranks at ``members`` of
+    that group; every rank of it joins the collectives, one outside
+    ``members`` with no rows. ``positions``: the group whose ranks hold
+    consecutive blocks of every row's positions (the sequence dim), routed
+    together. ``stats``: a group over which only the aux statistics sum,
+    routing staying local to each rank (the reference's manual
+    ``seq_axis``). None everywhere: the array is this rank's own."""
     rows: object = None
     members: Optional[Tuple[int, ...]] = None
     positions: object = None
     stats: object = None
+    rows_total: Optional[int] = None
 
 
 class MoE(nn.Module):
@@ -168,17 +170,22 @@ def _queue_positions(ionehot, n_rows, split):
     table = all_reduce(all_reduce(table, split.positions, name='moe_counts'), split.rows,
                        name='moe_counts')
     if split.members is not None:
-        r = list(split.members).index(r)
+        # a rank outside the members has no tokens: any index will do
+        r = split.members.index(r) if r in split.members else 0
         table = table[list(split.members)]
     before = torch.cumsum(table.reshape(-1, e), dim=0).reshape(table.shape) - table
     position = within + before[r, :, p][:, None, :]
     return (position * per_row).sum(dim=-1).reshape(-1)
 
 
-def _sharing_ranks(split):
-    rows = (len(split.members) if split.members is not None
-            else size_and_rank(split.rows)[0])
-    return rows * size_and_rank(split.positions)[0]
+def _routed_tokens(split, lead_shape):
+    """The token count of the whole routed array ``x`` (``lead_shape``
+    ``x.shape[:-1]``) is this rank's part of."""
+    if split.members is not None:
+        tokens = split.rows_total * int(np.prod(lead_shape[1:]))
+    else:
+        tokens = int(np.prod(lead_shape)) * size_and_rank(split.rows)[0]
+    return tokens * size_and_rank(split.positions)[0]
 
 
 def moe_forward(layer, x, config, capacity=None, seq_axis=None, mesh=None, split=None):
@@ -213,7 +220,7 @@ def moe_forward(layer, x, config, capacity=None, seq_axis=None, mesh=None, split
     router, w_in, w_out = layer.router, layer.w_in, layer.w_out
     lead_shape = x.shape[:-1]
     tokens = x.reshape(-1, c.d_model)
-    n_tokens = tokens.shape[0] * _sharing_ranks(split)
+    n_tokens = _routed_tokens(split, lead_shape)
     if capacity is None:
         capacity = expert_capacity(n_tokens, c.n_experts, c.capacity_factor)
 

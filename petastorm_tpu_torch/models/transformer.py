@@ -912,31 +912,37 @@ def init_pipelined_transformer(seed, config, mesh, pipe_axis=None, device=None):
 
 
 def _microbatch_plan(par, n_microbatches, rows):
-    """``(local microbatches, their TokenSplit, aux gradient scale)`` of a
-    pipeline of ``n_microbatches`` global microbatches (default one a
-    stage) over a batch whose ``rows`` a rank holds. A global microbatch
-    is rows ``[m·B/M, (m+1)·B/M)`` of the global batch, as in the
-    reference: with ``M`` a multiple of ``dp`` each data rank holds
-    ``M/dp`` whole ones and routes each alone; with ``dp`` a multiple of
-    ``M`` one spans ``dp/M`` data ranks, which route it as one array. MoE
-    routing is local to a rank's block of positions with the aux
-    statistics summed over the sequence dim, as the reference's manual
-    region routes."""
+    """``(each local microbatch's rows, their TokenSplits, whether each
+    rank's microbatches are its own)`` of a pipeline of ``n_microbatches``
+    global microbatches (default one a stage) over a batch whose ``rows`` a
+    rank holds. A global microbatch is rows ``[m·B/M, (m+1)·B/M)`` of the
+    global batch, as in the reference. With ``M`` a multiple of ``dp`` each
+    data rank holds ``M/dp`` whole ones and routes each alone. Otherwise
+    every data rank runs all ``M``, each with its rows of it (none for one
+    it does not touch), and the ranks a microbatch straddles route it as
+    one array; every data rank then runs the same schedule, so the
+    routing collectives meet. MoE routing is local to a rank's block of
+    positions with the aux statistics summed over the sequence dim, as the
+    reference's manual region routes."""
     from petastorm_tpu_torch.models.moe import TokenSplit
     m = par.pp if n_microbatches is None else n_microbatches
     batch, dp = rows * par.dp, par.dp
     if m < 1 or batch % m:
         raise ValueError('batch %d not divisible into %d microbatches' % (batch, m))
+    size = batch // m
     if m % dp == 0:
-        return m // dp, TokenSplit(stats=par.seq_group), 1
-    if dp % m == 0:
-        span = dp // m
-        first = par.dp_rank // span * span
-        return 1, TokenSplit(rows=par.data_group, members=tuple(range(first, first + span)),
-                             stats=par.seq_group), span
-    raise ValueError('%d microbatches over %d ranks of %r: a global microbatch would '
-                     'straddle ranks unevenly; give a count that divides or is divided '
-                     'by %d' % (m, dp, DATA_AXIS, dp))
+        return [size] * (m // dp), [TokenSplit(stats=par.seq_group)] * (m // dp), True
+
+    def overlap(start, n):
+        return [max(0, min((k + 1) * size, start + n) - max(k * size, start))
+                for k in range(m)]
+
+    sizes = overlap(par.dp_rank * rows, rows)
+    held = [overlap(r * rows, rows) for r in range(dp)]
+    splits = [TokenSplit(rows=par.data_group, stats=par.seq_group, rows_total=size,
+                         members=tuple(r for r in range(dp) if held[r][k]))
+              for k in range(m)]
+    return sizes, splits, False
 
 
 def _pipelined_features_with_aux(model, tokens, n_microbatches=None):
@@ -948,24 +954,24 @@ def _pipelined_features_with_aux(model, tokens, n_microbatches=None):
     from petastorm_tpu_torch.parallel.pipeline import run_pipeline
     c, par = model.config, model.parallel
     x = _embed(model, tokens)
-    n_local, split, scale = _microbatch_plan(par, n_microbatches, x.shape[0])
+    sizes, splits, own = _microbatch_plan(par, n_microbatches, x.shape[0])
     moe = c.n_experts > 0
 
-    def stage_fn(blocks, x):
+    def stage_fn(blocks, x, index):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in blocks:
-            x, aux = _run_block(block, x, c, par, split)
+            x, aux = _run_block(block, x, c, par, splits[index])
             if aux is not None:
                 aux_total = aux_total + aux
         return (x, aux_total) if moe else x
 
-    x, aux = run_pipeline(stage_fn, list(model.blocks), x, par.pipe_group, n_local,
+    x, aux = run_pipeline(stage_fn, list(model.blocks), x, par.pipe_group, sizes,
                           with_aux=moe)
-    if moe and par.dp > 1:
-        # every rank's microbatches, over 'data'; a microbatch that spans
-        # `scale` ranks is on each of them, so its value counts 1/scale on
-        # each and its gradient (each rank's own part) counts whole
-        aux = reduce_from_model(aux + (scale - 1) * (aux - aux.detach()), par.data_group) / par.dp
+    if moe and own and par.dp > 1:
+        # each data rank's own microbatches: their mean over 'data' (a
+        # rank that ran every microbatch has the global mean already, its
+        # gradient its own rows' part)
+        aux = reduce_from_model(aux, par.data_group) / par.dp
     return _rmsnorm(x, model.ln_f), aux
 
 

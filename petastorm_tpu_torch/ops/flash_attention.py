@@ -11,7 +11,9 @@ raises: there is no dense branch on the card. On a CPU tensor it runs the
 plain versions through the same ``autograd.Function``, so the backward
 formulas the kernels implement are the ones the CPU tests exercise. The
 kernels take any S ≥ 1 (the tail tile is masked) and a head dim D ≤ 128
-that is a multiple of 8. bf16 inputs run all three kernels on the tensor
+that is a multiple of 8; an empty batch (B = 0, as a pipeline rank's
+share of a microbatch it holds no rows of) launches nothing, since a
+grid of no blocks is no launch. bf16 inputs run all three kernels on the tensor
 cores (``wgmma``), which copy rows in 16-byte pieces: a bf16 view whose
 rows are not 16-byte aligned is copied first. f32 inputs run scalar f32
 kernels.
@@ -182,10 +184,11 @@ def flash_fwd(q, k, v, causal, sm_scale):
     b, s, h, _ = q.shape
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch(_kernels()[0], 'forward',
-            [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr()],
-            [q, k, v, o], q, causal, sm_scale)
-    fwd_launches += 1
+    if q.numel():
+        _launch(_kernels()[0], 'forward',
+                [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr()],
+                [q, k, v, o], q, causal, sm_scale)
+        fwd_launches += 1
     return o, lse
 
 
@@ -209,11 +212,12 @@ def flash_bwd_dkv(q, k, v, do, lse, di, causal, sm_scale):
     q, k, v, do = (_tensor_core_operand(t) for t in (q, k, v, do))
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch(_kernels()[1], 'dK/dV',
-            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-             di.data_ptr(), dk.data_ptr(), dv.data_ptr()],
-            [q, k, v, do, dk, dv], q, causal, sm_scale)
-    bwd_dkv_launches += 1
+    if q.numel():
+        _launch(_kernels()[1], 'dK/dV',
+                [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 di.data_ptr(), dk.data_ptr(), dv.data_ptr()],
+                [q, k, v, do, dk, dv], q, causal, sm_scale)
+        bwd_dkv_launches += 1
     return dk, dv
 
 
@@ -227,11 +231,12 @@ def flash_bwd_dq(q, k, v, do, lse, di, causal, sm_scale):
         return flash_bwd_dq_reference(q, k, v, do, lse, di, causal, sm_scale)
     q, k, v, do = (_tensor_core_operand(t) for t in (q, k, v, do))
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(_kernels()[2], 'dQ',
-            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-             di.data_ptr(), dq.data_ptr()],
-            [q, k, v, do, dq], q, causal, sm_scale)
-    bwd_dq_launches += 1
+    if q.numel():
+        _launch(_kernels()[2], 'dQ',
+                [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 di.data_ptr(), dq.data_ptr()],
+                [q, k, v, do, dq], q, causal, sm_scale)
+        bwd_dq_launches += 1
     return dq
 
 

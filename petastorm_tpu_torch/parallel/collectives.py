@@ -17,14 +17,17 @@ that runs eagerly on every rank of ``group``:
 * :func:`send_to` and :func:`recv_from`: one tensor from one rank of the
   group to another (not differentiable: the pipeline's schedule sends
   activations forward and their gradients back itself). Each end counts
-  as one ``'ppermute'`` call.
+  as one ``'ppermute'`` call;
+* :func:`broadcast`: the group's first rank's tensor on every rank (not
+  differentiable: a sampled decode's tokens).
 
 Gloo refuses CUDA tensors for point-to-point and all-to-all, and NCCL
 refuses two ranks on one GPU, so on a gloo group a CUDA tensor goes
 through a pinned host copy and back; the compute stays on the card.
-``counts()`` reports the collectives run and the host seconds those
-copies took (the device-to-host copy waits for the kernels queued before
-it, so its seconds include that wait). A group of None or of one rank
+``counts()`` reports the collectives run, the host seconds those copies
+took (the device-to-host copy waits for the kernels queued before it, so
+its seconds include that wait) and the host seconds spent inside the
+calls that go through :func:`_run` (copies included). A group of None or of one rank
 makes every function the identity, with nothing counted.
 """
 
@@ -35,19 +38,22 @@ import torch.distributed as dist
 
 _calls = {}
 _host_copy_seconds = 0.0
+_seconds = 0.0
 
 
 def reset_counts():
     """Zero the counts :func:`counts` reports."""
-    global _host_copy_seconds
+    global _host_copy_seconds, _seconds
     _calls.clear()
     _host_copy_seconds = 0.0
+    _seconds = 0.0
 
 
 def counts():
-    """``{'calls': {name: n}, 'host_copy_seconds': s}`` since the last
-    :func:`reset_counts`."""
-    return {'calls': dict(_calls), 'host_copy_seconds': _host_copy_seconds}
+    """``{'calls': {name: n}, 'host_copy_seconds': s, 'seconds': s}``
+    since the last :func:`reset_counts`."""
+    return {'calls': dict(_calls), 'host_copy_seconds': _host_copy_seconds,
+            'seconds': _seconds}
 
 
 def size_and_rank(group):
@@ -69,19 +75,22 @@ def _run(name, group, tensors, body):
     """Run ``body(tensors) -> outputs`` (lists of tensors) where ``group``'s
     backend can take them: CUDA tensors on a gloo group go through pinned
     host copies, timed."""
-    global _host_copy_seconds
+    global _host_copy_seconds, _seconds
     _calls[name] = _calls.get(name, 0) + 1
     device = tensors[0].device
-    if not _on_host(group, tensors[0]):
-        return body([t.contiguous() for t in tensors])
-    t0 = time.perf_counter()
-    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t) for t in tensors]
-    _host_copy_seconds += time.perf_counter() - t0
-    outputs = body(host)
-    t0 = time.perf_counter()
-    outputs = [o.to(device) for o in outputs]
-    _host_copy_seconds += time.perf_counter() - t0
-    return outputs
+    start = time.perf_counter()
+    try:
+        if not _on_host(group, tensors[0]):
+            return body([t.contiguous() for t in tensors])
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t) for t in tensors]
+        _host_copy_seconds += time.perf_counter() - start
+        outputs = body(host)
+        t0 = time.perf_counter()
+        outputs = [o.to(device) for o in outputs]
+        _host_copy_seconds += time.perf_counter() - t0
+        return outputs
+    finally:
+        _seconds += time.perf_counter() - start
 
 
 def all_reduce(t, group, op=None, name='all_reduce'):
@@ -97,6 +106,20 @@ def all_reduce(t, group, op=None, name='all_reduce'):
         return [out]
 
     return _run(name, group, [t], body)[0]
+
+
+def broadcast(t, group, index=0):
+    """The tensor of the rank at ``index`` of ``group``, on every rank of
+    it (``t`` there; a tensor of its shape and dtype elsewhere)."""
+    if _trivial(group):
+        return t
+
+    def body(ts):
+        out = ts[0].clone()
+        dist.broadcast(out, dist.get_global_rank(group, index), group=group)
+        return [out]
+
+    return _run('broadcast', group, [t], body)[0]
 
 
 def send_to(t, group, index):
@@ -276,8 +299,8 @@ def reduce_from_model(x, group):
 def all_gather(x, group, dim):
     """The ranks' ``x`` concatenated along ``dim`` in rank order; the
     backward reduce-scatters the gradient (this rank's chunk, summed over
-    the group). No path of the port runs it yet: it is kept beside the
-    others as the gather the JAX package's collectives include."""
+    the group). A split model's decode gathers its logits with it (no
+    path of the port runs the backward yet)."""
     return x if _trivial(group) else _AllGather.apply(x, group, dim)
 
 

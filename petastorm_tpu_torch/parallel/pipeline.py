@@ -54,26 +54,28 @@ def shard_stage_params(stage_params, mesh, axis_name=PIPE_AXIS):
 
 class _Schedule:
     """One call's GPipe schedule on this rank: the forward keeps each
-    microbatch's graph, the backward walks them in reverse."""
+    microbatch's graph, the backward walks them in reverse. ``sizes``
+    holds each microbatch's rows; one of none is computed (the stage may
+    run collectives with other ranks' parts of it) but never sent."""
 
-    def __init__(self, stage_fn, stage, group, n_microbatches, with_aux):
+    def __init__(self, stage_fn, stage, group, sizes, with_aux):
         self.stage_fn, self.stage, self.group = stage_fn, stage, group
-        self.n_micro, self.with_aux = n_microbatches, with_aux
+        self.sizes, self.n_micro, self.with_aux = sizes, len(sizes), with_aux
         self.n_stages, self.index = size_and_rank(group)
 
     def forward(self, x, keep_graph):
         last = self.index == self.n_stages - 1
-        chunks = x.detach().reshape((self.n_micro, -1) + tuple(x.shape[1:]))
+        chunks = x.detach().split(self.sizes)
         self.graphs, outs, sends = [], [], []
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for m in range(self.n_micro):
-            if self.index == 0:
+            if self.index == 0 or not self.sizes[m]:
                 a = chunks[m].detach()
             else:
                 a = recv_from(chunks[m].shape, x.dtype, x.device, self.group, self.index - 1)
             with torch.set_grad_enabled(keep_graph):
                 a = a.requires_grad_(keep_graph)
-                result = self.stage_fn(self.stage, a)
+                result = self.stage_fn(self.stage, a, m)
                 y, aux = result if self.with_aux else (result, None)
             if y.shape != a.shape or y.dtype != a.dtype:
                 raise ValueError('a stage must return its input\'s shape and dtype; got %s %s '
@@ -85,7 +87,7 @@ class _Schedule:
                 self.graphs.append((a, y, aux))
             if last:
                 outs.append(y.detach())
-            else:
+            elif self.sizes[m]:
                 sends.append(send_to(y.detach(), self.group, self.index + 1))
         for done in sends:
             done()
@@ -96,12 +98,12 @@ class _Schedule:
 
     def backward(self, g_out, g_aux, need_input_grad):
         last = self.index == self.n_stages - 1
-        g_chunks = g_out.reshape((self.n_micro, -1) + tuple(g_out.shape[1:]))
+        g_chunks = g_out.split(self.sizes)
         aux_coef = g_aux / self.n_micro
         grads, sends = [None] * self.n_micro, []
         for m in reversed(range(self.n_micro)):
             a, y, aux = self.graphs[m]
-            if last:
+            if last or not self.sizes[m]:
                 gy = g_chunks[m]
             else:
                 gy = recv_from(y.shape, y.dtype, y.device, self.group, self.index + 1)
@@ -111,7 +113,7 @@ class _Schedule:
                 cotangents.append(aux_coef.to(aux.dtype).reshape(aux.shape))
             torch.autograd.backward(outputs, cotangents)
             ga = a.grad if a.grad is not None else torch.zeros_like(a)
-            if self.index > 0:
+            if self.index > 0 and self.sizes[m]:
                 sends.append(send_to(ga, self.group, self.index - 1))
             else:
                 grads[m] = ga
@@ -136,15 +138,20 @@ class _GPipe(torch.autograd.Function):
 
 
 def run_pipeline(stage_fn, stage, x, group, n_microbatches, with_aux=False):
-    """The GPipe schedule of ``stage_fn(stage, microbatch)`` over the
-    ranks of ``group`` on this rank's ``x`` (its rows and positions):
+    """The GPipe schedule of ``stage_fn(stage, microbatch, index)`` over
+    the ranks of ``group`` on this rank's ``x`` (its rows and positions):
     ``(output, aux)``, the output the last stage's on every stage and
-    ``aux`` the stages' scalars summed over real (stage, microbatch) pairs
-    and divided by ``n_microbatches`` (zero without ``with_aux``)."""
-    if x.shape[0] % n_microbatches:
-        raise ValueError('batch %d not divisible into %d microbatches'
-                         % (x.shape[0], n_microbatches))
-    schedule = _Schedule(stage_fn, stage, group, n_microbatches, with_aux)
+    ``aux`` the stages' scalars summed over (stage, microbatch) pairs and
+    divided by the microbatch count (zero without ``with_aux``).
+    ``n_microbatches`` is a count that divides ``x``'s rows evenly, or the
+    list of each microbatch's rows (a zero among them: this rank holds
+    none of that one)."""
+    if isinstance(n_microbatches, int):
+        if x.shape[0] % n_microbatches:
+            raise ValueError('batch %d not divisible into %d microbatches'
+                             % (x.shape[0], n_microbatches))
+        n_microbatches = [x.shape[0] // n_microbatches] * n_microbatches
+    schedule = _Schedule(stage_fn, stage, group, list(n_microbatches), with_aux)
     keep_graph = torch.is_grad_enabled()
     # the stage weights train through this function's backward, so its
     # output needs a gradient even when x needs none: the anchor asks for it
@@ -209,7 +216,8 @@ def pipeline_apply(stage_fn, stage, x, mesh, axis_name=PIPE_AXIS, n_microbatches
                              % (tuple(x.shape[1:2]) or 'absent', n_seq))
         width = x.shape[1] // n_seq
         x = x[:, seq_index * width:(seq_index + 1) * width]
-    out, aux = run_pipeline(stage_fn, stage, x, group, n_microbatches, with_aux)
+    out, aux = run_pipeline(lambda p, a, m: stage_fn(p, a), stage, x, group, n_microbatches,
+                            with_aux)
     if n_seq > 1:
         out = _GatherReplicated.apply(out, seq_group, n_seq, seq_index)
     return (out, aux) if with_aux else out

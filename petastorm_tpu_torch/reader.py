@@ -37,7 +37,7 @@ import warnings
 
 from petastorm_tpu_torch import pushdown, readahead
 from petastorm_tpu_torch.arrow_worker import (
-    RowGroupWorker, defer_config_ok, typed_partition_value,
+    RowGroupWorker, ZeroRowItem, defer_config_ok, typed_partition_value,
 )
 from petastorm_tpu_torch.cache import LocalDiskCache, NullCache
 from petastorm_tpu_torch.errors import MetadataError, NoDataAvailableError, unported
@@ -466,6 +466,10 @@ class Reader:
         self._batch_cursor = 0
         # per-epoch sets of consumed item indices (exact resume)
         self._consumed_by_epoch = {}
+        # (epoch, item_index) of the items that yielded no rows, until an
+        # in-order consumer takes them; None until one first asks
+        # (take_zero_row_items), so an unordered read keeps none
+        self._zero_row_items = None
         # the live plane's /health entry; unarmed, a shared no-op handle
         # and no thread or socket
         self._obs_mount = obs_server.mount('reader', health=self._obs_health)
@@ -523,6 +527,28 @@ class Reader:
         return self
 
     def _pull_result(self):
+        """The next pool result that carries rows. An item that yielded
+        none arrives as a :class:`ZeroRowItem`: it is kept for
+        :meth:`take_zero_row_items` and the pull goes on. The reader's own
+        record leaves it unconsumed, as the JAX reader's does; an in-order
+        consumer that takes it records it delivered."""
+        while True:
+            result = self._pull_one()
+            if not isinstance(result, ZeroRowItem):
+                return result
+            if self._zero_row_items is not None:
+                self._zero_row_items.append((result.epoch, result.item_index))
+
+    def take_zero_row_items(self):
+        """``(epoch, item_index)`` of the items that yielded no rows since
+        the last call, in arrival order; the first call starts the record
+        (the in-order consumers'
+        :class:`~petastorm_tpu_torch.mixture.engine.Resequencer` releases
+        them without waiting for the read to drain)."""
+        taken, self._zero_row_items = self._zero_row_items or [], []
+        return taken
+
+    def _pull_one(self):
         """One pool result under the ``queue_wait`` span; a long block is
         consumer wait. Traced, the wait also lands on the arrived item's
         trace and the producer-bound auto-dump is polled."""
@@ -634,6 +660,8 @@ class Reader:
         self._current_batch = None
         self._batch_cursor = 0
         self._consumed_by_epoch = {}
+        if self._zero_row_items is not None:
+            self._zero_row_items = []
         self._resume_excluded = {}
 
     def ventilation_order(self, epoch):

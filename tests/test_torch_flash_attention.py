@@ -172,6 +172,27 @@ def test_cpu_tensors_run_the_plain_versions_and_count_nothing():
     assert all(t.grad is not None for t in (tq, tk, tv))
 
 
+@pytest.mark.parametrize('rows', [0, 2])
+def test_the_cuda_branch_launches_nothing_for_an_empty_batch(monkeypatch, rows):
+    """A pipeline rank holding no rows of a microbatch still runs its
+    stage: the card's branch, taken here with the launch stubbed, returns
+    empty outputs and counts nothing for B = 0, and launches otherwise."""
+    launched = []
+    monkeypatch.setattr(fa, '_device_kind', lambda q: 'cuda')
+    monkeypatch.setattr(fa, '_launch', lambda fn, name, *args: launched.append(name))
+    monkeypatch.setattr(fa, '_kernels', lambda: (None, None, None))
+    q, k, v, do = (torch.from_numpy(a).requires_grad_(True)
+                   for a in _arrays((rows, 9, 2, 16), seed=2))
+    before = (fa.fwd_launches, fa.bwd_dkv_launches, fa.bwd_dq_launches)
+    out = fa.flash_attention_fused(q, k, v)
+    out.backward(do.detach())
+    assert out.shape == q.shape and q.grad.shape == q.shape and k.grad.shape == k.shape
+    n = 1 if rows else 0
+    assert launched == ['forward', 'dK/dV', 'dQ'] * n
+    assert (fa.fwd_launches, fa.bwd_dkv_launches, fa.bwd_dq_launches) == tuple(
+        c + n for c in before)
+
+
 def test_tensor_core_operands_are_read_in_place_when_rows_are_aligned():
     """The bf16 tensor-core kernels copy 16-byte pieces of rows: a view
     sliced out of a fused projection (strides in multiples of 8 elements)
@@ -305,6 +326,20 @@ def test_autograd_on_the_card_launches_each_kernel_once():
         n + 1 for n in before)
     want = reference_attention(*(t.float().requires_grad_() for t in (q, k, v)))
     assert torch.isfinite(tq.grad).all() and want.shape == tq.shape
+
+
+@pytest.mark.cuda
+def test_an_empty_batch_on_the_card_launches_nothing():
+    _need_cuda()
+    q, k, v, do = (torch.zeros((0, 100, 2, 96), dtype=torch.bfloat16, device='cuda')
+                   for _ in range(4))
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    before = (fa.fwd_launches, fa.bwd_dkv_launches, fa.bwd_dq_launches)
+    out = fa.flash_attention_fused(tq, tk, tv)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and tq.grad.shape == q.shape
+    assert (fa.fwd_launches, fa.bwd_dkv_launches, fa.bwd_dq_launches) == before
 
 
 def _bf16_dq_inputs(shape, causal, seed):

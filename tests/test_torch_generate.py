@@ -109,21 +109,17 @@ def test_gqa_cache_is_kv_heads_wide(monkeypatch, kv_heads):
     _, params, model = _setup(n_heads=4, n_kv_heads=kv_heads)
     assert params['blocks'][0]['qkv'].shape == (16, (4 + 2 * kv_heads) * 4)
     allocated, read = [], []
-    zeros, attend = torch.zeros, tg._attend
-
-    def recording_zeros(*args, **kwargs):
-        out = zeros(*args, **kwargs)
-        allocated.append(tuple(out.shape))
-        return out
+    attend = tg._attend
 
     def recording_attend(q, keys, values, *args):
         read.append((q.shape[2], keys.shape[2], values.shape[2]))
         return attend(q, keys, values, *args)
 
-    monkeypatch.setattr(tg.torch, 'zeros', recording_zeros)
     monkeypatch.setattr(tg, '_attend', recording_attend)
-    tg.greedy_generate(model, torch.from_numpy(_prompt(2, 4, seed=0)), 5)
-    assert (2, 2, 24, kv_heads, 4) in allocated        # (layers, B, max_seq_len, KV, Dh)
+    tg._generate(model, torch.from_numpy(_prompt(2, 4, seed=0)), 5, None,
+                 on_cache=lambda k, v: allocated.extend((tuple(k.shape), tuple(v.shape))))
+    # (layers, B, max_seq_len, KV, Dh), K then V
+    assert allocated == [(2, 2, 24, kv_heads, 4)] * 2
     assert len(read) == 2 * 5 and set(read) == {(4, kv_heads, kv_heads)}
 
 

@@ -15,7 +15,10 @@ reference's pipelined forward and loss where microbatching changes the
 routing (an MoE model at two microbatches, or its sequence shards routed
 alone): loss, aux, this rank's logits block, its stage's gradient shards
 and its weights after one AdamW step. The families: pp, pp×ep, dp×pp×ep,
-dp×pp with replicated experts, dp×pp×tp, pp×sp (ring and Ulysses),
+dp×pp with replicated experts, dp×pp with 3 microbatches of a 6-row
+batch (one straddles the data ranks, dense and MoE), 4-way dp with 2
+microbatches (each rank holding rows of one only, dense and MoE),
+dp×pp×tp, pp×sp (ring and Ulysses),
 dp×pp×sp and pp×sp×ep, each MoE one at ample (8.0 or 4.0) and at binding
 (0.5) capacity, in bf16 on a pipe mesh, and the refused layouts. The port
 runs as spawned gloo ranks, one spawn per world size (2, 4 and 8, the
@@ -64,6 +67,16 @@ LM_CASES = {
                                    2, 'moe-cf0.5-m2'),
         'data2-pipe2-moe-m2': ({'data': 2, 'pipe': 2}, dict(MOE, capacity_factor=0.5), 2,
                                'moe-cf0.5-m2'),
+        # 3 global microbatches of a 6-row batch: microbatch 1 straddles
+        # the two data ranks, one row on each
+        'data2-pipe2-m3-b6': ({'data': 2, 'pipe': 2}, {}, 3, 'dense-b6'),
+        'data2-pipe2-moe-m3-b6': ({'data': 2, 'pipe': 2}, dict(MOE, capacity_factor=0.5), 3,
+                                  'moe-cf0.5-m3-b6'),
+        # 2 global microbatches over 4 data ranks: each rank holds rows
+        # of one and none of the other
+        'data4-pipe1-m2': ({'data': 4, 'pipe': 1}, {}, 2, 'dense'),
+        'data4-pipe1-moe-m2': ({'data': 4, 'pipe': 1}, dict(MOE, capacity_factor=0.5), 2,
+                               'moe-cf0.5-m2'),
         'pipe2-seq2-ring': ({'pipe': 2, 'seq': 2}, dict(seq_axis='seq'), 2, 'dense'),
         'pipe2-seq2-ulysses': ({'pipe': 2, 'seq': 2}, dict(seq_axis='seq', seq_impl='ulysses'),
                                2, 'dense')},
@@ -97,7 +110,11 @@ REFS = {
     'moe-cf0.5-m2': (dict(MOE, capacity_factor=0.5), {'pipe': 2}, 2),
     # the pipelined pp×sp×ep forward routes each sequence shard alone
     'moe-seq-cf0.5': (dict(MOE, capacity_factor=0.5, seq_axis='seq'), {'pipe': 2, 'seq': 2}, 1),
+    'dense-b6': (DENSE, None, None),
+    'moe-cf0.5-m3-b6': (dict(MOE, capacity_factor=0.5), {'pipe': 2}, 3),
 }
+# the references whose batch is not BATCH rows
+REF_BATCH = {'dense-b6': 6, 'moe-cf0.5-m3-b6': 6}
 # name: (mesh, kind, n_microbatches, an upstream layer, with_aux, seq_axis)
 APPLY_CASES = {
     2: {'stages2-m1': ({'pipe': 2}, 'affine', 1, False, False, None),
@@ -146,7 +163,8 @@ def _payload(world, root, params, tokens):
         config = dict(DENSE, **kw)
         payload['cases'][name] = {
             'kind': 'lm', 'mesh': axes, 'config': config, 'lr': LR, 'pipelined': True,
-            'n_microbatches': m, 'ref': reference, 'tokens': tokens,
+            'n_microbatches': m, 'ref': reference,
+            'tokens': tokens[REF_BATCH.get(reference, BATCH)],
             'params': ref.stack_stages(_params_for(config, params), axes['pipe'])}
     for name, spec in APPLY_CASES[world].items():
         payload['cases'][name] = _apply_case(rng, *spec)
@@ -167,8 +185,8 @@ def _payload(world, root, params, tokens):
             'table': rng.randint(0, 64, (32, SEQ + 1)).astype(np.int64)}
     if world == 4:
         payload['errors'] = {
-            'uneven-microbatches': {'what': 'uneven', 'mesh': {'data': 2, 'pipe': 2},
-                                    'config': DENSE, 'batch': 6, 'n_microbatches': 3},
+            'indivisible-microbatches': {'what': 'batch', 'mesh': {'data': 2, 'pipe': 2},
+                                         'config': DENSE, 'batch': 6, 'n_microbatches': 4},
             'seq-width': {'what': 'seq-width', 'mesh': {'pipe': 2, 'seq': 2}}}
         (root / 'ids').mkdir()
         pq.write_table(pa.table({'id': np.arange(64)}), str(root / 'ids' / 'part-0.parquet'),
@@ -182,7 +200,8 @@ def _references(params, tokens, needed):
     want = {}
     for name in sorted(needed):
         config, axes, m = REFS[name]
-        want[name] = ref.lm_step_reference(config, _params_for(config, params), tokens, axes,
+        want[name] = ref.lm_step_reference(config, _params_for(config, params),
+                                           tokens[REF_BATCH.get(name, BATCH)], axes,
                                            n_microbatches=m, lr=LR)
     return want
 
@@ -195,7 +214,8 @@ def spawns(tmp_path_factory):
     references, payload)}``."""
     from tests.torch_parallel_bodies import to_numpy
     params = {'dense': ref.moe_lm_params(DENSE, 0), 'moe': ref.moe_lm_params(MOE, 1)}
-    tokens = np.random.RandomState(2).randint(0, 64, (BATCH, SEQ + 1)).astype(np.int64)
+    rng = np.random.RandomState(2)
+    tokens = {n: rng.randint(0, 64, (n, SEQ + 1)).astype(np.int64) for n in (BATCH, 6)}
     payloads, got = {}, {}
 
     def start(worlds):
@@ -357,10 +377,11 @@ def _reference_error(fn):
 
 
 def test_refused_layouts_raise_as_the_reference(spawns):
-    """A batch that does not divide into the microbatches, a sequence that
+    """A batch that does not divide into the microbatches (on one data
+    rank and, for the pipelined transformer, over two), a sequence that
     does not divide over the seq ranks and layers that do not divide over
-    the stages raise the reference's errors; global microbatches that
-    would straddle ``'data'`` ranks unevenly are refused."""
+    the stages raise the reference's errors. Global microbatches that
+    straddle ``'data'`` ranks unevenly run (the ``-m3-b6`` cases)."""
     import jax
     import jax.numpy as jnp
 
@@ -379,10 +400,14 @@ def test_refused_layouts_raise_as_the_reference(spawns):
     for r in spawns[2][0]:
         assert r['errors']['microbatches'] == want['microbatches']
         assert r['errors']['layers'] == want['layers']
+    data2_pipe2 = ref.seq_mesh({'data': 2, 'pipe': 2})
+    want['indivisible-microbatches'] = _reference_error(lambda: jt.pipelined_transformer_forward(
+        jt.init_pipelined_transformer_params(jax.random.PRNGKey(0), ref.jax_config(DENSE),
+                                             data2_pipe2),
+        jnp.zeros((6, 8), jnp.int32), ref.jax_config(DENSE), data2_pipe2, n_microbatches=4))
     for r in spawns[4][0]:
         assert r['errors']['seq-width'] == want['seq-width']
-        kind, text = r['errors']['uneven-microbatches']
-        assert kind == 'ValueError' and '3 microbatches over 2 ranks' in text
+        assert r['errors']['indivisible-microbatches'] == want['indivisible-microbatches']
 
 
 def test_pipeline_stage_resumes_its_own_blocks(spawns):

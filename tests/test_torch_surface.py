@@ -413,7 +413,7 @@ def test_no_item_10_is_left():
     import ast
     import os
     from petastorm_tpu_torch import errors
-    assert 10 not in errors.ROADMAP_ITEMS and set(errors.ROADMAP_ITEMS) == {8, 9, 11}
+    assert 10 not in errors.ROADMAP_ITEMS and set(errors.ROADMAP_ITEMS) == {9, 11}
     root = os.path.dirname(os.path.abspath(petastorm_tpu_torch.__file__))
     items = set()
     for dirpath, _, files in os.walk(root):
@@ -426,7 +426,7 @@ def test_no_item_10_is_left():
                 if (isinstance(node, ast.Call) and getattr(node.func, 'id', None) == 'unported'
                         and len(node.args) == 2 and isinstance(node.args[1], ast.Constant)):
                     items.add(node.args[1].value)
-    assert items == {8, 9, 11}
+    assert items == {9, 11}
 
 
 @pytest.mark.parametrize('module,names', [
@@ -515,18 +515,16 @@ def test_decode_field_error_is_the_references():
 # -- ROADMAP item 8: what the multi-rank slices left ------------------------------
 
 
-def test_item_8_names_only_what_is_left():
-    """Tensor, sequence and expert parallelism and the pipeline are ported:
-    ``ROADMAP_ITEMS[8]`` names only decoding a model split over ranks, and
-    the one ``unported(..., 8)`` left in the package sits in
-    ``models/generate.py``."""
+def test_no_item_8_is_left():
+    """ROADMAP item 8 is done (decoding a model split over ``'model'`` was
+    its last piece): ``ROADMAP_ITEMS`` has no entry for it and no
+    ``unported(..., 8)`` is left in the package."""
     import ast
     import os
 
     import petastorm_tpu_torch
     from petastorm_tpu_torch import errors
-    assert errors.ROADMAP_ITEMS[8] == (
-        'LM consumer layer across ranks: decoding a model split over ranks')
+    assert 8 not in errors.ROADMAP_ITEMS
     root = os.path.dirname(petastorm_tpu_torch.__file__)
     found = []
     for folder, _, files in os.walk(root):
@@ -541,7 +539,7 @@ def test_item_8_names_only_what_is_left():
                         and len(node.args) == 2 and isinstance(node.args[1], ast.Constant)
                         and node.args[1].value == 8):
                     found.append(os.path.relpath(path, root))
-    assert found == [os.path.join('models', 'generate.py')]
+    assert found == []
 
 
 def test_seq_axis_config_builds_as_the_references():

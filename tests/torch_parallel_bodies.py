@@ -450,8 +450,8 @@ def _run_case(case):
 def _error_case(case):
     """The error a refused call raises: a pipelined model whose layers do
     not divide over the stages, a pipeline over an indivisible batch or
-    sequence, an uneven microbatch split over ``'data'``, an expert count
-    that does not divide."""
+    sequence, a pipelined transformer's batch that does not divide into
+    its microbatches, an expert count that does not divide."""
     from petastorm_tpu_torch.models import moe as tm
     from petastorm_tpu_torch.models import transformer as tt
     from petastorm_tpu_torch.parallel.pipeline import pipeline_apply
@@ -543,3 +543,120 @@ def parallel_cases_body(rank, world, payload):
         case = dict(case, dir='%s/%s' % (case['dir'], name))
         out['resumes'][name] = resume_case(case, _named_mesh(case['mesh']))
     return out
+
+
+# -- an in-order loader over a row-group that yields no rows -----------------------
+
+
+def emptied_rowgroup_ids(url, in_order, epochs, batch_size=8, workers=2, mesh=None,
+                         num_epochs=None):
+    """The ``id`` batches of ``epochs`` epochs' worth of a loader (endless
+    unless ``num_epochs``) over ``url`` whose predicate keeps no row of ids
+    8-15 (row-group 1 of the test's dataset), on a thread pool of
+    ``workers``: in ventilation order (``in_order``) or as the pool
+    delivers, and the loader's ``state_dict`` after them. With ``mesh``
+    the loader takes it (a mesh that replicates a batch turns the order
+    on)."""
+    from petastorm_tpu_torch.device.loader import TorchLoader, make_torch_loader
+    from petastorm_tpu_torch.parallel.mesh import DATA_AXIS
+    from petastorm_tpu_torch.predicates import in_lambda
+    from petastorm_tpu_torch.reader import make_batch_reader
+    kw = dict(num_epochs=num_epochs, reader_pool_type='thread', workers_count=workers,
+              predicate=in_lambda(['id'], lambda v: not 8 <= v['id'] < 16))
+    per_epoch = 56 // batch_size
+    if mesh is not None:
+        loader = make_torch_loader(url, batch_size, mesh, (DATA_AXIS,), fields=['^id$'],
+                                   device='cpu', **kw)
+        assert loader._in_order
+    else:
+        loader = TorchLoader(make_batch_reader(url, schema_fields=['id'], **kw), batch_size,
+                             device='cpu', in_order=in_order)
+    with loader:
+        it = iter(loader)
+        batches = [next(it)['id'].tolist() for _ in range(epochs * per_epoch)]
+        return batches, loader.state_dict()
+
+
+def emptied_rowgroup_body(rank, world, payload):
+    """:func:`emptied_rowgroup_ids` on a ``{'data': 1, 'model': 2}`` mesh
+    (both ranks replicate every batch)."""
+    from petastorm_tpu_torch.parallel.mesh import make_named_mesh
+    mesh = make_named_mesh({'data': 1, 'model': 2}, device_type='cpu')
+    ids, state = emptied_rowgroup_ids(payload['url'], True, payload['epochs'], mesh=mesh)
+    return {'coordinate': _coordinate(mesh), 'ids': ids, 'state': state}
+
+
+# -- decoding a model split over 'model' -------------------------------------------
+
+
+def decode_case(case, mesh):
+    """One split decode: greedy tokens and the gathered logits each token
+    was chosen from (``on_logits``), the K and V caches' shapes
+    (``on_cache``) and whether the heads read them through an index, an
+    EOS-stopped greedy decode (on ``case['eos']``), the recompute oracle's
+    tokens on the split model, and top-k and top-p sampled tokens with the
+    same tokens from the unsplit model on this rank's rows and the same
+    generator seed. Collective calls of the greedy decode are counted."""
+    from petastorm_tpu_torch.models import generate as tg
+    from petastorm_tpu_torch.models import transformer as tt
+    from petastorm_tpu_torch.parallel import collectives
+    config = _config(case['config'])
+    model = tt.Transformer(config, mesh)
+    model.load_state_dict(tt.params_from_jax(case['params'], mesh, config))
+    unsplit = tt.Transformer(config)
+    unsplit.load_state_dict(tt.params_from_jax(case['params']))
+    prompt = _data_rows(torch.from_numpy(case['prompt']), mesh)
+    n = case['new_tokens']
+    logits = []
+    shapes = []
+    collectives.reset_counts()
+    greedy = tg._generate(model, prompt, n, None, on_logits=logits.append,
+                          on_cache=lambda k, v: shapes.extend((tuple(k.shape), tuple(v.shape))))
+    calls = collectives.counts()['calls']
+    out = {'greedy': greedy, 'logits': torch.stack(logits), 'cache_shapes': shapes,
+           'reads_through_index': tg._kv_read_index(model.parallel, 'cpu') is not None,
+           'calls': calls, 'eos_greedy': tg.greedy_generate(model, prompt, n,
+                                                            eos_token=case['eos']),
+           'oracle': tg.reference_greedy_generate(model, prompt, n),
+           'heads': model.parallel.heads, 'kv_heads': model.parallel.kv_heads}
+    for label, kw in case['sampling'].items():
+        def draw(m):
+            return tg.sample_generate(m, prompt, n, torch.Generator().manual_seed(kw['seed']),
+                                      temperature=kw['temperature'], top_k=kw['top_k'],
+                                      top_p=kw['top_p'])
+        out['sampled_' + label] = draw(model)
+        out['unsplit_' + label] = draw(unsplit)
+    return out
+
+
+def tp_generate_body(rank, world, payload):
+    """Every decode case of ``payload['cases']`` on each mesh of
+    ``payload['meshes']``: ``{'data': 1, 'model': 2}`` on ranks (0, 1) and
+    again on (2, 3), and ``{'data': 2, 'model': 2}`` over the four; then
+    the refusals of a pipelined and an expert-split model."""
+    from petastorm_tpu_torch.parallel.mesh import make_named_mesh
+    pairs = [make_named_mesh({'data': 1, 'model': 2}, devices=[0, 1], device_type='cpu'),
+             make_named_mesh({'data': 1, 'model': 2}, devices=[2, 3], device_type='cpu')]
+    meshes = {'data1-model2': pairs[rank // 2],
+              'data2-model2': make_named_mesh({'data': 2, 'model': 2}, device_type='cpu')}
+    out = {'coordinates': {label: _coordinate(m) for label, m in meshes.items()}, 'cases': {}}
+    for label, mesh in meshes.items():
+        out['cases'][label] = {name: decode_case(case, mesh)
+                               for name, case in payload['cases'].items()}
+    out['refusals'] = decode_refusals(payload['refusal_config'])
+    return out
+
+
+def decode_refusals(kw):
+    """The errors decoding raises for a pipelined model over ``{'pipe':
+    4}`` and an MoE model whose experts split over ``{'expert': 4}``."""
+    from petastorm_tpu_torch.models import generate as tg
+    from petastorm_tpu_torch.models import transformer as tt
+    from petastorm_tpu_torch.parallel.mesh import make_named_mesh
+    prompt = torch.zeros((1, 4), dtype=torch.int64)
+    pipelined = tt.init_pipelined_transformer(
+        0, _config(kw), make_named_mesh({'pipe': 4}, device_type='cpu'), device='cpu')
+    moe = tt.init_transformer(0, _config(dict(kw, n_experts=4)), 'cpu',
+                              mesh=make_named_mesh({'expert': 4}, device_type='cpu'))
+    return {'pipelined': _error(lambda: tg.greedy_generate(pipelined, prompt, 2)),
+            'expert-split': _error(lambda: tg.greedy_generate(moe, prompt, 2))}
