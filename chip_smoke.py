@@ -402,7 +402,7 @@ outlives its phase.
     one.
 46. ``tp_decode_path`` (after ``uneven_pipe_path``): two spawned ranks over
     ``{'data': 1, 'model': 2}`` (``make_mesh(model=2)``), each holding its
-    shards of the flagship drawn by ``init_transformer(0, mesh=)``, decode
+    shards of the flagship drawn on the card (``_card_model``), decode
     bench.py's shape (``DECODE_BATCH`` rows, a ``DECODE_PROMPT``-token
     prompt, ``TP_DECODE_NEW`` new tokens) greedily, sampled
     (``GEN_TEMPERATURE``, ``GEN_TOP_P``, a generator seeded alike on both),
@@ -414,13 +414,42 @@ outlives its phase.
     half of one process's; ``2 x n_layers`` all-reduces and one all-gather
     a token. Tokens/s, prefill ms, peak memory, collective calls and
     seconds and host-copy seconds per rank are printed.
+47. ``process_vit_path`` (after ``etl_tools_vit_path``): the ViT rows
+    through the port's process pool (``reader_pool_type='process'``,
+    spawned decode workers, ``PROCESS_WORKERS`` of them). The first
+    ``PROCESS_PARITY_BATCHES`` batches on one worker and one epoch on
+    four, each read once on the thread pool and once on the process pool
+    with seed 0: ``(label, crc32 of the pixels)`` equal batch for batch
+    and as multisets. Then ``train_vit_fused(..., reader_pool_type=
+    'process', workers_count=PROCESS_WORKERS)``, ``PROCESS_VIT_STEPS``
+    steps of ViT-Base: normalize once a step and 12 launches of each flash
+    kernel a step, all on bf16 inputs (the ``wgmma`` instances); no worker
+    pid among ``nvidia-smi``'s compute apps and no worker with
+    ``libcuda.so`` mapped (``/proc/<pid>/maps``, which shows it in this
+    process) while it runs; every worker reports
+    ``CUDA_VISIBLE_DEVICES=''`` and neither ``jax`` nor
+    ``petastorm_tpu`` loaded; ``io`` and ``decode`` seconds (which only
+    the workers record) in this process's registry through the markers'
+    deltas; ``workers_alive`` at the worker count while running and 0
+    after the join, and no pool process left. Then ``PROCESS_WRITE_ROWS``
+    ViT rows written on four worker processes and on four threads: parts
+    and manifest byte-identical, and the process-pool read of the
+    process-written dataset gives back the source rows. Images/s beside
+    ``vit_path``'s (a ratio, no gate), the workers' start-up seconds and
+    the peak memory are printed.
 ``--trace-dir DIR`` keeps the two Chrome traces in ``DIR``.
 
+The rank phases (24, 42-46) run one after another on one pool of
+``RANK_POOL_SIZE`` spawned ranks (``_RankPool``), each in a new gloo
+group on the pool's first ranks, and draw their models on the card with
+a seeded card generator (``_card_model``): a split model and its
+one-process reference share the draws.
+
 Every phase runs through ``_phase``, and every spawned rank arms the
-same timer: ``faulthandler`` dumps every thread's stack to stderr each
-``PHASE_STACK_DUMP_S`` seconds the phase runs, so a phase that stops
-leaves its stacks behind (the dump only reports); each phase's wall
-seconds go to stderr as ``phase <name>: <s> s``.
+same timer for each of its tasks: ``faulthandler`` dumps every thread's
+stack to stderr each ``PHASE_STACK_DUMP_S`` seconds the phase runs, so a
+phase that stops leaves its stacks behind (the dump only reports); each
+phase's wall seconds go to stderr as ``phase <name>: <s> s``.
 
 Then the ``kernels`` summary (each kernel's launches on every path), the
 ``nvidia-smi`` name and power limit, and the ``ok`` line. The script
@@ -436,7 +465,6 @@ import os
 import queue
 import re
 import shutil
-import socket
 import statistics
 import subprocess
 import sys
@@ -619,6 +647,10 @@ CHAOS_DEADLINE_S = 120
 # the tuner has decided
 READAHEAD_TUNE_WINDOW_S = '0.25'
 READAHEAD_DRILL_EPOCHS = (3, 12)
+PROCESS_WORKERS = 4          # process_vit_path: the decode worker processes
+PROCESS_VIT_STEPS = 10
+PROCESS_PARITY_BATCHES = 10  # the first 160 rows, thread pool vs process pool
+PROCESS_WRITE_ROWS = 256
 # dp-lm: two gloo ranks on the one card feed the flagship
 # KV-cache decoding and MoE
 GEN_REFERENCE_KW = dict(vocab_size=32, d_model=16, n_heads=2, n_layers=2, d_ff=32,
@@ -639,8 +671,7 @@ MOE_EXPERTS = 4                       # __graft_entry__.py: two experts a shard 
 MOE_STEPS = 20
 
 DP_RANKS = 2
-DP_STEPS = 5                 # the first is held against one process; the rest timed
-DP_TIMEOUT_S = 600
+DP_STEPS = 3                 # the first is held against one process; the rest timed
 DP_GRAD_TOL = 3e-2           # max|avg - one process| / max|one process|, bf16
 DP_LOSS_RTOL = 1e-3
 # tensor and sequence parallelism: two ranks on the one card (gloo)
@@ -649,13 +680,13 @@ PARALLEL_TIMEOUT_S = 600
 # a phase (or a spawned rank) still running after this many seconds dumps
 # every thread's stack to stderr, and again each time as long again passes
 PHASE_STACK_DUMP_S = 300
-TP_STEPS = 5                 # the first is held against one process; the rest timed
-SP_STEPS = 3
+TP_STEPS = 3                 # the first is held against one process; the rest timed
+SP_STEPS = 2
 SP_BATCH = 4
 REPLICA_READ_BATCHES = 16    # ViT batches a replica reads per worker count in tp_path
 SP_SEQ = 2048                # global attention positions; rows of SP_SEQ + 1 tokens
 SP_ATTN_TOL = 2e-2           # max|block - reference| / max|reference|, bf16
-EP_STEPS = 5                 # ep_pp_path: the first held against one process; the rest timed
+EP_STEPS = 3                 # ep_pp_path: the first held against one process; the rest timed
 EP_LOSS_RTOL = 1e-4
 EP_AUX_RTOL = 1e-3
 EP_GRAD_TOL = 1e-2           # max|rank - one process| / max|one process|, bf16
@@ -670,8 +701,9 @@ UNEVEN_PIPE_LAYOUTS = {
     'data4-pipe1-m2-b4': ({'data': 4, 'pipe': 1}, {}, 2, 4),
 }
 UNEVEN_PIPE_RANKS = 4
+RANK_POOL_SIZE = UNEVEN_PIPE_RANKS   # the rank phases' spawned processes, started once
 UNEVEN_PIPE_TOL = 1e-4       # f32: max|rank - one process| / max|one process|
-TP_DECODE_NEW = 64           # tp_decode_path: bench.py's shorter decode length
+TP_DECODE_NEW = 32           # tp_decode_path: half bench.py's shorter decode length
 # the traced paths: PETASTORM_TPU_TRACE=1; the LM run traces every other
 # row-group (PETASTORM_TPU_TRACE_SAMPLE), the ViT run every one
 TRACE_LM_SAMPLE = 2
@@ -1752,11 +1784,11 @@ def phase_lm_profile():
     packed batch."""
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
     from petastorm_tpu_torch.models.transformer import (
-        TransformerConfig, adamw, init_transformer, transformer_train_step,
+        Transformer, TransformerConfig, adamw, transformer_train_step,
     )
     config = TransformerConfig(max_seq_len=LM_SEQ, loss_chunk=256, attn_impl='flash',
                                **FLAGSHIP_LM_KW)
-    model = init_transformer(0, config, 'cuda')
+    model = _card_model(Transformer, config)
     step = transformer_train_step(model, adamw(model))
     gen = torch.Generator(device='cuda').manual_seed(0)
     tokens = torch.randint(2, config.vocab_size, (LM_BATCH, LM_SEQ + 1), generator=gen,
@@ -1887,9 +1919,11 @@ def phase_native_decode(status):
 
 
 def write_vit_dataset(url, image_codec):
+    """``generate_imagenet_like``, encoded on ``WRITE_WORKERS`` threads."""
     from petastorm_tpu_torch.examples.imagenet import generate_imagenet_like
     t0 = time.perf_counter()
-    generate_imagenet_like(url, num_rows=VIT_ROWS, size=384, image_codec=image_codec)
+    generate_imagenet_like(url, num_rows=VIT_ROWS, size=384, image_codec=image_codec,
+                           rowgroup_size_rows=64, workers_count=WRITE_WORKERS)
     emit({'phase': 'write', 'dataset': 'imagenet_like_384', 'rows': VIT_ROWS,
           'image_codec': image_codec, 'rowgroup_rows': 64,
           'seconds': time.perf_counter() - t0})
@@ -2249,9 +2283,9 @@ def phase_vit_profile():
     the train step."""
     from petastorm_tpu_torch.examples.imagenet import VIT_BASE_KW, _prepare
     from petastorm_tpu_torch.models.transformer import adamw
-    from petastorm_tpu_torch.models.vit import ViTConfig, init_vit, vit_train_step
+    from petastorm_tpu_torch.models.vit import ViT, ViTConfig, vit_train_step
     config = ViTConfig(attn_impl='flash', **VIT_BASE_KW)
-    model = init_vit(0, config, 'cuda')
+    model = _card_model(ViT, config)
     step = vit_train_step(model, adamw(model))
     gen = torch.Generator(device='cuda').manual_seed(0)
     images = torch.randint(0, 256, (VIT_BATCH, 384, 384, 3), generator=gen, device='cuda',
@@ -2405,11 +2439,11 @@ def phase_varlen_profile():
     import itertools
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
     from petastorm_tpu_torch.models.transformer import (
-        TransformerConfig, adamw, init_transformer, transformer_masked_train_step,
+        Transformer, TransformerConfig, adamw, transformer_masked_train_step,
     )
     config = TransformerConfig(max_seq_len=VARLEN_BOUNDARIES[-1], loss_chunk=256,
                                attn_impl='flash', **FLAGSHIP_LM_KW)
-    model = init_transformer(0, config, 'cuda')
+    model = _card_model(Transformer, config)
     step = transformer_masked_train_step(model, adamw(model))
     gen = torch.Generator(device='cuda').manual_seed(0)
     batches = []
@@ -2567,11 +2601,11 @@ def phase_mixture_profile(spec):
     from petastorm_tpu_torch.device.loader import make_torch_loader
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
     from petastorm_tpu_torch.models.transformer import (
-        TransformerConfig, adamw, init_transformer, transformer_train_step,
+        Transformer, TransformerConfig, adamw, transformer_train_step,
     )
     config = TransformerConfig(max_seq_len=MIXTURE_ROW - 1, loss_chunk=256, attn_impl='flash',
                                **FLAGSHIP_LM_KW)
-    model = init_transformer(0, config, 'cuda')
+    model = _card_model(Transformer, config)
     step = transformer_train_step(model, adamw(model))
     with make_torch_loader(None, batch_size=LM_BATCH, mixture=spec, num_epochs=None,
                            device='cuda') as loader:
@@ -3365,7 +3399,7 @@ def write_selective_dataset(url, image_codec):
         UnischemaField('id', np.int64, (), ScalarCodec(pa.int64()), False)])
     write_dataset(url, schema, [{'image': image, 'label': label, 'id': np.int64(i)}
                                 for i, (image, label) in enumerate(rows)],
-                  rowgroup_size_rows=64)
+                  rowgroup_size_rows=64, workers_count=WRITE_WORKERS)
     labels = [int(label) for _, label in rows]
     emit({'phase': 'write', 'dataset': 'vit_selective_384', 'rows': VIT_ROWS,
           'image_codec': image_codec, 'rowgroup_rows': 64, 'order': 'label',
@@ -4433,6 +4467,237 @@ def phase_readahead_vit_path(url, image_codec, vit_images_per_s, tmp):
     return launches
 
 
+def _nvidia_smi_compute_pids():
+    """The pids ``nvidia-smi`` lists as compute apps on the card."""
+    out = subprocess.run(['nvidia-smi', '--query-compute-apps=pid', '--format=csv,noheader'],
+                         capture_output=True, text=True, timeout=60)
+    return {int(line) for line in out.stdout.split() if line.strip().isdigit()}
+
+
+def _maps_libcuda(pid):
+    """Whether process ``pid`` has ``libcuda.so`` mapped (read from its
+    ``/proc/<pid>/maps``; False once it is gone)."""
+    try:
+        with open('/proc/%d/maps' % pid) as f:
+            return 'libcuda.so' in f.read()
+    except OSError:
+        return False
+
+
+def _pool_rows(url, pool_type, workers, batches=None):
+    """``(label, crc32 of the uint8 pixels)`` of each row the loader gives
+    on ``pool_type`` with ``workers`` workers, shuffled with seed 0, by
+    batch: the first ``batches`` or one epoch."""
+    import zlib
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    out = []
+    with make_torch_loader(url, VIT_BATCH, fields=['^image$', '^label$'], num_epochs=1,
+                           shuffle_row_groups=True, seed=0, device='cuda',
+                           reader_pool_type=pool_type, workers_count=workers) as loader:
+        for batch in loader:
+            images = batch['image'].cpu().numpy()
+            labels = batch['label'].cpu().numpy()
+            out.append([(int(label), zlib.crc32(image.tobytes()))
+                        for image, label in zip(images, labels)])
+            if batches is not None and len(out) == batches:
+                break
+    return out
+
+
+def phase_process_vit_path(url, image_codec, vit_images_per_s, tmp):
+    """vit-imagenetlike-384 through the port's process pool (module
+    docstring, phase 47)."""
+    import zlib
+
+    import numpy as np
+    import psutil
+    import pyarrow as pa
+    from petastorm_tpu_torch.codecs import ScalarCodec
+    from petastorm_tpu_torch.examples.imagenet import (
+        VIT_BASE_KW, imagenet_like_rows, imagenet_like_schema, train_vit_fused,
+    )
+    from petastorm_tpu_torch.ops import flash_attention
+    from petastorm_tpu_torch.reader import make_batch_reader
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+    from petastorm_tpu_torch.workers import process_pool
+    from petastorm_tpu_torch.workers.thread_pool import ThreadPool
+    from petastorm_tpu_torch.write import write_dataset_distributed
+    t_phase = time.perf_counter()
+    threads_before = _port_threads()
+    # 1. rows through either pool: the first batches on one worker (the
+    # ventilation order, so batch for batch), one epoch on four
+    first = {kind: _pool_rows(url, kind, 1, PROCESS_PARITY_BATCHES)
+             for kind in ('thread', 'process')}
+    epoch = {kind: _pool_rows(url, kind, PROCESS_WORKERS) for kind in ('thread', 'process')}
+
+    def multiset(batches):
+        return collections.Counter(row for batch in batches for row in batch)
+
+    # 2. ViT-Base trained from a process-pool read, its pools and the card watched
+    pools, sampled = [], {'workers_alive': [], 'card_pids': set(), 'cuda_mapped': set()}
+    start = process_pool.ProcessPool.start
+    launch = flash_attention._launch
+    dtypes = collections.Counter()
+
+    def recording_start(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        start(self, *args, **kwargs)
+        pools.append({'pool': self, 'startup_s': time.perf_counter() - t0,
+                      'pids': list(self.worker_pids)})
+
+    def recording_launch(fn, name, pointers, tensors, q, *args):
+        dtypes[str(q.dtype)] += 1
+        return launch(fn, name, pointers, tensors, q, *args)
+
+    done = threading.Event()
+
+    def watch():
+        while not done.is_set():
+            if pools:
+                sampled['workers_alive'].append(pools[-1]['pool'].diagnostics['workers_alive'])
+                sampled['card_pids'] |= _nvidia_smi_compute_pids()
+                for pid in pools[-1]['pids']:
+                    if _maps_libcuda(pid):
+                        sampled['cuda_mapped'].add(pid)
+            done.wait(0.5)
+
+    fresh_telemetry()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    process_pool.ProcessPool.start = recording_start
+    flash_attention._launch = recording_launch
+    watcher = threading.Thread(target=watch, name='process-vit-watch', daemon=True)
+    watcher.start()
+    try:
+        result = train_vit_fused(url, steps=PROCESS_VIT_STEPS, batch_size=VIT_BATCH,
+                                 device='cuda', reader_pool_type='process',
+                                 workers_count=PROCESS_WORKERS)
+        torch.cuda.synchronize()
+    finally:
+        done.set()
+        watcher.join()
+        process_pool.ProcessPool.start = start
+        flash_attention._launch = launch
+    launches = launch_counts()
+    stages = stage_seconds()
+    counters = _readahead_section()
+    (train_pool,) = pools
+    reports = train_pool['pool'].worker_reports
+    worker_pids = set(train_pool['pids'])
+    alive_after = train_pool['pool'].diagnostics['workers_alive']
+    losses = result['losses']
+    # 3. the write plane on four worker processes, against four threads
+    rows = list(imagenet_like_rows(PROCESS_WRITE_ROWS, 384, seed=11))
+    schema = Unischema('ProcessImagenetLike', list(imagenet_like_schema(384, image_codec)) + [
+        UnischemaField('id', np.int64, (), ScalarCodec(pa.int64()), False)])
+    dicts = [{'image': image, 'label': label, 'id': np.int64(i)}
+             for i, (image, label) in enumerate(rows)]
+    kw = dict(shard_rows=WRITE_SHARD_ROWS, rowgroup_size_rows=64, sort_by='id')
+    written, write_s = {}, {}
+    for kind, pool in (('thread', ThreadPool(PROCESS_WORKERS)),
+                       ('process', process_pool.ProcessPool(PROCESS_WORKERS))):
+        root = os.path.join(tmp, 'vit_process_write_%s' % kind)
+        t0 = time.perf_counter()
+        write_dataset_distributed('file://' + root, schema, dicts, pool=pool, **kw)
+        write_s[kind] = time.perf_counter() - t0
+        written[kind] = root
+    with make_batch_reader('file://' + written['process'], reader_pool_type='process',
+                           workers_count=PROCESS_WORKERS) as reader:
+        read_back = sorted((int(i), int(label), zlib.crc32(image.tobytes()))
+                           for b in reader for i, label, image in zip(b.id, b.label, b.image))
+    source = sorted((i, int(label), zlib.crc32(image.tobytes()))
+                    for i, (image, label) in enumerate(rows))
+    file_hashes = {kind: _file_hashes(root) for kind, root in written.items()}
+    children = {}
+    for child in psutil.Process().children(recursive=True):
+        try:
+            children[child.pid] = ' '.join(child.cmdline())
+        except psutil.Error:  # gone since it was listed
+            pass
+    pool_children = sorted(pid for pid, cmd in children.items()
+                           if 'exec_in_new_process' in cmd or pid in worker_pids)
+    emit({'phase': 'process_vit_path', 'config': 'vit-imagenetlike-384',
+          'entry': "train_vit_fused(reader_pool_type='process') -> make_torch_loader -> "
+                   'normalize -> ViT-Base',
+          'model': VIT_BASE_KW, 'image_codec': image_codec, 'workers': PROCESS_WORKERS,
+          'steps': len(losses), 'batch_size': VIT_BATCH, 'losses': losses,
+          'launches': launches, 'launch_dtypes': dict(dtypes),
+          'images_per_s': result['images_per_s'], 'vit_path_images_per_s': vit_images_per_s,
+          'over_vit_path': result['images_per_s'] / vit_images_per_s,
+          'worker_startup_s': train_pool['startup_s'],
+          'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+          'fused_decode_mode': result['diagnostics']['fused_decode_mode'],
+          'consumer_wait_s': result['diagnostics']['consumer_wait_s'],
+          'stage_seconds': stages, 'readahead': counters,
+          'worker_reports': [{k: r[k] for k in ('worker_id', 'pid', 'cuda_visible_devices')}
+                             | {'torch_loaded': 'torch' in r['modules'],
+                                'jax_loaded': 'jax' in r['modules'],
+                                'petastorm_tpu_loaded': 'petastorm_tpu' in r['modules']}
+                             for r in reports],
+          'card_pids_seen': sorted(sampled['card_pids']),
+          'workers_with_libcuda': sorted(sampled['cuda_mapped']),
+          'consumer_has_libcuda': _maps_libcuda(os.getpid()),
+          'workers_alive_while_running': sorted(set(sampled['workers_alive'])),
+          'workers_alive_after_join': alive_after, 'children': sorted(children),
+          'pool_children_left': pool_children,
+          'parity': {'first_batches': PROCESS_PARITY_BATCHES,
+                     'first_rows': sum(len(b) for b in first['process']),
+                     'first_equal_in_order': first['thread'] == first['process'],
+                     'epoch_rows': sum(len(b) for b in epoch['process']),
+                     'epoch_multisets_equal': multiset(epoch['thread'])
+                     == multiset(epoch['process'])},
+          'write': {'rows': PROCESS_WRITE_ROWS, 'seconds': write_s,
+                    'parts_and_manifest_equal': file_hashes['thread'] == file_hashes['process'],
+                    'files': len(file_hashes['process']),
+                    'read_back_equal': read_back == source},
+          'seconds': time.perf_counter() - t_phase})
+    assert len(first['process']) == PROCESS_PARITY_BATCHES, len(first['process'])
+    assert multiset(first['thread']) == multiset(first['process'])
+    assert first['thread'] == first['process']
+    assert sum(len(b) for b in epoch['process']) == VIT_ROWS
+    assert multiset(epoch['thread']) == multiset(epoch['process'])
+    assert len(losses) == PROCESS_VIT_STEPS and all(math.isfinite(v) for v in losses), losses
+    assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
+    assert launches['normalize_images'] == PROCESS_VIT_STEPS, launches
+    want = VIT_BASE_KW['n_layers'] * PROCESS_VIT_STEPS
+    for name in FLASH_KERNELS:
+        assert launches[name] == want, (name, launches[name], want)
+    assert sorted(r['worker_id'] for r in reports) == list(range(PROCESS_WORKERS)), reports
+    for r in reports:
+        assert r['cuda_visible_devices'] == '', r
+        assert not {'jax', 'petastorm_tpu'} & set(r['modules']), r['modules']
+    assert not worker_pids & sampled['card_pids'], (worker_pids, sampled['card_pids'])
+    assert not sampled['cuda_mapped'], sampled['cuda_mapped']
+    assert PROCESS_WORKERS in sampled['workers_alive'], sampled['workers_alive']
+    assert alive_after == 0
+    assert not pool_children, children
+    assert not [pid for pid in worker_pids if psutil.pid_exists(pid)], worker_pids
+    # io and decode run only in the workers: these seconds came in their deltas
+    assert stages.get('io', 0) > 0 and stages.get('decode', 0) > 0, stages
+    assert file_hashes['thread'] == file_hashes['process'], file_hashes
+    assert read_back == source
+    left = _threads_left(threads_before)
+    assert not left, left
+    # the libcuda check can see a context: this process holds one
+    assert _maps_libcuda(os.getpid())
+    # bf16 inputs dispatch to the wgmma instances (the build phase checks them)
+    assert dtypes == {'torch.bfloat16': 3 * want}, dtypes
+    return launches
+
+def _card_model(model_class, config, *args):
+    """``model_class(config, *args)`` built on the card, its weights drawn
+    there by ``reset_parameters`` from a card generator seeded 0: the
+    library init's order and scales, where ``init_transformer`` and
+    ``init_vit`` draw on one host thread. The rank phases build every
+    model this way (each compares a split model with one process's model
+    from the same draws), and so do the profile phases, whose weights
+    only have to be the model's shapes and scales."""
+    with torch.device('cuda'):
+        model = model_class(config, *args)
+        model.reset_parameters(torch.Generator('cuda').manual_seed(0))
+    return model.to('cuda')
+
+
 def _flat_grads(params):
     return torch.cat([p.grad.reshape(-1).float() for p in params]).cpu()
 
@@ -4451,12 +4716,12 @@ def _dp_train(rank, url):
     from petastorm_tpu_torch.device.loader import make_torch_loader
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, packing_transform
     from petastorm_tpu_torch.models.transformer import (
-        TransformerConfig, adamw, init_transformer, transformer_loss,
+        Transformer, TransformerConfig, adamw, transformer_loss,
     )
     mesh = init_device_mesh('cpu', (DP_RANKS,), mesh_dim_names=('dp',))
     config = TransformerConfig(max_seq_len=LM_SEQ, loss_chunk=256, attn_impl='flash',
                                **FLAGSHIP_LM_KW)
-    model = init_transformer(0, config, 'cuda')
+    model = _card_model(Transformer, config)
     params = list(model.parameters())
     optimizer = adamw(model)
     torch.cuda.reset_peak_memory_stats()
@@ -4527,29 +4792,6 @@ def _dp_train(rank, url):
     return out
 
 
-def _dp_rank(rank, port, url, out_dir):
-    """A spawned rank of ``dp_lm_path``: joins the gloo group, trains, and
-    leaves its result in ``out_dir`` (under the stack dump)."""
-    with _stack_dump_armed():
-        _dp_rank_body(rank, port, url, out_dir)
-
-
-def _dp_rank_body(rank, port, url, out_dir):
-    import datetime
-    import torch.distributed as dist
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    dist.init_process_group('gloo', init_method='tcp://127.0.0.1:%d' % port, rank=rank,
-                            world_size=DP_RANKS,
-                            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
-    try:
-        torch.cuda.set_device(0)
-        result = _dp_train(rank, url)
-        with open(os.path.join(out_dir, 'rank%d.json' % rank), 'w') as f:
-            json.dump(result, f)
-    finally:
-        dist.destroy_process_group()
-
-
 def phase_dp_lm_path(url, lm_tokens_per_s):
     """Two data-parallel ranks on the one card: spawned processes in a gloo
     group (NCCL refuses two ranks on one GPU), each building
@@ -4562,41 +4804,12 @@ def phase_dp_lm_path(url, lm_tokens_per_s):
     gradient matches one process's step on that global batch within
     ``DP_GRAD_TOL`` of its max-abs (bf16, as the LM references hold); every
     flash kernel is a ``_wgmma`` one, launched layers x steps times on each
-    rank. A rank that dies or outlives ``DP_TIMEOUT_S`` fails the phase."""
+    rank. A rank that dies or outlives ``PARALLEL_TIMEOUT_S`` fails the phase."""
     from petastorm_tpu_torch.etl.dataset_metadata import ParquetDatasetInfo, load_row_groups
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
     torch.cuda.empty_cache()
-    with socket.socket() as sock:
-        sock.bind(('127.0.0.1', 0))
-        port = sock.getsockname()[1]
-    out_dir = tempfile.mkdtemp()
-    ctx = torch.multiprocessing.get_context('spawn')
-    procs = [ctx.Process(target=_dp_rank, args=(rank, port, url, out_dir))
-             for rank in range(DP_RANKS)]
     t0 = time.perf_counter()
-    try:
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + DP_TIMEOUT_S
-        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
-            if any(p.exitcode not in (None, 0) for p in procs):
-                break
-            time.sleep(0.5)
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-            p.join(10)
-            if p.is_alive():
-                p.kill()
-                p.join()
-        codes = [p.exitcode for p in procs]
-        assert codes == [0] * DP_RANKS, 'a dp rank failed or timed out: exit codes %s' % codes
-        results = []
-        for rank in range(DP_RANKS):
-            with open(os.path.join(out_dir, 'rank%d.json' % rank)) as f:
-                results.append(json.load(f))
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
+    results = _run_ranks(_dp_train, (url,), world=DP_RANKS)
     seconds = time.perf_counter() - t0
     n_pieces = len(load_row_groups(ParquetDatasetInfo(url)))
     first = results[0]
@@ -4668,62 +4881,139 @@ def _phase(fn, *args, **kwargs):
     return result
 
 
-def _run_ranks(body, args, world=PARALLEL_RANKS):
-    """``body(rank, *args)`` in ``world`` spawned processes joined in a
-    gloo group on the one card (NCCL refuses two ranks on one GPU); each
-    rank's JSON result, in rank order. A rank that dies or outlives
-    ``PARALLEL_TIMEOUT_S`` fails the phase, and no rank is left running."""
-    out_dir = tempfile.mkdtemp()
-    ctx = torch.multiprocessing.get_context('spawn')
-    procs = [ctx.Process(target=_parallel_rank,
-                         args=(rank, os.path.join(out_dir, 'rendezvous'), body, args, out_dir,
-                               world))
-             for rank in range(world)]
-    try:
-        for p in procs:
+class _RankPool:
+    """``size`` spawned rank processes on the one card that serve every
+    rank phase in turn, so torch's import, the CUDA context and the
+    kernels' load are paid once for all of them. :meth:`run` hands
+    ``body(rank, *args)`` to the first ``world`` ranks, which join a new
+    gloo group for it (NCCL refuses two ranks on one GPU) and leave it
+    after; their JSON results come back in rank order. ``startup_s`` is
+    the seconds until every rank was up, its context on the card made."""
+
+    def __init__(self, size):
+        ctx = torch.multiprocessing.get_context('spawn')
+        self._dir = tempfile.mkdtemp()
+        self._tasks = 0
+        self._queues = [ctx.SimpleQueue() for _ in range(size)]
+        self._procs = [ctx.Process(target=_parallel_rank,
+                                   args=(rank, self._queues[rank], self._dir))
+                       for rank in range(size)]
+        t0 = time.perf_counter()
+        for p in self._procs:
             p.start()
+        self._await([os.path.join(self._dir, 'ready%d' % rank) for rank in range(size)],
+                    'start-up')
+        self.startup_s = time.perf_counter() - t0
+
+    @property
+    def pids(self):
+        return [p.pid for p in self._procs]
+
+    def run(self, body, args, world):
+        """``body``'s results, one a rank. A rank that dies or outlives
+        ``PARALLEL_TIMEOUT_S`` fails the task and stops the pool."""
+        assert world <= len(self._procs), (world, len(self._procs))
+        self._tasks += 1
+        task_dir = os.path.join(self._dir, 'task%d' % self._tasks)
+        os.makedirs(task_dir)
+        for rank in range(world):
+            self._queues[rank].put((body, args, world, task_dir))
+        paths = [os.path.join(task_dir, 'rank%d.json' % rank) for rank in range(world)]
+        self._await(paths, body.__name__)
+        results = []
+        for path in paths:
+            with open(path) as f:
+                results.append(json.load(f))
+        return results
+
+    def _await(self, paths, what):
+        """Until every file of ``paths`` exists; a rank that dies, or
+        ``PARALLEL_TIMEOUT_S`` passing, stops the pool and fails."""
         deadline = time.monotonic() + PARALLEL_TIMEOUT_S
-        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
-            if any(p.exitcode not in (None, 0) for p in procs):
-                break
-            time.sleep(0.5)
-        for p in procs:
+        while not all(os.path.exists(path) for path in paths):
+            codes = [p.exitcode for p in self._procs]
+            if any(code is not None for code in codes) or time.monotonic() > deadline:
+                self.stop()
+                raise AssertionError('%s: a rank failed or timed out: exit codes %s'
+                                     % (what, codes))
+            time.sleep(0.2)
+
+    def stop(self):
+        """Every rank asked to leave, and one that does not within 10 s
+        (a rank stuck in a collective) terminated; nothing is left."""
+        for q, p in zip(self._queues, self._procs):
+            if p.is_alive():
+                q.put(None)
+        for p in self._procs:
+            p.join(10)
             if p.is_alive():
                 p.terminate()
-            p.join(10)
+                p.join(10)
             if p.is_alive():
                 p.kill()
                 p.join()
-        codes = [p.exitcode for p in procs]
-        assert codes == [0] * world, '%s: a rank failed or timed out: exit codes %s' % (
-            body, codes)
-        results = []
-        for rank in range(world):
-            with open(os.path.join(out_dir, 'rank%d.json' % rank)) as f:
-                results.append(json.load(f))
-        return results
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(self._dir, ignore_errors=True)
 
 
-def _parallel_rank(rank, init_file, body, args, out_dir, world):
-    """A spawned rank of ``tp_path`` or ``sp_lm_path``: pins the card,
-    joins the gloo group through ``init_file``, runs ``body`` and leaves
-    its result in ``out_dir``."""
-    with _stack_dump_armed():
+_rank_pool = None
+
+
+def _run_ranks(body, args, world=PARALLEL_RANKS):
+    """``body(rank, *args)`` on ``world`` ranks of the rank pool, started
+    at the first call (``RANK_POOL_SIZE`` ranks); each rank's JSON result,
+    in rank order."""
+    global _rank_pool
+    if _rank_pool is None:
+        _rank_pool = _RankPool(RANK_POOL_SIZE)
+        print('rank pool: %d ranks up in %.1f s' % (RANK_POOL_SIZE, _rank_pool.startup_s),
+              file=sys.stderr, flush=True)
+    return _rank_pool.run(body, args, world)
+
+
+def _stop_rank_pool():
+    global _rank_pool
+    if _rank_pool is not None:
+        _rank_pool.stop()
+        _rank_pool = None
+
+
+def _parallel_rank(rank, tasks, pool_dir):
+    """A rank of the pool: pins the card (when there is one) and says so
+    in ``pool_dir``, then takes ``(body, args, world, task_dir)`` tasks
+    until ``None``. Each task joins
+    a gloo group through a file in ``task_dir``, runs ``body`` under the
+    stack dump, leaves its result there and leaves the group; the card's
+    cached blocks are freed before the next. A task that raises ends the
+    rank, with its traceback on stderr."""
+    import datetime
+    import gc
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if torch.cuda.is_available():
         torch.cuda.set_device(0)
-        import datetime
-        import torch.distributed as dist
-        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        dist.init_process_group('gloo', init_method='file://' + init_file, rank=rank,
-                                world_size=world,
-                                timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S))
-        try:
-            result = globals()[body](rank, *args)
-            with open(os.path.join(out_dir, 'rank%d.json' % rank), 'w') as f:
-                json.dump(result, f)
-        finally:
-            dist.destroy_process_group()
+        torch.cuda.synchronize()
+    open(os.path.join(pool_dir, 'ready%d' % rank), 'w').close()
+    while True:
+        task = tasks.get()
+        if task is None:
+            return
+        body, args, world, task_dir = task
+        with _stack_dump_armed():
+            dist.init_process_group('gloo', init_method='file://' + os.path.join(
+                task_dir, 'rendezvous'), rank=rank, world_size=world,
+                timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S))
+            try:
+                result = body(rank, *args)
+            finally:
+                dist.destroy_process_group()
+        path = os.path.join(task_dir, 'rank%d.json' % rank)
+        with open(path + '.tmp', 'w') as f:
+            json.dump(result, f)
+        os.replace(path + '.tmp', path)
+        del result
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
 
 
 def _same_on_every_rank(value):
@@ -4859,9 +5149,9 @@ def _tp_train(rank, lm_url, vit_url):
     from petastorm_tpu_torch.examples.imagenet import VIT_BASE_KW, _prepare
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, packing_transform
     from petastorm_tpu_torch.models.transformer import (
-        TransformerConfig, adamw, init_transformer, transformer_loss, transformer_train_step,
+        Transformer, TransformerConfig, adamw, transformer_loss, transformer_train_step,
     )
-    from petastorm_tpu_torch.models.vit import ViTConfig, init_vit, vit_loss, vit_train_step
+    from petastorm_tpu_torch.models.vit import ViT, ViTConfig, vit_loss, vit_train_step
     from petastorm_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
     mesh = make_mesh(data=1, model=PARALLEL_RANKS, device_type='cuda')
     out = {'rank': rank, 'coordinate': list(mesh.get_coordinate())}
@@ -4873,10 +5163,10 @@ def _tp_train(rank, lm_url, vit_url):
                            shuffle_row_groups=True, device='cuda') as loader:
         batches = [b['tokens'].clone() for b in loader.iter_steps(TP_STEPS)]
     out['same_rows'] = _same_on_every_rank([int(b.long().sum()) for b in batches])
-    full = init_transformer(0, config, 'cuda')
+    full = _card_model(Transformer, config)
     grads, loss = _one_process(full, lambda m: transformer_loss(m, batches[0]))
     del full
-    split = init_transformer(0, config, 'cuda', mesh=mesh)
+    split = _card_model(Transformer, config, mesh)
     step = transformer_train_step(split, adamw(split))
     out['lm'] = _split_steps(split, grads, loss, step, lambda i: (batches[i],),
                              LM_BATCH * LM_SEQ)
@@ -4907,11 +5197,11 @@ def _tp_train(rank, lm_url, vit_url):
             m.head.copy_(torch.randn(m.head.shape, generator=head) * 0.02)
         return m
 
-    full = vit(init_vit(0, vit_config, 'cuda'))
+    full = vit(_card_model(ViT, vit_config))
     images, labels = prepared()(0)
     grads, loss = _one_process(full, lambda m: vit_loss(m, images, labels))
     del full, images
-    split = vit(init_vit(0, vit_config, 'cuda', mesh=mesh))
+    split = vit(_card_model(ViT, vit_config, mesh))
     step = vit_train_step(split, adamw(split))
     out['vit'] = _split_steps(split, grads, loss, step, prepared(), VIT_BATCH)
     out['vit']['params_per_rank'] = sum(p.numel() for p in split.parameters())
@@ -4935,10 +5225,11 @@ def phase_tp_path(lm_url, vit_url, lm_tokens_per_s, vit_images_per_s):
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    results = _run_ranks('_tp_train', (lm_url, vit_url))
+    results = _run_ranks(_tp_train, (lm_url, vit_url))
     seconds = time.perf_counter() - t0
     report = {'phase': 'tp_path', 'mesh': {'data': 1, 'model': PARALLEL_RANKS},
-              'entry': 'init_transformer/init_vit(mesh=make_mesh(data=1, model=2)), '
+              'entry': 'Transformer/ViT(config, make_mesh(data=1, model=2)) drawn on the '
+                       'card, '
                        'transformer_train_step/vit_train_step on a gloo group',
               'steps': TP_STEPS, 'seconds': seconds,
               'coordinates': [r['coordinate'] for r in results]}
@@ -5045,18 +5336,19 @@ def _ep_pp_train(rank, lm_url):
     out['same_rows'] = _same_on_every_rank([int(b.long().sum()) for b in batches])
 
     def reference_step(config):
-        """One process's step on the first batch, the ranks in turn: each
-        holds a whole model's activations while it runs."""
+        """One process's step on the first batch. The ranks draw the whole
+        model at once, then step in turn: each holds a whole model's
+        activations while it runs."""
         import torch.distributed as dist
+        full = _card_model(transformer.Transformer, config)
         result = None
         for turn in range(PARALLEL_RANKS):
             if turn == rank:
-                full = transformer.init_transformer(0, config, 'cuda')
                 result = _one_process(full,
                                       lambda m: transformer.transformer_loss(m, batches[0]))
-                del full
-                torch.cuda.empty_cache()
             dist.barrier()
+        del full
+        torch.cuda.empty_cache()
         return result
 
     # (a) expert parallelism; the aux of each forward is recorded
@@ -5072,7 +5364,7 @@ def _ep_pp_train(rank, lm_url):
     try:
         grads, loss = reference_step(moe_config)
         full_aux = aux[-1]
-        split = transformer.init_transformer(0, moe_config, 'cuda', mesh=ep_mesh)
+        split = _card_model(transformer.Transformer, moe_config, ep_mesh)
         step = transformer.transformer_train_step(split, transformer.adamw(split))
         aux.clear()
         out['ep'] = _split_steps(split, grads, loss, step, lambda i: (batches[i],),
@@ -5089,7 +5381,7 @@ def _ep_pp_train(rank, lm_url):
     # the stage's own block numbers
     config = lm_config(LM_SEQ)
     grads, loss = reference_step(config)
-    stage = transformer.init_pipelined_transformer(0, config, pipe_mesh, device='cuda')
+    stage = _card_model(transformer.PipelinedTransformer, config, pipe_mesh)
     first, per = stage.first_layer, len(stage.blocks)
     stage_grads = _stage_grads(grads, stage)
     del grads
@@ -5111,20 +5403,22 @@ def phase_ep_pp_path(lm_url, lm_tokens_per_s):
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    results = _run_ranks('_ep_pp_train', (lm_url,))
+    results = _run_ranks(_ep_pp_train, (lm_url,))
     seconds = time.perf_counter() - t0
     heads, d = FLAGSHIP_LM_KW['n_heads'], FLAGSHIP_LM_KW['d_model']
     layers = FLAGSHIP_LM_KW['n_layers']
     parts = {
         'ep': {'mesh': {'data': 1, 'expert': PARALLEL_RANKS},
                'model': dict(FLAGSHIP_LM_KW, n_experts=MOE_EXPERTS),
-               'entry': 'init_transformer(mesh=make_named_mesh({data: 1, expert: 2})), '
+               'entry': 'Transformer(config, make_named_mesh({data: 1, expert: 2})) '
+                        'drawn on the card, '
                         'transformer_train_step',
                'flash_shape': (LM_BATCH, LM_SEQ, heads, d // heads),
                'launches': layers * EP_STEPS},
         'pp': {'mesh': {'pipe': PARALLEL_RANKS}, 'model': FLAGSHIP_LM_KW,
                'n_microbatches': PP_MICROBATCHES,
-               'entry': 'init_pipelined_transformer(mesh=make_named_mesh({pipe: 2})), '
+               'entry': 'PipelinedTransformer(config, make_named_mesh({pipe: 2})) '
+                        'drawn on the card, '
                         'pipelined_transformer_train_step(n_microbatches=2)',
                'flash_shape': (LM_BATCH // PP_MICROBATCHES, LM_SEQ, heads, d // heads),
                # a stage's layers, each microbatch once a step: no bubble compute
@@ -5231,7 +5525,7 @@ def _sp_train(rank, lm_url):
     from petastorm_tpu_torch.device.loader import make_torch_loader
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, packing_transform
     from petastorm_tpu_torch.models.transformer import (
-        TransformerConfig, adamw, init_transformer, transformer_loss, transformer_train_step,
+        Transformer, TransformerConfig, adamw, transformer_loss, transformer_train_step,
     )
     from petastorm_tpu_torch.parallel import collectives
     from petastorm_tpu_torch.parallel.mesh import DATA_AXIS, SEQ_AXIS, make_named_mesh
@@ -5245,7 +5539,7 @@ def _sp_train(rank, lm_url):
     out['same_rows'] = _same_on_every_rank([int(b.long().sum()) for b in batches])
     dense = TransformerConfig(max_seq_len=SP_SEQ + 1, loss_chunk=256, attn_impl='dense',
                               remat=True, **FLAGSHIP_LM_KW)
-    full = init_transformer(0, dense, 'cuda')
+    full = _card_model(Transformer, dense)
     reference, reference_loss = _one_process(full, lambda m: transformer_loss(m, batches[0]))
     del full
     first_grads = {}
@@ -5253,7 +5547,7 @@ def _sp_train(rank, lm_url):
         # attn_impl='flash' is ignored with seq_axis set, as in the JAX package
         config = dataclasses.replace(dense, seq_axis=SEQ_AXIS, seq_impl=impl,
                                      attn_impl='flash')
-        model = init_transformer(0, config, 'cuda', mesh=mesh)
+        model = _card_model(Transformer, config, mesh)
         step = transformer_train_step(model, adamw(model))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -5291,11 +5585,11 @@ def phase_sp_lm_path(url, lm_tokens_per_s):
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    results = _run_ranks('_sp_train', (url,))
+    results = _run_ranks(_sp_train, (url,))
     seconds = time.perf_counter() - t0
     report = {'phase': 'sp_lm_path', 'mesh': {'data': 1, 'seq': PARALLEL_RANKS},
-              'entry': "init_transformer(TransformerConfig(seq_axis='seq', seq_impl=...), "
-                       "mesh=make_named_mesh({'data': 1, 'seq': 2})), transformer_train_step "
+              'entry': "Transformer(TransformerConfig(seq_axis='seq', seq_impl=...), "
+                       "make_named_mesh({'data': 1, 'seq': 2})) drawn on the card, transformer_train_step "
                        'on a gloo group', 'model': FLAGSHIP_LM_KW, 'batch_size': SP_BATCH,
               'attention_positions': SP_SEQ, 'positions_per_rank': SP_SEQ // PARALLEL_RANKS,
               'remat': True, 'steps': SP_STEPS, 'seconds': seconds,
@@ -5389,7 +5683,7 @@ def phase_uneven_pipe_path():
     a rank holding no rows of a microbatch still runs its stage for it
     (the MoE routing is a collective) and launches no kernel on it."""
     t0 = time.perf_counter()
-    results = _run_ranks('_uneven_pipe', (), world=UNEVEN_PIPE_RANKS)
+    results = _run_ranks(_uneven_pipe, (), world=UNEVEN_PIPE_RANKS)
     report = {'phase': 'uneven_pipe_path', 'model': {k: str(v) for k, v in
                                                      UNEVEN_PIPE_KW.items()},
               'seconds': time.perf_counter() - t0,
@@ -5466,7 +5760,7 @@ def _tp_decode(rank):
     import torch.distributed as dist
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, lm_config
     from petastorm_tpu_torch.models import generate
-    from petastorm_tpu_torch.models.transformer import init_transformer, transformer_forward
+    from petastorm_tpu_torch.models.transformer import Transformer, transformer_forward
     from petastorm_tpu_torch.parallel import collectives
     from petastorm_tpu_torch.parallel.mesh import make_mesh
     mesh = make_mesh(model=PARALLEL_RANKS, device_type='cuda')
@@ -5477,7 +5771,7 @@ def _tp_decode(rank):
     gqa_config = dataclasses.replace(
         config, n_kv_heads=FLAGSHIP_LM_KW['n_heads'] // DECODE_GQA_GROUP)
     for label, cfg in (('full', config), ('gqa', gqa_config)):
-        model = init_transformer(0, cfg, 'cuda', mesh=mesh)
+        model = _card_model(Transformer, cfg, mesh)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
@@ -5512,7 +5806,7 @@ def _tp_decode(rank):
         # teacher-forced on rank 0: one process's dense forward over the
         # decoded sequence, the unsplit weights (the same draws)
         if rank == 0:
-            full = init_transformer(0, dataclasses.replace(config, attn_impl='dense'), 'cuda')
+            full = _card_model(Transformer, dataclasses.replace(config, attn_impl='dense'))
             with torch.no_grad():
                 decode_logits = torch.stack(logits, dim=1)                      # (B, N, V)
                 forward = transformer_forward(full, tokens[:, :-1])[:, DECODE_PROMPT - 1:]
@@ -5548,12 +5842,13 @@ def phase_tp_decode_path():
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    results = _run_ranks('_tp_decode', ())
+    results = _run_ranks(_tp_decode, ())
     seconds = time.perf_counter() - t0
     layers = FLAGSHIP_LM_KW['n_layers']
     report = {'phase': 'tp_decode_path', 'config': 'lm-c4like-flagship',
               'model': FLAGSHIP_LM_KW, 'mesh': {'data': 1, 'model': PARALLEL_RANKS},
-              'entry': 'init_transformer(0, mesh=make_mesh(model=2)), greedy_generate, '
+              'entry': 'Transformer(config, make_mesh(model=2)) drawn on the card, '
+                       'greedy_generate, '
                        'sample_generate', 'seconds': seconds,
               'decode_shape': {'batch': DECODE_BATCH, 'prompt': DECODE_PROMPT,
                                'new_tokens': TP_DECODE_NEW, 'runs': DECODE_RUNS,
@@ -5668,8 +5963,6 @@ def main(argv=None):
         _phase(phase_lm_profile)
         bridge = _phase(phase_bridge_lm, lm_url, lm_tokens_per_s)
         paths['bridge_lm'] = {name: bridge[name] for name in FLASH_KERNELS}
-        paths['dp_lm_path'] = _phase(phase_dp_lm_path, lm_url, lm_tokens_per_s)
-        paths['sp_lm_path'] = _phase(phase_sp_lm_path, lm_url, lm_tokens_per_s)
         _phase(phase_varlen_reference, lm_url)
         paths['varlen_path'] = _phase(phase_varlen_path, lm_url)
         _phase(phase_varlen_profile)
@@ -5705,11 +5998,19 @@ def main(argv=None):
                                              vit_images_per_s, tmp)
         paths['write_plane_vit_path'] = _phase(phase_write_plane_vit_path, image_codec, tmp)
         paths['etl_tools_vit_path'] = _phase(phase_etl_tools_vit_path, selective_url, tmp)
-        paths['tp_path'] = _phase(phase_tp_path, lm_url, vit_url, lm_tokens_per_s,
-                                  vit_images_per_s)
-        paths['ep_pp_path'] = _phase(phase_ep_pp_path, lm_url, lm_tokens_per_s)
-        paths['uneven_pipe_path'] = _phase(phase_uneven_pipe_path)
-        paths['tp_decode_path'] = _phase(phase_tp_decode_path)
+        paths['process_vit_path'] = _phase(phase_process_vit_path, vit_url, image_codec,
+                                           vit_images_per_s, tmp)
+        # the rank phases, one after another on the rank pool's processes
+        try:
+            paths['dp_lm_path'] = _phase(phase_dp_lm_path, lm_url, lm_tokens_per_s)
+            paths['sp_lm_path'] = _phase(phase_sp_lm_path, lm_url, lm_tokens_per_s)
+            paths['tp_path'] = _phase(phase_tp_path, lm_url, vit_url, lm_tokens_per_s,
+                                      vit_images_per_s)
+            paths['ep_pp_path'] = _phase(phase_ep_pp_path, lm_url, lm_tokens_per_s)
+            paths['uneven_pipe_path'] = _phase(phase_uneven_pipe_path)
+            paths['tp_decode_path'] = _phase(phase_tp_decode_path)
+        finally:
+            _stop_rank_pool()
     _phase(phase_vit_profile)
     # the headline numbers are this slice's path's: the flash kernels' at
     # the mixture path's shape (the flagship's) and their launches there;

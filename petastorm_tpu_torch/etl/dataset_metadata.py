@@ -96,6 +96,19 @@ class ParquetDatasetInfo:
         self._schema = None
         self._lock = threading.Lock()
 
+    def __getstate__(self):
+        # crosses the process pool's spawn boundary: the lock stays behind,
+        # and the footers and schema are read again where they are needed
+        state = self.__dict__.copy()
+        del state['_lock']
+        state['_footers'] = {}
+        state['_schema'] = None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
+
     @staticmethod
     def _discover_files(fs, root):
         if fs.isfile(root):

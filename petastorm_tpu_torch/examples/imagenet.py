@@ -212,13 +212,15 @@ def imagenet_like_rows(num_rows, size=384, n_classes=10, seed=7):
 
 
 def generate_imagenet_like(url, num_rows=1024, size=384, image_codec='jpeg', seed=7,
-                           rowgroup_size_rows=64):
-    """Write :func:`imagenet_like_rows` with :func:`imagenet_like_schema`."""
+                           rowgroup_size_rows=64, workers_count=None):
+    """Write :func:`imagenet_like_rows` with :func:`imagenet_like_schema`,
+    encoding on ``workers_count`` threads (the writer's default if None):
+    the same bytes at any count."""
     from petastorm_tpu_torch.etl.dataset_metadata import write_dataset
     rows = [{'image': image, 'label': label}
             for image, label in imagenet_like_rows(num_rows, size, seed=seed)]
     write_dataset(url, imagenet_like_schema(size, image_codec), rows,
-                  rowgroup_size_rows=rowgroup_size_rows)
+                  rowgroup_size_rows=rowgroup_size_rows, workers_count=workers_count)
     return url
 
 

@@ -21,6 +21,7 @@ is off, rows are shuffled or a dtype cast retargets the column.
 import numpy as np
 
 from petastorm_tpu_torch.codecs import decode_batch_with_nulls
+from petastorm_tpu_torch.native import PackedCells
 from petastorm_tpu_torch.telemetry import FUSED_FALLBACKS, get_registry, metrics_disabled
 
 #: column slabs start on a page boundary, so the native decoders' parallel
@@ -99,6 +100,23 @@ class EncodedImageColumn:
         """Decode into a fresh page-aligned array, for consumers that have
         no destination of their own."""
         return self.decode_into(alloc_column_slab(self.shape, self.dtype))
+
+    def __getstate__(self):
+        # crosses the process pool's boundary as owned bytes, without the
+        # Arrow owner: packed cells ship only their own span of the buffer
+        # (one out-of-band frame under pickle 5), other cells as bytes
+        cells = self.cells
+        if isinstance(cells, PackedCells):
+            start, stop = int(cells.offsets[0]), int(cells.offsets[-1])
+            cells = PackedCells(np.ascontiguousarray(cells.data[start:stop]),
+                                cells.offsets - start)
+        else:
+            cells = [None if c is None else bytes(c) for c in cells]
+        return self.field, cells
+
+    def __setstate__(self, state):
+        self.field, self.cells = state
+        self.owner = None
 
     def __repr__(self):
         return 'EncodedImageColumn(%r, n=%d, shape=%s)' % (self.field.name, len(self.cells),

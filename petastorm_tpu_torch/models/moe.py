@@ -114,7 +114,7 @@ class MoE(nn.Module):
         slice of the unsplit layer's weights."""
         for name, shape, scale in zip(('router', 'w_in', 'w_out'), self._shapes,
                                       self._scales):
-            full = torch.randn(shape, generator=generator) * scale
+            full = torch.randn(shape, generator=generator, device=generator.device) * scale
             getattr(self, name).copy_(self.shard(name, full))
 
 

@@ -333,7 +333,7 @@ def reset_block(block, c, generator, par):
     hd = c.d_model // c.n_heads
 
     def normal(name, full_shape, scale):
-        full = torch.randn(full_shape, generator=generator) * scale
+        full = torch.randn(full_shape, generator=generator, device=generator.device) * scale
         getattr(block, name).copy_(par.shard(name, full))
 
     normal('qkv', (c.d_model, (c.n_heads + 2 * c.kv_heads) * hd), c.d_model ** -0.5)
@@ -379,17 +379,18 @@ class Transformer(nn.Module):
         """Normal draws from ``generator`` in the JAX init's order and
         scales (0.02 for tables and the head, ``fan_in**-0.5`` for block
         matrices); norm gains are ones. Each draw is full width, so a rank
-        of a split model holds its shards of the unsplit model's weights."""
+        of a split model holds its shards of the unsplit model's weights.
+        The draws are made on the generator's device."""
         c = self.config
 
         def normal(p, scale):
-            p.copy_(torch.randn(p.shape, generator=generator) * scale)
+            p.copy_(torch.randn(p.shape, generator=generator, device=generator.device) * scale)
 
         normal(self.embed, 0.02)
         if c.pos_encoding == 'learned':
             normal(self.pos_embed, 0.02)
         self.lm_head.copy_(self.parallel.shard('lm_head', torch.randn(
-            (c.d_model, c.vocab_size), generator=generator) * 0.02))
+            (c.d_model, c.vocab_size), generator=generator, device=generator.device) * 0.02))
         self.ln_f.fill_(1.0)
         other_stage = None
         for layer in range(c.n_layers):

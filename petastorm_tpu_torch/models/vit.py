@@ -97,9 +97,10 @@ class ViT(nn.Module):
         embedding ``patch_dim**-0.5``, positions 0.02, the blocks as the
         transformer's, a zero head."""
         c = self.config
-        self.patch_embed.copy_(torch.randn(self.patch_embed.shape, generator=generator)
-                               * c.patch_dim ** -0.5)
-        self.pos_embed.copy_(torch.randn(self.pos_embed.shape, generator=generator) * 0.02)
+        self.patch_embed.copy_(torch.randn(self.patch_embed.shape, generator=generator,
+                                           device=generator.device) * c.patch_dim ** -0.5)
+        self.pos_embed.copy_(torch.randn(self.pos_embed.shape, generator=generator,
+                                         device=generator.device) * 0.02)
         for block in self.blocks:
             reset_block(block, c.block_config(), generator, self.parallel)
         self.ln_f.fill_(1.0)

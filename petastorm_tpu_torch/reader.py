@@ -1,7 +1,7 @@
 """Reader: the read-path front end, ``make_reader`` and
 ``make_batch_reader``.
 
-Counterpart of ``petastorm_tpu/reader.py`` on the dummy and thread pools.
+Counterpart of ``petastorm_tpu/reader.py`` on the dummy, thread and process pools.
 It opens a (materialized or plain) Parquet dataset, enumerates its
 row-groups, prunes them against ``filters=``/``predicate=`` (partition
 values before sharding, footer statistics after, see
@@ -274,16 +274,19 @@ def _make_pool(reader_pool_type, workers_count, results_queue_size):
             raise ValueError('reader_pool_type instance %r lacks pool contract member(s) %s'
                              % (pool, missing))
         return pool
-    if reader_pool_type in ('process', 'service'):
+    if reader_pool_type == 'service':
         raise unported("reader_pool_type=%r" % reader_pool_type, 9)
     if reader_pool_type == 'dummy':
         return DummyPool()
-    if reader_pool_type != 'thread':
-        raise ValueError("reader_pool_type must be 'thread' or 'dummy'; got %r"
+    if reader_pool_type not in ('thread', 'process'):
+        raise ValueError("reader_pool_type must be 'thread', 'process' or 'dummy'; got %r"
                          % (reader_pool_type,))
     if workers_count is None:
         # decode needs a core each: more workers than cores only thrash
         workers_count = max(1, min(4, os.cpu_count() or 1))
+    if reader_pool_type == 'process':
+        from petastorm_tpu_torch.workers.process_pool import ProcessPool
+        return ProcessPool(workers_count, results_queue_size)
     return ThreadPool(workers_count, results_queue_size)
 
 

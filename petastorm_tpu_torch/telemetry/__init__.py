@@ -1,8 +1,11 @@
-"""Telemetry (counterpart of ``petastorm_tpu/telemetry``, the in-process
-half): the metrics registry, per-stage spans, the two stall wait clocks
+"""Telemetry (counterpart of ``petastorm_tpu/telemetry``): the metrics
+registry and its cross-process deltas, per-stage spans, the two stall wait clocks
 and their windowed attribution, per-item tracing into a flight recorder,
 the critical-path engine and the pipeline report.
 
+* A spawned decode worker's increments ride its pool's completion
+  markers (:func:`dump_delta_frame`) and fold into the consumer's
+  registry, recorder and attributor (:func:`merge_worker_delta`).
 * :func:`span` times one canonical stage (:data:`STAGES`) into the
   process-wide registry (:func:`get_registry`);
   ``PETASTORM_TPU_METRICS=0`` makes every span a shared no-op.
@@ -28,7 +31,8 @@ the critical-path engine and the pipeline report.
 from petastorm_tpu_torch.telemetry import knobs  # noqa: F401
 from petastorm_tpu_torch.telemetry.names import STAGES  # noqa: F401
 from petastorm_tpu_torch.telemetry.registry import (  # noqa: F401
-    Counter, Gauge, Histogram, MetricsRegistry, get_registry, reset_registry,
+    Counter, Gauge, Histogram, MetricsRegistry, dump_delta_frame, get_registry,
+    load_delta_frame, merge_worker_delta, reset_registry,
 )
 from petastorm_tpu_torch.telemetry.spans import (  # noqa: F401
     metrics_disabled, refresh_enabled, span,

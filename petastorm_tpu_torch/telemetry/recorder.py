@@ -1,7 +1,7 @@
 """Flight recorder: a bounded per-process ring of trace events
-(counterpart of ``petastorm_tpu/telemetry/recorder.py``; the port's pools
-are threads, so every event lands in this one ring and none crosses a
-process).
+(counterpart of ``petastorm_tpu/telemetry/recorder.py``). A spawned
+decode worker drains its ring into the delta frame of each completion
+marker, so the consumer's ring holds the whole timeline.
 
 Events are plain dicts already shaped like Chrome trace events:
 ``{'name', 'ph', 'ts', 'dur', 'pid', 'tid', 'args'}`` with ``ts``/``dur``
@@ -32,6 +32,9 @@ class FlightRecorder:
     def add(self, event):
         self._events.append(event)
 
+    def add_many(self, events):
+        self._events.extend(events)
+
     def __len__(self):
         return len(self._events)
 
@@ -39,6 +42,14 @@ class FlightRecorder:
         """All buffered events, oldest first (the ring keeps them)."""
         with self._lock:
             return list(self._events)
+
+    def drain(self):
+        """Pop every buffered event (the worker-side flush: the batch ships
+        with a delta frame and must not ship twice)."""
+        with self._lock:
+            events = list(self._events)
+            self._events.clear()
+        return events
 
     def clear(self):
         """Drop every buffered event."""

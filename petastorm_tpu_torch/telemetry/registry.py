@@ -1,7 +1,9 @@
 """Process-wide metrics registry: counters, gauges and fixed-bucket
-histograms (counterpart of ``petastorm_tpu/telemetry/registry.py``
-without the cross-process delta channel, which waits for the process
-pool). Stdlib only; one lock per metric instance."""
+histograms (counterpart of ``petastorm_tpu/telemetry/registry.py``).
+Stdlib only; one lock per metric instance. A spawned decode worker records
+into its own registry and ships the increments back with each completion
+marker (:func:`dump_delta_frame`); the consumer folds them into its own
+(:func:`merge_worker_delta`)."""
 
 import bisect
 import threading
@@ -117,15 +119,11 @@ class MetricsRegistry:
     def __init__(self):
         self._lock = threading.Lock()
         self._metrics = {Counter: {}, Gauge: {}, Histogram: {}}
+        # collect_delta's cursor: each key's value at the previous call
+        self._delta_base = {Counter: {}, Gauge: {}, Histogram: {}}
 
     def _get(self, kind, name, labels, *args):
-        key = metric_key(name, labels)
-        table = self._metrics[kind]
-        metric = table.get(key)
-        if metric is None:
-            with self._lock:
-                metric = table.setdefault(key, kind(*args))
-        return metric
+        return self._by_key(kind, metric_key(name, labels), *args)
 
     def counter(self, name, **labels):
         return self._get(Counter, name, labels)
@@ -168,6 +166,67 @@ class MetricsRegistry:
         }
 
 
+    # -- cross-process aggregation -----------------------------------------
+
+    def collect_delta(self):
+        """The increments since the previous call (the worker-side flush):
+        counters and histograms ship increments, gauges their current
+        value. None when nothing changed."""
+        delta = {'counters': {}, 'gauges': {}, 'histograms': {}}
+        base = self._delta_base
+        for key, c in list(self._metrics[Counter].items()):
+            value = c.value
+            before = base[Counter].get(key, 0.0)
+            if value != before:
+                delta['counters'][key] = value - before
+                base[Counter][key] = value
+        for key, h in list(self._metrics[Histogram].items()):
+            state = h.state()
+            before = base[Histogram].get(key)
+            if before is None or before['count'] != state['count']:
+                delta['histograms'][key] = state if before is None else {
+                    'buckets': state['buckets'],
+                    'counts': [a - b for a, b in zip(state['counts'], before['counts'])],
+                    'sum': state['sum'] - before['sum'],
+                    'count': state['count'] - before['count']}
+                base[Histogram][key] = state
+        for key, g in list(self._metrics[Gauge].items()):
+            value = g.value
+            if base[Gauge].get(key) != value:
+                delta['gauges'][key] = value
+                base[Gauge][key] = value
+        if not (delta['counters'] or delta['gauges'] or delta['histograms']):
+            return None
+        return delta
+
+    def merge_delta(self, delta):
+        """Fold a worker's :meth:`collect_delta` payload into this registry
+        (gauges: last writer wins). A histogram whose bucket layout differs
+        from this registry's drops its increment."""
+        if not delta:
+            return
+        for key, inc in delta.get('counters', {}).items():
+            self._by_key(Counter, key).inc(inc)
+        for key, value in delta.get('gauges', {}).items():
+            self._by_key(Gauge, key).set(value)
+        for key, inc in delta.get('histograms', {}).items():
+            hist = self._by_key(Histogram, key, inc['buckets'])
+            with hist._lock:
+                if len(hist._counts) == len(inc['counts']):
+                    hist._counts = [a + b for a, b in zip(hist._counts, inc['counts'])]
+                    hist._sum += inc['sum']
+                    hist._count += inc['count']
+
+    def _by_key(self, kind, key, *args):
+        """The metric of ``kind`` under ``key``, made on first use."""
+        table = self._metrics[kind]
+        metric = table.get(key)
+        if metric is None:
+            with self._lock:
+                metric = table.setdefault(key, kind(*args))
+        return metric
+
+
 _global_lock = threading.Lock()
 _global_registry = None
 _reset_hooks = []
@@ -196,3 +255,82 @@ def reset_registry():
         _global_registry = MetricsRegistry()
     for hook in _reset_hooks:
         hook()
+
+
+def dump_delta_frame():
+    """The process-wide registry's increments since the previous call,
+    dill-framed for a pool's result channel (b'' when nothing changed);
+    the one owner of delta framing. Trace events the flight recorder holds
+    ride along under ``trace_events`` and leave the recorder. Telemetry
+    never fails a completion: an error gives b''."""
+    import dill
+    try:
+        delta = get_registry().collect_delta()
+        from petastorm_tpu_torch.telemetry.recorder import get_recorder
+        recorder = get_recorder()
+        if len(recorder):
+            delta = delta or {'counters': {}, 'gauges': {}, 'histograms': {}}
+            delta['trace_events'] = recorder.drain()
+        return dill.dumps(delta) if delta else b''
+    except Exception:  # noqa: BLE001 - telemetry is advisory
+        return b''
+
+
+def load_delta_frame(frame):
+    """Inverse of :func:`dump_delta_frame`; None for an empty, undecodable
+    or not delta-shaped frame. The shape check is strict: exactly the
+    three delta keys, all dicts (plus an optional ``trace_events`` list),
+    at least one of them non-empty, so no other pickled payload passes
+    for a delta."""
+    if not frame:
+        return None
+    import dill
+    try:
+        delta = dill.loads(frame)
+    except Exception:  # noqa: BLE001 - telemetry is advisory
+        return None
+    if not isinstance(delta, dict):
+        return None
+    base_keys = {'counters', 'gauges', 'histograms'}
+    if set(delta) not in (base_keys, base_keys | {'trace_events'}):
+        return None
+    if not all(isinstance(delta[k], dict) for k in base_keys):
+        return None
+    if not isinstance(delta.get('trace_events', []), list):
+        return None
+    if not any(delta.values()):
+        return None
+    return delta
+
+
+def merge_worker_delta(delta):
+    """The consumer side of a delta that came over a pool's channel: fold
+    it into the process-wide registry, its trace events into the
+    recorder, and replay its wait increments into the stall attributor,
+    so a worker's back-pressure takes part in window verdicts. Never
+    raises."""
+    if not delta:
+        return
+    try:
+        _merge_worker_delta(delta)
+    except Exception:  # noqa: BLE001 - telemetry is advisory
+        import logging
+        logging.getLogger(__name__).debug('Dropping unmergeable metrics delta', exc_info=True)
+
+
+def _merge_worker_delta(delta):
+    get_registry().merge_delta(delta)
+    events = delta.get('trace_events')
+    if events:
+        from petastorm_tpu_torch.telemetry.recorder import get_recorder
+        get_recorder().add_many(e for e in events if isinstance(e, dict))
+    counters = delta.get('counters', {})
+    # late imports: the package's __init__ imports this module first
+    from petastorm_tpu_torch.telemetry import STALL_CONSUMER_WAIT, STALL_PRODUCER_WAIT
+    from petastorm_tpu_torch.telemetry.stall import get_attributor
+    producer = counters.get(STALL_PRODUCER_WAIT, 0.0)
+    consumer = counters.get(STALL_CONSUMER_WAIT, 0.0)
+    if producer > 0.0:
+        get_attributor().note_producer_wait(producer)
+    if consumer > 0.0:
+        get_attributor().note_consumer_wait(consumer)

@@ -1,7 +1,16 @@
 """Worker-pool runtime (counterpart of ``petastorm_tpu/workers``): the pool
 contract ``start(worker_class, worker_args, ventilator) / ventilate /
-get_results / stop / join`` on a thread pool and a synchronous dummy pool.
-The process and service pools wait for their roadmap item."""
+get_results / stop / join`` on a thread pool, a spawned-process pool for
+GIL-heavy transforms, and a synchronous dummy pool. The service pool
+waits for its roadmap item."""
+
+
+#: gauge names every pool flavor exposes through ``diagnostics``, so
+#: dashboards and the autotuner read the same keys wherever decode runs
+SHARED_POOL_GAUGES = frozenset([
+    'items_ventilated', 'items_processed', 'items_inflight',
+    'workers_alive', 'output_queue_size',
+])
 
 
 class EmptyResultError(Exception):
@@ -14,3 +23,7 @@ class TimeoutWaitingForResultError(Exception):
 
 class VentilatedItemProcessedMessage:
     """Control message a worker publishes after finishing one work item."""
+
+
+class WorkerTerminationRequested(Exception):
+    """Raised inside a worker to abort processing during shutdown."""

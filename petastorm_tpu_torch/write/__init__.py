@@ -1,5 +1,5 @@
 """petastorm_tpu_torch.write: the write plane (counterpart of
-``petastorm_tpu/write``), on the port's dummy and thread pools.
+``petastorm_tpu/write``), on the port's dummy, thread and process pools.
 
 1. **Writer** (:mod:`.writer`): ``DistributedDatasetWriter`` shards encode
    and write over a pool (``pool=None`` inline) with tmp + rename

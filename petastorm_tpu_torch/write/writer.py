@@ -4,8 +4,9 @@ committed by a manifest swap.
 Counterpart of ``petastorm_tpu/write/writer.py`` on the port's pools.
 :class:`DistributedDatasetWriter` cuts the rows into shards of
 ``shard_rows`` and hands each to a :class:`WriteShardWorker`, inline
-(``pool=None``) or on a :class:`~petastorm_tpu_torch.workers.dummy_pool.DummyPool`
-or :class:`~petastorm_tpu_torch.workers.thread_pool.ThreadPool`. Every
+(``pool=None``) or on a :class:`~petastorm_tpu_torch.workers.dummy_pool.DummyPool`,
+:class:`~petastorm_tpu_torch.workers.thread_pool.ThreadPool` or
+:class:`~petastorm_tpu_torch.workers.process_pool.ProcessPool`. Every
 backend runs the same worker code, so its part files and manifest are the
 same bytes (and the reference's, for the same rows and settings).
 
@@ -28,6 +29,7 @@ as the reference stamps them.
 
 import json
 import logging
+import os
 import posixpath
 
 import pyarrow.parquet as pq
@@ -41,6 +43,7 @@ from petastorm_tpu_torch.etl.dataset_metadata import (
 from petastorm_tpu_torch.fs import get_filesystem_and_path_or_paths, normalize_dir_url
 from petastorm_tpu_torch.telemetry import get_registry, knobs, metrics_disabled, tracing
 from petastorm_tpu_torch.unischema import Unischema
+from petastorm_tpu_torch.workers import EmptyResultError
 from petastorm_tpu_torch.workers.worker_base import WorkerBase
 from petastorm_tpu_torch.write import layout, manifest
 from petastorm_tpu_torch.write.manifest import TMP_PREFIX
@@ -54,7 +57,7 @@ WRITE_FILES = 'petastorm_tpu_write_files_total'
 _MB = 1024 * 1024
 
 #: pool classes (and ``reader_pool_type`` names) of pools the port lacks
-_UNPORTED_POOLS = ('process', 'service', 'ProcessPool', 'ServicePool')
+_UNPORTED_POOLS = ('service', 'ServicePool')
 
 
 def _default_shard_rows():
@@ -66,14 +69,18 @@ def _default_encode_workers():
 
 
 def _check_pool(pool):
-    """``pool`` itself when the port can run it: None, or an instance with
-    the pool contract. A process or service pool raises the roadmap item
+    """The pool the writer runs on: None (inline), a new process pool for
+    the name ``'process'`` (as many workers as the reader's default), or an
+    instance with the pool contract. A service pool raises the roadmap item
     that ports it."""
     if pool is None:
         return None
     kind = pool if isinstance(pool, str) else type(pool).__name__
     if kind in _UNPORTED_POOLS:
         raise unported('a %s pool for the write plane' % kind, 9)
+    if pool == 'process':
+        from petastorm_tpu_torch.workers.process_pool import ProcessPool
+        return ProcessPool(max(1, min(4, os.cpu_count() or 1)))
     missing = [m for m in ('start', 'ventilate', 'get_results', 'stop', 'join')
                if not hasattr(pool, m)]
     if missing:
@@ -167,8 +174,9 @@ class DistributedDatasetWriter:
 
     ``pool=None`` runs every shard inline through the same
     :class:`WriteShardWorker`; a port pool (constructed, not started: the
-    writer starts and stops it) distributes them, and a process or service
-    pool raises ``NotImplementedError`` naming its roadmap item.
+    writer starts and stops it, or the name ``'process'``) distributes
+    them, and a service pool raises ``NotImplementedError`` naming its
+    roadmap item.
     ``append=True`` stacks a new generation on the committed one;
     ``append=False`` refuses a target that has a manifest.
     """
@@ -253,11 +261,20 @@ class DistributedDatasetWriter:
             self._pool.ventilate(shard_id=shard_id, rows=rows)
 
     def _drain_pool(self):
+        """One result a shard. The pool is read until it reports empty, so
+        every completion marker, with the metrics delta a process worker
+        hangs on it, is read before the pool stops."""
         if self._pool is None:
             return list(self._inline_results)
         results = []
-        while len(results) < self._shards_dispatched:
-            results.append(self._pool.get_results())
+        while self._pool_started:
+            try:
+                results.append(self._pool.get_results())
+            except EmptyResultError:
+                break
+        if len(results) != self._shards_dispatched:
+            raise RuntimeError('write: %d shard results for %d shards dispatched'
+                               % (len(results), self._shards_dispatched))
         return results
 
     # -- commit -----------------------------------------------------------

@@ -1,10 +1,11 @@
 """``chip_smoke.py``'s per-phase stack dump, on the CPU.
 
-Every phase of ``main`` (and every spawned rank) runs under
+Every phase of ``main`` (and every task of a spawned rank) runs under
 ``faulthandler.dump_traceback_later(PHASE_STACK_DUMP_S, repeat=True,
 exit=False)``, cancelled when it returns or raises, so a phase that stops
 leaves every thread's stack on stderr. It only reports: the phase's
-result and exceptions pass through unchanged.
+result and exceptions pass through unchanged. The rank phases' pool of
+spawned ranks runs each task in a new gloo group and stops every rank.
 """
 
 import ast
@@ -84,5 +85,36 @@ def test_every_phase_of_main_runs_under_the_dump():
     handed = [c.args[0].id for c in _calls_in(main, '_phase')]
     assert len(handed) > 40 and all(name.startswith(('phase_', 'write_', 'generate_'))
                                     for name in handed)
-    for rank in ('_parallel_rank', '_dp_rank'):
-        assert [c for c in _calls_in(funcs[rank], '_stack_dump_armed')], rank
+    assert _calls_in(funcs['_parallel_rank'], '_stack_dump_armed')
+
+
+def test_rank_pool_runs_each_task_in_a_new_group(smoke):
+    """One spawn serves every task: each joins a new gloo group (a device
+    mesh over it included) on the pool's first ``world`` ranks, the
+    results come back in rank order, and ``stop`` leaves no rank."""
+    from tests.torch_stub_workers import group_probe
+    pool = smoke._RankPool(3)
+    try:
+        assert pool.startup_s > 0
+        pids = pool.pids
+        for task, world in ((0, 2), (1, 3), (2, 2)):
+            results = pool.run(group_probe, (task,), world)
+            assert [r['rank'] for r in results] == list(range(world))
+            assert [r['pid'] for r in results] == pids[:world]
+            assert all(r['task'] == task and r['world'] == world
+                       and r['sum'] == world * (world + 1) // 2 for r in results), results
+    finally:
+        pool.stop()
+    assert [p.exitcode for p in pool._procs] == [0, 0, 0]
+
+
+def test_rank_pool_fails_a_task_whose_rank_dies(smoke):
+    """A rank that dies fails its task by name, and the pool stops."""
+    from tests.torch_stub_workers import rank_exit
+    pool = smoke._RankPool(2)
+    try:
+        with pytest.raises(AssertionError, match='rank_exit: a rank failed'):
+            pool.run(rank_exit, (3,), 2)
+    finally:
+        pool.stop()
+    assert [p.exitcode for p in pool._procs] == [0, 3]

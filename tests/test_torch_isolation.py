@@ -1,5 +1,6 @@
 """petastorm_tpu_torch stands alone: no module of the port, and not
-chip_smoke.py, imports JAX, Flax, Optax, Orbax or the JAX package."""
+chip_smoke.py, imports JAX, Flax, Optax, Orbax or the JAX package; nor
+does a decode worker the port's process pool spawns, at run time."""
 
 import ast
 import os
@@ -80,7 +81,9 @@ def test_port_has_modules_to_scan():
                    ('selectors.py',), ('tools', 'copy_dataset.py'),
                    ('tools', 'spark_session_cli.py'), ('parallel', 'mesh.py'),
                    ('parallel', 'collectives.py'), ('ops', 'ulysses_attention.py'),
-                   ('examples', 'long_context.py')):
+                   ('examples', 'long_context.py'), ('serializers.py',),
+                   ('workers', '__init__.py'), ('workers', 'exec_in_new_process.py'),
+                   ('workers', 'process_pool.py')):
         assert os.path.join('petastorm_tpu_torch', *module) in rel
     assert len(rel) > 20
 
@@ -89,6 +92,24 @@ def test_port_has_modules_to_scan():
 def test_module_imports_nothing_of_jax(path):
     bad = sorted(set(_imported_roots(os.path.join(ROOT, path))) & set(FORBIDDEN))
     assert not bad, '%s imports %s' % (path, bad)
+
+
+def test_spawned_decode_workers_load_nothing_of_jax(tmp_path):
+    """A process-pool read's workers, at check-in (their worker args loaded,
+    the readahead plane attached): no JAX, no JAX package, no torch, and
+    no card."""
+    from tests.torch_telemetry_common import write_small_dataset
+    from petastorm_tpu_torch.reader import make_batch_reader
+    url = 'file://%s/ds' % tmp_path
+    write_small_dataset(url, rows=40)
+    with make_batch_reader(url, reader_pool_type='process', workers_count=2) as reader:
+        reports = list(reader._pool.worker_reports)
+        assert sorted(int(i) for b in reader for i in b.id) == list(range(40))
+    assert len(reports) == 2
+    for report in reports:
+        assert not set(report['modules']) & set(FORBIDDEN + ('torch',)), report['modules']
+        assert 'petastorm_tpu_torch' in report['modules']
+        assert report['cuda_visible_devices'] == ''
 
 
 @pytest.mark.parametrize('path', [os.path.relpath(p, ROOT) for p in _sources()

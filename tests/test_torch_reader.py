@@ -191,8 +191,18 @@ def test_state_dict_resumes_across_packages(synthetic_dataset, saver, loader):
 ], ids=['process', 'service', 'decoded-cache', 'filters', 'rowgroup-selector', 'predicate'])
 def test_unported_kwargs_raise(synthetic_dataset, kwargs, tmp_path):
     """Each kwarg still unported raises its ROADMAP item; ``filters``,
-    ``predicate``, ``rowgroup_selector`` and the decoded cache are ported
-    and read the JAX reader's batches."""
+    ``predicate``, ``rowgroup_selector``, the decoded cache and the process
+    pool are ported and read the JAX reader's batches (the process pool on
+    one worker, where its order is the ventilation order)."""
+    if kwargs.get('reader_pool_type') == 'process':
+        out = {package: _read(package, synthetic_dataset.url, reader_pool_type='process',
+                              workers_count=1, shuffle_row_groups=False,
+                              schema_fields=['^id$'])
+               for package in ('jax', 'torch')}
+        assert [b['id'].tolist() for b in out['torch']] == \
+            [b['id'].tolist() for b in out['jax']]
+        assert sorted(i for b in out['torch'] for i in b['id'].tolist()) == list(range(100))
+        return
     if set(kwargs) & {'filters', 'predicate', 'cache_type', 'rowgroup_selector'}:
         from petastorm_tpu import predicates as jax_predicates
         from petastorm_tpu import selectors as jax_selectors

@@ -190,7 +190,7 @@ UNPORTED_KWARGS = {
     'cache_size_limit': (1 << 20, None),
     'cache_row_size_estimate': (1024, None),
     'rowgroup_selector': ('id_index', None),
-    'reader_pool_type': ('process', 9),
+    'reader_pool_type': ('process', None),
     'poison_policy': ('skip', 9),
     'storage_options': ({'anon': True}, 9),
     'filesystem': (object(), 9),
@@ -221,9 +221,10 @@ def test_unported_kwargs_raise_their_item(synthetic_dataset, name, tmp_path):
                 kw[name] = str(tmp_path / value)   # ignored by the default null cache
             elif name == 'cache_type':
                 kw['cache_location'] = str(tmp_path / package)
-            ids[package] = [int(r['id']) for r in _rows(package, synthetic_dataset.url,
-                                                        reader_pool_type='dummy',
-                                                        shuffle_row_groups=False, **kw)]
+            # the process pool reads on one worker, in ventilation order
+            kw = dict(dict(reader_pool_type='dummy', shuffle_row_groups=False, workers_count=1),
+                      **kw)
+            ids[package] = [int(r['id']) for r in _rows(package, synthetic_dataset.url, **kw)]
         assert ids['torch'] == ids['jax'] and ids['torch']
     else:
         with pytest.raises(NotImplementedError,

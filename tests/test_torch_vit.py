@@ -216,3 +216,27 @@ def test_generate_petastorm_imagenet_is_the_references(tmp_path, source):
         assert sorted({r.noun_id for r in rows}) == ['n01440764', 'n02102040']
         first = cv2.cvtColor(cv2.imread('%s/n01440764/0.png' % images_dir), cv2.COLOR_BGR2RGB)
         np.testing.assert_array_equal(rows[0].image, first)
+
+
+@pytest.mark.parametrize('workers_count', [None, 1, 3])
+def test_generate_imagenet_like_is_the_references_write(tmp_path, workers_count):
+    """``generate_imagenet_like`` at any encode width writes the part-file
+    bytes the JAX package's ``write_dataset`` writes for the same rows and
+    schema (one encode thread there)."""
+    import glob
+
+    from petastorm_tpu.etl.dataset_metadata import write_dataset as jax_write_dataset
+    from petastorm_tpu.unischema import Unischema
+    from petastorm_tpu_torch.examples.imagenet import (
+        generate_imagenet_like, imagenet_like_rows, imagenet_like_schema,
+    )
+    schema = Unischema.from_json_dict(imagenet_like_schema(16, 'png').to_json_dict())
+    rows = [{'image': image, 'label': label} for image, label in imagenet_like_rows(24, 16)]
+    jax_write_dataset('file://%s/jax' % tmp_path, schema, rows, rowgroup_size_rows=8,
+                      workers_count=1)
+    generate_imagenet_like('file://%s/torch' % tmp_path, num_rows=24, size=16,
+                           image_codec='png', rowgroup_size_rows=8,
+                           workers_count=workers_count)
+    parts = {name: [open(p, 'rb').read() for p in sorted(glob.glob(
+        '%s/%s/part-*' % (tmp_path, name)))] for name in ('jax', 'torch')}
+    assert parts['torch'] and parts['torch'] == parts['jax']

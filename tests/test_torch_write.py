@@ -18,7 +18,8 @@ observability. Then the two packages against each other:
 * each package's reader reads the other's committed, appended and
   compacted dataset multiset-exact, and never the parts a compaction
   superseded that are still on disk;
-* a process or service pool raises the port's ``unported`` item 9.
+* the port's process pool writes the inline write's bytes, and a service
+  pool raises the port's ``unported`` item 9.
 
 Faults and knobs are set through ``monkeypatch``; the guard of
 ``tests/torch_telemetry_common.py`` disarms both packages after each
@@ -506,12 +507,27 @@ def test_packages_commit_onto_each_others_generations(tmp_path):
 
 @pytest.mark.parametrize('pool', ['process', 'service', 'jax-process-pool'])
 def test_pools_the_port_lacks_raise_item_9(tmp_path, pool):
+    """A service pool raises the port's item 9. The process pool is
+    ported: named ``'process'``, or as a port ``ProcessPool(2)`` (the case
+    that once handed the port the JAX package's pool), it writes the
+    inline write's part bytes and manifest."""
+    torch_pkg = PACKAGES['torch']
+    if pool == 'service':
+        with pytest.raises(NotImplementedError, match=r'ROADMAP.md: Queue 1 item 9,'):
+            torch_pkg.write_ds(_url(tmp_path), _rows(10), pool=pool)
+        assert not os.path.exists(str(tmp_path / '_manifest.json'))
+        return
     if pool == 'jax-process-pool':
-        from petastorm_tpu.workers.process_pool import ProcessPool
+        from petastorm_tpu_torch.workers.process_pool import ProcessPool
         pool = ProcessPool(2)
-    with pytest.raises(NotImplementedError, match=r'ROADMAP.md: Queue 1 item 9,'):
-        PACKAGES['torch'].write_ds(_url(tmp_path), _rows(10), pool=pool)
-    assert not os.path.exists(str(tmp_path / '_manifest.json'))
+    rows = _rows(60)
+    inline = torch_pkg.write_ds(_url(tmp_path / 'inline'), rows, shard_rows=20)
+    pooled = torch_pkg.write_ds(_url(tmp_path / 'pool'), rows, shard_rows=20, pool=pool)
+    assert torch_pkg.manifest.dumps(pooled.manifest) == \
+        torch_pkg.manifest.dumps(inline.manifest)
+    parts = _part_hashes(tmp_path / 'pool')
+    assert len(parts) == 3 and parts == _part_hashes(tmp_path / 'inline')
+    assert torch_pkg.read_ids(_url(tmp_path / 'pool')) == list(range(60))
 
 
 # -- crash safety (the rows without a service pool) ------------------------------
