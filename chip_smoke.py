@@ -437,6 +437,28 @@ outlives its phase.
     process-written dataset gives back the source rows. Images/s beside
     ``vit_path``'s (a ratio, no gate), the workers' start-up seconds and
     the peak memory are printed.
+48. ``remote_store_vit_path`` (after ``process_vit_path``; configuration
+    vit-imagenetlike-gs): fsspec's ``gs`` protocol bound to a strict
+    in-memory store (``_remote_store_class``: only paths in
+    ``REMOTE_BUCKET``, localizing calls refused, each instance's
+    ``storage_options``, read opens, seeks and bytes recorded). The ViT
+    rows written to ``gs://bucket/vit`` as ``write_vit_dataset`` writes
+    them, with ``storage_options=REMOTE_TOKEN``; one epoch read from the
+    bucket and one from the local copy, ``(label, crc32)`` equal as
+    multisets; then ``train_vit_fused('gs://bucket/vit',
+    storage_options=REMOTE_TOKEN)``, ``REMOTE_VIT_STEPS`` steps of
+    ViT-Base: normalize once a step and 12 launches of each flash kernel
+    a step, all on bf16; every part file opened through the store, seeks
+    recorded, every instance built with the token, no path refused,
+    readahead hits and no degrade. Then the flagship LM dataset read as
+    ``hdfs://smokens/...`` (a ``$HADOOP_HOME`` naming two namenodes,
+    ``HDFS_NAMENODES``, stood in for by the local disk: ``nn-a`` dies for
+    good after ``HDFS_NN_A_OPENS`` opens) for ``HDFS_LM_STEPS`` flagship
+    steps on the dummy pool with one readahead fetch thread, against the
+    same steps read from ``file://``: one failover logged, the read ended
+    on ``nn-b``, batch checksums and losses equal, each flash kernel
+    launched layers x steps times in each. Images/s beside ``vit_path``'s,
+    the bytes the store served and the phase seconds are printed.
 ``--trace-dir DIR`` keeps the two Chrome traces in ``DIR``.
 
 The rank phases (24, 42-46) run one after another on one pool of
@@ -651,6 +673,14 @@ PROCESS_WORKERS = 4          # process_vit_path: the decode worker processes
 PROCESS_VIT_STEPS = 10
 PROCESS_PARITY_BATCHES = 10  # the first 160 rows, thread pool vs process pool
 PROCESS_WRITE_ROWS = 256
+REMOTE_BUCKET = 'bucket'     # remote_store_vit_path: the fake gs store's one bucket
+REMOTE_TOKEN = {'token': 'chip-smoke-credential'}
+REMOTE_VIT_STEPS = 10
+REMOTE_READ_WORKERS = 4      # the epoch read of gs:// and file:// compared as multisets
+HDFS_NAMESERVICE = 'smokens'
+HDFS_NAMENODES = ('nn-a:8020', 'nn-b:8020')
+HDFS_NN_A_OPENS = 6          # opens nn-a serves before it dies for good
+HDFS_LM_STEPS = 5
 # dp-lm: two gloo ranks on the one card feed the flagship
 # KV-cache decoding and MoE
 GEN_REFERENCE_KW = dict(vocab_size=32, d_model=16, n_heads=2, n_layers=2, d_ff=32,
@@ -1266,14 +1296,15 @@ def check_report_stages(report, events):
     return sorted(traced)
 
 
-def flagship_run(url, scope, inside=None, on_step=None):
+def flagship_run(url, scope, inside=None, on_step=None, steps=LM_STEPS, **reader_kwargs):
     """One ``lm_path`` run of the flagship (``FLAGSHIP_LM_KW``, batch 8,
-    1024 positions, bf16, ``LM_STEPS`` steps) on one pool worker, so the
+    1024 positions, bf16, ``steps`` steps) on one pool worker, so the
     row-groups arrive in ventilation order, inside the context ``scope``
     with fresh telemetry and launch counts. Returns the result, each
     batch's checksum, the launches and the flash kernels' launches by
     input dtype (``flash_attention._launch`` wrapped for the run), and
-    whatever ``inside(result)``, called in the scope, adds."""
+    whatever ``inside(result)``, called in the scope, adds.
+    ``reader_kwargs`` go to the reader."""
     from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW, pretrain
     from petastorm_tpu_torch.ops import flash_attention
     launch = flash_attention._launch
@@ -1298,9 +1329,10 @@ def flagship_run(url, scope, inside=None, on_step=None):
     flash_attention._launch = recording_launch
     try:
         with scope:
-            result = pretrain(url, batch_size=LM_BATCH, steps=LM_STEPS, seq_len=LM_SEQ,
+            result = pretrain(url, batch_size=LM_BATCH, steps=steps, seq_len=LM_SEQ,
                               model_kw=FLAGSHIP_LM_KW, attn_impl='flash', device='cuda',
-                              on_step=on_step_sum, workers_count=1)
+                              on_step=on_step_sum, **dict(dict(workers_count=1),
+                                                          **reader_kwargs))
             torch.cuda.synchronize()
             extra = inside(result) if inside is not None else {}
     finally:
@@ -4484,7 +4516,7 @@ def _maps_libcuda(pid):
         return False
 
 
-def _pool_rows(url, pool_type, workers, batches=None):
+def _pool_rows(url, pool_type, workers, batches=None, **reader_kwargs):
     """``(label, crc32 of the uint8 pixels)`` of each row the loader gives
     on ``pool_type`` with ``workers`` workers, shuffled with seed 0, by
     batch: the first ``batches`` or one epoch."""
@@ -4493,7 +4525,8 @@ def _pool_rows(url, pool_type, workers, batches=None):
     out = []
     with make_torch_loader(url, VIT_BATCH, fields=['^image$', '^label$'], num_epochs=1,
                            shuffle_row_groups=True, seed=0, device='cuda',
-                           reader_pool_type=pool_type, workers_count=workers) as loader:
+                           reader_pool_type=pool_type, workers_count=workers,
+                           **reader_kwargs) as loader:
         for batch in loader:
             images = batch['image'].cpu().numpy()
             labels = batch['label'].cpu().numpy()
@@ -4683,6 +4716,369 @@ def phase_process_vit_path(url, image_codec, vit_images_per_s, tmp):
     # bf16 inputs dispatch to the wgmma instances (the build phase checks them)
     assert dtypes == {'torch.bfloat16': 3 * want}, dtypes
     return launches
+
+
+def _remote_store_class():
+    """A strict in-memory ``gs`` store standing in for a bucket (neither the
+    card's machine nor a test machine has a network): only paths in
+    ``REMOTE_BUCKET`` reach it, ``get``/``get_file``/``download``/
+    ``open_local`` raise, and it records each instance's
+    ``storage_options``, every read open, every seek and the bytes read.
+    A read open is a handle of its own over the object's bytes, as an
+    object store's stream is; the bytes are taken from the written object
+    once (``frozen``), not copied again at each open."""
+    from fsspec.implementations.memory import MemoryFile, MemoryFileSystem
+
+    class RemoteStore(MemoryFileSystem):
+        protocol = 'gs'
+        cachable = False
+        store = {}
+        pseudo_dirs = ['']
+        options = []
+        opens = collections.Counter()
+        seeks = collections.Counter()      # path -> seeks to a nonzero offset
+        bytes_read = [0]
+        refused = []                       # non-bucket paths and localizing calls
+        frozen = {}                        # path -> (written object, its bytes)
+        lock = threading.Lock()
+
+        def __init__(self, **storage_options):
+            type(self).options.append(dict(storage_options))
+            super().__init__()
+
+        @classmethod
+        def _strip_protocol(cls, path):
+            path = str(path)
+            if path.startswith('gs://'):
+                path = path[len('gs://'):]
+            path = '/' + path.lstrip('/')
+            if not (path == '/' or path == '/' + REMOTE_BUCKET
+                    or path.startswith('/%s/' % REMOTE_BUCKET)):
+                cls.refused.append(('path', path))
+                raise AssertionError('non-bucket path reached the store: %r' % path)
+            return path
+
+        def _localizing(self, *args, **kwargs):
+            type(self).refused.append(('localizing', repr(args[:1])))
+            raise AssertionError('localizing call on a remote store')
+
+        get = get_file = download = open_local = _localizing
+
+        def _open(self, path, mode='rb', **kwargs):
+            path = self._strip_protocol(path)
+            if mode != 'rb' or path not in self.store:
+                return super()._open(path, mode=mode, **kwargs)
+            cls = type(self)
+            written = self.store[path]
+            with cls.lock:
+                cls.opens[path] += 1
+                kept = cls.frozen.get(path)
+                if kept is None or kept[0] is not written:
+                    kept = cls.frozen[path] = (written, written.getvalue())
+            return _Handle(cls, path, kept[1])
+
+    class _Handle(MemoryFile):
+        def __init__(self, cls, path, data):
+            super().__init__(None, path, data)
+            self._cls = cls
+            self._nbytes = len(data)
+
+        @property
+        def size(self):
+            # MemoryFile's size exports a writable buffer, which copies the
+            # bytes this handle shares with the store
+            return self._nbytes
+
+        def seek(self, pos, whence=0):
+            if pos:
+                with self._cls.lock:
+                    self._cls.seeks[self.path] += 1
+            return super().seek(pos, whence)
+
+        def read(self, size=-1):
+            data = super().read(size)
+            with self._cls.lock:
+                self._cls.bytes_read[0] += len(data)
+            return data
+
+        def readinto(self, buffer):
+            n = super().readinto(buffer)
+            with self._cls.lock:
+                self._cls.bytes_read[0] += n
+            return n
+
+    return RemoteStore
+
+
+@contextlib.contextmanager
+def _gs_bound_to(cls):
+    """fsspec's ``gs`` protocol bound to ``cls`` for the block, then what
+    was bound before (or nothing)."""
+    import fsspec
+    from fsspec.registry import _registry
+    before = _registry.get('gs')
+    fsspec.register_implementation('gs', cls, clobber=True)
+    try:
+        yield cls
+    finally:
+        if before is not None:
+            fsspec.register_implementation('gs', before, clobber=True)
+        else:
+            _registry.pop('gs', None)
+
+
+def _hadoop_home(root):
+    """A Hadoop configuration under ``root`` naming ``HDFS_NAMESERVICE``'s
+    two namenodes, as a cluster's ``hdfs-site.xml`` and ``core-site.xml``
+    do; returns the directory for ``$HADOOP_HOME``."""
+    conf = os.path.join(root, 'etc', 'hadoop')
+    os.makedirs(conf, exist_ok=True)
+    ids = ['nn%d' % (i + 1) for i in range(len(HDFS_NAMENODES))]
+    props = {'dfs.nameservices': HDFS_NAMESERVICE,
+             'dfs.ha.namenodes.%s' % HDFS_NAMESERVICE: ','.join(ids)}
+    for nn, address in zip(ids, HDFS_NAMENODES):
+        props['dfs.namenode.rpc-address.%s.%s' % (HDFS_NAMESERVICE, nn)] = address
+
+    def site(values):
+        return '<configuration>%s</configuration>' % ''.join(
+            '<property><name>%s</name><value>%s</value></property>' % item
+            for item in values.items())
+
+    with open(os.path.join(conf, 'hdfs-site.xml'), 'w') as f:
+        f.write(site(props))
+    with open(os.path.join(conf, 'core-site.xml'), 'w') as f:
+        f.write(site({'fs.defaultFS': 'hdfs://%s' % HDFS_NAMESERVICE}))
+    return root
+
+
+def _namenodes(opens_before_death):
+    """A ``connect_fn`` for two stand-in namenodes over the local disk:
+    ``nn-a`` serves ``opens_before_death`` opens, then dies for good (its
+    opens raise ``OSError`` and it refuses new connections); ``nn-b``
+    stays up. Returns the function and its record (connections, opens
+    served, the thread of the open that found ``nn-a`` dead)."""
+    import fsspec
+    local = fsspec.filesystem('file')
+    record = {'connects': [], 'opens': collections.Counter(), 'died_in': None}
+    state = {'a_left': opens_before_death}
+    lock = threading.Lock()
+
+    class Namenode:
+        def __init__(self, host):
+            self.host = host
+
+        def __getattr__(self, name):
+            attr = getattr(local, name)
+            if name != 'open':
+                return attr
+
+            def open_(*args, **kwargs):
+                with lock:
+                    if self.host == 'nn-a':
+                        if state['a_left'] <= 0:
+                            record['died_in'] = (record['died_in']
+                                                 or threading.current_thread().name)
+                            raise OSError('namenode nn-a lost')
+                        state['a_left'] -= 1
+                    record['opens'][self.host] += 1
+                return attr(*args, **kwargs)
+            return open_
+
+    def connect(host, port, storage_options):
+        record['connects'].append(host)
+        if host == 'nn-a' and state['a_left'] <= 0:
+            raise ConnectionError('nn-a refused the connection')
+        return Namenode(host)
+
+    return connect, record
+
+
+def phase_remote_store_vit_path(vit_url, lm_url, image_codec, vit_images_per_s, tmp):
+    """vit-imagenetlike-gs and the HDFS failover read (module docstring,
+    phase 48)."""
+    import logging
+
+    from petastorm_tpu_torch import hdfs
+    from petastorm_tpu_torch.etl.dataset_metadata import write_dataset
+    from petastorm_tpu_torch.examples.imagenet import (
+        VIT_BASE_KW, imagenet_like_rows, imagenet_like_schema, train_vit_fused,
+    )
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
+    from petastorm_tpu_torch.ops import flash_attention
+    t_phase = time.perf_counter()
+    threads_before = _port_threads()
+    store = _remote_store_class()
+    url = 'gs://%s/vit' % REMOTE_BUCKET
+    with _gs_bound_to(store):
+        # (a) the ViT rows written to the bucket, as write_vit_dataset writes them
+        t0 = time.perf_counter()
+        rows = [{'image': image, 'label': label}
+                for image, label in imagenet_like_rows(VIT_ROWS, 384, seed=7)]
+        write_dataset(url, imagenet_like_schema(384, image_codec), rows,
+                      rowgroup_size_rows=64, workers_count=WRITE_WORKERS,
+                      storage_options=REMOTE_TOKEN)
+        del rows
+        write_s = time.perf_counter() - t0
+        parts = sorted(p for p in store.store if p.endswith('.parquet'))
+        stored_bytes = sum(store.store[p].size for p in store.store)
+        # one epoch from the bucket against one from the local copy
+        store.opens.clear()
+        fresh_telemetry()
+        epoch_s = {}
+        t0 = time.perf_counter()
+        epoch = {'gs': _pool_rows(url, 'thread', REMOTE_READ_WORKERS,
+                                  storage_options=REMOTE_TOKEN)}
+        epoch_s['gs'] = time.perf_counter() - t0
+        epoch_readahead = _readahead_section()
+        epoch_opens = dict(store.opens)
+        t0 = time.perf_counter()
+        epoch['file'] = _pool_rows(vit_url, 'thread', REMOTE_READ_WORKERS)
+        epoch_s['file'] = time.perf_counter() - t0
+        # (b) ViT-Base trained from the bucket
+        store.seeks.clear()
+        store.bytes_read[0] = 0
+        launch = flash_attention._launch
+        dtypes = collections.Counter()
+
+        def recording_launch(fn, name, pointers, tensors, q, *args):
+            dtypes[str(q.dtype)] += 1
+            return launch(fn, name, pointers, tensors, q, *args)
+
+        fresh_telemetry()
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention._launch = recording_launch
+        try:
+            result = train_vit_fused(url, steps=REMOTE_VIT_STEPS, batch_size=VIT_BATCH,
+                                     device='cuda', storage_options=REMOTE_TOKEN)
+            torch.cuda.synchronize()
+        finally:
+            flash_attention._launch = launch
+        launches = launch_counts()
+        train_readahead = _readahead_section()
+        train_bytes = store.bytes_read[0]
+        options = list(store.options)
+        seeks = dict(store.seeks)
+        refused = list(store.refused)
+        store.store.clear()
+        store.frozen.clear()
+    losses = result['losses']
+
+    # (c) the flagship LM read through an HA nameservice whose first namenode
+    # dies, against the same steps from file://; one fetch thread, so nn-a's
+    # death is met by one thread and fails over once
+    knobs = {'PETASTORM_TPU_READAHEAD_THREADS': '1'}
+
+    def read(dataset_url):
+        return flagship_run(dataset_url, knobs_set(knobs), inside=lambda _: {
+            'readahead': _readahead_section()}, steps=HDFS_LM_STEPS, reader_pool_type='dummy')
+
+    on_file = read(lm_url)
+    connect, record = _namenodes(HDFS_NN_A_OPENS)
+    failovers, proxies = [], []
+
+    class Failovers(logging.Handler):
+        def emit(self, log_record):
+            if log_record.getMessage().startswith('HDFS failover'):
+                failovers.append(log_record.getMessage())
+
+    init = hdfs.HAHdfsFilesystem.__init__
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        proxies.append(self)
+
+    handler = Failovers()
+    logger = logging.getLogger(hdfs.__name__)
+    saved_env = {var: os.environ.pop(var, None)
+                 for var in ('HADOOP_HOME', 'HADOOP_PREFIX', 'HADOOP_INSTALL')}
+    connect_one = hdfs.HdfsConnector._connect_one
+    os.environ['HADOOP_HOME'] = _hadoop_home(os.path.join(tmp, 'hadoop'))
+    hdfs.HdfsConnector._connect_one = staticmethod(connect)
+    hdfs.HAHdfsFilesystem.__init__ = recording_init
+    logger.addHandler(handler)
+    try:
+        on_hdfs = read('hdfs://%s%s' % (HDFS_NAMESERVICE, lm_url[len('file://'):]))
+    finally:
+        logger.removeHandler(handler)
+        hdfs.HAHdfsFilesystem.__init__ = init
+        hdfs.HdfsConnector._connect_one = connect_one
+        os.environ.pop('HADOOP_HOME')
+        os.environ.update({var: value for var, value in saved_env.items() if value is not None})
+    active = [p._namenodes[p._active] for p in proxies]
+
+    def multiset(batches):
+        return collections.Counter(row for batch in batches for row in batch)
+
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(on_hdfs['result']['losses'],
+                                                        on_file['result']['losses']))
+    emit({'phase': 'remote_store_vit_path', 'config': 'vit-imagenetlike-gs',
+          'entry': "train_vit_fused('gs://%s/vit', storage_options=...) -> make_torch_loader "
+                   '-> normalize -> ViT-Base' % REMOTE_BUCKET,
+          'model': VIT_BASE_KW, 'image_codec': image_codec, 'steps': len(losses),
+          'batch_size': VIT_BATCH, 'losses': losses, 'launches': launches,
+          'launch_dtypes': dict(dtypes), 'images_per_s': result['images_per_s'],
+          'vit_path_images_per_s': vit_images_per_s,
+          'over_vit_path': result['images_per_s'] / vit_images_per_s,
+          'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+          'fused_decode_mode': result['diagnostics']['fused_decode_mode'],
+          'consumer_wait_s': result['diagnostics']['consumer_wait_s'],
+          'store': {'write_s': write_s, 'rows': VIT_ROWS, 'parts': len(parts),
+                    'stored_bytes': stored_bytes, 'train_bytes_read': train_bytes,
+                    'epoch_opens': epoch_opens, 'train_seeks': seeks,
+                    'options_seen': options[:4], 'instances_built': len(options),
+                    'refused': refused},
+          'readahead': {'epoch': epoch_readahead, 'train': train_readahead},
+          'epoch': {'rows': sum(len(b) for b in epoch['gs']),
+                    'multisets_equal': multiset(epoch['gs']) == multiset(epoch['file']),
+                    'images_per_s': {k: VIT_ROWS / v for k, v in epoch_s.items()}},
+          'hdfs': {'config': 'lm-c4like-flagship over hdfs://%s' % HDFS_NAMESERVICE,
+                   'namenodes': list(HDFS_NAMENODES), 'nn_a_opens': HDFS_NN_A_OPENS,
+                   'connects': record['connects'], 'opens': dict(record['opens']),
+                   'died_in_thread': record['died_in'], 'failovers': failovers,
+                   'proxies': len(proxies), 'active_after': active,
+                   'steps': HDFS_LM_STEPS, 'losses': on_hdfs['result']['losses'],
+                   'file_losses': on_file['result']['losses'], 'max_loss_rel_gap': loss_gap,
+                   'batches_equal': on_hdfs['sums'] == on_file['sums'],
+                   'launches': on_hdfs['launches'],
+                   'tokens_per_s': on_hdfs['result']['tokens_per_s'],
+                   'file_tokens_per_s': on_file['result']['tokens_per_s'],
+                   'readahead': on_hdfs['readahead']},
+          'seconds': time.perf_counter() - t_phase})
+    # (b): the bucket's epoch is the local copy's, ViT-Base trained through the kernels
+    assert sum(len(b) for b in epoch['gs']) == VIT_ROWS
+    assert multiset(epoch['gs']) == multiset(epoch['file'])
+    assert len(losses) == REMOTE_VIT_STEPS and all(math.isfinite(v) for v in losses), losses
+    assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
+    assert launches['normalize_images'] == REMOTE_VIT_STEPS, launches
+    want = VIT_BASE_KW['n_layers'] * REMOTE_VIT_STEPS
+    for name in FLASH_KERNELS:
+        assert launches[name] == want, (name, launches[name], want)
+    assert dtypes == {'torch.bfloat16': 3 * want}, dtypes
+    # every part opened through the store, read by ranges, the credential seen
+    assert parts and set(parts) <= set(epoch_opens), (parts, epoch_opens)
+    assert any(path.endswith('.parquet') for path in seeks), seeks
+    assert train_bytes > 0
+    assert options and all(o == REMOTE_TOKEN for o in options), options
+    assert not refused, refused
+    assert epoch_readahead['hits'] + train_readahead['hits'] > 0, (epoch_readahead,
+                                                                    train_readahead)
+    assert not epoch_readahead['degraded'] and not train_readahead['degraded']
+    # (c): one failover, the read ended on nn-b, the file:// read's batches and losses
+    assert record['died_in'] is not None, record
+    assert len(failovers) == 1, failovers
+    assert active and set(active) == {HDFS_NAMENODES[1]}, active
+    assert on_hdfs['sums'] == on_file['sums']
+    hdfs_losses, file_losses = on_hdfs['result']['losses'], on_file['result']['losses']
+    assert hdfs_losses == file_losses, (hdfs_losses, file_losses)
+    want = FLAGSHIP_LM_KW['n_layers'] * HDFS_LM_STEPS
+    for run in (on_hdfs, on_file):
+        assert all(run['launches'][name] == want for name in FLASH_KERNELS), run['launches']
+        assert run['dtypes'] == {'torch.bfloat16': 3 * want}, run['dtypes']
+    left = _threads_left(threads_before)
+    assert not left, left
+    return {'vit': launches, 'hdfs_lm': on_hdfs['launches']}
+
 
 def _card_model(model_class, config, *args):
     """``model_class(config, *args)`` built on the card, its weights drawn
@@ -6000,6 +6396,10 @@ def main(argv=None):
         paths['etl_tools_vit_path'] = _phase(phase_etl_tools_vit_path, selective_url, tmp)
         paths['process_vit_path'] = _phase(phase_process_vit_path, vit_url, image_codec,
                                            vit_images_per_s, tmp)
+        remote = _phase(phase_remote_store_vit_path, vit_url, lm_url, image_codec,
+                        vit_images_per_s, tmp)
+        paths['remote_store_vit_path'] = remote['vit']
+        paths['remote_store_hdfs_lm'] = remote['hdfs_lm']
         # the rank phases, one after another on the rank pool's processes
         try:
             paths['dp_lm_path'] = _phase(phase_dp_lm_path, lm_url, lm_tokens_per_s)

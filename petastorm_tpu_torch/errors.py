@@ -27,7 +27,7 @@ class DecodeFieldError(PetastormTpuError):
 #: ``ROADMAP.md`` Queue 1 items the port has not reached yet, by number
 #: (done items leave gaps: numbers are never reused)
 ROADMAP_ITEMS = {
-    9: 'process and service pools, HDFS and object stores',
+    9: 'the service pool',
     11: 'bridges, benchmark, examples and test utilities',
 }
 

@@ -73,7 +73,7 @@ def _refuse_unported(poison_policy):
     """Raise the ``unported`` error of a reference kwarg that is set and
     reaches code the port lacks."""
     if poison_policy is not None:
-        raise unported('poison_policy=', 9)
+        raise unported('poison_policy= (service pools only)', 9)
 
 
 def _make_cache(cache_type, location, size_limit, row_size_estimate, predicate=None):
@@ -275,7 +275,7 @@ def _make_pool(reader_pool_type, workers_count, results_queue_size):
                              % (pool, missing))
         return pool
     if reader_pool_type == 'service':
-        raise unported("reader_pool_type=%r" % reader_pool_type, 9)
+        raise unported("reader_pool_type='service'", 9)
     if reader_pool_type == 'dummy':
         return DummyPool()
     if reader_pool_type not in ('thread', 'process'):

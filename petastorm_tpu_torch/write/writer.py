@@ -77,7 +77,7 @@ def _check_pool(pool):
         return None
     kind = pool if isinstance(pool, str) else type(pool).__name__
     if kind in _UNPORTED_POOLS:
-        raise unported('a %s pool for the write plane' % kind, 9)
+        raise unported('a service pool (%s) for the write plane' % kind, 9)
     if pool == 'process':
         from petastorm_tpu_torch.workers.process_pool import ProcessPool
         return ProcessPool(max(1, min(4, os.cpu_count() or 1)))

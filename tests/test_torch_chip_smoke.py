@@ -1,4 +1,5 @@
-"""``chip_smoke.py``'s per-phase stack dump, on the CPU.
+"""``chip_smoke.py``'s per-phase stack dump, its rank pool and the
+stand-ins ``remote_store_vit_path`` reads through, on the CPU.
 
 Every phase of ``main`` (and every task of a spawned rank) runs under
 ``faulthandler.dump_traceback_later(PHASE_STACK_DUMP_S, repeat=True,
@@ -118,3 +119,118 @@ def test_rank_pool_fails_a_task_whose_rank_dies(smoke):
     finally:
         pool.stop()
     assert [p.exitcode for p in pool._procs] == [0, 3]
+
+
+# -- remote_store_vit_path: the bucket and the namenodes it stands up ----------------
+
+
+def test_remote_store_phase_follows_process_vit_path():
+    """The phase runs right after ``process_vit_path`` through ``_phase``,
+    and its launches (ViT-Base from the bucket, the flagship over HDFS)
+    join the ``kernels`` line's per-path counts."""
+    with open(os.path.join(ROOT, 'chip_smoke.py')) as f:
+        tree = ast.parse(f.read())
+    main = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}['main']
+    handed = [c.args[0].id for c in _calls_in(main, '_phase')]
+    at = handed.index('phase_process_vit_path')
+    assert handed[at + 1] == 'phase_remote_store_vit_path'
+    keys = {t.slice.value for n in ast.walk(main) if isinstance(n, ast.Assign)
+            for t in n.targets if isinstance(t, ast.Subscript)
+            and isinstance(t.value, ast.Name) and t.value.id == 'paths'}
+    assert {'remote_store_vit_path', 'remote_store_hdfs_lm'} <= keys
+
+
+def test_remote_store_phase_launch_counts(smoke):
+    """ViT-Base's 12 layers over ``REMOTE_VIT_STEPS`` (10) steps: 10
+    normalize launches and 120 of each flash kernel; the flagship's 10
+    layers over ``HDFS_LM_STEPS`` (5): 50 of each flash kernel a read."""
+    from petastorm_tpu_torch.examples.imagenet import VIT_BASE_KW
+    from petastorm_tpu_torch.examples.lm_pretrain import FLAGSHIP_LM_KW
+    assert smoke.REMOTE_VIT_STEPS == 10
+    assert VIT_BASE_KW['n_layers'] * smoke.REMOTE_VIT_STEPS == 120
+    assert FLAGSHIP_LM_KW['n_layers'] * smoke.HDFS_LM_STEPS == 50
+    assert set(smoke.FLASH_KERNELS) == {'flash_fwd', 'flash_bwd_dkv', 'flash_bwd_dq'}
+
+
+def test_remote_store_refuses_and_records(smoke):
+    """The phase's bucket: only bucket paths, no localizing call (each
+    refusal recorded), every instance's options, read opens, nonzero
+    seeks and bytes counted, each read open a handle of its own."""
+    import fsspec
+    store = smoke._remote_store_class()
+    with smoke._gs_bound_to(store):
+        fs = fsspec.filesystem('gs', token='t')
+        with fs.open('gs://bucket/a/x', 'wb') as f:
+            f.write(b'0123456789')
+        first, second = fs.open('gs://bucket/a/x'), fs.open('/bucket/a/x')
+        first.seek(4)
+        assert first.read(3) == b'456' and second.read(2) == b'01'
+        # the written bytes are taken once, and again only after a rewrite
+        kept = store.frozen['/bucket/a/x'][1]
+        fs.open('gs://bucket/a/x').close()
+        assert store.frozen['/bucket/a/x'][1] is kept
+        with fs.open('gs://bucket/a/x', 'wb') as f:
+            f.write(b'0123456789')
+        fs.open('gs://bucket/a/x').close()
+        assert store.frozen['/bucket/a/x'][1] is not kept
+        with pytest.raises(AssertionError, match='non-bucket'):
+            fs.ls('gs://elsewhere/x')
+        with pytest.raises(AssertionError, match='localizing'):
+            fs.get('gs://bucket/a/x', '/tmp/x')
+    assert store.options == [{'token': 't'}]
+    assert store.opens == {'/bucket/a/x': 4}
+    assert store.seeks == {'/bucket/a/x': 1} and store.bytes_read == [5]
+    assert [kind for kind, _ in store.refused] == ['path', 'localizing']
+    from fsspec.registry import _registry
+    assert _registry.get('gs') is not store   # unbound again
+
+
+def test_namenodes_die_for_good_and_resolve_from_the_site_xmls(smoke, tmp_path,
+                                                                monkeypatch):
+    """``nn-a`` serves its opens, then raises ``OSError`` and refuses new
+    connections; ``nn-b`` serves. The written ``$HADOOP_HOME`` names both
+    for the port's resolver, and its proxy fails over once, logged."""
+    import logging
+
+    from petastorm_tpu_torch import hdfs
+    connect, record = smoke._namenodes(2)
+    (tmp_path / 'f').write_bytes(b'x')
+    a = connect('nn-a', 8020, None)
+    for _ in range(2):
+        with a.open(str(tmp_path / 'f'), 'rb') as f:
+            assert f.read() == b'x'
+    with pytest.raises(OSError, match='nn-a lost'):
+        a.open(str(tmp_path / 'f'), 'rb')
+    with pytest.raises(ConnectionError):
+        connect('nn-a', 8020, None)
+    assert record['opens'] == {'nn-a': 2} and record['died_in'] is not None
+
+    for var in ('HADOOP_PREFIX', 'HADOOP_INSTALL'):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv('HADOOP_HOME', smoke._hadoop_home(str(tmp_path / 'hadoop')))
+    resolver = hdfs.HdfsNamenodeResolver()
+    assert resolver.resolve_default_hdfs_service() == (smoke.HDFS_NAMESERVICE,
+                                                       list(smoke.HDFS_NAMENODES))
+    connect, record = smoke._namenodes(1)
+    monkeypatch.setattr(hdfs.HdfsConnector, '_connect_one', staticmethod(connect))
+    messages = []
+
+    class Keep(logging.Handler):
+        def emit(self, log_record):
+            messages.append(log_record.getMessage())
+
+    handler = Keep()
+    logging.getLogger(hdfs.__name__).addHandler(handler)
+    try:
+        from petastorm_tpu_torch.fs import get_filesystem_and_path_or_paths
+        fs, path = get_filesystem_and_path_or_paths(
+            'hdfs://%s%s' % (smoke.HDFS_NAMESERVICE, tmp_path / 'f'))
+        for _ in range(3):
+            with fs.open(path, 'rb') as f:
+                assert f.read() == b'x'
+    finally:
+        logging.getLogger(hdfs.__name__).removeHandler(handler)
+    assert record['opens'] == {'nn-a': 1, 'nn-b': 2}
+    assert [m for m in messages if m.startswith('HDFS failover')] == [
+        'HDFS failover: now connected to namenode nn-b:8020']
+    assert fs._namenodes[fs._active] == 'nn-b:8020'

@@ -83,7 +83,7 @@ def test_port_has_modules_to_scan():
                    ('parallel', 'collectives.py'), ('ops', 'ulysses_attention.py'),
                    ('examples', 'long_context.py'), ('serializers.py',),
                    ('workers', '__init__.py'), ('workers', 'exec_in_new_process.py'),
-                   ('workers', 'process_pool.py')):
+                   ('workers', 'process_pool.py'), ('fs.py',), ('hdfs.py',)):
         assert os.path.join('petastorm_tpu_torch', *module) in rel
     assert len(rel) > 20
 

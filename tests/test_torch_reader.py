@@ -233,23 +233,51 @@ def test_unported_kwargs_raise(synthetic_dataset, kwargs, tmp_path):
 
 # the reference's kwargs the port takes at the reference's positions, each
 # raising its own ROADMAP item; None: ported, taken and kept on the reader;
-# 'read': ported, and the reader reads the JAX reader's batches
+# 'read': ported, and the reader reads the JAX reader's batches; 'memory':
+# ported, and both readers read a memory:// copy of the dataset with it
+# (options for the memory store; an explicit MemoryFileSystem instance)
 REFERENCE_KWARGS = {
     'cache_location': ('cache', 'read'),
     'cache_size_limit': (1 << 20, 'read'),
     'cache_row_size_estimate': (1024, 'read'),
     'mixture_interleave': ({'share': 0.5}, None),
-    'storage_options': ({'anon': True}, 9),
-    'filesystem': (object(), 9),
+    'storage_options': ({'anon': True}, 'memory'),
+    'filesystem': ('instance', 'memory'),
     'max_staleness_s': (1.0, 'no-manifest'),
 }
 
 
+@pytest.fixture
+def memory_copy(synthetic_dataset, request):
+    """The synthetic dataset's files copied byte for byte into fsspec's
+    memory store, under a path of this test's own; removed after."""
+    from fsspec.implementations.memory import MemoryFileSystem
+    memory = MemoryFileSystem()
+    root = '/reader_kwargs_%s' % request.node.name.replace('[', '_').strip(']')
+    memory.put(synthetic_dataset.url[len('file://'):], root, recursive=True)
+    yield 'memory://' + root.lstrip('/')
+    memory.rm(root, recursive=True)
+
+
 @pytest.mark.parametrize('name', sorted(REFERENCE_KWARGS))
-def test_reference_kwargs_raise_their_item(synthetic_dataset, name, tmp_path):
+def test_reference_kwargs_raise_their_item(synthetic_dataset, name, tmp_path, request):
     import inspect
     value, item = REFERENCE_KWARGS[name]
-    if item == 'read':
+    if item == 'memory':
+        from fsspec.implementations.memory import MemoryFileSystem
+        url = request.getfixturevalue('memory_copy')
+        out = {}
+        for package in ('jax', 'torch'):
+            kw = {name: MemoryFileSystem(skip_instance_cache=True) if value == 'instance'
+                  else value}
+            with READERS[package](url, reader_pool_type='dummy', shuffle_row_groups=False,
+                                  schema_fields=['^id$'], **kw) as reader:
+                if name == 'filesystem':
+                    assert reader.dataset_info.fs is kw[name]
+                out[package] = [b.id.tolist() for b in reader]
+        assert out['torch'] == out['jax']
+        assert sorted(i for b in out['torch'] for i in b) == list(range(100))
+    elif item == 'read':
         # a cache kwarg without cache_type: the default null cache ignores it
         if name == 'cache_location':
             value = str(tmp_path / value)

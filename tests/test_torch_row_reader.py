@@ -181,7 +181,9 @@ def test_plain_parquet_store_warns(scalar_dataset, package):
 
 
 # the reference's kwargs that reach unported code, and the ROADMAP item each
-# raises; None: ported (the rows are the JAX reader's)
+# raises; None: ported (the rows are the JAX reader's); 'memory': ported,
+# and both readers read a memory:// copy of the dataset with it (options
+# for the memory store; an explicit MemoryFileSystem instance)
 UNPORTED_KWARGS = {
     'predicate': ('in_set', None),
     'filters': ([('id', '<', 5)], None),
@@ -192,8 +194,8 @@ UNPORTED_KWARGS = {
     'rowgroup_selector': ('id_index', None),
     'reader_pool_type': ('process', None),
     'poison_policy': ('skip', 9),
-    'storage_options': ({'anon': True}, 9),
-    'filesystem': (object(), 9),
+    'storage_options': ({'anon': True}, 'memory'),
+    'filesystem': ('instance', 'memory'),
 }
 
 
@@ -204,7 +206,27 @@ def test_unported_kwargs_raise_their_item(synthetic_dataset, name, tmp_path):
         name, (value, item) = 'reader_pool_type', ('service', 9)
     else:
         value, item = UNPORTED_KWARGS[name]
-    if item is None:
+    if item == 'memory':
+        from fsspec.implementations.memory import MemoryFileSystem
+        memory = MemoryFileSystem()
+        root = '/row_reader_kwargs_%s' % name
+        memory.put(synthetic_dataset.url[len('file://'):], root, recursive=True)
+        try:
+            ids = {}
+            for package in ('jax', 'torch'):
+                kw = {name: MemoryFileSystem(skip_instance_cache=True) if value == 'instance'
+                      else value}
+                with READERS[package]('memory://' + root.lstrip('/'),
+                                      reader_pool_type='dummy', shuffle_row_groups=False,
+                                      schema_fields=['^id$'], **kw) as reader:
+                    if name == 'filesystem':
+                        assert reader.dataset_info.fs is kw[name]
+                    ids[package] = [int(r.id) for r in reader]
+        finally:
+            memory.rm(root, recursive=True)
+        assert ids['torch'] == ids['jax']
+        assert sorted(ids['torch']) == list(range(100))
+    elif item is None:
         from petastorm_tpu import predicates as jax_predicates
         from petastorm_tpu import selectors as jax_selectors
         from petastorm_tpu_torch import predicates as torch_predicates

@@ -429,6 +429,37 @@ def test_no_item_10_is_left():
     assert items == {9, 11}
 
 
+def test_what_is_left_of_item_9_is_the_service():
+    """ROADMAP items 9a (the process pool) and 9b (filesystems) are done:
+    ``fs.py`` and ``hdfs.py`` raise no ``unported``, and every
+    ``unported(..., 9)`` left in the port names the service."""
+    import ast
+    import os
+    from petastorm_tpu_torch import errors
+    assert 'service' in errors.ROADMAP_ITEMS[9]
+    root = os.path.dirname(os.path.abspath(petastorm_tpu_torch.__file__))
+    left = {}
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if not name.endswith('.py'):
+                continue
+            path = os.path.join(dirpath, name)
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            for node in ast.walk(tree):
+                if (isinstance(node, ast.Call) and getattr(node.func, 'id', None) == 'unported'
+                        and len(node.args) == 2 and isinstance(node.args[1], ast.Constant)
+                        and node.args[1].value == 9):
+                    left['%s:%d' % (os.path.relpath(path, root), node.lineno)] = \
+                        ast.unparse(node.args[0])
+    assert not [where for where in left if where.split(':')[0] in ('fs.py', 'hdfs.py')], left
+    assert sorted(where.split(':')[0] for where in left) == [
+        os.path.join('mixture', 'engine.py'), 'reader.py', 'reader.py',
+        os.path.join('write', 'writer.py')], left
+    for where, feature in left.items():
+        assert 'service' in feature.lower(), (where, feature)
+
+
 @pytest.mark.parametrize('module,names', [
     ('errors', ('MetadataGenerationError', 'MetadataError', 'NoDataAvailableError')),
     ('etl', ('RowGroupIndexerBase',)),

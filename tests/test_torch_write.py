@@ -402,9 +402,24 @@ class TestDatasetWriterLifecycle:
                                                   filesystem=fsspec.filesystem('file')) as w:
             w.write_row_dicts(_rows(5))
         assert len(w.paths_written) == 1
-        with pytest.raises(NotImplementedError, match=r'ROADMAP.md: Queue 1 item 9,'):
-            PACKAGES['torch'].meta.DatasetWriter(url, PACKAGES['torch'].schema,
-                                                 filesystem=fsspec.filesystem('memory'))
+        # any fsspec instance since remote storage was ported: a scheme it
+        # does not serve is refused, a bare path writes through it, as in
+        # the JAX package
+        memory = fsspec.filesystem('memory', skip_instance_cache=True)
+        root = '/writer_takes_%s' % tmp_path.name
+        try:
+            for package in PACKAGES.values():
+                with pytest.raises(ValueError, match='does not match'):
+                    package.meta.DatasetWriter(url, package.schema, filesystem=memory)
+                with package.meta.DatasetWriter('%s/%s' % (root, package.name), package.schema,
+                                                filesystem=memory) as w:
+                    w.write_row_dicts(_rows(5))
+                assert [p.startswith(root) for p in w.paths_written] == [True]
+            assert ({p.rsplit('/', 1)[1] for p in memory.find('%s/torch' % root)}
+                    == {p.rsplit('/', 1)[1] for p in memory.find('%s/jax' % root)})
+        finally:
+            if memory.exists(root):
+                memory.rm(root, recursive=True)
 
 
 # -- backend byte parity ---------------------------------------------------------
