@@ -459,6 +459,26 @@ outlives its phase.
     on ``nn-b``, batch checksums and losses equal, each flash kernel
     launched layers x steps times in each. Images/s beside ``vit_path``'s,
     the bytes the store served and the phase seconds are printed.
+49. ``service_vit_path`` (after ``remote_store_vit_path``; configuration
+    vit-imagenetlike-service): the ViT rows through the port's decode
+    service (``reader_pool_type='service'``: a dispatcher in this process,
+    ``SERVICE_WORKERS`` worker servers spawned on loopback ``tcp://``).
+    (a) One epoch on the thread pool and one on the service, seed 0:
+    ``(label, crc32 of the pixels)`` equal as multisets. (b) The next
+    epoch through a fleet of the same size (``SERVICE_DRILL_TIMING``'s
+    heartbeats), one worker server SIGKILLed after ``SERVICE_KILL_AFTER``
+    batches: the epoch's multiset is still the thread pool's (no row lost
+    or delivered twice), ``petastorm_tpu_service_reventilated_total`` is
+    at least 1 and nothing is quarantined. (c) ``train_vit_fused(...,
+    reader_pool_type='service', workers_count=SERVICE_WORKERS)``,
+    ``SERVICE_VIT_STEPS`` steps of ViT-Base: normalize once a step and 12
+    launches of each flash kernel a step, all on bf16; no worker-server
+    pid among ``nvidia-smi``'s compute apps and none with ``libcuda.so``
+    mapped while it runs (``_CardWatch``, as in ``process_vit_path``);
+    ``io`` and ``decode`` seconds in this process's registry through the
+    DONE frames' deltas; no worker server left after the join. Images/s
+    beside ``vit_path``'s (a ratio, no gate), the fleet's start-up seconds,
+    the report's ``service`` section and the drill's seconds are printed.
 ``--trace-dir DIR`` keeps the two Chrome traces in ``DIR``.
 
 The rank phases (24, 42-46) run one after another on one pool of
@@ -681,6 +701,12 @@ HDFS_NAMESERVICE = 'smokens'
 HDFS_NAMENODES = ('nn-a:8020', 'nn-b:8020')
 HDFS_NN_A_OPENS = 6          # opens nn-a serves before it dies for good
 HDFS_LM_STEPS = 5
+SERVICE_WORKERS = 4          # service_vit_path: the spawned worker servers
+SERVICE_VIT_STEPS = 10
+SERVICE_KILL_AFTER = 4       # batches of the drill's epoch before the SIGKILL
+# the drill's heartbeats: a killed server's items re-ventilate about a
+# second after its last one
+SERVICE_DRILL_TIMING = dict(heartbeat_interval_s=0.25, liveness_timeout_s=1.0)
 # dp-lm: two gloo ranks on the one card feed the flagship
 # KV-cache decoding and MoE
 GEN_REFERENCE_KW = dict(vocab_size=32, d_model=16, n_heads=2, n_layers=2, d_ff=32,
@@ -4516,10 +4542,43 @@ def _maps_libcuda(pid):
         return False
 
 
-def _pool_rows(url, pool_type, workers, batches=None, **reader_kwargs):
+class _CardWatch:
+    """Every 0.5 s until the block ends, samples ``alive()`` (a pool's live
+    worker count, or None before the pool exists), ``nvidia-smi``'s compute
+    pids and which of the pids ``pids()`` names have ``libcuda.so`` mapped:
+    the proof that decode processes stay off the card."""
+
+    def __init__(self, pids, alive):
+        self._pids, self._alive = pids, alive
+        self.sampled = {'workers_alive': [], 'card_pids': set(), 'cuda_mapped': set()}
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._watch, name='card-watch', daemon=True)
+
+    def _watch(self):
+        while not self._done.is_set():
+            alive = self._alive()
+            if alive is not None:
+                self.sampled['workers_alive'].append(alive)
+                self.sampled['card_pids'] |= _nvidia_smi_compute_pids()
+                for pid in self._pids():
+                    if _maps_libcuda(pid):
+                        self.sampled['cuda_mapped'].add(pid)
+            self._done.wait(0.5)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._done.set()
+        self._thread.join()
+
+
+def _pool_rows(url, pool_type, workers, batches=None, on_batch=None, **reader_kwargs):
     """``(label, crc32 of the uint8 pixels)`` of each row the loader gives
     on ``pool_type`` with ``workers`` workers, shuffled with seed 0, by
-    batch: the first ``batches`` or one epoch."""
+    batch: the first ``batches`` or one epoch. ``on_batch(n)`` runs after
+    the ``n``-th batch (from 1)."""
     import zlib
     from petastorm_tpu_torch.device.loader import make_torch_loader
     out = []
@@ -4532,9 +4591,15 @@ def _pool_rows(url, pool_type, workers, batches=None, **reader_kwargs):
             labels = batch['label'].cpu().numpy()
             out.append([(int(label), zlib.crc32(image.tobytes()))
                         for image, label in zip(images, labels)])
+            if on_batch is not None:
+                on_batch(len(out))
             if batches is not None and len(out) == batches:
                 break
     return out
+
+
+def _multiset(batches):
+    return collections.Counter(row for batch in batches for row in batch)
 
 
 def phase_process_vit_path(url, image_codec, vit_images_per_s, tmp):
@@ -4563,11 +4628,8 @@ def phase_process_vit_path(url, image_codec, vit_images_per_s, tmp):
              for kind in ('thread', 'process')}
     epoch = {kind: _pool_rows(url, kind, PROCESS_WORKERS) for kind in ('thread', 'process')}
 
-    def multiset(batches):
-        return collections.Counter(row for batch in batches for row in batch)
-
     # 2. ViT-Base trained from a process-pool read, its pools and the card watched
-    pools, sampled = [], {'workers_alive': [], 'card_pids': set(), 'cuda_mapped': set()}
+    pools = []
     start = process_pool.ProcessPool.start
     launch = flash_attention._launch
     dtypes = collections.Counter()
@@ -4582,35 +4644,23 @@ def phase_process_vit_path(url, image_codec, vit_images_per_s, tmp):
         dtypes[str(q.dtype)] += 1
         return launch(fn, name, pointers, tensors, q, *args)
 
-    done = threading.Event()
-
-    def watch():
-        while not done.is_set():
-            if pools:
-                sampled['workers_alive'].append(pools[-1]['pool'].diagnostics['workers_alive'])
-                sampled['card_pids'] |= _nvidia_smi_compute_pids()
-                for pid in pools[-1]['pids']:
-                    if _maps_libcuda(pid):
-                        sampled['cuda_mapped'].add(pid)
-            done.wait(0.5)
-
     fresh_telemetry()
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     process_pool.ProcessPool.start = recording_start
     flash_attention._launch = recording_launch
-    watcher = threading.Thread(target=watch, name='process-vit-watch', daemon=True)
-    watcher.start()
+    watch = _CardWatch(lambda: pools[-1]['pids'] if pools else (),
+                       lambda: pools[-1]['pool'].diagnostics['workers_alive'] if pools else None)
     try:
-        result = train_vit_fused(url, steps=PROCESS_VIT_STEPS, batch_size=VIT_BATCH,
-                                 device='cuda', reader_pool_type='process',
-                                 workers_count=PROCESS_WORKERS)
-        torch.cuda.synchronize()
+        with watch:
+            result = train_vit_fused(url, steps=PROCESS_VIT_STEPS, batch_size=VIT_BATCH,
+                                     device='cuda', reader_pool_type='process',
+                                     workers_count=PROCESS_WORKERS)
+            torch.cuda.synchronize()
     finally:
-        done.set()
-        watcher.join()
         process_pool.ProcessPool.start = start
         flash_attention._launch = launch
+    sampled = watch.sampled
     launches = launch_counts()
     stages = stage_seconds()
     counters = _readahead_section()
@@ -4677,18 +4727,18 @@ def phase_process_vit_path(url, image_codec, vit_images_per_s, tmp):
                      'first_rows': sum(len(b) for b in first['process']),
                      'first_equal_in_order': first['thread'] == first['process'],
                      'epoch_rows': sum(len(b) for b in epoch['process']),
-                     'epoch_multisets_equal': multiset(epoch['thread'])
-                     == multiset(epoch['process'])},
+                     'epoch_multisets_equal': _multiset(epoch['thread'])
+                     == _multiset(epoch['process'])},
           'write': {'rows': PROCESS_WRITE_ROWS, 'seconds': write_s,
                     'parts_and_manifest_equal': file_hashes['thread'] == file_hashes['process'],
                     'files': len(file_hashes['process']),
                     'read_back_equal': read_back == source},
           'seconds': time.perf_counter() - t_phase})
     assert len(first['process']) == PROCESS_PARITY_BATCHES, len(first['process'])
-    assert multiset(first['thread']) == multiset(first['process'])
+    assert _multiset(first['thread']) == _multiset(first['process'])
     assert first['thread'] == first['process']
     assert sum(len(b) for b in epoch['process']) == VIT_ROWS
-    assert multiset(epoch['thread']) == multiset(epoch['process'])
+    assert _multiset(epoch['thread']) == _multiset(epoch['process'])
     assert len(losses) == PROCESS_VIT_STEPS and all(math.isfinite(v) for v in losses), losses
     assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
     assert launches['normalize_images'] == PROCESS_VIT_STEPS, launches
@@ -5006,10 +5056,6 @@ def phase_remote_store_vit_path(vit_url, lm_url, image_codec, vit_images_per_s, 
         os.environ.pop('HADOOP_HOME')
         os.environ.update({var: value for var, value in saved_env.items() if value is not None})
     active = [p._namenodes[p._active] for p in proxies]
-
-    def multiset(batches):
-        return collections.Counter(row for batch in batches for row in batch)
-
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(on_hdfs['result']['losses'],
                                                         on_file['result']['losses']))
     emit({'phase': 'remote_store_vit_path', 'config': 'vit-imagenetlike-gs',
@@ -5030,7 +5076,7 @@ def phase_remote_store_vit_path(vit_url, lm_url, image_codec, vit_images_per_s, 
                     'refused': refused},
           'readahead': {'epoch': epoch_readahead, 'train': train_readahead},
           'epoch': {'rows': sum(len(b) for b in epoch['gs']),
-                    'multisets_equal': multiset(epoch['gs']) == multiset(epoch['file']),
+                    'multisets_equal': _multiset(epoch['gs']) == _multiset(epoch['file']),
                     'images_per_s': {k: VIT_ROWS / v for k, v in epoch_s.items()}},
           'hdfs': {'config': 'lm-c4like-flagship over hdfs://%s' % HDFS_NAMESERVICE,
                    'namenodes': list(HDFS_NAMENODES), 'nn_a_opens': HDFS_NN_A_OPENS,
@@ -5047,7 +5093,7 @@ def phase_remote_store_vit_path(vit_url, lm_url, image_codec, vit_images_per_s, 
           'seconds': time.perf_counter() - t_phase})
     # (b): the bucket's epoch is the local copy's, ViT-Base trained through the kernels
     assert sum(len(b) for b in epoch['gs']) == VIT_ROWS
-    assert multiset(epoch['gs']) == multiset(epoch['file'])
+    assert _multiset(epoch['gs']) == _multiset(epoch['file'])
     assert len(losses) == REMOTE_VIT_STEPS and all(math.isfinite(v) for v in losses), losses
     assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
     assert launches['normalize_images'] == REMOTE_VIT_STEPS, launches
@@ -5078,6 +5124,205 @@ def phase_remote_store_vit_path(vit_url, lm_url, image_codec, vit_images_per_s, 
     left = _threads_left(threads_before)
     assert not left, left
     return {'vit': launches, 'hdfs_lm': on_hdfs['launches']}
+
+
+def phase_service_vit_path(url, image_codec, vit_images_per_s):
+    """vit-imagenetlike-384 through the port's decode service (module
+    docstring, phase 49)."""
+    from petastorm_tpu_torch.service import ServicePool
+    t_phase = time.perf_counter()
+    threads_before = _port_threads()
+    # every fleet's start-up seconds (spawn and registration) and pids
+    pools = []
+    start = ServicePool.start
+
+    def recording_start(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        start(self, *args, **kwargs)
+        pools.append({'pool': self, 'startup_s': time.perf_counter() - t0,
+                      'pids': [p.pid for p in self._local_procs]})
+
+    ServicePool.start = recording_start
+    try:
+        return _service_vit_runs(url, image_codec, vit_images_per_s, t_phase, threads_before,
+                                 pools)
+    finally:
+        ServicePool.start = start
+
+
+def _service_vit_runs(url, image_codec, vit_images_per_s, t_phase, threads_before, pools):
+    """``phase_service_vit_path``'s reads, drill, training and gates; every
+    fleet's start is recorded in ``pools``."""
+    import signal
+
+    import psutil
+    from petastorm_tpu_torch import telemetry
+    from petastorm_tpu_torch.examples.imagenet import VIT_BASE_KW, train_vit_fused
+    from petastorm_tpu_torch.ops import flash_attention
+    from petastorm_tpu_torch.service import ServicePool
+    from petastorm_tpu_torch.service.dispatcher import SERVICE_REVENTILATED
+    # (a) one epoch on the thread pool and one through SERVICE_WORKERS spawned
+    # worker servers on loopback tcp://, each timed (the service's with its
+    # fleet's start-up)
+    epoch, epoch_s = {}, {}
+    for kind in ('thread', 'service'):
+        t0 = time.perf_counter()
+        epoch[kind] = _pool_rows(url, kind, SERVICE_WORKERS)
+        epoch_s[kind] = time.perf_counter() - t0
+    # (b) the next epoch through a fleet of the same size: after the first
+    # batches, the first worker server seen holding an item in flight is
+    # SIGKILLed (the workers only read and ship encoded cells, and wait on
+    # the consumer most of the time, so a worker picked blindly may own
+    # nothing to re-ventilate)
+    fresh_telemetry()
+    drill_pool = ServicePool(spawn_local_workers=SERVICE_WORKERS, **SERVICE_DRILL_TIMING)
+    consumed, armed, finished, killed = [0], threading.Event(), threading.Event(), {}
+
+    def on_batch(batches):
+        consumed[0] = batches
+        if batches == SERVICE_KILL_AFTER:
+            armed.set()
+
+    def killer():
+        armed.wait()
+        deadline = time.monotonic() + CHAOS_DEADLINE_S
+        dispatcher = drill_pool._dispatcher
+        while dispatcher is not None and not finished.is_set() \
+                and time.monotonic() < deadline:
+            for pid in sorted(dispatcher.alive_worker_pids()):
+                inflight = dispatcher.worker_inflight_by_pid(pid)
+                if inflight:
+                    os.kill(pid, signal.SIGKILL)
+                    killed.update(pid=pid, inflight=inflight, after_batches=consumed[0])
+                    return
+            time.sleep(0.0005)
+
+    kill_thread = threading.Thread(target=killer, name='service-drill-kill', daemon=True)
+    kill_thread.start()
+    t0 = time.perf_counter()
+    try:
+        drill = _pool_rows(url, drill_pool, SERVICE_WORKERS, on_batch=on_batch)
+    finally:
+        finished.set()
+        armed.set()
+        kill_thread.join()
+    drill_s = time.perf_counter() - t0
+    registry = telemetry.get_registry()
+    reventilated = registry.counter_value(SERVICE_REVENTILATED)
+    drill_diag = drill_pool.diagnostics
+    drill_report = telemetry.pipeline_report().get('service')
+    thread_rows, drill_rows = _multiset(epoch['thread']), _multiset(drill)
+    # (c) ViT-Base trained from the service, its fleet and the card watched
+    fleets_before = len(pools)
+    launch = flash_attention._launch
+    dtypes = collections.Counter()
+
+    def recording_launch(fn, name, pointers, tensors, q, *args):
+        dtypes[str(q.dtype)] += 1
+        return launch(fn, name, pointers, tensors, q, *args)
+
+    fresh_telemetry()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention._launch = recording_launch
+
+    def trained():
+        return pools[fleets_before:]
+
+    watch = _CardWatch(lambda: trained()[-1]['pids'] if trained() else (),
+                       lambda: trained()[-1]['pool'].diagnostics['workers_alive'] if trained()
+                       else None)
+    try:
+        with watch:
+            result = train_vit_fused(url, steps=SERVICE_VIT_STEPS, batch_size=VIT_BATCH,
+                                     device='cuda', reader_pool_type='service',
+                                     workers_count=SERVICE_WORKERS)
+            torch.cuda.synchronize()
+    finally:
+        flash_attention._launch = launch
+    launches = launch_counts()
+    stages = stage_seconds()
+    service = telemetry.pipeline_report().get('service')
+    (train_pool,) = trained()
+    worker_pids = set(train_pool['pids'])
+    sampled = watch.sampled
+    children = {}
+    for child in psutil.Process().children(recursive=True):
+        try:
+            children[child.pid] = ' '.join(child.cmdline())
+        except psutil.Error:  # gone since it was listed
+            pass
+    fleet_children = sorted(pid for pid, cmd in children.items()
+                            if 'exec_in_new_process' in cmd or pid in worker_pids)
+    losses = result['losses']
+    emit({'phase': 'service_vit_path', 'config': 'vit-imagenetlike-service',
+          'entry': "train_vit_fused(reader_pool_type='service') -> make_torch_loader -> "
+                   'ServicePool (dispatcher, worker servers over tcp://) -> normalize -> '
+                   'ViT-Base',
+          'model': VIT_BASE_KW, 'image_codec': image_codec, 'workers': SERVICE_WORKERS,
+          'steps': len(losses), 'batch_size': VIT_BATCH, 'losses': losses,
+          'launches': launches, 'launch_dtypes': dict(dtypes),
+          'images_per_s': result['images_per_s'], 'vit_path_images_per_s': vit_images_per_s,
+          'over_vit_path': result['images_per_s'] / vit_images_per_s,
+          'worker_startup_s': train_pool['startup_s'],
+          'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+          'fused_decode_mode': result['diagnostics']['fused_decode_mode'],
+          'consumer_wait_s': result['diagnostics']['consumer_wait_s'],
+          'stage_seconds': stages, 'service': service,
+          'card_pids_seen': sorted(sampled['card_pids']),
+          'workers_with_libcuda': sorted(sampled['cuda_mapped']),
+          'consumer_has_libcuda': _maps_libcuda(os.getpid()),
+          'workers_alive_while_running': sorted(set(sampled['workers_alive'])),
+          'fleet_children_left': fleet_children,
+          'parity': {'epoch_rows': sum(len(b) for b in epoch['service']),
+                     'epoch_multisets_equal': thread_rows == _multiset(epoch['service']),
+                     'epoch_seconds': epoch_s,
+                     'service_fleet_startup_s': pools[0]['startup_s'],
+                     'images_per_s': {
+                         'thread': VIT_ROWS / epoch_s['thread'],
+                         'service_after_startup': VIT_ROWS / (epoch_s['service']
+                                                              - pools[0]['startup_s'])}},
+          'kill_drill': {'killed': killed, 'rows': sum(drill_rows.values()),
+                         'multisets_equal': drill_rows == thread_rows,
+                         'reventilated': reventilated,
+                         'items_retried': drill_diag['items_retried'],
+                         'items_poisoned': drill_diag['items_poisoned'],
+                         'workers_seen': drill_diag['workers_seen'],
+                         'service_report': drill_report, 'seconds': drill_s,
+                         'fleet_startup_s': pools[1]['startup_s']},
+          'seconds': time.perf_counter() - t_phase})
+    assert sum(len(b) for b in epoch['service']) == VIT_ROWS
+    assert _multiset(epoch['service']) == thread_rows
+    # (b): exact through the kill, re-ventilated, nothing twice
+    assert killed.get('after_batches', 0) >= SERVICE_KILL_AFTER, killed
+    assert sum(drill_rows.values()) == VIT_ROWS
+    assert drill_rows == thread_rows
+    assert max(drill_rows.values()) <= max(thread_rows.values())
+    assert reventilated >= 1, reventilated
+    assert drill_diag['items_poisoned'] == 0, drill_diag
+    # (c)
+    assert len(losses) == SERVICE_VIT_STEPS and all(math.isfinite(v) for v in losses), losses
+    assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
+    assert launches['normalize_images'] == SERVICE_VIT_STEPS, launches
+    want = VIT_BASE_KW['n_layers'] * SERVICE_VIT_STEPS
+    for name in FLASH_KERNELS:
+        assert launches[name] == want, (name, launches[name], want)
+    # bf16 inputs dispatch to the wgmma instances (the build phase checks them)
+    assert dtypes == {'torch.bfloat16': 3 * want}, dtypes
+    assert len(worker_pids) == SERVICE_WORKERS, train_pool
+    assert not worker_pids & sampled['card_pids'], (worker_pids, sampled['card_pids'])
+    assert not sampled['cuda_mapped'], sampled['cuda_mapped']
+    assert SERVICE_WORKERS in sampled['workers_alive'], sampled['workers_alive']
+    # the libcuda check can see a context: this process holds one
+    assert _maps_libcuda(os.getpid())
+    assert not fleet_children, children
+    assert not [pid for pid in worker_pids if psutil.pid_exists(pid)], worker_pids
+    # io and decode run only in the worker servers: their seconds came back
+    # in the DONE frames' deltas
+    assert stages.get('io', 0) > 0 and stages.get('decode', 0) > 0, stages
+    left = _threads_left(threads_before)
+    assert not left, left
+    return launches
 
 
 def _card_model(model_class, config, *args):
@@ -6400,6 +6645,8 @@ def main(argv=None):
                         vit_images_per_s, tmp)
         paths['remote_store_vit_path'] = remote['vit']
         paths['remote_store_hdfs_lm'] = remote['hdfs_lm']
+        paths['service_vit_path'] = _phase(phase_service_vit_path, vit_url, image_codec,
+                                           vit_images_per_s)
         # the rank phases, one after another on the rank pool's processes
         try:
             paths['dp_lm_path'] = _phase(phase_dp_lm_path, lm_url, lm_tokens_per_s)

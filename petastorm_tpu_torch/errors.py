@@ -1,6 +1,5 @@
 """Exception types for petastorm_tpu_torch (counterpart of
-``petastorm_tpu/errors.py``; the service-pool errors wait for the port of
-the service pool)."""
+``petastorm_tpu/errors.py``)."""
 
 
 class PetastormTpuError(Exception):
@@ -24,10 +23,35 @@ class DecodeFieldError(PetastormTpuError):
     """A field value failed codec decode."""
 
 
+class RowGroupPoisonedError(PetastormTpuError):
+    """A service work item exhausted its retry budget and was quarantined.
+
+    Raised by :class:`~petastorm_tpu_torch.service.service_pool.ServicePool`
+    under ``poison_policy='raise'`` when the dispatcher quarantines an item
+    whose failures carried no worker exception (a row-group that kills its
+    workers rather than erroring). ``info`` is the dispatcher's quarantine
+    descriptor (item id, attempts, reason)."""
+
+    def __init__(self, message, info=None):
+        super().__init__(message)
+        self.info = info or {}
+
+
+class ServiceWedgedError(PetastormTpuError):
+    """A service consumer read made no progress for the configured deadline
+    while work was outstanding (``PETASTORM_TPU_SERVICE_READ_DEADLINE_S``).
+    ``fleet`` carries the dispatcher's live fleet view at raise time
+    (per-worker liveness, in-flight loads, queue state)."""
+
+    def __init__(self, message, fleet=None):
+        super().__init__(message)
+        self.fleet = fleet or {}
+
+
 #: ``ROADMAP.md`` Queue 1 items the port has not reached yet, by number
 #: (done items leave gaps: numbers are never reused)
 ROADMAP_ITEMS = {
-    9: 'the service pool',
+    9: 'the standing decode service',
     11: 'bridges, benchmark, examples and test utilities',
 }
 

@@ -299,12 +299,14 @@ def build_source_readers(spec, num_epochs=1, reader_pool_type='thread',
     Each reader gets a per-source seed derived from the spec seed (so
     two sources over the same files do not march in lock-step) and the
     source's exact interleave share as ``mixture_interleave=``, which
-    scales the source's readahead depth. Sources on a standing decode daemon
-    (``reader_pool_type='service'``) are ROADMAP item 9.
+    scales the source's readahead depth. With ``reader_pool_type='service'``
+    each source reader hosts its own embedded decode service; sources on a
+    standing decode daemon (``PETASTORM_TPU_SERVICE_DAEMON``, each its own
+    QoS-weighted job in the reference) are ROADMAP item 9.
     """
     from petastorm_tpu_torch.reader import make_batch_reader
-    if reader_pool_type == 'service':
-        raise unported("mixture sources on a decode daemon (reader_pool_type='service')", 9)
+    if reader_pool_type == 'service' and knobs.get_str('PETASTORM_TPU_SERVICE_DAEMON'):
+        raise unported('mixture sources on a decode daemon (PETASTORM_TPU_SERVICE_DAEMON)', 9)
     shares = InterleaveSchedule(spec.weights, seed=spec.seed).fractions
     readers = []
     try:

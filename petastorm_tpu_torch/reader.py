@@ -1,7 +1,8 @@
 """Reader: the read-path front end, ``make_reader`` and
 ``make_batch_reader``.
 
-Counterpart of ``petastorm_tpu/reader.py`` on the dummy, thread and process pools.
+Counterpart of ``petastorm_tpu/reader.py`` on the dummy, thread, process and
+service pools.
 It opens a (materialized or plain) Parquet dataset, enumerates its
 row-groups, prunes them against ``filters=``/``predicate=`` (partition
 values before sharding, footer statistics after, see
@@ -69,13 +70,6 @@ _VENTILATE_EXTRA_ROWGROUPS = 2
 _PULL_NOTE_FLOOR_S = 0.01
 
 
-def _refuse_unported(poison_policy):
-    """Raise the ``unported`` error of a reference kwarg that is set and
-    reaches code the port lacks."""
-    if poison_policy is not None:
-        raise unported('poison_policy= (service pools only)', 9)
-
-
 def _make_cache(cache_type, location, size_limit, row_size_estimate, predicate=None):
     """The reader's cache. The default ``'null'`` becomes ``'decoded'``
     when ``PETASTORM_TPU_DECODED_CACHE=1`` (an implicit upgrade): a
@@ -135,7 +129,6 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
     Use :func:`make_batch_reader` for plain Parquet stores or column-batch
     output.
     """
-    _refuse_unported(poison_policy)
     info = ParquetDatasetInfo(dataset_url, storage_options, filesystem=filesystem)
     try:
         get_schema(info)
@@ -154,7 +147,7 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
                   cache=_make_cache(cache_type, cache_location, cache_size_limit,
                                     cache_row_size_estimate, predicate=predicate),
                   transform_spec=transform_spec, ngram=ngram, filters=filters,
-                  batched_output=False)
+                  batched_output=False, poison_policy=poison_policy)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None,
@@ -172,10 +165,21 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
     over any Parquet store, petastorm metadata or not.
 
     :param schema_fields: field names/regexes to read (None: all).
-    :param reader_pool_type: ``'thread'``, ``'dummy'`` (synchronous,
+    :param reader_pool_type: ``'thread'``, ``'process'`` (spawned decode
+        processes), ``'service'`` (worker servers over ZeroMQ ``tcp://``:
+        an external fleet registering with a dispatcher bound at
+        ``PETASTORM_TPU_SERVICE_DISPATCHER``, waiting for
+        ``PETASTORM_TPU_SERVICE_WORKERS`` of them, or else
+        ``workers_count`` spawned on loopback; see
+        :mod:`petastorm_tpu_torch.service`), ``'dummy'`` (synchronous,
         deterministic order) or a pool instance (any object with ``start``,
         ``ventilate``, ``get_results``, ``stop``, ``join``,
         ``workers_count`` and ``diagnostics``).
+    :param poison_policy: service pools only: what a quarantined
+        (retry-budget-exhausted) row-group does to this reader: ``'raise'``
+        (the default) surfaces the poison; ``'skip'`` reads past it, with
+        the loss recorded on the pool's ``poisoned_items`` and the
+        dispatcher's ``/health``. Another pool raises ``ValueError``.
     :param shuffle_row_groups: permute the row-group order each epoch,
         from ``seed``.
     :param shuffle_row_drop_partitions: split each row-group into this
@@ -233,7 +237,6 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
     positions; each one set raises ``NotImplementedError`` naming the
     ``ROADMAP.md`` item that ports it.
     """
-    _refuse_unported(poison_policy)
     if mixture_interleave is not None:
         share = float(mixture_interleave.get('share', 1.0))
         if not 0.0 < share <= 1.0:
@@ -259,35 +262,67 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None,
                   cache=_make_cache(cache_type, cache_location, cache_size_limit,
                                     cache_row_size_estimate, predicate=predicate),
                   transform_spec=transform_spec, filters=filters,
-                  defer_image_decode=defer_image_decode,
+                  defer_image_decode=defer_image_decode, poison_policy=poison_policy,
                   mixture_interleave=mixture_interleave)
 
 
-def _make_pool(reader_pool_type, workers_count, results_queue_size):
+def _make_pool(reader_pool_type, workers_count, results_queue_size, poison_policy=None):
+    if poison_policy not in (None, 'raise', 'skip'):
+        raise ValueError("poison_policy must be 'raise' or 'skip'; got %r" % (poison_policy,))
     if not isinstance(reader_pool_type, str):
-        # a pool instance: any object with the pool contract, e.g. one
-        # configured with what a string cannot carry
+        # a pool instance: any object with the pool contract, e.g. a
+        # ServicePool configured with what a string cannot carry
         pool = reader_pool_type
         missing = [m for m in ('start', 'ventilate', 'get_results', 'stop', 'join',
                                'workers_count', 'diagnostics') if not hasattr(pool, m)]
         if missing:
             raise ValueError('reader_pool_type instance %r lacks pool contract member(s) %s'
                              % (pool, missing))
+        if poison_policy is not None:
+            if not hasattr(pool, 'poison_policy'):
+                # dropping the policy silently would surprise exactly when
+                # a poison arrives
+                raise ValueError('poison_policy given but pool instance %r has no '
+                                 'poison_policy support' % (pool,))
+            pool.poison_policy = poison_policy
         return pool
-    if reader_pool_type == 'service':
-        raise unported("reader_pool_type='service'", 9)
+    if poison_policy is not None and reader_pool_type != 'service':
+        # local pools have no quarantine: a worker error raises directly
+        raise ValueError("poison_policy is only supported with reader_pool_type='service'")
     if reader_pool_type == 'dummy':
         return DummyPool()
-    if reader_pool_type not in ('thread', 'process'):
-        raise ValueError("reader_pool_type must be 'thread', 'process' or 'dummy'; got %r"
-                         % (reader_pool_type,))
+    if reader_pool_type not in ('thread', 'process', 'service'):
+        raise ValueError("reader_pool_type must be one of 'thread', 'process', 'service', "
+                         "'dummy' (or a pool instance); got %r" % (reader_pool_type,))
     if workers_count is None:
         # decode needs a core each: more workers than cores only thrash
         workers_count = max(1, min(4, os.cpu_count() or 1))
     if reader_pool_type == 'process':
         from petastorm_tpu_torch.workers.process_pool import ProcessPool
         return ProcessPool(workers_count, results_queue_size)
+    if reader_pool_type == 'service':
+        return _make_service_pool(workers_count, results_queue_size, poison_policy or 'raise')
     return ThreadPool(workers_count, results_queue_size)
+
+
+def _make_service_pool(workers_count, results_queue_size, poison_policy):
+    """The decode service's pool: with ``PETASTORM_TPU_SERVICE_DISPATCHER``
+    set the dispatcher binds there and an external fleet registers with it
+    (``start`` waits for ``PETASTORM_TPU_SERVICE_WORKERS`` of them, default
+    one); else ``workers_count`` worker servers are spawned on loopback."""
+    from petastorm_tpu_torch.service import ServicePool
+    if knobs.get_str('PETASTORM_TPU_SERVICE_DAEMON'):
+        raise unported('the standing decode service (PETASTORM_TPU_SERVICE_DAEMON)', 9)
+    endpoint = knobs.get_str('PETASTORM_TPU_SERVICE_DISPATCHER') or None
+    if endpoint:
+        # workers_count sizes LOCAL decode parallelism; an external fleet's
+        # size is its operator's
+        expected = knobs.get_str('PETASTORM_TPU_SERVICE_WORKERS') or None
+        return ServicePool(endpoint=endpoint,
+                           expected_workers=int(expected) if expected else None,
+                           results_queue_size=results_queue_size, poison_policy=poison_policy)
+    return ServicePool(spawn_local_workers=workers_count, results_queue_size=results_queue_size,
+                       poison_policy=poison_policy)
 
 
 class Reader:
@@ -308,7 +343,6 @@ class Reader:
                  ngram=None, filters=None, batched_output=True,
                  defer_image_decode=False, poison_policy=None,
                  mixture_interleave=None):
-        _refuse_unported(poison_policy)
         self.dataset_info = dataset_info
         self.mixture_interleave = mixture_interleave
         self.batched_output = batched_output and ngram is None
@@ -413,7 +447,8 @@ class Reader:
             self._pruned_items = frozenset(it['item_index'] for it in items
                                            if it['piece_index'] in pruned_pieces)
 
-        self._pool = _make_pool(reader_pool_type, workers_count, results_queue_size)
+        self._pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
+                                poison_policy=poison_policy)
         self._num_epochs = num_epochs
         self._shuffle_row_groups = shuffle_row_groups
         # the resume epoch's already-consumed items, which never ventilate

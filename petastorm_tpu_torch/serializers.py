@@ -1,11 +1,14 @@
-"""The process pool's result codec (counterpart of the reference's
+"""The pools' result codec (counterpart of the reference's
 ``PickleSerializer`` in ``petastorm_tpu/serializers.py``).
 
-:class:`PickleSerializer` writes a worker result as a pickle protocol-5
-stream and ships every ndarray payload as its own out-of-band frame: the
-stream carries only metadata, and the receiving side rebuilds the arrays
-as views over the received frames (zero-copy). The reference's pluggable
-base and its ``ArrowTableSerializer`` have no caller in the port.
+:class:`PickleSerializer` has two forms. The process pool's multipart form
+(``serialize_frames``) writes a worker result as a pickle protocol-5 stream
+and ships every ndarray payload as its own out-of-band frame: the stream
+carries only metadata, and the receiving side rebuilds the arrays as views
+over the received frames (zero-copy). The decode service's framed messages
+carry one payload frame per result (``serialize``), the reference's bytes.
+The reference's pluggable base and its ``ArrowTableSerializer`` have no
+caller in the port.
 """
 
 import pickle
@@ -14,7 +17,14 @@ from petastorm_tpu_torch import sanitizer
 
 
 class PickleSerializer:
-    """The process pool's payload codec."""
+    """The pools' payload codec."""
+
+    def serialize(self, value):
+        """One frame: the value's highest-protocol pickle."""
+        return pickle.dumps(value, protocol=pickle.HIGHEST_PROTOCOL)
+
+    def deserialize(self, payload):
+        return pickle.loads(payload)
 
     def serialize_frames(self, value):
         """Frame 0 is the protocol-5 stream; every buffer-exporting payload

@@ -12,9 +12,10 @@ section when tracing recorded stage events, and the ``slo`` section when
 ``PETASTORM_TPU_SLO`` arms a policy. All three read the registry (the
 process-wide one by default) and never mutate it.
 
-The reference's other report sections read subsystems the port does not
-have yet, whose counters therefore never appear here: ``service``,
-``peer_cache`` and ``write``.
+The ``service`` section reads the gauges and counters the decode
+service's dispatcher mirrors into the registry. The reference's
+``peer_cache`` section reads the fleet cache tier's fetches, which the
+port does not make yet, so it never appears here.
 """
 
 import json
@@ -202,6 +203,9 @@ def pipeline_report(registry=None, wall_time_s=None, baseline=None, attributor=N
     decoded = decoded_cache_section(registry, baseline=baseline, stages=stages)
     if decoded is not None:
         report['decoded_cache'] = decoded
+    service = _service_section(registry)
+    if service is not None:
+        report['service'] = service
     pushdown = _pushdown_section(registry)
     if pushdown is not None:
         report['pushdown'] = pushdown
@@ -228,6 +232,47 @@ def pipeline_report(registry=None, wall_time_s=None, baseline=None, attributor=N
     if slo_view is not None:
         report['slo'] = slo_view
     return report
+
+
+#: the standby's series (``petastorm_tpu/service/standby.py``): the port
+#: runs no standby yet, so they read 0 in the ``service`` section
+SERVICE_FAILOVERS = 'petastorm_tpu_service_failovers_total'
+SERVICE_REPLICATION_LAG = 'petastorm_tpu_service_replication_lag_seconds'
+
+
+def _service_section(registry):
+    """The decode fleet's health, from the gauges and counters the service
+    dispatcher mirrors into the registry: present only when a service pool
+    ran in this process, so local-pool reports keep their shape. The
+    re-ventilation and dedupe counts make the exactly-once machinery's
+    work visible without reading the dispatcher's logs."""
+    from petastorm_tpu_torch.service.dispatcher import (
+        SERVICE_DUPLICATE_DONE, SERVICE_ITEMS_ASSIGNED, SERVICE_ITEMS_PENDING,
+        SERVICE_PLACEMENT_HITS, SERVICE_PLACEMENT_MISSES, SERVICE_POISONED,
+        SERVICE_PREEMPTIONS, SERVICE_RETRIES, SERVICE_REVENTILATED, SERVICE_WORKERS_ALIVE,
+        SERVICE_WORKERS_REGISTERED,
+    )
+    if not registry.gauges_with_prefix('petastorm_tpu_service_'):
+        return None
+    placement_hits = registry.counter_value(SERVICE_PLACEMENT_HITS)
+    placement_misses = registry.counter_value(SERVICE_PLACEMENT_MISSES)
+    placed = placement_hits + placement_misses
+    return {
+        'workers_alive': int(registry.gauge_value(SERVICE_WORKERS_ALIVE)),
+        'workers_registered': int(registry.gauge_value(SERVICE_WORKERS_REGISTERED)),
+        'items_pending': int(registry.gauge_value(SERVICE_ITEMS_PENDING)),
+        'items_assigned': int(registry.gauge_value(SERVICE_ITEMS_ASSIGNED)),
+        'reventilated': int(registry.counter_value(SERVICE_REVENTILATED)),
+        'duplicate_done': int(registry.counter_value(SERVICE_DUPLICATE_DONE)),
+        'retried': int(registry.counter_value(SERVICE_RETRIES)),
+        'poisoned': int(registry.counter_value(SERVICE_POISONED)),
+        'failovers': int(registry.counter_value(SERVICE_FAILOVERS)),
+        'replication_lag_s': round(registry.gauge_value(SERVICE_REPLICATION_LAG), 3),
+        'preemptions': int(registry.counter_value(SERVICE_PREEMPTIONS)),
+        'placement_hits': int(placement_hits),
+        'placement_misses': int(placement_misses),
+        'placement_hit_share': round(placement_hits / placed, 4) if placed else None,
+    }
 
 
 def _readahead_section(registry):
@@ -517,6 +562,26 @@ def format_pipeline_report(report):
                      % (d['verdict'] or 'idle', d['hits'], d['misses'], 100 * d['hit_rate'],
                         d['mem_hits'], d['mmap_reads'], d['copy_reads'], d['bytes_written'],
                         d['bytes_read'], d['evictions'], d['size_bytes']))
+    if 'service' in report:
+        v = report['service']
+        lines.append('service fleet: %d alive / %d registered worker(s), %d pending / %d '
+                     'assigned item(s), %d re-ventilated, %d duplicate completion(s) dropped, '
+                     '%d retried, %d poisoned'
+                     % (v['workers_alive'], v['workers_registered'], v['items_pending'],
+                        v['items_assigned'], v['reventilated'], v['duplicate_done'],
+                        v['retried'], v['poisoned']))
+        ha_bits = []
+        if v['failovers']:
+            ha_bits.append('%d failover(s), replication lag %.3fs'
+                           % (v['failovers'], v['replication_lag_s']))
+        if v['preemptions']:
+            ha_bits.append('%d preemption(s)' % v['preemptions'])
+        if v['placement_hit_share'] is not None:
+            ha_bits.append('placement %d hit / %d miss (%.1f%%)'
+                           % (v['placement_hits'], v['placement_misses'],
+                              100 * v['placement_hit_share']))
+        if ha_bits:
+            lines.append('service HA/QoS: %s' % ', '.join(ha_bits))
     if 'pushdown' in report:
         p = report['pushdown']
         share = p['prune_share']

@@ -41,8 +41,16 @@ STAGES = ('ventilate', 'io', 'decode', 'filter', 'late_materialize', 'rowgroup_p
 #: stage span · ``mixture_pull`` one source-reader pull of the mixture
 #: engine, on that source's ``mixture-src-<i>`` track ·
 #: ``autotune_decision`` one staging-autotuner adjustment, an instant on
-#: the ``autotuner`` track
-EVENT_NAMES = frozenset(['attempt', 'ventilate', 'mixture_pull', 'autotune_decision'])
+#: the ``autotuner`` track · the decode service dispatcher's instants:
+#: ``dispatch`` an item assigned to a worker, ``reventilate`` a heartbeat
+#: lapse sent it back to pending, ``retry`` a failed attempt rescheduled
+#: with backoff, ``poisoned`` its retry budget spent and the item
+#: quarantined, ``done`` its one delivered completion, ``duplicate_done``
+#: a raced second completion dropped, and, on the ``daemon`` track,
+#: ``job_register``, ``job_gone`` and ``job_preempt`` of the job registry
+EVENT_NAMES = frozenset(['attempt', 'ventilate', 'mixture_pull', 'autotune_decision',
+                         'dispatch', 'reventilate', 'retry', 'poisoned', 'done',
+                         'duplicate_done', 'job_register', 'job_gone', 'job_preempt'])
 
 #: prefix of every operator-facing environment knob
 KNOB_PREFIX = 'PETASTORM_TPU_'
@@ -100,6 +108,17 @@ KNOWN_KNOBS = frozenset([
     'PETASTORM_TPU_WRITE_WORKERS',
     'PETASTORM_TPU_COMPACT_MIN_FILES',
     'PETASTORM_TPU_COMPACT_TARGET_MB',
+    'PETASTORM_TPU_SERVICE_DISPATCHER',
+    'PETASTORM_TPU_SERVICE_WORKERS',
+    'PETASTORM_TPU_SERVICE_MAX_RETRIES',
+    'PETASTORM_TPU_SERVICE_RETRY_BACKOFF_S',
+    'PETASTORM_TPU_SERVICE_READ_DEADLINE_S',
+    'PETASTORM_TPU_SERVICE_DAEMON',
+    'PETASTORM_TPU_SERVICE_LEASE_S',
+    'PETASTORM_TPU_SERVICE_MAX_JOBS',
+    'PETASTORM_TPU_SERVICE_PLACEMENT',
+    'PETASTORM_TPU_PEER_CACHE',
+    'PETASTORM_TPU_PEER_CACHE_COLD_S',
 ])
 
 #: every metric series name — the registry namespace (``petastorm_tpu_*``):

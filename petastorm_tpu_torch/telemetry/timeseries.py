@@ -21,7 +21,8 @@ port's telemetry.
   log.
 
 :class:`HeartbeatSummarizer` is the thread-free per-heartbeat rollup a
-service worker sends; the port has no service yet, so nothing calls it.
+decode-service worker server sends
+(:mod:`petastorm_tpu_torch.service.worker_server`).
 """
 
 import collections
@@ -50,7 +51,7 @@ _DEFAULT_WINDOWS = 120
 # literals; importing it here would be circular)
 _PRODUCER_WAIT = 'petastorm_tpu_stall_producer_wait_seconds_total'
 _CONSUMER_WAIT = 'petastorm_tpu_stall_consumer_wait_seconds_total'
-# service fleet-health series; the port sets them once it has a service
+# service fleet-health series (the dispatcher sets them)
 _SERVICE_ALIVE = 'petastorm_tpu_service_workers_alive'
 _SERVICE_REGISTERED = 'petastorm_tpu_service_workers_registered'
 _SERVICE_REVENTILATED = 'petastorm_tpu_service_reventilated_total'

@@ -12,7 +12,8 @@ where the reference's count depends on how many stores were in flight.
 Then the port's own drills: a poisoned row-group raises ``FaultInjected``
 naming it, a failed host-to-device dispatch reaches the consumer after
 the batches before it, and a faulted footer read prunes nothing. The
-service pool's drills (quarantine, the soak) wait for ROADMAP item 9.
+service pool's drills (quarantine, the soak) are in
+``tests/test_torch_service_chaos.py``.
 Faults are armed through ``monkeypatch``; the guard disarms both
 packages after each test."""
 

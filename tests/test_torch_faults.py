@@ -246,6 +246,9 @@ PORT_SITES = {
     os.path.join('write', 'manifest.py'): 1,  # io.write #manifest
     os.path.join('write', 'writer.py'): 2,    # io.write #part, #rename
     os.path.join('write', 'compact.py'): 2,   # io.write #part, #rename
+    # zmq.recv, zmq.stop, zmq.replicate (the dispatcher's end), zmq.work
+    os.path.join('service', 'dispatcher.py'): 4,
+    os.path.join('service', 'worker_server.py'): 2,  # zmq.heartbeat, zmq.done
 }
 
 
@@ -299,5 +302,6 @@ def test_every_port_site_is_a_registered_faultpoint():
                     and node.args and isinstance(node.args[0], ast.Constant)):
                 named.add(node.args[0].value)
     assert named == {'io.read', 'decode.rowgroup', 'decode.batch', 'cache.read',
-                     'cache.write', 'staging.h2d', 'io.write'}
+                     'cache.write', 'staging.h2d', 'io.write', 'zmq.recv', 'zmq.work',
+                     'zmq.done', 'zmq.heartbeat', 'zmq.stop', 'zmq.replicate'}
     assert named <= set(FAULTPOINTS)

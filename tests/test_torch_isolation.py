@@ -83,7 +83,11 @@ def test_port_has_modules_to_scan():
                    ('parallel', 'collectives.py'), ('ops', 'ulysses_attention.py'),
                    ('examples', 'long_context.py'), ('serializers.py',),
                    ('workers', '__init__.py'), ('workers', 'exec_in_new_process.py'),
-                   ('workers', 'process_pool.py'), ('fs.py',), ('hdfs.py',)):
+                   ('workers', 'process_pool.py'), ('fs.py',), ('hdfs.py',),
+                   ('service', '__init__.py'), ('service', 'protocol.py'),
+                   ('service', 'placement.py'), ('service', 'peer_cache.py'),
+                   ('service', 'dispatcher.py'), ('service', 'worker_server.py'),
+                   ('service', 'service_pool.py')):
         assert os.path.join('petastorm_tpu_torch', *module) in rel
     assert len(rel) > 20
 
@@ -110,6 +114,51 @@ def test_spawned_decode_workers_load_nothing_of_jax(tmp_path):
         assert not set(report['modules']) & set(FORBIDDEN + ('torch',)), report['modules']
         assert 'petastorm_tpu_torch' in report['modules']
         assert report['cuda_visible_devices'] == ''
+
+
+@pytest.mark.parametrize('launch', ['spawned', 'cli'])
+def test_worker_servers_load_nothing_of_jax(launch):
+    """The decode service's worker servers, spawned by a ``ServicePool`` or
+    started through the CLI: no JAX, no JAX package, no torch, and no card
+    (``CUDA_VISIBLE_DEVICES=''``) in the process that decodes."""
+    import subprocess
+    import sys
+    from petastorm_tpu_torch.service import ServicePool
+    from petastorm_tpu_torch.service.protocol import free_tcp_port
+    from petastorm_tpu_torch.workers import EmptyResultError
+    from tests.torch_stub_workers import EnvironmentProbeWorker
+    procs = []
+    if launch == 'cli':
+        endpoint = 'tcp://127.0.0.1:%d' % free_tcp_port()
+        env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES='0')
+        procs.append(subprocess.Popen(
+            [sys.executable, '-m', 'petastorm_tpu_torch.service.worker_server', '--endpoint',
+             endpoint, '--parent-pid', str(os.getpid()), '--heartbeat-interval', '0.2'],
+            env=env))
+        pool = ServicePool(endpoint=endpoint, expected_workers=1, connect_timeout_s=60)
+    else:
+        pool = ServicePool(spawn_local_workers=2, connect_timeout_s=60)
+    published = []
+    try:
+        pool.start(EnvironmentProbeWorker)
+        for i in range(4):
+            pool.ventilate(i)
+        while True:
+            try:
+                published.append(pool.get_results(timeout=60))
+            except EmptyResultError:
+                break
+    finally:
+        pool.stop()
+        pool.join()
+        for proc in procs:
+            proc.terminate()
+            proc.wait(timeout=30)
+    assert sorted(p['value'] for p in published) == [0, 1, 2, 3]
+    assert os.getpid() not in {p['pid'] for p in published}
+    for p in published:
+        assert p['cuda_visible_devices'] == '', p
+        assert not (p['jax'] or p['petastorm_tpu'] or p['torch']), p
 
 
 @pytest.mark.parametrize('path', [os.path.relpath(p, ROOT) for p in _sources()
@@ -161,7 +210,11 @@ def test_port_event_names_are_the_references():
                     and getattr(node.func, 'attr', None) in ('record_complete', 'record_instant')
                     and node.args and isinstance(node.args[0], ast.Constant)):
                 recorded.add(node.args[0].value)
-    assert recorded == {'queue_wait', 'mixture_pull', 'autotune_decision'}
+    # the decode service's dispatcher stamps an item's lifecycle and the
+    # job registry's changes
+    assert recorded == {'queue_wait', 'mixture_pull', 'autotune_decision', 'dispatch',
+                        'reventilate', 'retry', 'poisoned', 'done', 'duplicate_done',
+                        'job_register', 'job_gone', 'job_preempt'}
     assert recorded <= set(STAGES) | set(EVENT_NAMES)
 
 
@@ -183,7 +236,8 @@ def test_port_anomaly_kinds_are_the_references():
                     and node.args and isinstance(node.args[0], ast.Constant)):
                 recorded.add(node.args[0].value)
     assert recorded == {'queue_saturated', 'h2d_starvation', 'throughput_collapse',
-                        'stall_flap', 'heartbeat_gap', 'slo_breach', 'cache_degraded'}
+                        'stall_flap', 'heartbeat_gap', 'slo_breach', 'cache_degraded',
+                        'row_group_poisoned', 'job_lease_expired'}
     assert recorded <= set(ANOMALY_KINDS)
 
 

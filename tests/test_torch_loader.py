@@ -137,14 +137,18 @@ def test_iter_steps_crosses_epochs_and_replays(scalar_dataset):
     # make_jax_loader does
     (dict(mesh=object()), None),
     (dict(data_axes=('data',)), None),
-    # mixture= is ported; its sources on a decode daemon are not
-    (dict(mixture=True, reader_pool_type='service'), 9),
+    # mixture= is ported; its sources on a standing decode daemon are not
+    (dict(mixture=True, reader_pool_type='service', daemon='tcp://127.0.0.1:1'), 9),
     # the process pool is ported: on one worker its batches are the JAX
     # loader's on its process pool, in order
     (dict(reader_pool_type='process'), None),
 ], ids=['mesh', 'data-axes', 'mixture', 'process'])
-def test_unported_kwargs_raise(scalar_dataset, kwargs, item):
+def test_unported_kwargs_raise(scalar_dataset, kwargs, item, monkeypatch):
     url = scalar_dataset.url
+    kwargs = dict(kwargs)
+    daemon = kwargs.pop('daemon', None)
+    if daemon is not None:
+        monkeypatch.setenv('PETASTORM_TPU_SERVICE_DAEMON', daemon)
     if kwargs.get('reader_pool_type') == 'process':
         kw = dict(batch_size=16, fields=['^id$', '^float64$'], workers_count=1,
                   shuffle_row_groups=False, **kwargs)

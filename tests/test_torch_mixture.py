@@ -310,7 +310,7 @@ def test_reset_replays_the_stream(mix_datasets):
         sorted(np.concatenate([r['tokens'] for r in second]).tolist())
 
 
-def test_source_readers_get_seeds_and_interleave_shares(mix_datasets):
+def test_source_readers_get_seeds_and_interleave_shares(mix_datasets, monkeypatch):
     spec = _spec(tm, mix_datasets, sources=('a', 'b', 'c'), weights=(5, 2, 3), seed=9)
     readers = tm.build_source_readers(spec, reader_pool_type='dummy')
     try:
@@ -323,6 +323,9 @@ def test_source_readers_get_seeds_and_interleave_shares(mix_datasets):
         for reader in readers:
             reader.stop()
             reader.join()
+    # sources on a standing decode daemon wait for item 9 (each source its
+    # own QoS-weighted job in the reference)
+    monkeypatch.setenv('PETASTORM_TPU_SERVICE_DAEMON', 'tcp://127.0.0.1:1')
     with pytest.raises(NotImplementedError, match='ROADMAP.md: Queue 1 item 9,'):
         tm.build_source_readers(spec, reader_pool_type='service')
 

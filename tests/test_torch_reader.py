@@ -192,10 +192,11 @@ def test_state_dict_resumes_across_packages(synthetic_dataset, saver, loader):
 def test_unported_kwargs_raise(synthetic_dataset, kwargs, tmp_path):
     """Each kwarg still unported raises its ROADMAP item; ``filters``,
     ``predicate``, ``rowgroup_selector``, the decoded cache and the process
-    pool are ported and read the JAX reader's batches (the process pool on
-    one worker, where its order is the ventilation order)."""
-    if kwargs.get('reader_pool_type') == 'process':
-        out = {package: _read(package, synthetic_dataset.url, reader_pool_type='process',
+    and service pools are ported and read the JAX reader's batches (the
+    pools on one worker, where their order is the ventilation order)."""
+    if kwargs.get('reader_pool_type') in ('process', 'service'):
+        out = {package: _read(package, synthetic_dataset.url,
+                              reader_pool_type=kwargs['reader_pool_type'],
                               workers_count=1, shuffle_row_groups=False,
                               schema_fields=['^id$'])
                for package in ('jax', 'torch')}

@@ -183,7 +183,8 @@ def test_plain_parquet_store_warns(scalar_dataset, package):
 # the reference's kwargs that reach unported code, and the ROADMAP item each
 # raises; None: ported (the rows are the JAX reader's); 'memory': ported,
 # and both readers read a memory:// copy of the dataset with it (options
-# for the memory store; an explicit MemoryFileSystem instance)
+# for the memory store; an explicit MemoryFileSystem instance);
+# 'value-error': ported, and both readers refuse it on the default pool
 UNPORTED_KWARGS = {
     'predicate': ('in_set', None),
     'filters': ([('id', '<', 5)], None),
@@ -193,7 +194,7 @@ UNPORTED_KWARGS = {
     'cache_row_size_estimate': (1024, None),
     'rowgroup_selector': ('id_index', None),
     'reader_pool_type': ('process', None),
-    'poison_policy': ('skip', 9),
+    'poison_policy': ('skip', 'value-error'),
     'storage_options': ({'anon': True}, 'memory'),
     'filesystem': ('instance', 'memory'),
 }
@@ -203,10 +204,19 @@ UNPORTED_KWARGS = {
 def test_unported_kwargs_raise_their_item(synthetic_dataset, name, tmp_path):
     import inspect
     if name == 'service-pool':
-        name, (value, item) = 'reader_pool_type', ('service', 9)
+        name, (value, item) = 'reader_pool_type', ('service', None)
     else:
         value, item = UNPORTED_KWARGS[name]
-    if item == 'memory':
+    if item == 'value-error':
+        # poison_policy is the service pools': both readers refuse it on the
+        # default thread pool
+        messages = []
+        for make in (jax_make_reader, torch_make_reader):
+            with pytest.raises(ValueError, match='poison_policy') as info:
+                make(synthetic_dataset.url, **{name: value})
+            messages.append(str(info.value))
+        assert messages[0] == messages[1]
+    elif item == 'memory':
         from fsspec.implementations.memory import MemoryFileSystem
         memory = MemoryFileSystem()
         root = '/row_reader_kwargs_%s' % name

@@ -382,12 +382,15 @@ def test_reader_positions_are_the_references():
         list(inspect.signature(JaxReader.__init__).parameters)
 
 
-# the ids are those of when the selector still raised item 10
-@pytest.mark.parametrize('kwarg,item', [('rowgroup_selector', None), ('poison_policy', 9)],
+# the ids are those of when the selector still raised item 10 and
+# poison_policy item 9
+@pytest.mark.parametrize('kwarg,item', [('rowgroup_selector', None),
+                                        ('poison_policy', 'value-error')],
                          ids=['rowgroup_selector-10', 'poison_policy-9'])
 def test_reader_refuses_what_it_lacks(scalar_dataset, kwarg, item):
-    """``poison_policy`` raises its item; the selector is ported, and a
-    dataset without a row-group index refuses it as the JAX reader does."""
+    """Both are ported: ``poison_policy`` on a local pool raises the JAX
+    reader's ``ValueError`` (it is the service pools'), and a dataset
+    without a row-group index refuses the selector as the JAX reader does."""
     from petastorm_tpu.etl.dataset_metadata import ParquetDatasetInfo as JaxInfo
     from petastorm_tpu.reader import Reader as JaxReader
     from petastorm_tpu_torch.errors import MetadataError
@@ -395,9 +398,13 @@ def test_reader_refuses_what_it_lacks(scalar_dataset, kwarg, item):
     from petastorm_tpu_torch.reader import Reader
     from petastorm_tpu_torch.selectors import SingleIndexSelector
     info = ParquetDatasetInfo(scalar_dataset.url)
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=r'ROADMAP.md: Queue 1 item %d,' % item):
-            Reader(info, reader_pool_type='dummy', **{kwarg: 'skip'})
+    if item == 'value-error':
+        messages = []
+        for reader, dataset_info in ((Reader, info), (JaxReader, JaxInfo(scalar_dataset.url))):
+            with pytest.raises(ValueError, match='poison_policy') as caught:
+                reader(dataset_info, reader_pool_type='dummy', **{kwarg: 'skip'})
+            messages.append(str(caught.value))
+        assert messages[0] == messages[1]
         return
     # the ninth positional argument is the selector, as in the reference
     for reader, dataset_info, error in ((Reader, info, MetadataError),
@@ -430,9 +437,11 @@ def test_no_item_10_is_left():
 
 
 def test_what_is_left_of_item_9_is_the_service():
-    """ROADMAP items 9a (the process pool) and 9b (filesystems) are done:
-    ``fs.py`` and ``hdfs.py`` raise no ``unported``, and every
-    ``unported(..., 9)`` left in the port names the service."""
+    """ROADMAP items 9a (the process pool), 9b (filesystems) and 9c-i (the
+    embedded decode service) are done: the ``unported(..., 9)`` left in the
+    port are exactly the standing service's sites of 9c-ii (the daemon
+    branch of the reader and of the mixture engine, the write plane's
+    service pool, the fleet cache tier's holder side)."""
     import ast
     import os
     from petastorm_tpu_torch import errors
@@ -452,12 +461,41 @@ def test_what_is_left_of_item_9_is_the_service():
                         and node.args[1].value == 9):
                     left['%s:%d' % (os.path.relpath(path, root), node.lineno)] = \
                         ast.unparse(node.args[0])
-    assert not [where for where in left if where.split(':')[0] in ('fs.py', 'hdfs.py')], left
-    assert sorted(where.split(':')[0] for where in left) == [
-        os.path.join('mixture', 'engine.py'), 'reader.py', 'reader.py',
-        os.path.join('write', 'writer.py')], left
-    for where, feature in left.items():
-        assert 'service' in feature.lower(), (where, feature)
+    assert sorted((where.split(':')[0], feature) for where, feature in left.items()) == [
+        (os.path.join('mixture', 'engine.py'),
+         "'mixture sources on a decode daemon (PETASTORM_TPU_SERVICE_DAEMON)'"),
+        ('reader.py', "'the standing decode service (PETASTORM_TPU_SERVICE_DAEMON)'"),
+        (os.path.join('service', 'peer_cache.py'),
+         "'the fleet cache tier (PETASTORM_TPU_PEER_CACHE)'"),
+        (os.path.join('write', 'writer.py'),
+         "'a service pool (%s) for the write plane' % kind")], left
+
+
+def test_service_pool_and_reader_take_every_reference_argument():
+    """``ServicePool`` takes every constructor argument of the reference's,
+    at its position and with its default, and both readers take the
+    reference's ``reader_pool_type='service'`` and ``poison_policy``."""
+    import inspect
+    from petastorm_tpu import reader as jax_reader
+    from petastorm_tpu.service import ServicePool as JaxServicePool
+    from petastorm_tpu_torch import reader as torch_reader
+    from petastorm_tpu_torch.service import ServicePool
+
+    def params(fn):
+        return [(p.name, p.default) for p in inspect.signature(fn).parameters.values()]
+
+    assert params(ServicePool.__init__) == params(JaxServicePool.__init__)
+    for name in ('start', 'ventilate', 'get_results', 'stop', 'join'):
+        assert params(getattr(ServicePool, name)) == params(getattr(JaxServicePool, name)), name
+    for name in ('workers_count', 'dispatcher_endpoint', 'diagnostics'):
+        assert isinstance(getattr(ServicePool, name), property), name
+    for maker in ('make_reader', 'make_batch_reader'):
+        got = dict(params(getattr(torch_reader, maker)))
+        for name, default in params(getattr(jax_reader, maker)):
+            if name in ('reader_pool_type', 'poison_policy', 'workers_count',
+                        'results_queue_size'):
+                assert got[name] == default, (maker, name)
+    assert params(torch_reader._make_pool) == params(jax_reader._make_pool)
 
 
 @pytest.mark.parametrize('module,names', [

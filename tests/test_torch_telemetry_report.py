@@ -38,8 +38,8 @@ from tests.torch_telemetry_common import (  # noqa: F401 - fixtures
 
 PACKAGES = {'jax': (jax_telemetry, jax_reader), 'torch': (torch_telemetry, torch_reader)}
 
-#: report sections of subsystems the port does not have yet
-PORT_LACKS = {'service', 'peer_cache', 'write'}
+#: report sections the port does not write on these reads
+PORT_LACKS = {'peer_cache', 'write'}
 
 
 @pytest.fixture(scope='module')

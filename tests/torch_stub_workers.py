@@ -33,6 +33,26 @@ class ExceptionOnFiveWorker(WorkerBase):
         self.publish_func(value)
 
 
+class ExitOnFiveWorker(WorkerBase):
+    """Publishes its input unless it equals 5, then kills its own process
+    (``os._exit``: no exception frame, no goodbye): the worker-killing
+    row-group of the quarantine drills. A small sleep keeps other items in
+    flight when the kill lands."""
+
+    def process(self, value, sleep_s=0.02):
+        if value == 5:
+            os._exit(13)
+        time.sleep(sleep_s)
+        self.publish_func(value)
+
+
+def slow_batch_identity(df):
+    """A TransformSpec function that brakes each row-group, so a worker
+    killed mid-epoch reliably owns items in flight."""
+    time.sleep(0.05)
+    return df
+
+
 class MultiplyingWorker(WorkerBase):
     """Publishes value * args['factor']."""
 
@@ -75,13 +95,14 @@ class TracingProbeWorker(WorkerBase):
 
 class EnvironmentProbeWorker(WorkerBase):
     """Publishes its process's pid, ``CUDA_VISIBLE_DEVICES`` and whether
-    JAX or the JAX package is loaded there."""
+    JAX, the JAX package or torch is loaded there."""
 
     def process(self, value):
         self.publish_func({'value': value, 'pid': os.getpid(),
                            'cuda_visible_devices': os.environ.get('CUDA_VISIBLE_DEVICES'),
                            'jax': 'jax' in sys.modules,
-                           'petastorm_tpu': 'petastorm_tpu' in sys.modules})
+                           'petastorm_tpu': 'petastorm_tpu' in sys.modules,
+                           'torch': 'torch' in sys.modules})
 
 
 def write_marker(path, value):
