@@ -479,6 +479,39 @@ outlives its phase.
     DONE frames' deltas; no worker server left after the join. Images/s
     beside ``vit_path``'s (a ratio, no gate), the fleet's start-up seconds,
     the report's ``service`` section and the drill's seconds are printed.
+50. ``daemon_vit_path`` (after ``service_vit_path``; configuration
+    vit-imagenetlike-daemon): the ViT rows through the port's standing
+    decode service as an operator runs it. (a) ``python -m
+    petastorm_tpu_torch.service`` on a loopback endpoint with a fixed fleet
+    of ``SERVICE_WORKERS`` supervised worker servers (``--min-workers`` and
+    ``--max-workers`` too; ``SERVICE_DRILL_TIMING``'s heartbeats) and, once its fleet is up, a ``--standby`` on the same
+    endpoint, each with its own observability port. (b) One epoch through
+    ``PETASTORM_TPU_SERVICE_DAEMON``: ``(label, crc32 of the pixels)`` equal
+    to the thread pool's as multisets. (c) The next epoch, a supervised
+    worker that the primary's ``/report`` shows holding work SIGKILLed after
+    ``SERVICE_KILL_AFTER`` batches: the epoch still exact, the seat
+    respawned (``petastorm_tpu_service_workers_spawned_total`` on its
+    ``/metrics``, a ``worker_death`` in its decisions). (d) Another epoch,
+    the primary SIGKILLed after ``SERVICE_KILL_AFTER`` batches: the standby
+    promotes onto the endpoint (``..._failovers_total`` 1), the client
+    re-registers and re-submits, the epoch still exact. (e)
+    ``train_vit_fused(..., reader_pool_type='service')`` on the promoted
+    daemon, ``SERVICE_VIT_STEPS`` steps of ViT-Base: normalize once a step
+    and 12 launches of each flash kernel a step, all bf16; no daemon,
+    standby or supervised worker among ``nvidia-smi``'s compute apps or with
+    ``libcuda.so`` mapped (``_CardWatch``). (f) lm-mixture-flagship's two
+    sources through the daemon as two jobs named and weighted as the
+    sources: ``DAEMON_MIXTURE_BATCHES`` packed batches bit for bit the
+    thread pool's. (g) ``PROCESS_WRITE_ROWS`` ViT rows written on
+    ``ServicePool(spawn_local_workers=SERVICE_WORKERS)``: parts and manifest
+    byte-equal to the inline write's. (h) ``PEER_SERVERS`` worker servers,
+    each with its own ``--cache-dir`` and the fleet cache tier on, serve two
+    epochs through the decoded cache: both exact, the second decoding no
+    row-group it was not re-sent; fills and local and peer hits printed.
+    Every daemon drained by SIGTERM (the standby's exit code 0) and no
+    process or port thread of the phase left. Images/s beside
+    ``vit_path``'s (a ratio, no gate), the start-up and promotion seconds
+    and the phase seconds are printed.
 ``--trace-dir DIR`` keeps the two Chrome traces in ``DIR``.
 
 The rank phases (24, 42-46) run one after another on one pool of
@@ -707,6 +740,13 @@ SERVICE_KILL_AFTER = 4       # batches of the drill's epoch before the SIGKILL
 # the drill's heartbeats: a killed server's items re-ventilate about a
 # second after its last one
 SERVICE_DRILL_TIMING = dict(heartbeat_interval_s=0.25, liveness_timeout_s=1.0)
+# daemon_vit_path: the standby's replication pulls and the primary's silence
+# before it promotes (CLI flags), the mixture's packed batches compared, and
+# the fleet cache tier's worker servers, one a simulated host
+DAEMON_STANDBY_SYNC_S = '0.2'
+DAEMON_STANDBY_LAPSE_S = '1.5'
+DAEMON_MIXTURE_BATCHES = 8
+PEER_SERVERS = 2
 # dp-lm: two gloo ranks on the one card feed the flagship
 # KV-cache decoding and MoE
 GEN_REFERENCE_KW = dict(vocab_size=32, d_model=16, n_heads=2, n_layers=2, d_ff=32,
@@ -5325,6 +5365,465 @@ def _service_vit_runs(url, image_codec, vit_images_per_s, t_phase, threads_befor
     return launches
 
 
+def _obs_json(port, route):
+    """The JSON body of ``route`` on the observability endpoint at ``port``
+    of another process on this host."""
+    import urllib.request
+    return json.loads(urllib.request.urlopen('http://127.0.0.1:%d%s' % (port, route),
+                                             timeout=10).read())
+
+
+def _obs_metric(port, name):
+    """The value of the unlabelled series ``name`` on ``port``'s ``/metrics``
+    (0.0 when absent)."""
+    import urllib.request
+    text = urllib.request.urlopen('http://127.0.0.1:%d/metrics' % port, timeout=10).read()
+    for line in text.decode().splitlines():
+        if line.startswith(name + ' '):
+            return float(line.split()[1])
+    return 0.0
+
+
+def _daemon_section(port, name):
+    """``name``'s section of the ``/health`` at ``port`` (None while the
+    endpoint or the section is not up)."""
+    try:
+        return _obs_json(port, '/health')['components'].get(name)
+    except OSError:
+        return None
+
+
+def _await(predicate, deadline_s, message):
+    deadline = time.monotonic() + deadline_s
+    while time.monotonic() < deadline:
+        if predicate():
+            return
+        time.sleep(0.05)
+    raise AssertionError('timed out waiting for %s' % message)
+
+
+def _children(pid):
+    """Pids of every descendant of ``pid`` (none once it is gone)."""
+    import psutil
+    try:
+        return {c.pid for c in psutil.Process(pid).children(recursive=True)}
+    except psutil.Error:
+        return set()
+
+
+def _running(pids):
+    """The pids of ``pids`` still running (a zombie has finished)."""
+    import psutil
+    out = []
+    for pid in pids:
+        try:
+            if psutil.Process(pid).status() != psutil.STATUS_ZOMBIE:
+                out.append(pid)
+        except psutil.Error:
+            pass
+    return sorted(out)
+
+
+class _StandingService:
+    """The standing decode service of ``daemon_vit_path`` as an operator runs
+    it: ``python -m petastorm_tpu_torch.service`` with a fixed fleet of
+    ``SERVICE_WORKERS`` supervised worker servers, and a ``--standby`` on
+    the same endpoint,
+    each with its own observability port and its log in ``tmp``."""
+
+    def __init__(self, tmp):
+        from petastorm_tpu_torch.service.protocol import free_tcp_port
+        self.endpoint = 'tcp://127.0.0.1:%d' % free_tcp_port()
+        self.obs = {'primary': free_tcp_port(), 'standby': free_tcp_port()}
+        self._tmp = tmp
+        self.procs = {}
+
+    def _spawn(self, role, *extra):
+        timing = SERVICE_DRILL_TIMING
+        log = open(os.path.join(self._tmp, 'service-%s.log' % role), 'w')
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        self.procs[role] = subprocess.Popen(
+            [sys.executable, '-m', 'petastorm_tpu_torch.service', '--endpoint', self.endpoint,
+             # a fixed fleet: the supervisor would release idle workers
+             # between the drills down to its default floor of one
+             '--workers', str(SERVICE_WORKERS), '--min-workers', str(SERVICE_WORKERS),
+             '--max-workers', str(SERVICE_WORKERS),
+             '--heartbeat-interval', str(timing['heartbeat_interval_s']),
+             '--liveness-timeout', str(timing['liveness_timeout_s']),
+             '--obs-port', str(self.obs[role])] + list(extra),
+            env=env, stdout=log, stderr=subprocess.STDOUT)
+        log.close()
+
+    def start(self):
+        """The primary up with its fleet registered, then the standby
+        mirroring it (a standby started before the primary binds lapses
+        during its start-up): ``(primary seconds, standby seconds)``."""
+        t0 = time.perf_counter()
+        self._spawn('primary')
+        # registered, not alive: a worker between jobs re-sends REGISTER on a
+        # backoff longer than the liveness window
+        _await(lambda: (self.daemon('primary') or {}).get('workers_registered')
+               == SERVICE_WORKERS, 60, 'the primary and its supervised fleet')
+        primary_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self._spawn('standby', '--standby', '--standby-sync-interval', DAEMON_STANDBY_SYNC_S,
+                    '--standby-lapse', DAEMON_STANDBY_LAPSE_S)
+        _await(lambda: (_daemon_section(self.obs['standby'], 'service-standby')
+                        or {}).get('syncs_ok', 0) >= 1, 60, 'the standby replicating')
+        return primary_s, time.perf_counter() - t0
+
+    def daemon(self, role):
+        """The ``service-daemon`` section of ``role``'s ``/health``."""
+        return _daemon_section(self.obs[role], 'service-daemon')
+
+    def log_tail(self, role, lines=40):
+        with open(os.path.join(self._tmp, 'service-%s.log' % role)) as f:
+            return f.read().splitlines()[-lines:]
+
+    def stop(self):
+        """SIGTERM drains every daemon still running (no job is left, so it
+        exits and its supervisor reaps the fleet); a daemon that does not
+        exit in 60 s is killed. Returns the exit codes."""
+        import signal
+        codes = {}
+        for role, proc in self.procs.items():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for role, proc in self.procs.items():
+            try:
+                codes[role] = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                codes[role] = proc.wait()
+        return codes
+
+
+def phase_daemon_vit_path(url, image_codec, vit_images_per_s, mixture, tmp):
+    """vit-imagenetlike-daemon through the port's standing decode service
+    (module docstring, phase 50)."""
+    t_phase = time.perf_counter()
+    threads_before = _port_threads()
+    service = _StandingService(tmp)
+    started = set()
+    try:
+        return _daemon_vit_runs(url, image_codec, vit_images_per_s, mixture, tmp, service,
+                                t_phase, threads_before, started)
+    except BaseException:
+        for role in service.procs:
+            print('daemon_vit_path: the %s log ends\n%s'
+                  % (role, '\n'.join(service.log_tail(role))), file=sys.stderr, flush=True)
+        raise
+    finally:
+        codes = service.stop()
+        print('daemon_vit_path: daemons stopped %s' % codes, file=sys.stderr, flush=True)
+
+
+def _daemon_vit_runs(url, image_codec, vit_images_per_s, mixture, tmp, service, t_phase,
+                     threads_before, started):
+    """``phase_daemon_vit_path``'s drills, training, mixture, write and peer
+    tier; ``started`` collects every process the phase started."""
+    import signal
+
+    import numpy as np
+    import pyarrow as pa
+    from petastorm_tpu_torch import telemetry
+    from petastorm_tpu_torch.codecs import ScalarCodec
+    from petastorm_tpu_torch.device.loader import make_torch_loader
+    from petastorm_tpu_torch.examples.imagenet import (
+        VIT_BASE_KW, imagenet_like_rows, imagenet_like_schema, train_vit_fused,
+    )
+    from petastorm_tpu_torch.ops import flash_attention
+    from petastorm_tpu_torch.service import ServicePool
+    from petastorm_tpu_torch.service.dispatcher import SERVICE_REVENTILATED
+    from petastorm_tpu_torch.service.peer_cache import PEER_CACHE_HITS
+    from petastorm_tpu_torch.service.protocol import free_tcp_port
+    from petastorm_tpu_torch.service.supervisor import SERVICE_SPAWNED
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+    from petastorm_tpu_torch.write import write_dataset_distributed
+    daemon_knob = {'PETASTORM_TPU_SERVICE_DAEMON': service.endpoint}
+    # (a) the service as an operator starts it
+    primary_s, standby_s = service.start()
+    primary, standby = service.procs['primary'], service.procs['standby']
+    primary_fleet = _children(primary.pid)
+    started |= {primary.pid, standby.pid} | primary_fleet
+    # (b) one epoch through the daemon against the thread pool's
+    thread_rows = _multiset(_pool_rows(url, 'thread', SERVICE_WORKERS))
+    with knobs_set(daemon_knob):
+        t0 = time.perf_counter()
+        parity = _pool_rows(url, 'service', SERVICE_WORKERS)
+        parity_s = time.perf_counter() - t0
+    # (c) a supervised worker holding work SIGKILLed mid-epoch: the one
+    # /report shows with items in flight after SERVICE_KILL_AFTER batches
+    spawned_before = _obs_metric(service.obs['primary'], SERVICE_SPAWNED)
+    armed, finished, killed = threading.Event(), threading.Event(), {}
+
+    def killer():
+        armed.wait()
+        deadline = time.monotonic() + CHAOS_DEADLINE_S
+        while not finished.is_set() and time.monotonic() < deadline:
+            workers = _obs_json(service.obs['primary'], '/report')['fleet']['workers']
+            for entry in workers.values():
+                pid = (entry.get('summary') or {}).get('pid')
+                if entry['inflight'] and pid in primary_fleet:
+                    os.kill(pid, signal.SIGKILL)
+                    killed.update(pid=pid, inflight=entry['inflight'])
+                    return
+            time.sleep(0.005)
+
+    kill_thread = threading.Thread(target=killer, name='daemon-drill-kill', daemon=True)
+    kill_thread.start()
+    try:
+        with knobs_set(daemon_knob):
+            t0 = time.perf_counter()
+            drill = _pool_rows(url, 'service', SERVICE_WORKERS,
+                               on_batch=lambda n: n == SERVICE_KILL_AFTER and armed.set())
+            drill_s = time.perf_counter() - t0
+    finally:
+        finished.set()
+        armed.set()
+        kill_thread.join()
+    def respawned():
+        slots = ((service.daemon('primary') or {}).get('supervisor') or {}).get('slots', [])
+        return (len(slots) == SERVICE_WORKERS and all(slot['alive'] for slot in slots)
+                and killed.get('pid') not in {slot['pid'] for slot in slots})
+
+    _await(respawned, 60, 'the killed seat respawned')
+    spawned_after = _obs_metric(service.obs['primary'], SERVICE_SPAWNED)
+    decisions = [d['action'] for d in
+                 _obs_json(service.obs['primary'], '/report').get('scaling_decisions', [])]
+    primary_fleet |= _children(primary.pid)
+    started |= primary_fleet
+    # (d) the primary SIGKILLed after SERVICE_KILL_AFTER batches of another
+    # epoch: the standby promotes onto the endpoint, the client re-registers
+    # and re-submits what it never saw markered
+    promotion, batch_at = {}, []
+
+    def watch_promotion():
+        while 'kill' not in promotion:
+            time.sleep(0.005)
+        while time.perf_counter() - promotion['kill'] < CHAOS_DEADLINE_S:
+            section = _daemon_section(service.obs['standby'], 'service-standby') or {}
+            if section.get('role') == 'primary':
+                promotion['primary_s'] = time.perf_counter() - promotion['kill']
+                return
+            time.sleep(0.02)
+
+    def kill_primary(n):
+        batch_at.append(time.perf_counter())
+        if n == SERVICE_KILL_AFTER:
+            os.kill(primary.pid, signal.SIGKILL)
+            promotion['kill'] = time.perf_counter()
+
+    watcher = threading.Thread(target=watch_promotion, name='daemon-drill-promotion',
+                               daemon=True)
+    watcher.start()
+    try:
+        with knobs_set(daemon_knob):
+            t0 = time.perf_counter()
+            failover = _pool_rows(url, 'service', SERVICE_WORKERS, on_batch=kill_primary)
+            failover_s = time.perf_counter() - t0
+    finally:
+        promotion.setdefault('kill', time.perf_counter() - CHAOS_DEADLINE_S)
+        watcher.join()
+    primary.wait()
+    standby_health = _daemon_section(service.obs['standby'], 'service-standby') or {}
+    failovers = _obs_metric(service.obs['standby'], 'petastorm_tpu_service_failovers_total')
+    gaps = [b - a for a, b in zip(batch_at, batch_at[1:])]
+    # (e) ViT-Base trained through the promoted daemon, the card watched
+    launch = flash_attention._launch
+    dtypes = collections.Counter()
+
+    def recording_launch(fn, name, pointers, tensors, q, *args):
+        dtypes[str(q.dtype)] += 1
+        return launch(fn, name, pointers, tensors, q, *args)
+
+    service_pids = {standby.pid} | primary_fleet | {primary.pid}
+
+    def watched_pids():
+        fleet = _children(standby.pid)
+        started.update(fleet)
+        return service_pids | fleet
+
+    with knobs_set(daemon_knob):
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention._launch = recording_launch
+        watch = _CardWatch(watched_pids,
+                           lambda: (service.daemon('standby') or {}).get('workers_alive'))
+        try:
+            with watch:
+                result = train_vit_fused(url, steps=SERVICE_VIT_STEPS, batch_size=VIT_BATCH,
+                                         device='cuda', reader_pool_type='service',
+                                         workers_count=SERVICE_WORKERS)
+                torch.cuda.synchronize()
+        finally:
+            flash_attention._launch = launch
+        launches = launch_counts()
+    sampled = watch.sampled
+    losses = result['losses']
+    # (f) lm-mixture-flagship's two sources as two named, weighted jobs on
+    # the daemon: the packed rows bit for bit the thread pool's
+    packed, jobs = {}, {}
+    for kind in ('thread', 'service'):
+        with knobs_set(daemon_knob if kind == 'service' else {}):
+            rows = []
+            with make_torch_loader(None, batch_size=LM_BATCH, mixture=mixture, num_epochs=None,
+                                   device='cuda', reader_pool_type=kind) as loader:
+                for batch in loader:
+                    rows.append(batch['tokens'].cpu())
+                    if kind == 'service' and not jobs:
+                        jobs = {q['name']: q['weight']
+                                for q in (service.daemon('standby') or {}).get('qos', [])}
+                    if len(rows) == DAEMON_MIXTURE_BATCHES:
+                        break
+            packed[kind] = rows
+    mixture_equal = (len(packed['service']) == len(packed['thread']) == DAEMON_MIXTURE_BATCHES
+                     and all(torch.equal(a, b)
+                             for a, b in zip(packed['thread'], packed['service'])))
+    # (g) the write plane on a spawned service fleet against the inline write
+    rows = list(imagenet_like_rows(PROCESS_WRITE_ROWS, 384, seed=11))
+    schema = Unischema('DaemonImagenetLike', list(imagenet_like_schema(384, image_codec)) + [
+        UnischemaField('id', np.int64, (), ScalarCodec(pa.int64()), False)])
+    dicts = [{'image': image, 'label': label, 'id': np.int64(i)}
+             for i, (image, label) in enumerate(rows)]
+    kw = dict(shard_rows=WRITE_SHARD_ROWS, rowgroup_size_rows=64, sort_by='id')
+    written, write_s = {}, {}
+    for kind, pool in (('inline', None),
+                       ('service', ServicePool(spawn_local_workers=SERVICE_WORKERS))):
+        root = os.path.join(tmp, 'vit_daemon_write_%s' % kind)
+        t0 = time.perf_counter()
+        write_dataset_distributed('file://' + root, schema, dicts, pool=pool, **kw)
+        write_s[kind] = time.perf_counter() - t0
+        written[kind] = _file_hashes(root)
+    # (h) the fleet cache tier: two worker servers, each its own host
+    # directory, two epochs through the decoded cache
+    peer_endpoint = 'tcp://127.0.0.1:%d' % free_tcp_port()
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    env.pop('PETASTORM_TPU_PEER_CACHE', None)
+    servers = [subprocess.Popen(
+        [sys.executable, '-m', 'petastorm_tpu_torch.service.worker_server',
+         '--endpoint', peer_endpoint, '--worker-id', str(i),
+         '--heartbeat-interval', str(SERVICE_DRILL_TIMING['heartbeat_interval_s']),
+         '--cache-dir', os.path.join(tmp, 'peer_host%d' % i), '--parent-pid', str(os.getpid())],
+        env=env) for i in range(PEER_SERVERS)]
+    started.update(p.pid for p in servers)
+    cache = dict(cache_type='decoded', cache_location=os.path.join(tmp, 'peer_client'),
+                 cache_size_limit=CACHE_DISK_LIMIT)
+    peer_epochs = []
+    try:
+        for _ in range(2):
+            fresh_telemetry()
+            pool = ServicePool(endpoint=peer_endpoint, expected_workers=PEER_SERVERS,
+                               connect_timeout_s=60, **SERVICE_DRILL_TIMING)
+            t0 = time.perf_counter()
+            batches = _pool_rows(url, pool, PEER_SERVERS, **cache)
+            registry = telemetry.get_registry()
+            section = telemetry.decoded_cache_section() or {}
+            peer_epochs.append({
+                'rows': _multiset(batches), 'seconds': time.perf_counter() - t0,
+                'fills': int(registry.counter_value('petastorm_tpu_stage_calls_total',
+                                                    stage='cache_fill')),
+                'local_hits': int(section.get('hits', 0)),
+                'peer_hits': int(registry.counter_value(PEER_CACHE_HITS)),
+                'peer': telemetry.pipeline_report().get('peer_cache'),
+                'reventilated': int(registry.counter_value(SERVICE_REVENTILATED))})
+    finally:
+        for proc in servers:
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in servers:
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    rowgroups = VIT_ROWS // 64
+    codes = service.stop()
+    left = _running(started)
+    threads = _threads_left(threads_before)
+    emit({'phase': 'daemon_vit_path', 'config': 'vit-imagenetlike-daemon',
+          'entry': "train_vit_fused(reader_pool_type='service') with "
+                   'PETASTORM_TPU_SERVICE_DAEMON -> make_torch_loader -> DaemonClientPool -> '
+                   'the standing daemon (python -m petastorm_tpu_torch.service, supervised '
+                   'worker servers, a warm standby) -> normalize -> ViT-Base',
+          'model': VIT_BASE_KW, 'image_codec': image_codec, 'workers': SERVICE_WORKERS,
+          'startup_s': {'primary_and_fleet': primary_s, 'standby_replicating': standby_s},
+          'parity': {'rows': sum(len(b) for b in parity),
+                     'multisets_equal': _multiset(parity) == thread_rows, 'seconds': parity_s,
+                     'images_per_s': VIT_ROWS / parity_s},
+          'worker_drill': {'killed': killed, 'rows': sum(len(b) for b in drill),
+                           'multisets_equal': _multiset(drill) == thread_rows,
+                           'spawned_total': [spawned_before, spawned_after],
+                           'decisions': decisions, 'seconds': drill_s},
+          'failover_drill': {'rows': sum(len(b) for b in failover),
+                             'multisets_equal': _multiset(failover) == thread_rows,
+                             'promotion_s': promotion.get('primary_s'),
+                             'longest_batch_gap_s': max(gaps) if gaps else None,
+                             'failovers_total': failovers,
+                             'standby': {k: standby_health.get(k)
+                                         for k in ('role', 'promotions', 'syncs_ok',
+                                                   'snapshot_jobs', 'replication_lag_s')},
+                             'seconds': failover_s},
+          'train': {'steps': len(losses), 'batch_size': VIT_BATCH, 'losses': losses,
+                    'launches': launches, 'launch_dtypes': dict(dtypes),
+                    'images_per_s': result['images_per_s'],
+                    'vit_path_images_per_s': vit_images_per_s,
+                    'over_vit_path': result['images_per_s'] / vit_images_per_s,
+                    'consumer_wait_s': result['diagnostics']['consumer_wait_s'],
+                    'card_pids_seen': sorted(sampled['card_pids']),
+                    'service_pids_with_libcuda': sorted(sampled['cuda_mapped']),
+                    'workers_alive_while_running': sorted(set(sampled['workers_alive']))},
+          'mixture': {'batches': DAEMON_MIXTURE_BATCHES, 'jobs': jobs,
+                      'packed_equal': mixture_equal},
+          'write': {'rows': PROCESS_WRITE_ROWS, 'seconds': write_s,
+                    'parts_and_manifest_equal': written['inline'] == written['service'],
+                    'files': len(written['service'])},
+          'peer_cache': [{k: v for k, v in e.items() if k != 'rows'}
+                         | {'multisets_equal': e['rows'] == thread_rows} for e in peer_epochs],
+          'daemon_exit_codes': codes, 'processes_left': left, 'threads_left': threads,
+          'seconds': time.perf_counter() - t_phase})
+    # (a), (b)
+    assert _multiset(parity) == thread_rows and sum(thread_rows.values()) == VIT_ROWS
+    # (c): exact through the kill, the seat respawned
+    assert killed.get('inflight', 0) >= 1, killed
+    assert _multiset(drill) == thread_rows
+    assert spawned_after >= spawned_before + 1 >= SERVICE_WORKERS + 1, (spawned_before,
+                                                                        spawned_after)
+    assert 'worker_death' in decisions and decisions.count('worker_spawn') > SERVICE_WORKERS
+    # (d): one promotion, exact through it
+    assert promotion.get('primary_s') is not None, promotion
+    assert _multiset(failover) == thread_rows
+    assert failovers == 1, failovers
+    assert standby_health.get('role') == 'primary' and standby_health.get('promotions') == 1
+    # (e)
+    assert len(losses) == SERVICE_VIT_STEPS and all(math.isfinite(v) for v in losses), losses
+    assert result['batch_devices'] == ['cuda:0'], result['batch_devices']
+    assert launches['normalize_images'] == SERVICE_VIT_STEPS, launches
+    want = VIT_BASE_KW['n_layers'] * SERVICE_VIT_STEPS
+    for name in FLASH_KERNELS:
+        assert launches[name] == want, (name, launches[name], want)
+    assert dtypes == {'torch.bfloat16': 3 * want}, dtypes
+    assert not service_pids & sampled['card_pids'], (service_pids, sampled['card_pids'])
+    assert not sampled['cuda_mapped'], sampled['cuda_mapped']
+    assert SERVICE_WORKERS in sampled['workers_alive'], sampled['workers_alive']
+    assert _maps_libcuda(os.getpid())
+    # (f)
+    assert mixture_equal
+    assert jobs == {source.name: float(source.weight) for source in mixture.sources}, jobs
+    # (g)
+    assert written['inline'] == written['service'], written
+    # (h): both epochs exact; the second decodes nothing it was not re-sent
+    for epoch in peer_epochs:
+        assert epoch['rows'] == thread_rows
+    assert peer_epochs[0]['fills'] == rowgroups, peer_epochs[0]
+    assert peer_epochs[1]['fills'] <= peer_epochs[1]['reventilated'], peer_epochs[1]
+    # nothing of the phase left
+    assert codes.get('standby') == 0, (codes, service.log_tail('standby'))
+    assert not left, left
+    assert not threads, threads
+    return launches
+
+
 def _card_model(model_class, config, *args):
     """``model_class(config, *args)`` built on the card, its weights drawn
     there by ``reset_parameters`` from a card generator seeded 0: the
@@ -6647,6 +7146,8 @@ def main(argv=None):
         paths['remote_store_hdfs_lm'] = remote['hdfs_lm']
         paths['service_vit_path'] = _phase(phase_service_vit_path, vit_url, image_codec,
                                            vit_images_per_s)
+        paths['daemon_vit_path'] = _phase(phase_daemon_vit_path, vit_url, image_codec,
+                                          vit_images_per_s, mixture, tmp)
         # the rank phases, one after another on the rank pool's processes
         try:
             paths['dp_lm_path'] = _phase(phase_dp_lm_path, lm_url, lm_tokens_per_s)

@@ -51,7 +51,6 @@ class ServiceWedgedError(PetastormTpuError):
 #: ``ROADMAP.md`` Queue 1 items the port has not reached yet, by number
 #: (done items leave gaps: numbers are never reused)
 ROADMAP_ITEMS = {
-    9: 'the standing decode service',
     11: 'bridges, benchmark, examples and test utilities',
 }
 

@@ -29,8 +29,8 @@ contract (rows re-delivered, never lost).
 
 The states are the JAX package's, key for key, so a mixture saved by
 either package resumes in the other. Each source's readahead plan scales
-its prefetch depth to the source's share. Not ported yet: sources on a
-standing decode daemon (item 9).
+its prefetch depth to the source's share. On a standing decode daemon
+each source is its own job, weighted by the source's weight.
 """
 
 import logging
@@ -39,7 +39,6 @@ from collections import deque
 
 import numpy as np
 
-from petastorm_tpu_torch.errors import unported
 from petastorm_tpu_torch.mixture.interleave import InterleaveSchedule
 from petastorm_tpu_torch.mixture.packing import SequencePacker
 from petastorm_tpu_torch.mixture.spec import MixtureSpec
@@ -300,14 +299,17 @@ def build_source_readers(spec, num_epochs=1, reader_pool_type='thread',
     two sources over the same files do not march in lock-step) and the
     source's exact interleave share as ``mixture_interleave=``, which
     scales the source's readahead depth. With ``reader_pool_type='service'``
-    each source reader hosts its own embedded decode service; sources on a
-    standing decode daemon (``PETASTORM_TPU_SERVICE_DAEMON``, each its own
-    QoS-weighted job in the reference) are ROADMAP item 9.
+    each source reader hosts its own embedded decode service, or, with a
+    standing daemon configured (``PETASTORM_TPU_SERVICE_DAEMON``), gets its
+    own :class:`~petastorm_tpu_torch.service.daemon.DaemonClientPool`
+    registered under the source's name with the source's weight, so the
+    daemon's QoS fair share splits the shared fleet in mixture proportion.
     """
     from petastorm_tpu_torch.reader import make_batch_reader
-    if reader_pool_type == 'service' and knobs.get_str('PETASTORM_TPU_SERVICE_DAEMON'):
-        raise unported('mixture sources on a decode daemon (PETASTORM_TPU_SERVICE_DAEMON)', 9)
     shares = InterleaveSchedule(spec.weights, seed=spec.seed).fractions
+    daemon = None
+    if reader_pool_type == 'service':
+        daemon = knobs.get_str('PETASTORM_TPU_SERVICE_DAEMON') or None
     readers = []
     try:
         for idx, source in enumerate(spec.sources):
@@ -323,7 +325,11 @@ def build_source_readers(spec, num_epochs=1, reader_pool_type='thread',
                 'share': shares[idx],
                 'seed': spec.seed,
             })
-            kwargs.setdefault('reader_pool_type', reader_pool_type)
+            pool = reader_pool_type
+            if daemon:
+                from petastorm_tpu_torch.service.daemon import DaemonClientPool
+                pool = DaemonClientPool(daemon, name=source.name, weight=source.weight)
+            kwargs.setdefault('reader_pool_type', pool)
             if source.reader_factory is not None:
                 readers.append(source.reader_factory(**kwargs))
             else:

@@ -14,9 +14,7 @@ otherwise), ventilates them to a decode pool and iterates them: whole
 row-groups as namedtuples of column arrays (``make_batch_reader``), or one
 namedtuple per row, or one ``{timestep: namedtuple}`` per NGram window
 (``make_reader``). Its ``state_dict`` has the reference's shape, so a
-checkpoint saved by either package resumes in the other. Kwargs that
-reach unported code raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+checkpoint saved by either package resumes in the other.
 
 ``cache_type`` takes the reference's values: ``'null'`` (the default,
 upgraded to ``'decoded'`` by ``PETASTORM_TPU_DECODED_CACHE=1``),
@@ -41,7 +39,7 @@ from petastorm_tpu_torch.arrow_worker import (
     RowGroupWorker, ZeroRowItem, defer_config_ok, typed_partition_value,
 )
 from petastorm_tpu_torch.cache import LocalDiskCache, NullCache
-from petastorm_tpu_torch.errors import MetadataError, NoDataAvailableError, unported
+from petastorm_tpu_torch.errors import MetadataError, NoDataAvailableError
 from petastorm_tpu_torch.etl.dataset_metadata import (
     ParquetDatasetInfo, get_schema, infer_or_load_unischema, load_row_groups,
 )
@@ -124,10 +122,8 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
         ignored.
 
     The other kwargs are :func:`make_batch_reader`'s, under the
-    reference's names and at its positions; those that reach unported
-    code raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
-    Use :func:`make_batch_reader` for plain Parquet stores or column-batch
-    output.
+    reference's names and at its positions. Use :func:`make_batch_reader`
+    for plain Parquet stores or column-batch output.
     """
     info = ParquetDatasetInfo(dataset_url, storage_options, filesystem=filesystem)
     try:
@@ -306,13 +302,18 @@ def _make_pool(reader_pool_type, workers_count, results_queue_size, poison_polic
 
 
 def _make_service_pool(workers_count, results_queue_size, poison_policy):
-    """The decode service's pool: with ``PETASTORM_TPU_SERVICE_DISPATCHER``
-    set the dispatcher binds there and an external fleet registers with it
-    (``start`` waits for ``PETASTORM_TPU_SERVICE_WORKERS`` of them, default
-    one); else ``workers_count`` worker servers are spawned on loopback."""
-    from petastorm_tpu_torch.service import ServicePool
-    if knobs.get_str('PETASTORM_TPU_SERVICE_DAEMON'):
-        raise unported('the standing decode service (PETASTORM_TPU_SERVICE_DAEMON)', 9)
+    """The decode service's pool: with ``PETASTORM_TPU_SERVICE_DAEMON`` set,
+    this reader registers as one job with the standing daemon there (its
+    supervised fleet is shared; no dispatcher runs in this process); with
+    ``PETASTORM_TPU_SERVICE_DISPATCHER`` set the dispatcher binds there and
+    an external fleet registers with it (``start`` waits for
+    ``PETASTORM_TPU_SERVICE_WORKERS`` of them, default one); else
+    ``workers_count`` worker servers are spawned on loopback."""
+    from petastorm_tpu_torch.service import DaemonClientPool, ServicePool
+    daemon = knobs.get_str('PETASTORM_TPU_SERVICE_DAEMON') or None
+    if daemon:
+        return DaemonClientPool(daemon, results_queue_size=results_queue_size,
+                                poison_policy=poison_policy)
     endpoint = knobs.get_str('PETASTORM_TPU_SERVICE_DISPATCHER') or None
     if endpoint:
         # workers_count sizes LOCAL decode parallelism; an external fleet's

@@ -12,9 +12,18 @@
   client, with the pool contract of the thread and process pools, so
   ``reader_pool_type='service'`` and ``make_torch_loader`` work unchanged.
 
-The standing service (the reference's daemon, its client pool, the fleet
-supervisor and the warm standby) is not ported yet (ROADMAP.md, Queue 1
-item 9).
+* :mod:`~petastorm_tpu_torch.service.daemon`: the standing service
+  (``python -m petastorm_tpu_torch.service``), a daemonized dispatcher that
+  outlives any one job, with the client-side
+  :class:`~petastorm_tpu_torch.service.daemon.DaemonClientPool`, the
+  self-healing :mod:`~petastorm_tpu_torch.service.supervisor` and the warm
+  :mod:`~petastorm_tpu_torch.service.standby`.
+* :mod:`~petastorm_tpu_torch.service.peer_cache`: the fleet cache tier, so a
+  fleet decodes each row-group once.
 """
 
+from petastorm_tpu_torch.service.daemon import (  # noqa: F401
+    DaemonClientPool, ServiceDaemon,
+)
 from petastorm_tpu_torch.service.service_pool import ServicePool  # noqa: F401
+from petastorm_tpu_torch.service.supervisor import WorkerSupervisor  # noqa: F401

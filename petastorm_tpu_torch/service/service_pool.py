@@ -37,7 +37,6 @@ from petastorm_tpu_torch.errors import RowGroupPoisonedError, ServiceWedgedError
 from petastorm_tpu_torch.serializers import PickleSerializer
 from petastorm_tpu_torch.service import protocol as proto
 from petastorm_tpu_torch.service.dispatcher import Dispatcher
-from petastorm_tpu_torch.service.peer_cache import refuse_peer_cache_tier
 from petastorm_tpu_torch.telemetry import knobs, tracing
 from petastorm_tpu_torch.workers import (
     EmptyResultError, TimeoutWaitingForResultError,
@@ -56,8 +55,9 @@ _WORKERS_COUNT_HINT = 4
 def apply_poison_policy(pool, info, health_owner):
     """Shared consumer-side handling of one quarantined-item delivery —
     the ONE implementation of ``poison_policy`` semantics for both
-    service pool flavors (the embedded :class:`ServicePool`, and the
-    standing service's client pool, which is not ported yet), so the
+    service pool flavors (the embedded :class:`ServicePool` and the
+    standing service's
+    :class:`~petastorm_tpu_torch.service.daemon.DaemonClientPool`), so the
     policy can never drift between topologies.
 
     ``'skip'`` records the descriptor on ``pool.poisoned_items`` and
@@ -95,7 +95,7 @@ def apply_poison_policy(pool, info, health_owner):
 def consume_results(pool, timeout, lock, check_fatal=None, on_marker=None,
                     wedge_error=None):
     """The ONE consumer read loop of the service pools (:class:`ServicePool`
-    here; the standing service's client pool shares it in the reference),
+    and :class:`~petastorm_tpu_torch.service.daemon.DaemonClientPool`),
     factored the way :func:`apply_poison_policy` is, so the wedge clock,
     the no-progress deadline and the marker/poison/error handling can
     never drift between topologies.
@@ -232,9 +232,6 @@ class ServicePool:
         if poison_policy not in ('raise', 'skip'):
             raise ValueError("poison_policy must be 'raise' or 'skip'; "
                              'got %r' % (poison_policy,))
-        # the fleet cache tier's holder side is not ported: refuse here, in
-        # the consumer, before a spawned fleet would die of it out of sight
-        refuse_peer_cache_tier()
         self._endpoint_requested = endpoint or 'tcp://127.0.0.1:0'
         self._expected_workers = expected_workers
         self._spawn_local_workers = spawn_local_workers
@@ -297,7 +294,6 @@ class ServicePool:
               start_ventilator=True):
         if self._dispatcher is not None:
             raise RuntimeError('ServicePool already started')
-        refuse_peer_cache_tier(worker_args)
         job_spec = proto.dump_job_spec(worker_class, worker_args,
                                        self._serializer)
         self._dispatcher = Dispatcher(

@@ -28,12 +28,13 @@ work items streamed from a dispatcher over ``tcp://``::
   :func:`~petastorm_tpu_torch.workers.exec_in_new_process.exec_in_new_process`,
   which does the same.
 
-The fleet cache tier's holder side (the reference's peer-cache server and
-client) is not ported: where the reference would start it, the server
-raises ``NotImplementedError`` naming ROADMAP.md item 9
-(:func:`~petastorm_tpu_torch.service.peer_cache.refuse_peer_cache_tier`).
-``PETASTORM_TPU_PEER_CACHE=0`` is the reference's host-local oracle and
-runs.
+* **The fleet cache tier**: with a host-local cache directory
+  (``--cache-dir`` / ``PETASTORM_TPU_DECODED_CACHE_DIR``) the server starts
+  its :class:`~petastorm_tpu_torch.service.peer_cache.PeerCacheServer`
+  before it registers, so the REGISTER advert carries every entry the host
+  kept; a job decoding into a decoded cache gets a
+  :class:`~petastorm_tpu_torch.service.peer_cache.PeerCacheClient` for the
+  job's lifetime. ``PETASTORM_TPU_PEER_CACHE=0`` is the host-local oracle.
 """
 
 import argparse
@@ -48,8 +49,8 @@ import time
 import uuid
 
 from petastorm_tpu_torch import faults
-from petastorm_tpu_torch.service import placement, protocol as proto
-from petastorm_tpu_torch.service.peer_cache import materialized_cache_of, refuse_peer_cache_tier
+from petastorm_tpu_torch.service import peer_cache, placement, protocol as proto
+from petastorm_tpu_torch.service.peer_cache import materialized_cache_of
 from petastorm_tpu_torch.telemetry import (
     count_swallowed, knobs, obs_server, timeseries, tracing,
 )
@@ -75,7 +76,8 @@ def _parent_died(parent_pid):
     return False
 
 
-def _register(sock, parent_pid, register_timeout_s, term_event=None, cache_fps=()):
+def _register(sock, parent_pid, register_timeout_s, term_event=None, cache_fps=(),
+              peer_server=None):
     """REGISTER with exponential backoff until the SPEC arrives.
 
     Returns ``(spec payload, dispatcher token)`` (token None from a
@@ -93,8 +95,22 @@ def _register(sock, parent_pid, register_timeout_s, term_event=None, cache_fps=(
     except Exception:  # noqa: BLE001 - placement is advisory
         count_swallowed('worker-cache-advert')
         advert = b''
+    # the fleet cache tier: the full set of entries this host holds rides
+    # REGISTER, so the dispatcher's directory is complete before the first
+    # WORK lands
+    peer_advert = b''
+    if peer_server is not None:
+        try:
+            peer_advert = proto.dump_json_params(peer_server.full_advert())
+        except Exception:  # noqa: BLE001 - adverts are advisory
+            count_swallowed('worker-peer-advert')
+            peer_advert = b''
     frames_out = [proto.MSG_REGISTER, b'%d' % os.getpid()]
-    if advert:
+    if peer_advert:
+        # frames are positional: the placement advert holds frame 3
+        # (possibly empty) so the peer advert lands at frame 4
+        frames_out.extend([advert, peer_advert])
+    elif advert:
         frames_out.append(advert)
     while True:
         # the pid frame is advisory and additive: it lets a standing
@@ -143,13 +159,13 @@ def _reroot_decoded_cache(worker_args):
 
 
 def _run_job(sock, spec_payload, worker_id, heartbeat_interval_s, ack_timeout_s,
-             parent_pid, status=None, token=None, term_event=None, known_fps=None):
+             parent_pid, status=None, token=None, term_event=None, known_fps=None,
+             endpoint=None, peer_server=None, peer_live=None):
     """One job lifetime: build the worker, stream items until STOP, the
     dispatcher vanishes (ack timeout), or another dispatcher incarnation
     takes the endpoint (heartbeat-ack token mismatch). Returns True if the
     server should serve again."""
     worker_class, worker_args, serializer = proto.load_job_spec(spec_payload)
-    refuse_peer_cache_tier(worker_args)
     _reroot_decoded_cache(worker_args)
     # cache-aware placement: this job's decode fingerprint joins the host's
     # advert set (heartbeat summaries now; a marker file so later server
@@ -169,6 +185,8 @@ def _run_job(sock, spec_payload, worker_id, heartbeat_interval_s, ack_timeout_s,
     buffer = []
     worker = worker_class(worker_id, buffer.append, worker_args)
     worker.initialize()
+    peer_server, peer_client, peer_cached = _wire_peer_client(worker_args, endpoint, peer_server,
+                                                              peer_live)
 
     work_queue = queue.Queue()
     out_queue = queue.Queue()
@@ -227,6 +245,12 @@ def _run_job(sock, spec_payload, worker_id, heartbeat_interval_s, ack_timeout_s,
                         summary['items_done'] = status.get('items_done', 0)
                         if advertised:
                             summary['cache_fp'] = advertised
+                        if peer_server is not None:
+                            # the bounded add/evict/touch delta since the
+                            # last heartbeat
+                            delta = peer_server.advert_delta()
+                            if delta:
+                                summary['peer'] = delta
                         frame = proto.dump_obs_summary(summary)
                     except Exception:  # noqa: BLE001 - advisory telemetry
                         count_swallowed('worker-obs-summary')
@@ -253,14 +277,25 @@ def _run_job(sock, spec_payload, worker_id, heartbeat_interval_s, ack_timeout_s,
                 frames = sock.recv_multipart()
                 msg = frames[0]
                 if msg == proto.MSG_WORK:
-                    # a trailing fleet-directory frame feeds the peer-cache
-                    # client, which this server never runs
                     work_queue.put((proto.unpack_item_id(frames[1]), frames[2]))
+                    if peer_client is not None and len(frames) > 3 and frames[3]:
+                        # a piggybacked fleet-directory delta: holders of
+                        # recently advertised entries, no DIRGET needed
+                        peer_client.update_directory(proto.load_json_params(frames[3]))
                 elif msg == proto.MSG_STOP:
                     logger.info('Dispatcher sent STOP; job over')
                     break
                 elif msg == proto.MSG_HEARTBEAT_ACK:
                     last_ack = now
+                    if peer_server is not None and len(frames) > 2 and frames[2]:
+                        # advisory global-eviction hints (an additive
+                        # trailing frame); the holder re-checks its atime
+                        try:
+                            hints = proto.load_json_params(frames[2]).get('evict')
+                            if hints:
+                                peer_server.apply_evict_hints(hints)
+                        except Exception:  # noqa: BLE001 - advisory
+                            count_swallowed('peer-evict-hint')
                     if token is not None and len(frames) > 1 and frames[1] != token:
                         # a NEW dispatcher incarnation answered on this
                         # endpoint: our job spec and item-id space are dead
@@ -288,6 +323,12 @@ def _run_job(sock, spec_payload, worker_id, heartbeat_interval_s, ack_timeout_s,
     finally:
         stop_flag.set()
         executor_thread.join(_EXECUTOR_JOIN_TIMEOUT_S)
+        if peer_client is not None:
+            # after the join: a live fetch must not race the close
+            peer_cached.attach_peer_client(None)
+            if peer_live is not None:
+                peer_live.pop('client', None)
+            peer_client.close()
         if executor_thread.is_alive():
             # a decode wedged past the join budget: shutting the worker down
             # under the live process() call would close its resources
@@ -304,6 +345,31 @@ def _run_job(sock, spec_payload, worker_id, heartbeat_interval_s, ack_timeout_s,
     return serve_again
 
 
+def _wire_peer_client(worker_args, endpoint, peer_server, peer_live):
+    """Serve this job's decoded cache to peers and fetch what peers
+    already decoded: ``(server, client, cache)``, where the server is the
+    eager one or, without it, one over the spec's own directory for this
+    job's lifetime; client and cache are None when the tier is off, the job
+    decodes into no healthy cache, or the wiring failed (the tier is
+    advisory: a failure here costs hits, never the job)."""
+    if not endpoint or not peer_cache.peer_cache_enabled():
+        return peer_server, None, None
+    cache = materialized_cache_of(worker_args)
+    if cache is None or cache.degraded:
+        return peer_server, None, None
+    try:
+        if peer_server is None:
+            peer_server = peer_cache.get_server(cache.path)
+        client = peer_cache.PeerCacheClient(endpoint, self_endpoint=peer_server.endpoint)
+        cache.attach_peer_client(client)
+    except Exception:  # noqa: BLE001 - the tier is advisory
+        count_swallowed('peer-client-wire')
+        return peer_server, None, None
+    if peer_live is not None:
+        peer_live['client'] = client
+    return peer_server, client, cache
+
+
 def serve(endpoint, worker_id=0, heartbeat_interval_s=1.0, ack_timeout_s=None,
           parent_pid=None, once=False, register_timeout_s=None):
     """Serve decode jobs from the dispatcher at ``endpoint`` until orphaned
@@ -311,7 +377,6 @@ def serve(endpoint, worker_id=0, heartbeat_interval_s=1.0, ack_timeout_s=None,
     ``once``, the first job ends."""
     import zmq
 
-    refuse_peer_cache_tier()
     if ack_timeout_s is None:
         ack_timeout_s = max(10 * heartbeat_interval_s, 10.0)
     # graceful SIGTERM: finish the in-flight item, send BYE, exit (the
@@ -327,18 +392,38 @@ def serve(endpoint, worker_id=0, heartbeat_interval_s=1.0, ack_timeout_s=None,
     # port rides every heartbeat summary into the dispatcher's fleet view
     status = {'worker_id': worker_id, 'state': 'registering', 'jobs_served': 0,
               'items_done': 0, 'endpoint': endpoint}
+    peer_live = {}
 
     def _health():
         # each decode host runs its own readahead manager (the plan rides
         # the job spec), so its numbers belong on this host's /health
         from petastorm_tpu_torch import readahead
-        return dict(status, readahead=readahead.health_snapshot())
+        out = dict(status, readahead=readahead.health_snapshot())
+        # the fleet cache tier's holder view: what this host serves to
+        # peers and, while a job runs, the fetch client's hits and budget
+        snap = peer_cache.server_snapshot()
+        if snap is not None:
+            out['peer_cache'] = snap
+        client = peer_live.get('client')
+        if client is not None:
+            out.setdefault('peer_cache', {})['client'] = client.stats()
+        return out
 
     obs_mount = obs_server.mount('worker-server', health=_health)
     # fingerprints of decoded caches this host holds, advertised on REGISTER
     # and heartbeats: warm markers on disk plus every job this process served
     known_fps = set(placement.advertised_fingerprints(
         knobs.get_str('PETASTORM_TPU_DECODED_CACHE_DIR')))
+    # the fleet cache tier: with a host-local cache directory the serve
+    # socket starts BEFORE registering, so the REGISTER advert carries what
+    # this host kept across restarts
+    peer_server = None
+    cache_dir = knobs.get_str('PETASTORM_TPU_DECODED_CACHE_DIR')
+    if cache_dir and peer_cache.peer_cache_enabled():
+        try:
+            peer_server = peer_cache.get_server(cache_dir)
+        except Exception:  # noqa: BLE001 - the tier is advisory
+            count_swallowed('peer-server-start')
     try:
         while True:
             # a fresh socket (and identity) per job lifetime: a stale DEALER
@@ -353,13 +438,16 @@ def serve(endpoint, worker_id=0, heartbeat_interval_s=1.0, ack_timeout_s=None,
                 status['state'] = 'registering'
                 spec_payload, token = _register(
                     sock, parent_pid, register_timeout_s, term_event=term_event,
-                    cache_fps=sorted(known_fps)[:placement.MAX_ADVERTISED])
+                    cache_fps=sorted(known_fps)[:placement.MAX_ADVERTISED],
+                    peer_server=peer_server)
                 if spec_payload is None:
                     return
                 status['state'] = 'serving'
                 serve_again = _run_job(sock, spec_payload, worker_id, heartbeat_interval_s,
                                        ack_timeout_s, parent_pid, status=status, token=token,
-                                       term_event=term_event, known_fps=known_fps)
+                                       term_event=term_event, known_fps=known_fps,
+                                       endpoint=endpoint, peer_server=peer_server,
+                                       peer_live=peer_live)
                 status['jobs_served'] += 1
                 try:
                     sock.send_multipart([proto.MSG_BYE])
@@ -371,6 +459,7 @@ def serve(endpoint, worker_id=0, heartbeat_interval_s=1.0, ack_timeout_s=None,
             if once or not serve_again:
                 return
     finally:
+        peer_cache.close_server()
         obs_mount.close()
 
 

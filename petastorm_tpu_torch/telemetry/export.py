@@ -13,9 +13,8 @@ section when tracing recorded stage events, and the ``slo`` section when
 process-wide one by default) and never mutate it.
 
 The ``service`` section reads the gauges and counters the decode
-service's dispatcher mirrors into the registry. The reference's
-``peer_cache`` section reads the fleet cache tier's fetches, which the
-port does not make yet, so it never appears here.
+service's dispatcher mirrors into the registry; the ``peer_cache`` section
+reads the fleet cache tier's fetches and evict hints.
 """
 
 import json
@@ -212,6 +211,9 @@ def pipeline_report(registry=None, wall_time_s=None, baseline=None, attributor=N
     readahead = _readahead_section(registry)
     if readahead is not None:
         report['readahead'] = readahead
+    peer = _peer_cache_section(registry)
+    if peer is not None:
+        report['peer_cache'] = peer
     write = _write_section(registry)
     if write is not None:
         report['write'] = write
@@ -234,12 +236,6 @@ def pipeline_report(registry=None, wall_time_s=None, baseline=None, attributor=N
     return report
 
 
-#: the standby's series (``petastorm_tpu/service/standby.py``): the port
-#: runs no standby yet, so they read 0 in the ``service`` section
-SERVICE_FAILOVERS = 'petastorm_tpu_service_failovers_total'
-SERVICE_REPLICATION_LAG = 'petastorm_tpu_service_replication_lag_seconds'
-
-
 def _service_section(registry):
     """The decode fleet's health, from the gauges and counters the service
     dispatcher mirrors into the registry: present only when a service pool
@@ -251,6 +247,9 @@ def _service_section(registry):
         SERVICE_PLACEMENT_HITS, SERVICE_PLACEMENT_MISSES, SERVICE_POISONED,
         SERVICE_PREEMPTIONS, SERVICE_RETRIES, SERVICE_REVENTILATED, SERVICE_WORKERS_ALIVE,
         SERVICE_WORKERS_REGISTERED,
+    )
+    from petastorm_tpu_torch.service.standby import (
+        SERVICE_FAILOVERS, SERVICE_REPLICATION_LAG,
     )
     if not registry.gauges_with_prefix('petastorm_tpu_service_'):
         return None
@@ -272,6 +271,31 @@ def _service_section(registry):
         'placement_hits': int(placement_hits),
         'placement_misses': int(placement_misses),
         'placement_hit_share': round(placement_hits / placed, 4) if placed else None,
+    }
+
+
+def _peer_cache_section(registry):
+    """The fleet cache tier's activity, present only once a peer fetch hit
+    or missed or an evict hint shipped (the worker-side counters reach this
+    registry through the DONE frames' deltas)."""
+    from petastorm_tpu_torch.service import peer_cache
+    hits = registry.counter_value(peer_cache.PEER_CACHE_HITS)
+    misses = 0
+    degraded = {}
+    for key, value in registry.counters_with_prefix(peer_cache.PEER_CACHE_MISSES).items():
+        reason = _label_of(key, 'reason') or 'unknown'
+        degraded[reason] = degraded.get(reason, 0) + int(value)
+        misses += int(value)
+    hints = registry.counter_value(peer_cache.PEER_CACHE_EVICT_HINTS)
+    if not hits and not misses and not hints:
+        return None
+    return {
+        'hits': int(hits),
+        'misses': int(misses),
+        'hit_share': round(hits / (hits + misses), 4) if hits or misses else None,
+        'bytes_fetched': int(registry.counter_value(peer_cache.PEER_CACHE_BYTES)),
+        'degraded': degraded,
+        'evict_hints': int(hints),
     }
 
 
@@ -604,6 +628,16 @@ def format_pipeline_report(report):
                         (' (mean %d B)' % r['mean_coalesced_bytes']
                          if r['mean_coalesced_bytes'] is not None else ''),
                         r['depth'], r['pool_bytes'], r['pool_budget_bytes'],
+                        (' — degraded: %s' % reasons) if reasons else ''))
+    if 'peer_cache' in report:
+        p = report['peer_cache']
+        reasons = ', '.join('%s: %d' % (k, v) for k, v in sorted(p['degraded'].items()))
+        lines.append('peer cache: %d hit / %d miss%s, %d B fetched from peers, '
+                     '%d evict hint(s)%s'
+                     % (p['hits'], p['misses'],
+                        (' (%.1f%%)' % (100 * p['hit_share'])
+                         if p['hit_share'] is not None else ''),
+                        p['bytes_fetched'], p['evict_hints'],
                         (' — degraded: %s' % reasons) if reasons else ''))
     if 'write' in report:
         w = report['write']

@@ -29,11 +29,12 @@ enforced from both sides. It imports nothing.
 #: compaction fold of small part files into one · ``autotune`` one
 #: staging-autotuner tick (registry snapshot, window close, policy) ·
 #: ``readahead_fetch`` one coalesced prefetch of an upcoming row-group's
-#: column chunks on a readahead fetch thread
+#: column chunks on a readahead fetch thread · ``peer_fetch`` a decoded-cache
+#: entry fetched from a fleet peer instead of decoded
 STAGES = ('ventilate', 'io', 'decode', 'filter', 'late_materialize', 'rowgroup_prune',
           'transform', 'cache_hit_read', 'cache_fill', 'queue_wait', 'collate', 'h2d_ready',
           'stage_fill', 'decode_fused', 'h2d_dispatch', 'pack', 'encode', 'write_flush',
-          'compact', 'autotune', 'readahead_fetch')
+          'compact', 'autotune', 'readahead_fetch', 'peer_fetch')
 
 #: trace-event names the port records outside the stage spans (the
 #: reference's set, limited to what the port records): ``attempt`` one
@@ -48,9 +49,14 @@ STAGES = ('ventilate', 'io', 'decode', 'filter', 'late_materialize', 'rowgroup_p
 #: quarantined, ``done`` its one delivered completion, ``duplicate_done``
 #: a raced second completion dropped, and, on the ``daemon`` track,
 #: ``job_register``, ``job_gone`` and ``job_preempt`` of the job registry
+#: and ``standby_promote`` / ``endpoint_takeover`` of a failover · the
+#: supervisor's ``worker_spawn``, ``worker_release``, ``breaker_open`` and
+#: ``breaker_close`` on the ``supervisor`` track
 EVENT_NAMES = frozenset(['attempt', 'ventilate', 'mixture_pull', 'autotune_decision',
                          'dispatch', 'reventilate', 'retry', 'poisoned', 'done',
-                         'duplicate_done', 'job_register', 'job_gone', 'job_preempt'])
+                         'duplicate_done', 'job_register', 'job_gone', 'job_preempt',
+                         'standby_promote', 'endpoint_takeover', 'worker_spawn',
+                         'worker_release', 'breaker_open', 'breaker_close'])
 
 #: prefix of every operator-facing environment knob
 KNOB_PREFIX = 'PETASTORM_TPU_'
@@ -119,6 +125,18 @@ KNOWN_KNOBS = frozenset([
     'PETASTORM_TPU_SERVICE_PLACEMENT',
     'PETASTORM_TPU_PEER_CACHE',
     'PETASTORM_TPU_PEER_CACHE_COLD_S',
+    'PETASTORM_TPU_SERVICE_MIN_WORKERS',
+    'PETASTORM_TPU_SERVICE_MAX_WORKERS',
+    'PETASTORM_TPU_SERVICE_BREAKER_DEATHS',
+    'PETASTORM_TPU_SERVICE_BREAKER_WINDOW_S',
+    'PETASTORM_TPU_SERVICE_SCALE_WINDOW_S',
+    'PETASTORM_TPU_SERVICE_STANDBY_SYNC_S',
+    'PETASTORM_TPU_SERVICE_STANDBY_LAPSE_S',
+    'PETASTORM_TPU_SERVICE_JOB_WEIGHT',
+    'PETASTORM_TPU_SERVICE_JOB_PRIORITY',
+    'PETASTORM_TPU_PEER_CACHE_HOST',
+    'PETASTORM_TPU_PEER_CACHE_TIMEOUT_S',
+    'PETASTORM_TPU_PEER_CACHE_BUDGET_MB',
 ])
 
 #: every metric series name — the registry namespace (``petastorm_tpu_*``):

@@ -5,8 +5,10 @@ Counterpart of ``petastorm_tpu/write/writer.py`` on the port's pools.
 :class:`DistributedDatasetWriter` cuts the rows into shards of
 ``shard_rows`` and hands each to a :class:`WriteShardWorker`, inline
 (``pool=None``) or on a :class:`~petastorm_tpu_torch.workers.dummy_pool.DummyPool`,
-:class:`~petastorm_tpu_torch.workers.thread_pool.ThreadPool` or
-:class:`~petastorm_tpu_torch.workers.process_pool.ProcessPool`. Every
+:class:`~petastorm_tpu_torch.workers.thread_pool.ThreadPool`,
+:class:`~petastorm_tpu_torch.workers.process_pool.ProcessPool`,
+:class:`~petastorm_tpu_torch.service.service_pool.ServicePool` or
+:class:`~petastorm_tpu_torch.service.daemon.DaemonClientPool`. Every
 backend runs the same worker code, so its part files and manifest are the
 same bytes (and the reference's, for the same rows and settings).
 
@@ -35,7 +37,6 @@ import posixpath
 import pyarrow.parquet as pq
 
 from petastorm_tpu_torch import faults
-from petastorm_tpu_torch.errors import unported
 from petastorm_tpu_torch.etl.dataset_metadata import (
     DatasetWriter, ParquetDatasetInfo, _row_group_counts_from_common_metadata,
     footer_entries, update_dataset_metadata,
@@ -56,10 +57,6 @@ WRITE_FILES = 'petastorm_tpu_write_files_total'
 
 _MB = 1024 * 1024
 
-#: pool classes (and ``reader_pool_type`` names) of pools the port lacks
-_UNPORTED_POOLS = ('service', 'ServicePool')
-
-
 def _default_shard_rows():
     return knobs.get_int('PETASTORM_TPU_WRITE_SHARD_ROWS', 4096, floor=1)
 
@@ -71,13 +68,10 @@ def _default_encode_workers():
 def _check_pool(pool):
     """The pool the writer runs on: None (inline), a new process pool for
     the name ``'process'`` (as many workers as the reader's default), or an
-    instance with the pool contract. A service pool raises the roadmap item
-    that ports it."""
+    instance with the pool contract (a ``ServicePool`` or a
+    ``DaemonClientPool`` runs the shards on a decode fleet)."""
     if pool is None:
         return None
-    kind = pool if isinstance(pool, str) else type(pool).__name__
-    if kind in _UNPORTED_POOLS:
-        raise unported('a service pool (%s) for the write plane' % kind, 9)
     if pool == 'process':
         from petastorm_tpu_torch.workers.process_pool import ProcessPool
         return ProcessPool(max(1, min(4, os.cpu_count() or 1)))
@@ -175,8 +169,7 @@ class DistributedDatasetWriter:
     ``pool=None`` runs every shard inline through the same
     :class:`WriteShardWorker`; a port pool (constructed, not started: the
     writer starts and stops it, or the name ``'process'``) distributes
-    them, and a service pool raises ``NotImplementedError`` naming its
-    roadmap item.
+    them (a service pool on its fleet of worker servers).
     ``append=True`` stacks a new generation on the committed one;
     ``append=False`` refuses a target that has a manifest.
     """

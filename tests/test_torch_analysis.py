@@ -389,9 +389,9 @@ def test_port_knob_table_rows_are_the_repos():
 
 def test_port_knob_table_covers_the_registry():
     assert check_docs_coverage(PORT_DOCS) == []
-    # against the repo's table, which documents knobs the port lacks, the
-    # stale-row half would fire: hence the port's own table
-    assert any('not in KNOWN_KNOBS' in f.message for f in check_docs_coverage(REPO_DOCS))
+    # the standing service's knobs were the last of the repo's table the port
+    # lacked: it now registers them all, so the repo's table passes too
+    assert check_docs_coverage(REPO_DOCS) == []
 
 
 def test_analyzing_the_package_finds_the_ports_table():

@@ -249,6 +249,10 @@ PORT_SITES = {
     # zmq.recv, zmq.stop, zmq.replicate (the dispatcher's end), zmq.work
     os.path.join('service', 'dispatcher.py'): 4,
     os.path.join('service', 'worker_server.py'): 2,  # zmq.heartbeat, zmq.done
+    os.path.join('service', 'peer_cache.py'): 2,     # zmq.peer_serve, zmq.peer_fetch
+    # zmq.replicate (the standby's end), service.promote
+    os.path.join('service', 'standby.py'): 2,
+    os.path.join('service', 'supervisor.py'): 1,     # service.spawn
 }
 
 
@@ -303,5 +307,6 @@ def test_every_port_site_is_a_registered_faultpoint():
                 named.add(node.args[0].value)
     assert named == {'io.read', 'decode.rowgroup', 'decode.batch', 'cache.read',
                      'cache.write', 'staging.h2d', 'io.write', 'zmq.recv', 'zmq.work',
-                     'zmq.done', 'zmq.heartbeat', 'zmq.stop', 'zmq.replicate'}
+                     'zmq.done', 'zmq.heartbeat', 'zmq.stop', 'zmq.replicate',
+                     'zmq.peer_serve', 'zmq.peer_fetch', 'service.promote', 'service.spawn'}
     assert named <= set(FAULTPOINTS)

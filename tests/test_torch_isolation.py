@@ -87,7 +87,9 @@ def test_port_has_modules_to_scan():
                    ('service', '__init__.py'), ('service', 'protocol.py'),
                    ('service', 'placement.py'), ('service', 'peer_cache.py'),
                    ('service', 'dispatcher.py'), ('service', 'worker_server.py'),
-                   ('service', 'service_pool.py')):
+                   ('service', 'service_pool.py'), ('service', 'daemon.py'),
+                   ('service', 'supervisor.py'), ('service', 'standby.py'),
+                   ('service', '__main__.py')):
         assert os.path.join('petastorm_tpu_torch', *module) in rel
     assert len(rel) > 20
 
@@ -116,19 +118,27 @@ def test_spawned_decode_workers_load_nothing_of_jax(tmp_path):
         assert report['cuda_visible_devices'] == ''
 
 
-@pytest.mark.parametrize('launch', ['spawned', 'cli'])
+@pytest.mark.parametrize('launch', ['spawned', 'cli', 'daemon-cli'])
 def test_worker_servers_load_nothing_of_jax(launch):
-    """The decode service's worker servers, spawned by a ``ServicePool`` or
-    started through the CLI: no JAX, no JAX package, no torch, and no card
-    (``CUDA_VISIBLE_DEVICES=''``) in the process that decodes."""
+    """The decode service's worker servers, spawned by a ``ServicePool``,
+    started through the CLI, or supervised by the standing daemon's CLI: no
+    JAX, no JAX package, no torch, and no card (``CUDA_VISIBLE_DEVICES=''``)
+    in the process that decodes."""
     import subprocess
     import sys
-    from petastorm_tpu_torch.service import ServicePool
+    from petastorm_tpu_torch.service import DaemonClientPool, ServicePool
     from petastorm_tpu_torch.service.protocol import free_tcp_port
     from petastorm_tpu_torch.workers import EmptyResultError
     from tests.torch_stub_workers import EnvironmentProbeWorker
     procs = []
-    if launch == 'cli':
+    if launch == 'daemon-cli':
+        endpoint = 'tcp://127.0.0.1:%d' % free_tcp_port()
+        env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES='0')
+        procs.append(subprocess.Popen(
+            [sys.executable, '-m', 'petastorm_tpu_torch.service', '--endpoint', endpoint,
+             '--workers', '2', '--heartbeat-interval', '0.2'], env=env))
+        pool = DaemonClientPool(endpoint, heartbeat_interval_s=0.2, connect_timeout_s=60)
+    elif launch == 'cli':
         endpoint = 'tcp://127.0.0.1:%d' % free_tcp_port()
         env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES='0')
         procs.append(subprocess.Popen(
@@ -211,10 +221,12 @@ def test_port_event_names_are_the_references():
                     and node.args and isinstance(node.args[0], ast.Constant)):
                 recorded.add(node.args[0].value)
     # the decode service's dispatcher stamps an item's lifecycle and the
-    # job registry's changes
+    # job registry's changes, and the standby its failover (the supervisor
+    # records its actions under names it passes in)
     assert recorded == {'queue_wait', 'mixture_pull', 'autotune_decision', 'dispatch',
                         'reventilate', 'retry', 'poisoned', 'done', 'duplicate_done',
-                        'job_register', 'job_gone', 'job_preempt'}
+                        'job_register', 'job_gone', 'job_preempt', 'standby_promote',
+                        'endpoint_takeover'}
     assert recorded <= set(STAGES) | set(EVENT_NAMES)
 
 
@@ -237,7 +249,8 @@ def test_port_anomaly_kinds_are_the_references():
                 recorded.add(node.args[0].value)
     assert recorded == {'queue_saturated', 'h2d_starvation', 'throughput_collapse',
                         'stall_flap', 'heartbeat_gap', 'slo_breach', 'cache_degraded',
-                        'row_group_poisoned', 'job_lease_expired'}
+                        'row_group_poisoned', 'job_lease_expired', 'worker_flapping',
+                        'dispatcher_failover'}
     assert recorded <= set(ANOMALY_KINDS)
 
 

@@ -137,18 +137,20 @@ def test_iter_steps_crosses_epochs_and_replays(scalar_dataset):
     # make_jax_loader does
     (dict(mesh=object()), None),
     (dict(data_axes=('data',)), None),
-    # mixture= is ported; its sources on a standing decode daemon are not
-    (dict(mixture=True, reader_pool_type='service', daemon='tcp://127.0.0.1:1'), 9),
+    # mixture= is ported, and so are its sources on a standing decode
+    # daemon: the packed batches are the JAX loader's on a JAX daemon
+    (dict(mixture=True, reader_pool_type='service', daemon=True), None),
     # the process pool is ported: on one worker its batches are the JAX
     # loader's on its process pool, in order
     (dict(reader_pool_type='process'), None),
 ], ids=['mesh', 'data-axes', 'mixture', 'process'])
-def test_unported_kwargs_raise(scalar_dataset, kwargs, item, monkeypatch):
+def test_formerly_unported_kwargs_match_the_jax_loader(scalar_dataset, kwargs, item,
+                                                       monkeypatch):
     url = scalar_dataset.url
     kwargs = dict(kwargs)
-    daemon = kwargs.pop('daemon', None)
-    if daemon is not None:
-        monkeypatch.setenv('PETASTORM_TPU_SERVICE_DAEMON', daemon)
+    if kwargs.pop('daemon', None):
+        _mixture_on_daemons_matches(url, monkeypatch)
+        return
     if kwargs.get('reader_pool_type') == 'process':
         kw = dict(batch_size=16, fields=['^id$', '^float64$'], workers_count=1,
                   shuffle_row_groups=False, **kwargs)
@@ -175,14 +177,50 @@ def test_unported_kwargs_raise(scalar_dataset, kwargs, item, monkeypatch):
             got = sorted(int(i) for b in loader for i in b['id'])
         assert got == sorted(int(i) for b in _jax_batches(url, batch_size=4, fields=['^id$'],
                                                           **kwargs) for i in b['id'])
-        return
-    if kwargs.pop('mixture', False):
-        from petastorm_tpu_torch.mixture import MixtureSource, MixtureSpec
-        kwargs['mixture'] = MixtureSpec([MixtureSource('ids', 1, url=url)], seq_len=8,
-                                        token_field='id')
-        url = None
-    with pytest.raises(NotImplementedError, match='ROADMAP.md: Queue 1 item %d,' % item):
-        make_torch_loader(url, batch_size=4, device='cpu', **kwargs)
+
+
+def _mixture_on_daemons_matches(url, monkeypatch):
+    """``make_torch_loader(mixture=, reader_pool_type='service')`` with
+    ``PETASTORM_TPU_SERVICE_DAEMON`` set: the mixture's source registers as
+    its own job, named and weighted as the source, and the packed batches
+    are the JAX loader's through a JAX daemon."""
+    from petastorm_tpu.mixture import MixtureSource as JaxSource, MixtureSpec as JaxSpec
+    from petastorm_tpu.service import ServiceDaemon as JaxDaemon
+    from petastorm_tpu_torch.mixture import MixtureSource, MixtureSpec
+    from petastorm_tpu_torch.service import ServiceDaemon
+    out = {}
+    for name, daemon_class, spec in (
+            ('jax', JaxDaemon, JaxSpec([JaxSource('ids', 2, url=url)], seq_len=8,
+                                       token_field='id')),
+            ('torch', ServiceDaemon, MixtureSpec([MixtureSource('ids', 2, url=url)], seq_len=8,
+                                                 token_field='id'))):
+        daemon = daemon_class('tcp://127.0.0.1:0', initial_workers=1, heartbeat_interval_s=0.15,
+                              supervisor_tick_s=0.15)
+        daemon.start()
+        try:
+            monkeypatch.setenv('PETASTORM_TPU_SERVICE_DAEMON', daemon.endpoint)
+            kw = dict(batch_size=4, mixture=spec, reader_pool_type='service')
+            if name == 'jax':
+                loader = make_jax_loader(None, **kw)
+                as_numpy = np.asarray
+            else:
+                loader = make_torch_loader(None, device='cpu', **kw)
+                as_numpy = torch.Tensor.numpy
+            batches, jobs = [], None
+            with loader:
+                for b in loader:
+                    batches.append({k: as_numpy(v) for k, v in b.items()})
+                    if jobs is None:
+                        jobs = [(j['name'], j['weight'])
+                                for j in daemon.dispatcher.health()['qos']]
+            out[name] = batches
+            assert jobs == [('ids', 2.0)], (name, jobs)
+            assert daemon.dispatcher.stats()['jobs_seen'] == 1, name
+        finally:
+            monkeypatch.delenv('PETASTORM_TPU_SERVICE_DAEMON')
+            daemon.stop()
+    assert out['torch'] and len(out['torch']) == len(out['jax'])
+    _assert_same_batches(out['jax'], out['torch'])
 
 
 def test_reader_factory_replaces_make_batch_reader(scalar_dataset, jax_staging_off):

@@ -323,11 +323,32 @@ def test_source_readers_get_seeds_and_interleave_shares(mix_datasets, monkeypatc
         for reader in readers:
             reader.stop()
             reader.join()
-    # sources on a standing decode daemon wait for item 9 (each source its
-    # own QoS-weighted job in the reference)
-    monkeypatch.setenv('PETASTORM_TPU_SERVICE_DAEMON', 'tcp://127.0.0.1:1')
-    with pytest.raises(NotImplementedError, match='ROADMAP.md: Queue 1 item 9,'):
-        tm.build_source_readers(spec, reader_pool_type='service')
+    # on a standing decode daemon each source is its own job, named and
+    # weighted as the source, in both packages
+    from petastorm_tpu.service import ServiceDaemon as JaxDaemon
+    from petastorm_tpu_torch.service import DaemonClientPool, ServiceDaemon
+    jobs = {}
+    for name, pkg, daemon_class in (('jax', jm, JaxDaemon), ('torch', tm, ServiceDaemon)):
+        daemon = daemon_class('tcp://127.0.0.1:0', initial_workers=0, supervise=False)
+        daemon.start()
+        try:
+            monkeypatch.setenv('PETASTORM_TPU_SERVICE_DAEMON', daemon.endpoint)
+            readers = pkg.build_source_readers(
+                _spec(pkg, mix_datasets, sources=('a', 'b', 'c'), weights=(5, 2, 3), seed=9),
+                reader_pool_type='service')
+            try:
+                if name == 'torch':
+                    assert all(isinstance(r._pool, DaemonClientPool) for r in readers)
+                jobs[name] = sorted((q['name'], q['weight'])
+                                    for q in daemon.dispatcher.health()['qos'])
+            finally:
+                for reader in readers:
+                    reader.stop()
+                    reader.join()
+        finally:
+            monkeypatch.delenv('PETASTORM_TPU_SERVICE_DAEMON')
+            daemon.stop()
+    assert jobs['torch'] == jobs['jax'] == [('a', 5.0), ('b', 2.0), ('c', 3.0)]
 
 
 # -- resume and reshard ----------------------------------------------------------

@@ -5,8 +5,9 @@ frames (REGISTER_JOB, SUBMIT, CLIENT_HB, JOB_GONE) and a raw worker's
 frames with the same frames; ``FleetCacheDirectory`` case for case with
 ``tests/test_peer_cache.py``; the placement functions; the worker server's
 decoded-cache reroot (``tests/test_materialized_cache.py::TestServiceReroot``,
-under ``PETASTORM_TPU_PEER_CACHE=0``); and the fleet cache tier's holder
-side, which the port refuses."""
+under ``PETASTORM_TPU_PEER_CACHE=0``); and where the fleet cache tier's
+holder side starts: the worker server's serve socket and its REGISTER
+advert."""
 
 import json
 import os
@@ -444,28 +445,75 @@ def test_worker_server_reroots_the_decoded_cache_like_the_reference(tmp_path, mo
     assert out['torch'] == out['jax'] == (True, knob == 'set')
 
 
-def test_the_fleet_cache_tier_is_refused_where_the_reference_starts_it(tmp_path, monkeypatch):
-    """The holder side of the peer tier is not ported: a host-local decoded
-    cache directory with the tier on, or a job decoding into a decoded
-    cache, raises item 9 in the consumer before a fleet is spawned;
-    ``PETASTORM_TPU_PEER_CACHE=0`` runs."""
-    from petastorm_tpu_torch.service import ServicePool, peer_cache, worker_server
+def _first_register(pkg, endpoint):
+    """The first REGISTER frames a worker server of ``pkg`` sends to a ROUTER
+    bound at ``endpoint`` (never answered, so the server's registration
+    window closes and it exits), with whether its peer serve socket was up
+    while it registered and whether it was down after the server exited."""
+    context = zmq.Context()
+    sock = context.socket(zmq.ROUTER)
+    sock.setsockopt(zmq.LINGER, 0)
+    sock.bind(endpoint)
+    thread = threading.Thread(target=pkg.worker_server.serve, args=(endpoint,),
+                              kwargs=dict(register_timeout_s=1.5), daemon=True)
+    thread.start()
+    try:
+        assert sock.poll(30000), 'no REGISTER'
+        frames = sock.recv_multipart()
+        serving = pkg.peer_cache.server_snapshot()
+    finally:
+        thread.join(30)
+        sock.close(0)
+        context.term()
+    assert not thread.is_alive()
+    return frames[1:], serving, pkg.peer_cache.server_snapshot() is None
+
+
+def test_the_fleet_cache_tier_starts_where_the_reference_starts_it(tmp_path, monkeypatch):
+    """With a host-local decoded-cache directory and the tier on, each
+    package's worker server starts its peer serve socket before it
+    registers: the REGISTER carries the full advert of the entries the
+    directory already holds (a positional fifth frame after an empty
+    placement frame), and the socket closes when the server exits. With
+    ``PETASTORM_TPU_PEER_CACHE=0`` nothing starts and no advert rides. A
+    ``ServicePool`` builds and starts a job on a decoded cache in both
+    packages."""
+    import numpy as np
     monkeypatch.delenv('PETASTORM_TPU_PEER_CACHE', raising=False)
-    monkeypatch.setenv('PETASTORM_TPU_DECODED_CACHE_DIR', str(tmp_path / 'host'))
-    with pytest.raises(NotImplementedError, match='PEER_CACHE.*Queue 1 item 9,'):
-        ServicePool(spawn_local_workers=1)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 9,'):
-        worker_server.serve('tcp://127.0.0.1:1', register_timeout_s=0.1)
-    monkeypatch.delenv('PETASTORM_TPU_DECODED_CACHE_DIR')
-    cache = torch_materialized_cache.MaterializedRowGroupCache(str(tmp_path / 'c'), 10 ** 8)
-    pool = ServicePool(spawn_local_workers=1)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 9,'):
-        pool.start(PACKAGES['torch'].stubs.IdentityWorker, {'cache': cache})
-    assert pool._dispatcher is None and not pool._local_procs
-    monkeypatch.setenv('PETASTORM_TPU_PEER_CACHE', '0')
-    peer_cache.refuse_peer_cache_tier({'cache': cache})
-    monkeypatch.setenv('PETASTORM_TPU_DECODED_CACHE_DIR', str(tmp_path / 'host'))
-    peer_cache.refuse_peer_cache_tier({'cache': cache})
+    out = {}
+    for name, pkg in PACKAGES.items():
+        host = str(tmp_path / name / 'host')
+        monkeypatch.setenv('PETASTORM_TPU_DECODED_CACHE_DIR', host)
+        cache = pkg.materialized_cache.MaterializedRowGroupCache(host, 10 ** 8)
+        cache.get('k', lambda: pkg.ColumnBatch({'v': np.arange(8)}, 8))
+        digest = pkg.peer_cache.entry_digest(cache._entry_path('k'))
+        endpoint = 'tcp://127.0.0.1:%d' % pkg.protocol.free_tcp_port()
+        frames, serving, closed = _first_register(pkg, endpoint)
+        advert = pkg.protocol.load_json_params(frames[3])
+        out[name] = (frames[0], len(frames), frames[2], [row[0] for row in advert['full']],
+                     advert['ep'] == (serving or {}).get('endpoint'), closed, digest)
+        monkeypatch.setenv('PETASTORM_TPU_PEER_CACHE', '0')
+        frames, serving, closed = _first_register(pkg, endpoint)
+        out[name] += (len(frames), serving)
+        monkeypatch.delenv('PETASTORM_TPU_PEER_CACHE')
+        monkeypatch.delenv('PETASTORM_TPU_DECODED_CACHE_DIR')
+        pool = pkg.ServicePool(spawn_local_workers=1, **FAST)
+        pool.start(pkg.stubs.IdentityWorker,
+                   {'cache': pkg.materialized_cache.MaterializedRowGroupCache(
+                       str(tmp_path / name / 'c'), 10 ** 8)})
+        try:
+            pool.ventilate(7)
+            assert pool.get_results(timeout=60) == 7
+        finally:
+            pool.stop()
+            pool.join()
+    assert out['torch'][:6] == out['jax'][:6]
+    assert out['torch'][7:] == out['jax'][7:]
+    register, nframes, placement, digests, same_ep, closed, digest, oracle_frames, \
+        oracle_serving = out['torch']
+    assert register == JAX_PROTO.MSG_REGISTER and nframes == 4 and placement == b''
+    assert digests == [digest] and same_ep and closed
+    assert oracle_frames == 2 and oracle_serving is None
 
 
 def test_decoded_cache_on_the_service_is_the_host_local_oracle(tmp_path, monkeypatch):

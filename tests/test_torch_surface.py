@@ -420,7 +420,7 @@ def test_no_item_10_is_left():
     import ast
     import os
     from petastorm_tpu_torch import errors
-    assert 10 not in errors.ROADMAP_ITEMS and set(errors.ROADMAP_ITEMS) == {9, 11}
+    assert 10 not in errors.ROADMAP_ITEMS and set(errors.ROADMAP_ITEMS) == {11}
     root = os.path.dirname(os.path.abspath(petastorm_tpu_torch.__file__))
     items = set()
     for dirpath, _, files in os.walk(root):
@@ -433,42 +433,32 @@ def test_no_item_10_is_left():
                 if (isinstance(node, ast.Call) and getattr(node.func, 'id', None) == 'unported'
                         and len(node.args) == 2 and isinstance(node.args[1], ast.Constant)):
                     items.add(node.args[1].value)
-    assert items == {9, 11}
+    assert items == {11}
 
 
-def test_what_is_left_of_item_9_is_the_service():
-    """ROADMAP items 9a (the process pool), 9b (filesystems) and 9c-i (the
-    embedded decode service) are done: the ``unported(..., 9)`` left in the
-    port are exactly the standing service's sites of 9c-ii (the daemon
-    branch of the reader and of the mixture engine, the write plane's
-    service pool, the fleet cache tier's holder side)."""
+def test_no_item_9_is_left():
+    """ROADMAP item 9 is done (the standing decode service was its last
+    piece): ``ROADMAP_ITEMS`` has no entry for it and no ``unported(..., 9)``
+    is left in the package."""
     import ast
     import os
     from petastorm_tpu_torch import errors
-    assert 'service' in errors.ROADMAP_ITEMS[9]
+    assert 9 not in errors.ROADMAP_ITEMS
     root = os.path.dirname(os.path.abspath(petastorm_tpu_torch.__file__))
-    left = {}
-    for dirpath, _, files in os.walk(root):
+    found = []
+    for folder, _, files in os.walk(root):
         for name in files:
             if not name.endswith('.py'):
                 continue
-            path = os.path.join(dirpath, name)
+            path = os.path.join(folder, name)
             with open(path) as f:
                 tree = ast.parse(f.read())
             for node in ast.walk(tree):
                 if (isinstance(node, ast.Call) and getattr(node.func, 'id', None) == 'unported'
                         and len(node.args) == 2 and isinstance(node.args[1], ast.Constant)
                         and node.args[1].value == 9):
-                    left['%s:%d' % (os.path.relpath(path, root), node.lineno)] = \
-                        ast.unparse(node.args[0])
-    assert sorted((where.split(':')[0], feature) for where, feature in left.items()) == [
-        (os.path.join('mixture', 'engine.py'),
-         "'mixture sources on a decode daemon (PETASTORM_TPU_SERVICE_DAEMON)'"),
-        ('reader.py', "'the standing decode service (PETASTORM_TPU_SERVICE_DAEMON)'"),
-        (os.path.join('service', 'peer_cache.py'),
-         "'the fleet cache tier (PETASTORM_TPU_PEER_CACHE)'"),
-        (os.path.join('write', 'writer.py'),
-         "'a service pool (%s) for the write plane' % kind")], left
+                    found.append(os.path.relpath(path, root))
+    assert found == []
 
 
 def test_service_pool_and_reader_take_every_reference_argument():

@@ -18,8 +18,10 @@ observability. Then the two packages against each other:
 * each package's reader reads the other's committed, appended and
   compacted dataset multiset-exact, and never the parts a compaction
   superseded that are still on disk;
-* the port's process pool writes the inline write's bytes, and a service
-  pool raises the port's ``unported`` item 9.
+* the port's process pool and its decode service's pools (a spawned
+  ``ServicePool`` fleet and a ``DaemonClientPool`` on a standing daemon)
+  write the inline write's bytes, as the JAX package's service pool
+  does.
 
 Faults and knobs are set through ``monkeypatch``; the guard of
 ``tests/torch_telemetry_common.py`` disarms both packages after each
@@ -521,16 +523,14 @@ def test_packages_commit_onto_each_others_generations(tmp_path):
 
 
 @pytest.mark.parametrize('pool', ['process', 'service', 'jax-process-pool'])
-def test_pools_the_port_lacks_raise_item_9(tmp_path, pool):
-    """A service pool raises the port's item 9. The process pool is
-    ported: named ``'process'``, or as a port ``ProcessPool(2)`` (the case
-    that once handed the port the JAX package's pool), it writes the
-    inline write's part bytes and manifest."""
+def test_pools_write_the_inline_bytes(tmp_path, pool):
+    """Every pool the port has writes the inline write's part bytes and
+    manifest: the process pool, named ``'process'`` or as a port
+    ``ProcessPool(2)`` (the case that once handed the port the JAX
+    package's pool), and the service pools."""
     torch_pkg = PACKAGES['torch']
     if pool == 'service':
-        with pytest.raises(NotImplementedError, match=r'ROADMAP.md: Queue 1 item 9,'):
-            torch_pkg.write_ds(_url(tmp_path), _rows(10), pool=pool)
-        assert not os.path.exists(str(tmp_path / '_manifest.json'))
+        _service_pools_write_the_inline_bytes(tmp_path)
         return
     if pool == 'jax-process-pool':
         from petastorm_tpu_torch.workers.process_pool import ProcessPool
@@ -543,6 +543,73 @@ def test_pools_the_port_lacks_raise_item_9(tmp_path, pool):
     parts = _part_hashes(tmp_path / 'pool')
     assert len(parts) == 3 and parts == _part_hashes(tmp_path / 'inline')
     assert torch_pkg.read_ids(_url(tmp_path / 'pool')) == list(range(60))
+
+
+def _service_pools_write_the_inline_bytes(tmp_path):
+    """The port's ``ServicePool`` (two spawned worker servers) and a
+    ``DaemonClientPool`` on the port's standing daemon write the inline
+    write's parts and manifest, as the JAX package's ``ServicePool`` does.
+    The writer reads its pool until it reports empty, so each pool must
+    report empty after the last marker (a pool that only timed out would
+    hang the commit): checked first on each pool flavour of both
+    packages."""
+    from tests.torch_service_common import PACKAGES as SERVICE
+
+    def write_bounded(pkg, name, pool):
+        done = {}
+
+        def body():
+            done['w'] = pkg.write_ds(_url(tmp_path / name), rows, shard_rows=20, pool=pool)
+
+        thread = threading.Thread(target=body, daemon=True)
+        thread.start()
+        thread.join(120)
+        assert not thread.is_alive(), 'the %s write never drained its pool' % name
+        return done['w']
+
+    rows = _rows(60)
+    for service in SERVICE.values():
+        daemon = service.ServiceDaemon('tcp://127.0.0.1:0', initial_workers=1,
+                                       heartbeat_interval_s=0.15, supervisor_tick_s=0.15)
+        daemon.start()
+        pools = [service.ServicePool(spawn_local_workers=1, connect_timeout_s=60),
+                 service.DaemonClientPool(daemon.endpoint, heartbeat_interval_s=0.15)]
+        try:
+            for pool in pools:
+                pool.start(service.stubs.IdentityWorker)
+                for i in range(3):
+                    pool.ventilate(i)
+                assert sorted(pool.get_results(timeout=60) for _ in range(3)) == [0, 1, 2]
+                with pytest.raises(service.EmptyResultError):
+                    pool.get_results(timeout=10)
+        finally:
+            for pool in pools:
+                pool.stop()
+                pool.join()
+            daemon.stop()
+    torch_pkg, jax_pkg = PACKAGES['torch'], PACKAGES['jax']
+    from petastorm_tpu.service import ServicePool as JaxServicePool
+    from petastorm_tpu_torch.service import DaemonClientPool, ServiceDaemon, ServicePool
+    inline = torch_pkg.write_ds(_url(tmp_path / 'inline'), rows, shard_rows=20)
+    written = {'service': write_bounded(torch_pkg, 'service',
+                                        ServicePool(spawn_local_workers=2, connect_timeout_s=60)),
+               'jax-service': write_bounded(jax_pkg, 'jax-service',
+                                            JaxServicePool(spawn_local_workers=2,
+                                                           connect_timeout_s=60))}
+    daemon = ServiceDaemon('tcp://127.0.0.1:0', initial_workers=2, heartbeat_interval_s=0.15,
+                           supervisor_tick_s=0.15)
+    daemon.start()
+    try:
+        written['daemon'] = write_bounded(
+            torch_pkg, 'daemon', DaemonClientPool(daemon.endpoint, heartbeat_interval_s=0.15))
+    finally:
+        daemon.stop()
+    for name, writer in written.items():
+        assert torch_pkg.manifest.dumps(writer.manifest) == \
+            torch_pkg.manifest.dumps(inline.manifest), name
+        parts = _part_hashes(tmp_path / name)
+        assert len(parts) == 3 and parts == _part_hashes(tmp_path / 'inline'), name
+        assert torch_pkg.read_ids(_url(tmp_path / name)) == list(range(60)), name
 
 
 # -- crash safety (the rows without a service pool) ------------------------------

@@ -141,3 +141,23 @@ def rank_exit(rank, code):
     if rank == 1:
         os._exit(code)
     return {'rank': rank}
+
+
+class FleetDecodeWorker(WorkerBase):
+    """Publishes ``(item, was_decoded, value, pid)`` for one item served
+    through the job's materialized cache: ``was_decoded`` is the fleet-wide
+    decode-count probe of the fleet cache tier's drills."""
+
+    def process(self, item, sleep_s=0.0):
+        import numpy as np
+        from petastorm_tpu_torch.arrow_worker import ColumnBatch
+        if sleep_s:
+            time.sleep(sleep_s)
+        decoded = []
+
+        def fill():
+            decoded.append(True)
+            return ColumnBatch({'v': np.full(16, item, dtype=np.int64)}, 16)
+
+        batch = self.args['cache'].get(('peer-e2e', item), fill)
+        self.publish_func((int(item), bool(decoded), int(batch.columns['v'][0]), os.getpid()))
